@@ -8,25 +8,44 @@ Phases, each timed:
 1. card identity (nvidia-smi name and power limit);
 2. build every hand-written kernel from kmamiz_tpu_torch/csrc with nvcc
    (one process per source, all at once);
-3. each kernel against its plain PyTorch version on card tensors, at the
-   production window (2^20 spans, 10,000 endpoints x 8 statuses) and at
-   the Data Processor tick's own shape, both segment-stats passes
+3. the segment-stats kernel against its plain PyTorch version on card
+   tensors, at the production window (2^20 spans, 10,000 endpoints x 8
+   statuses) and at the Data Processor tick's own shape, both passes
    (m = 5 stat rows, then m = 1 squared residuals); kernel, plain and
    library times (CUDA events, median of 20 after warm-up) beside the
    least time the card could take;
 4. state load: the endpoint graph built to BASELINE size on the card with
    EndpointGraph.merge_window (150,000 synthetic traces x 7 spans, 1,000
    services x 10 urls, merged in chunks);
-5. the main path: the port's DataProcessorServer on the card answers 4 DP
+5. the fused SDDMM/SpMM kernel against its plain version on card tensors
+   at the forecast's shapes: the BASELINE graph's edge columns (masked
+   padding included) over node tables at the pow2 bucket of its
+   endpoints, ungated at H = 18 and 64 (GraphSAGE's two layers) and gated
+   at H = 32 (STLGT); times and bound as in phase 3;
+6. the tick path: the port's DataProcessorServer on the card answers 4 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
-   counter is zeroed just before and read just after, and the segment-stats
-   kernel must have run exactly twice per tick;
-6. card against CPU: one more tick on the card and on the port's CPU path,
+   counter is zeroed just before and read just after, and the
+   segment-stats kernel must have run exactly twice per tick;
+7. card against CPU: one more tick on the card and on the port's CPU path,
    both from the carried BASELINE graph (export_named_edges ->
    graph_from_export), compared field by field and by graph signature;
-7. profile: one more tick on the card under torch.profiler — the device's
-   busy time (union of its kernel, copy and fill intervals), its share of
-   the tick's wall time, the top device ops, and peak device memory.
+8. the forecast path: a processor on the same graph serves two ticks in
+   successive hours (910 and 911), which folds the hour and publishes a
+   forecast snapshot of every endpoint; the port's ApiServer, with
+   KMAMIZ_MODEL_DIR at tests/fixtures/model10k_torch, answers GET
+   /api/v1/model/status and /api/v1/model/forecast over HTTP (the fused
+   kernel must launch exactly twice: GraphSAGE's two layers), a second
+   GET is served from the memo (no launch), and the STLGT quantile forward
+   (hidden 32, seeded weights) runs on the same snapshot (one gated
+   launch);
+9. forecast card against CPU: the same snapshot and weights through the
+   port on the CPU, compared output by output, and the payload the route
+   served compared per endpoint with the CPU forward after the route's
+   rounding;
+10. profile: one more tick, and one GraphSAGE forecast forward, on the
+   card under torch.profiler — the device's busy time (union of its
+   kernel, copy and fill intervals), its share of the wall time, the top
+   device ops, and peak device memory.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 Any failed check raises, and the script then exits non-zero without the
@@ -60,6 +79,12 @@ PROD_SPANS = 1 << 20
 PROD_ENDPOINTS = 10_000
 PROD_STATUSES = 8
 TIMING_REPS = 20
+REPO = os.path.dirname(os.path.abspath(__file__))
+HOUR_MS = 3_600_000
+FORECAST_HOURS = (910, 911)  # two ticks in successive hours: one fold
+MODEL_DIR = "tests/fixtures/model10k_torch"
+STLGT_HIDDEN = 32  # the STLGT head's default width
+SEED = 0
 
 
 def log(msg: str) -> None:
@@ -214,6 +239,296 @@ def kernel_cases(torch, device, tick_groups):
     return cases
 
 
+def fused_case(torch, sparse, label, v, src, dst, mask, gated_args):
+    """One shape of the fused SDDMM/SpMM, called as the model calls it
+    (the ungated mode without the gate output, as fused_neighbor_sums
+    does): agreement with the plain version on the same card tensors, and
+    its times beside the bound."""
+    n, h = v.shape
+    e = src.shape[0]
+    gated = bool(gated_args)
+    args = (v, src, dst, mask, *gated_args)
+    bias, deg, gate = sparse.fused_sddmm_spmm(*args, want_gate=gated)
+    torch.cuda.synchronize()
+    want_bias, want_deg, want_gate = sparse.fused_plain(*args)
+    # the gate is one sigmoid per edge: atol 1e-6; bias and deg are fp32
+    # sums in atomic order against index_add_'s: rtol/atol 1e-5
+    torch.testing.assert_close(bias, want_bias, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(deg, want_deg, rtol=1e-5, atol=1e-5)
+    pairs = [(bias, want_bias), (deg, want_deg)]
+    if gated:
+        torch.testing.assert_close(gate, want_gate, rtol=0, atol=1e-6)
+        check(bool(torch.all(gate[~mask] == 0)), f"{label}: masked edges gate non-zero")
+        pairs.append((gate, want_gate))
+    else:
+        check(gate is None, f"{label}: ungated call returned a gate")
+    max_abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+
+    # the library yardstick: the index_add_ pair over materialised [E, H+1]
+    # messages (the gate as the last column gives the degree)
+    src_l, dst_l = src.long(), dst.long()
+    src_c, dst_c = src_l.clamp(0, n - 1), dst_l.clamp(0, n - 1)
+    src_s = torch.where(mask & (src_l < n), src_l, n)
+    dst_s = torch.where(mask & (dst_l < n), dst_l, n)
+    g = want_gate[:, None]
+    msg_fwd = torch.cat([v[src_c] * g, g], dim=1)
+    msg_bwd = torch.cat([v[dst_c] * g, g], dim=1)
+
+    def library():
+        out = torch.zeros((n + 1, h + 1), dtype=torch.float32, device=v.device)
+        out.index_add_(0, dst_s, msg_fwd)
+        out.index_add_(0, src_s, msg_bwd)
+
+    # bytes this run's data needs: the mask of every slot; the two ids of
+    # live edges only (the kernel skips a masked slot before reading its
+    # ids); the node-table rows that live edges reference, once each (v at
+    # both ends; gated, q at the source and k at the destination); the
+    # full outputs (bias and deg at N rows, the gate at E when gated)
+    live = int(mask.sum())
+    src_live, dst_live = src_c[mask], dst_c[mask]
+    rows = int(torch.unique(torch.cat([src_live, dst_live])).numel())
+    if gated:
+        rows += int(torch.unique(src_live).numel()) + int(torch.unique(dst_live).numel())
+    read = e * 1 + live * (4 + 4) + rows * h * 4 + (4 if gated else 0)
+    written = n * h * 4 + n * 4 + (e * 4 if gated else 0)
+    # per live edge: 2H multiply-adds of the scatter and 2 degree adds,
+    # plus, gated, H multiply-adds of the dot and ~6 for scale and sigmoid
+    ops = live * ((4 * h + 2) + ((2 * h + 6) if gated else 0))
+    t_bytes = (read + written) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    case = {
+        "shape": label,
+        "n": n,
+        "h": h,
+        "edges": e,
+        "live_edges": live,
+        "table_rows_read": rows,
+        "gated": gated,
+        "max_abs_err": max_abs_err,
+        "ms": cuda_ms(torch, lambda: sparse.fused_sddmm_spmm(*args, want_gate=gated)),
+        "plain_ms": cuda_ms(torch, lambda: sparse.fused_plain(*args)),
+        "library_ms": cuda_ms(torch, library),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": read + written,
+    }
+    log("   " + json.dumps(case))
+    return case
+
+
+def fused_cases(torch, graph):
+    """Phase 5: the fused kernel at the forecast's shapes, on the BASELINE
+    graph's edge columns and seeded node tables."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.core.spans import _pad_size
+    from kmamiz_tpu_torch.ops import sparse
+
+    src, dst, _dist, mask = graph.edge_arrays()
+    # the store's capacity is a power of two: the forward's edge bucket
+    check(src.shape[0] == _pad_size(src.shape[0]), "edge capacity not a pow2 bucket")
+    n = _pad_size(len(graph.interner.endpoints))
+    rng = np.random.default_rng(SEED)
+
+    def table(h):
+        return torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(src.device)
+
+    cases = []
+    for label, h, gated in (
+        ("graphsage layer 1 (ungated)", 18, False),
+        ("graphsage layer 2 (ungated)", 64, False),
+        ("stlgt (gated)", STLGT_HIDDEN, True),
+    ):
+        gated_args = ()
+        if gated:
+            b = torch.tensor([0.1], dtype=torch.float32, device=src.device)
+            gated_args = (table(h), table(h), b)
+        cases.append(fused_case(torch, sparse, label, table(h), src, dst, mask, gated_args))
+    return cases
+
+
+def get_json(port: int, path: str):
+    """GET an API route over HTTP (gzip accepted): (status, body, wall ms)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", headers={"Accept-Encoding": "gzip"}
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = resp.read()
+        if resp.headers.get("Content-Encoding") == "gzip":
+            body = gzip.decompress(body)
+        status = resp.status
+    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def serve_forecast(torch, graph, device, launch_counters, t_start: int):
+    """Phase 8, the forecast path: two ticks in successive hours through
+    the DP server of a processor on the carried graph (its hourly history
+    starts empty), then the forecast routes over HTTP and the STLGT
+    quantile forward on the published snapshot. Returns the report, the
+    processor and the STLGT outputs."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.api.app import build_router
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.config import Settings
+    from kmamiz_tpu_torch.models import serving
+    from kmamiz_tpu_torch.models.stlgt import model as stlgt
+    from kmamiz_tpu_torch.models.stlgt import serving as stlgt_serving
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
+    from kmamiz_tpu_torch.server.initializer import AppContext
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    def zero():
+        for counter in launch_counters:
+            counter.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in launch_counters}
+
+    feed = TickFeed()
+    proc = DataProcessor(trace_source=feed, device=device, graph=graph)
+    dp_server = DataProcessorServer(proc, host="127.0.0.1", port=0)
+    dp_server.start()
+    ticks = []
+    try:
+        for k, hour in enumerate(FORECAST_HOURS):
+            feed.groups = synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"hour{hour}-")
+            t0 = time.perf_counter()
+            resp = post_tick(
+                dp_server.port,
+                {"uniqueId": f"hour{hour}", "lookBack": 30_000, "time": hour * HOUR_MS},
+            )
+            wall = (time.perf_counter() - t0) * 1e3
+            check_response(resp, f"hour{hour}")
+            ticks.append({"hour": hour, "wall_ms": round(wall, 3), **proc.last_stage_ms})
+            log("   " + json.dumps(ticks[-1]))
+    finally:
+        dp_server.stop()
+    snap = proc.forecast_snapshot
+    check(snap is not None, "no forecast snapshot after an hour rolled over")
+    n_eps = len(snap["names"])
+    check(n_eps >= 10_000, f"snapshot holds {n_eps} endpoints")
+    check(all(isinstance(snap[k], np.ndarray) for k in ("src", "dst", "mask")), "snapshot edges not on the host")
+
+    os.environ["KMAMIZ_MODEL_DIR"] = os.path.join(REPO, MODEL_DIR)
+    api = ApiServer(build_router(AppContext(settings=Settings(), processor=proc)), host="127.0.0.1", port=0)
+    api.start()
+    try:
+        zero()
+        status, st, status_ms = get_json(api.port, "/api/v1/model/status")
+        check(status == 200 and st["modelLoaded"] is True, f"model not loaded: {st}")
+        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast")
+        check(status == 200, f"forecast answered {status}")
+        first = counts()
+        zero()
+        status, fc2, memo_ms = get_json(api.port, "/api/v1/model/forecast")
+        memo = counts()
+    finally:
+        api.stop()
+    forward_ms = serving.serve_stats()["last_ms"]
+    want_hour = (FORECAST_HOURS[0] % 24 + 1) % 24
+    check(fc["predictedHour"] == want_hour, f"predictedHour {fc['predictedHour']} != {want_hour}")
+    check(len(fc["endpoints"]) == n_eps, f"{len(fc['endpoints'])} forecasts for {n_eps} endpoints")
+    check(len({e["uniqueEndpointName"] for e in fc["endpoints"]}) == n_eps, "duplicate endpoints")
+    for e in fc["endpoints"]:
+        p = e["anomalyProbability"]
+        check(math.isfinite(p) and 0.0 <= p <= 1.0, f"probability {p} of {e['uniqueEndpointName']}")
+        check(math.isfinite(e["predictedLatencyMs"]), f"latency of {e['uniqueEndpointName']}")
+    check(first[sparse.fused_sddmm_spmm.__name__] == 2, f"GraphSAGE GET launched {first}")
+    check(memo[sparse.fused_sddmm_spmm.__name__] == 0, f"memoized GET launched {memo}")
+    check(fc2 == fc, "memoized forecast differs")
+
+    params = stlgt.init_params(
+        torch.Generator().manual_seed(SEED), hidden=STLGT_HIDDEN, num_features=snap["features"].shape[1], device=device
+    )
+    zero()
+    t0 = time.perf_counter()
+    q_ms, prob, gate = stlgt_serving.quantile_forward(
+        params, snap["features"], snap["src"], snap["dst"], snap["mask"], stlgt
+    )
+    stlgt_ms = (time.perf_counter() - t0) * 1e3
+    st_counts = counts()
+    check(st_counts[sparse.fused_sddmm_spmm.__name__] == 1, f"STLGT forward launched {st_counts}")
+    check(q_ms.shape == (n_eps, 3) and bool(np.all(np.isfinite(q_ms))), "STLGT quantiles")
+    check(bool(np.all(q_ms[:, 0] <= q_ms[:, 1])) and bool(np.all(q_ms[:, 1] <= q_ms[:, 2])), "quantiles cross")
+    check(bool(np.all((gate >= 0) & (gate <= 1))), "gates outside [0, 1]")
+    check(bool(np.all(gate[~snap["mask"]] == 0)), "padded edges gate non-zero")
+    check(bool(np.all((prob >= 0) & (prob <= 1))), "STLGT probabilities outside [0, 1]")
+    report = {
+        "ticks": ticks,
+        "endpoints": n_eps,
+        "edges": int(snap["mask"].sum()),
+        "edge_bucket": int(snap["src"].shape[0]),
+        "predicted_hour": fc["predictedHour"],
+        "status_get_ms": status_ms,
+        "forecast_get_ms": get_ms,
+        "forecast_forward_ms": forward_ms,
+        "memo_get_ms": memo_ms,
+        "stlgt_forward_ms": stlgt_ms,
+        "launches": {"graphsage_get": first, "memo_get": memo, "stlgt": st_counts},
+    }
+    return report, proc, fc, (q_ms, prob, gate)
+
+
+def forecast_card_against_cpu(torch, proc, served, card_stlgt) -> dict:
+    """Phase 9: the snapshot's GraphSAGE forecast and STLGT forward on the
+    card against the port on the CPU, with the same weights; and the
+    payload the forecast route served against the CPU forward after the
+    route's rounding."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import checkpoint, graphsage, serving
+    from kmamiz_tpu_torch.models.stlgt import model as stlgt
+    from kmamiz_tpu_torch.models.stlgt import serving as stlgt_serving
+
+    snap = proc.forecast_snapshot
+    inputs = (snap["features"], snap["src"], snap["dst"], snap["mask"])
+    out = {}
+    for dev in (proc.device, "cpu"):
+        params, _meta = checkpoint.restore_params(os.path.join(REPO, MODEL_DIR), graphsage, device=dev)
+        t0 = time.perf_counter()
+        out[str(dev)] = serving.forecast_forward(params, *inputs, graphsage)
+        out[f"{dev}_ms"] = (time.perf_counter() - t0) * 1e3
+    card, cpu = out[str(proc.device)], out["cpu"]
+    for name, a, b in (("latency ms", card[0], cpu[0]), ("probability", card[1], cpu[1])):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+    # the served payload, matched by endpoint name: one rounding unit of
+    # the route (4 decimals of probability, 2 of latency ms), since a value
+    # at a rounding edge may round either way
+    index = {name: i for i, name in enumerate(snap["names"])}
+    served_diff = {"probability": 0.0, "latency_ms": 0.0}
+    for e in served["endpoints"]:
+        i = index[e["uniqueEndpointName"]]
+        d_prob = abs(e["anomalyProbability"] - round(float(cpu[1][i]), 4))
+        d_lat = abs(e["predictedLatencyMs"] - round(float(max(cpu[0][i], 0.0)), 2))
+        check(d_prob <= 1e-4 + 1e-9, f"served probability of {e['uniqueEndpointName']} off by {d_prob}")
+        check(d_lat <= 0.01 + 1e-6, f"served latency of {e['uniqueEndpointName']} off by {d_lat}")
+        served_diff["probability"] = max(served_diff["probability"], d_prob)
+        served_diff["latency_ms"] = max(served_diff["latency_ms"], d_lat)
+    check(len(served["endpoints"]) == len(index), "served payload misses endpoints")
+    params = stlgt.init_params(
+        torch.Generator().manual_seed(SEED), hidden=STLGT_HIDDEN, num_features=snap["features"].shape[1], device="cpu"
+    )
+    cpu_q, cpu_prob, cpu_gate = stlgt_serving.quantile_forward(params, *inputs, stlgt)
+    np.testing.assert_allclose(card_stlgt[2], cpu_gate, rtol=0, atol=1e-6, err_msg="gates")
+    np.testing.assert_allclose(card_stlgt[0], cpu_q, rtol=1e-4, atol=1e-5, err_msg="quantiles")
+    np.testing.assert_allclose(card_stlgt[1], cpu_prob, rtol=1e-4, atol=1e-5, err_msg="STLGT probability")
+    return {
+        "card_forward_ms": out[f"{proc.device}_ms"],
+        "cpu_forward_ms": out["cpu_ms"],
+        "max_abs_diff": {
+            "latency_ms": float(np.abs(card[0] - cpu[0]).max()),
+            "probability": float(np.abs(card[1] - cpu[1]).max()),
+            "gate": float(np.abs(card_stlgt[2] - cpu_gate).max()),
+            "quantile_ms": float(np.abs(card_stlgt[0] - cpu_q).max()),
+        },
+        "served_max_abs_diff": served_diff,
+    }
+
+
 def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK):
     """Phase 4: a processor whose graph holds the BASELINE edge set."""
     from kmamiz_tpu_torch.core.spans import spans_to_batch
@@ -359,19 +674,18 @@ def card_against_cpu(proc, device, t_start: int) -> dict:
     }
 
 
-def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
-    """Phase 7: one more tick on the card processor under torch.profiler:
-    the device's kernel time, its share of the tick's wall time, and the
+def profile_device(torch, run, kernel_names) -> dict:
+    """run() once under torch.profiler: the device's busy time, its share
+    of the wall time, peak device memory, the port's kernels and the
     device ops that took the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    feed.groups = synth_groups(TICK_TRACES, t_start, "profile")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        proc.collect({"uniqueId": "profile", "lookBack": 30_000})
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, fills); the busy time is
@@ -399,8 +713,6 @@ def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
         "device_events": len(spans),
         "device_busy_share": device_ms / wall_ms,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
-        "stages_ms": dict(proc.last_stage_ms),
-        # the port's own kernels, and the device ops that took the most
         "port_kernels": {
             name: {"ms": ms, "calls": calls}
             for ms, name, calls in ops
@@ -410,6 +722,30 @@ def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
             {"op": key[:100], "ms": ms, "calls": count} for ms, key, count in ops[:8]
         ],
     }
+
+
+def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
+    """Phase 10a: one more tick on the card processor under the profiler."""
+    feed.groups = synth_groups(TICK_TRACES, t_start, "profile")
+    out = profile_device(
+        torch, lambda: proc.collect({"uniqueId": "profile", "lookBack": 30_000}), kernel_names
+    )
+    out["stages_ms"] = dict(proc.last_stage_ms)
+    return out
+
+
+def profile_forecast(torch, proc, kernel_names) -> dict:
+    """Phase 10b: one GraphSAGE forecast forward of the snapshot (the work
+    behind an un-memoized GET) on the card under the profiler."""
+    from kmamiz_tpu_torch.models import checkpoint, graphsage, serving
+
+    snap = proc.forecast_snapshot
+    params, _meta = checkpoint.restore_params(os.path.join(REPO, MODEL_DIR), graphsage, device=proc.device)
+    inputs = (snap["features"], snap["src"], snap["dst"], snap["mask"])
+    serving.forecast_forward(params, *inputs, graphsage)  # warm
+    return profile_device(
+        torch, lambda: serving.forecast_forward(params, *inputs, graphsage), kernel_names
+    )
 
 
 def main(argv=None) -> int:
@@ -426,8 +762,15 @@ def main(argv=None) -> int:
     from kmamiz_tpu_torch.ops import cuda_build
     from kmamiz_tpu_torch.ops import segment_stats as ss
 
-    # every kernel of the path: (wrapper, source, TPU kernel it replaces)
-    kernels = [(ss.segment_stats, f"kmamiz_tpu_torch/csrc/{ss.KERNEL}.cu", ss.REPLACES)]
+    from kmamiz_tpu_torch.ops import sparse
+
+    # every kernel: (wrapper, source, TPU kernel it replaces)
+    kernels = [
+        (ss.segment_stats, f"kmamiz_tpu_torch/csrc/{ss.KERNEL}.cu", ss.REPLACES),
+        (sparse.fused_sddmm_spmm, f"kmamiz_tpu_torch/csrc/{sparse.KERNEL}.cu", sparse.REPLACES),
+    ]
+    counters = [k[0] for k in kernels]
+    kernel_names = [ss.KERNEL, sparse.KERNEL]
     device = torch.device("cuda")
     walls: dict = {}
     report: dict = {}
@@ -445,7 +788,7 @@ def main(argv=None) -> int:
         log(f"   torch {report['torch']}, {torch.cuda.get_device_name(0)}")
 
     with Phase("build", walls):
-        for path in cuda_build.build_all([ss.KERNEL]):
+        for path in cuda_build.build_all(kernel_names):
             log(f"   built {os.path.relpath(path)}")
 
     tick_shape_groups = synth_groups(TICK_TRACES, STATE_TRACES, "shape")
@@ -462,19 +805,22 @@ def main(argv=None) -> int:
         check(n_edges >= 100_000, f"only {n_edges} edges")
         report["state"] = {"traces": STATE_TRACES, "endpoints": n_eps, "edges": n_edges}
 
+    with Phase("fused kernel check", walls):
+        f_cases = fused_cases(torch, proc.graph)
+        report["fused_sddmm_spmm_cases"] = f_cases
+
     with Phase("serve ticks", walls):
         timings, launches = serve_ticks(
-            torch, proc, feed, [k[0] for k in kernels], STATE_TRACES + TICK_TRACES
+            torch, proc, feed, counters, STATE_TRACES + TICK_TRACES
         )
         report["ticks"] = timings
         report["launches"] = launches
         log(f"   launches {launches}")
-        for wrapper, source, _ in kernels:
-            check(launches[wrapper.__name__] > 0, f"{source} never launched")
         check(
             launches[ss.segment_stats.__name__] == 2 * TICKS,
             f"segment_stats launched {launches[ss.segment_stats.__name__]} times in {TICKS} ticks",
         )
+        report["max_tick_wall_ms"] = max(t["wall_ms"] for t in timings)
         report["edges_after_ticks"] = proc.graph.n_edges
 
     with Phase("card against cpu", walls):
@@ -483,32 +829,53 @@ def main(argv=None) -> int:
         )
         log("   " + json.dumps(report["compare"]))
 
+    with Phase("forecast", walls):
+        report["forecast"], fproc, served, card_stlgt = serve_forecast(
+            torch, proc.graph, device, counters, STATE_TRACES + (TICKS + 2) * TICK_TRACES
+        )
+        log("   " + json.dumps(report["forecast"]))
+        forecast_launches = {
+            name: sum(step[name] for step in report["forecast"]["launches"].values())
+            for name in launches
+        }
+
+    with Phase("forecast card against cpu", walls):
+        report["forecast_compare"] = forecast_card_against_cpu(torch, fproc, served, card_stlgt)
+        log("   " + json.dumps(report["forecast_compare"]))
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
-            torch, proc, feed, STATE_TRACES + (TICKS + 2) * TICK_TRACES, [ss.KERNEL]
+            torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
         )
         log("   " + json.dumps(report["profile"]))
+        report["profile_forecast"] = profile_forecast(torch, fproc, kernel_names)
+        log("   " + json.dumps(report["profile_forecast"]))
 
-    tick_case = cases[2]  # the tick's first pass: the shape the main path runs most
+    def entry(wrapper, source, replaces, n_launches, all_cases, shown):
+        return {
+            "name": wrapper.__name__,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": n_launches,
+            "max_abs_err": max(c["max_abs_err"] for c in all_cases),
+            "ms": shown["ms"],
+            "plain_ms": shown["plain_ms"],
+            "bound_ms": shown["bound_ms"],
+            "bound_by": shown["bound_by"],
+            "library_ms": shown["library_ms"],
+            "shape": shown["shape"],
+            "ok": True,
+            "cases": all_cases,
+        }
+
+    # launches: the segment-stats kernel on the tick path, the fused kernel
+    # on the forecast path; the shown times are the tick's first pass and
+    # GraphSAGE's second layer (H = 64)
     line = {
         "kernels": [
-            {
-                "name": wrapper.__name__,
-                "route": "cuda",
-                "source": source,
-                "replaces": replaces,
-                "launches": launches[wrapper.__name__],
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": tick_case["ms"],
-                "plain_ms": tick_case["plain_ms"],
-                "bound_ms": tick_case["bound_ms"],
-                "bound_by": tick_case["bound_by"],
-                "library_ms": tick_case["library_ms"],
-                "shape": tick_case["shape"],
-                "ok": True,
-                "cases": cases,
-            }
-            for wrapper, source, replaces in kernels
+            entry(*kernels[0], launches[ss.segment_stats.__name__], cases, cases[2]),
+            entry(*kernels[1], forecast_launches[sparse.fused_sddmm_spmm.__name__], f_cases, f_cases[1]),
         ]
     }
     report["walls_s"] = walls

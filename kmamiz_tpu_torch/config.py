@@ -2,7 +2,8 @@
 
 The part of kmamiz_tpu/config.py (KMamiz src/GlobalSettings.ts:54-89)
 that the port's modules read: the endpoint-lifetime thresholds of the
-dependency model. The rest of the JAX package's settings belong to
+dependency model, the REST API's version prefix, and the forecast route's
+checkpoint directory. The rest of the JAX package's settings belong to
 subsystems not ported yet and join this file with them.
 """
 from __future__ import annotations
@@ -19,6 +20,11 @@ class Settings:
     )
     deprecated_endpoint_threshold: str = field(
         default_factory=lambda: os.environ.get("DEPRECATED_ENDPOINT_THRESHOLD", "")
+    )
+    api_version: str = field(default_factory=lambda: os.environ.get("API_VERSION", "1"))
+    # checkpoint directory of the forecast route (models/checkpoint.py)
+    model_dir: str = field(
+        default_factory=lambda: os.environ.get("KMAMIZ_MODEL_DIR", "")
     )
 
 

@@ -96,6 +96,12 @@ class EndpointGraph:
         self._src, self._dst, self._dist = fill(), fill(), fill()
         self._n_edges = 0
         self._pending = None  # deferred (src, dst, dist, count) of last merge
+        # monotonic counters of graph changes (merges) and of label-mapping
+        # changes; (version, label epoch) keys payloads derived from the
+        # graph, such as the forecast memo. Nothing relabels yet, so the
+        # label epoch stays 0 until the scorers' label tables are ported.
+        self._version = 0
+        self._label_epoch = 0
         # per-endpoint host-side metadata, padded on demand
         self._ep_record = np.zeros(0, dtype=bool)
         self._ep_last_ts = np.zeros(0, dtype=np.float64)
@@ -114,6 +120,18 @@ class EndpointGraph:
     def n_edges(self) -> int:
         self._finalize_pending()
         return self._n_edges
+
+    @property
+    def version(self) -> int:
+        """Monotonic counter of graph state changes (merges)."""
+        with self._lock:
+            return self._version
+
+    @property
+    def label_epoch(self) -> int:
+        """Monotonic counter of label-mapping changes."""
+        with self._lock:
+            return self._label_epoch
 
     def _ensure_ep_arrays(self, n: int) -> None:
         if len(self._ep_record) < n:
@@ -142,6 +160,7 @@ class EndpointGraph:
             self._merge_window_locked(batch)
 
     def _merge_window_locked(self, batch: SpanBatch) -> None:
+        self._version += 1
         packed = pack_trace_rows(batch.trace_of, batch.n_spans, batch.parent_idx)
         self._finalize_pending_locked()
         if packed is not None:
@@ -197,6 +216,7 @@ class EndpointGraph:
                 src_l.append(s_id)
                 dst_l.append(d_id)
                 dist_l.append(dist)
+            self._version += 1
             self._update_ep_metadata(batch)
             if not src_l:
                 return True
@@ -278,6 +298,7 @@ class EndpointGraph:
         """Bulk set-union of host (src, dst, dist) edge columns into the
         store — the import path."""
         with self._lock:
+            self._version += 1
             self._finalize_pending_locked()
             self._union_host_edges_locked(src, dst, dist)
 

@@ -15,9 +15,19 @@ string-bound work (JSON body merging, schema inference) stays on the
 host, grouped per (endpoint, status). Every window also merges into the
 device edge store (graph.store).
 
-Not ported yet: cluster state (a k8s source), the ingest WAL, the
-quarantine, telemetry spans, the history-feature feed of the model plane,
-and the raw-bytes ingest paths.
+Every tick also feeds the model plane's hourly history
+(`_observe_history`): per-endpoint SERVER-span sums accumulate into the
+current hour's bucket, and the first tick of a later hour folds the
+completed bucket into models.history.HistoryState and publishes
+`forecast_snapshot`, the input of GET /api/v1/model/forecast. The
+snapshot holds host numpy copies of the edge columns: one device-to-host
+copy per fold, none per tick.
+
+Not ported yet: cluster state (a k8s source, so every replica count in
+the features is 1.0), the ingest WAL, the quarantine, telemetry spans,
+the raw-bytes ingest paths, history persistence, and the fold hooks of
+the JAX processor (the STLGT continual trainer, the control plane and the
+cost model).
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import torch
 
 from kmamiz_tpu_torch.core import schema
 from kmamiz_tpu_torch.core.interning import StringInterner
-from kmamiz_tpu_torch.core.spans import _pad_size, spans_to_batch
+from kmamiz_tpu_torch.core.spans import KIND_SERVER, _pad_size, spans_to_batch
 from kmamiz_tpu_torch.core.timeutils import to_precise
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.domain.combined import CombinedRealtimeDataList
@@ -38,6 +48,8 @@ from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
 from kmamiz_tpu_torch.domain.realtime import RealtimeDataList
 from kmamiz_tpu_torch.domain.traces import Traces
 from kmamiz_tpu_torch.graph.store import EndpointGraph
+from kmamiz_tpu_torch.models import graphsage
+from kmamiz_tpu_torch.models.history import SLOT_SECONDS, HistoryState
 from kmamiz_tpu_torch.ops import window as window_ops
 
 PROCESSED_TRACE_TTL_MS = 300_000  # Rust DP keeps the dedup map for 5 min
@@ -57,6 +69,7 @@ class _PreparedTick:
 
     __slots__ = (
         "request",
+        "req_time",
         "wall_t0",
         "trace_groups",
         "realtime",
@@ -69,6 +82,7 @@ class _PreparedTick:
 
     def __init__(self, request: dict) -> None:
         self.request = request
+        self.req_time = 0
         self.wall_t0 = time.perf_counter()
         self.trace_groups = []
         self.realtime = None
@@ -127,6 +141,21 @@ class DataProcessor:
         self.graph = graph if graph is not None else EndpointGraph(device=self.device)
         #: wall ms of the last finished tick's stages
         self.last_stage_ms: Dict[str, float] = {}
+        # online history-feature state, created on the first observed
+        # tick; ticks accumulate into the current hour's bucket and fold on
+        # rollover. collect() runs on several server threads, so every
+        # transition serializes on _history_lock.
+        self.history: Optional[HistoryState] = None
+        self.history_features = None  # last fold's [N, 8] columns
+        self.history_model_features = None  # full [N, 18] model input
+        self.history_predicted_hour = None
+        # the fold's snapshot for /model/forecast: features, the matching
+        # edges and names, published as ONE dict (replaced wholesale, read
+        # through one attribute) so readers never mix folds
+        self.forecast_snapshot = None
+        self._hour_bucket = None  # [abs_hour, count, e4, e5, lat, lat^2,
+        #                            cls_count, cls_lat, cls_lat^2]
+        self._history_lock = threading.Lock()
 
     # -- trace dedup (data_processor.rs:30-73) -------------------------------
 
@@ -168,12 +197,13 @@ class DataProcessor:
         (but NOT including) the graph merge."""
         p = _PreparedTick(request)
         t_start = self._now_ms()  # dedup stamps, default request time
+        p.req_time = request.get("time", int(t_start))
         existing_dep = request.get("existingDep")
 
         with _stage(p.stages, "fetch_parse"):
             trace_groups = self._trace_source(
                 request.get("lookBack", 30_000),
-                request.get("time", int(t_start)),
+                p.req_time,
                 ZIPKIN_LIMIT,
             )
             trace_groups = self._filter_traces(trace_groups, t_start)
@@ -207,14 +237,17 @@ class DataProcessor:
         return p
 
     def merge_prepared(self, p: _PreparedTick) -> None:
-        """The tick's graph merge: the host walk's edge set when every
-        endpoint is interned, else the device walk over the span batch."""
+        """The tick's graph merge (the host walk's edge set when every
+        endpoint is interned, else the device walk over the span batch),
+        then the history-feature accumulation."""
         if not p.trace_groups:
             return
         if p.window_edges is None or not self.graph.merge_window_edges(
             p.window_edges, p.batch
         ):
             self.graph.merge_window(p.batch)
+        with _stage(p.stages, "history"):
+            self._observe_history(p.batch, p.req_time)
 
     def finish_tick(self, p: _PreparedTick) -> dict:
         """The tick's response assembly: device-stats drain + host body
@@ -232,6 +265,144 @@ class DataProcessor:
                 f"processed {sum(len(g) for g in p.trace_groups)} spans / "
                 f"{len(p.trace_groups)} traces in {elapsed:.1f}ms "
                 f"(device={self.device})"
+            ),
+        }
+
+    # -- online history features (models/history.HistoryState) ---------------
+
+    #: empty-hour catch-up bound: past this, the delta/rolling context is
+    #: stale regardless, so the stream resumes at the current hour
+    HISTORY_MAX_CATCHUP_HOURS = 48
+
+    def _observe_history(self, batch, req_time_ms: float) -> None:
+        """Accumulate this tick's per-endpoint SERVER-span stats into the
+        current hour's bucket; when the hour rolls over, fold the completed
+        bucket (and a zero-activity bucket for each quiet hour between) and
+        publish the forecast snapshot.
+
+        A request whose clock runs behind the current bucket accumulates
+        into it instead of folding a partial hour early, and one whose
+        clock runs ahead of the server's clamps to the server's, so a
+        skewed client cannot advance the bucket past wall time."""
+        n_ep = len(self.graph.interner.endpoints)
+        abs_hour = int(min(req_time_ms, self._now_ms()) // 3_600_000)
+        sel = batch.valid & (batch.kind == KIND_SERVER)
+        eids = batch.endpoint_id[sel]
+        # host-side hour-bucket accumulators; float64 keeps long-run sums exact
+        err4 = (batch.status_class[sel] == 4).astype(np.float64)
+        err5 = (batch.status_class[sel] == 5).astype(np.float64)
+        lat = np.asarray(batch.latency_ms, dtype=np.float64)[sel]
+        scls = np.clip(np.asarray(batch.status_class, dtype=np.int64)[sel], 0, 5)
+
+        with self._history_lock:
+            if self.history is None:
+                self.history = HistoryState(n_ep)
+            if self._hour_bucket is not None and abs_hour > self._hour_bucket[0]:
+                completed_hour = self._hour_bucket[0]
+                self._fold_hour_locked(*self._hour_bucket)
+                # zero-activity folds for fully quiet hours in between, so
+                # the state sees every hour once, in order
+                gap_first = completed_hour + 1
+                gap_last = abs_hour - 1
+                if gap_last - gap_first + 1 > self.HISTORY_MAX_CATCHUP_HOURS:
+                    gap_first = gap_last - self.HISTORY_MAX_CATCHUP_HOURS + 1
+                m = self.history.num_endpoints
+                for h in range(gap_first, gap_last + 1):
+                    self._fold_hour_locked(
+                        h,
+                        *(np.zeros(m) for _ in range(5)),
+                        *(np.zeros((m, 6)) for _ in range(3)),
+                    )
+                self._hour_bucket = None
+            if self._hour_bucket is None:
+                self._hour_bucket = [
+                    abs_hour,
+                    *(np.zeros(n_ep) for _ in range(5)),  # count, err4, err5, lat, lat^2
+                    *(np.zeros((n_ep, 6)) for _ in range(3)),  # per status class
+                ]
+            bucket = self._hour_bucket
+            if len(bucket[1]) < n_ep:  # new endpoints interned this tick
+                grow = n_ep - len(bucket[1])
+                for i in range(1, 6):
+                    bucket[i] = np.concatenate([bucket[i], np.zeros(grow)])
+                for i in range(6, 9):
+                    bucket[i] = np.concatenate([bucket[i], np.zeros((grow, 6))])
+            np.add.at(bucket[1], eids, 1.0)
+            np.add.at(bucket[2], eids, err4)
+            np.add.at(bucket[3], eids, err5)
+            np.add.at(bucket[4], eids, lat)
+            np.add.at(bucket[5], eids, lat * lat)
+            np.add.at(bucket[6], (eids, scls), 1.0)
+            np.add.at(bucket[7], (eids, scls), lat)
+            np.add.at(bucket[8], (eids, scls), lat * lat)
+
+    def _fold_hour_locked(
+        self,
+        hour,
+        count,
+        err4_sum,
+        err5_sum,
+        lat_sum,
+        lat_sq_sum,
+        cls_count,
+        cls_lat,
+        cls_lat_sq,
+    ) -> None:
+        """Fold one completed hour into the state (5xx share, log1p mean
+        latency, active = saw traffic), assemble the full model-feature
+        matrix for the predicted hour, and publish the forecast snapshot:
+        features plus the graph's edges and names as of this fold. Caller
+        holds _history_lock.
+
+        Latency CV is the count-weighted mean of per-(endpoint, status
+        class) CVs from the sum-of-squares identity."""
+        safe = np.maximum(count, 1.0)
+        lat_mean = lat_sum / safe
+        # the edge columns cross to the host once per fold, in one copy
+        src, dst, _dist, mask = self.graph.edge_arrays()
+        cols = torch.stack([src, dst, mask.to(torch.int32)]).cpu().numpy()
+        src, dst, mask = cols[0], cols[1], cols[2].astype(bool)
+        self.history.set_degrees(src, dst, mask, len(count))
+        hist_cols = self.history.step(
+            hour % 24,
+            err5_sum / safe,
+            np.log1p(lat_mean),
+            count > 0,
+        )
+        self.history_features = hist_cols
+        self.history_predicted_hour = (hour % 24 + 1) % 24
+        cls_safe = np.maximum(cls_count, 1.0)
+        cls_mean = cls_lat / cls_safe
+        cls_var = np.maximum(cls_lat_sq / cls_safe - cls_mean * cls_mean, 0.0)
+        cls_cv = np.sqrt(cls_var) / np.maximum(cls_mean, 1e-9)
+        cv = (cls_count * cls_cv).sum(axis=1) / safe
+        n = len(count)
+        base = graphsage.assemble_features(
+            count / SLOT_SECONDS,
+            err4_sum / safe,
+            err5_sum / safe,
+            np.log1p(lat_mean),
+            cv,
+            np.ones(n, dtype=np.float32),  # replicas: no cluster source yet
+            np.log1p(count),
+            count > 0,
+            hour_of_day=float(self.history_predicted_hour),
+        )
+        self.history_model_features = np.concatenate([base, hist_cols], axis=1)
+        interner = self.graph.interner
+        self.forecast_snapshot = {
+            "features": self.history_model_features,
+            "src": src,
+            "dst": dst,
+            "mask": mask,
+            "names": [interner.endpoints.lookup(i) for i in range(n)],
+            "predicted_hour": self.history_predicted_hour,
+            # the forecast memo's key: the served forecast is a pure
+            # function of the graph at fold time and the hour folded
+            "cache_key": (
+                int(self.graph.version),
+                int(self.graph.label_epoch),
+                int(hour),
             ),
         }
 

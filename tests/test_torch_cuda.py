@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the hand-written kernel against its plain
-PyTorch version on the same card tensors, and a whole tick on the card
-against the port's CPU path.
+"""The port on a CUDA card: the hand-written kernels against their plain
+PyTorch versions on the same card tensors, a whole tick on the card
+against the port's CPU path, and the model forwards' kernel launches.
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -19,7 +19,10 @@ import pytest
 import torch
 
 from kmamiz_tpu_torch.graph.store import graph_signature
+from kmamiz_tpu_torch.models import graphsage
+from kmamiz_tpu_torch.models.stlgt import model as stlgt
 from kmamiz_tpu_torch.ops import segment_stats as ss
+from kmamiz_tpu_torch.ops import sparse
 from kmamiz_tpu_torch.ops import window as window_ops
 from kmamiz_tpu_torch.server.processor import DataProcessor
 
@@ -102,3 +105,70 @@ def test_tick_on_card_matches_cpu(card):
         assert math.isclose(g_lat["mean"], w_lat["mean"], rel_tol=1e-5, abs_tol=1e-6)
         assert math.isclose(g_lat["cv"], w_lat["cv"], rel_tol=1e-3, abs_tol=1e-5)
     assert graph_signature(procs["cuda"].graph) == graph_signature(procs["cpu"].graph)
+
+
+def _edges(n, e, h, seed):
+    """Node tables and an edge list with masked-off edges, sentinel padding
+    and a few live edges whose ids lie past n (dropped scatters)."""
+    rng = np.random.default_rng(seed)
+    tables = [torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)) for _ in range(3)]
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(e) < 0.8
+    src[-e // 4 :] = np.iinfo(np.int32).max
+    dst[-e // 4 :] = np.iinfo(np.int32).max
+    mask[-e // 4 :] = False
+    src[:3] = n + 5
+    mask[:3] = True
+    return tables, [torch.from_numpy(a) for a in (src, dst, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,e,h", [(1, 1, 1), (300, 5000, 18), (2048, 40_000, 32), (4096, 65_536, 64)])
+def test_fused_kernel_matches_plain_on_card(card, gated, n, e, h):
+    (v, q, k), (src, dst, mask) = _edges(n, e, h, seed=n + h)
+    extra = [t.to(card) for t in (q, k, torch.tensor([0.3]))] if gated else []
+    args = [t.to(card) for t in (v, src, dst, mask)] + extra
+    before = sparse.fused_sddmm_spmm.launches
+    bias, deg, gate = sparse.fused_sddmm_spmm(*args)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm.launches == before + 1
+    want_bias, want_deg, want_gate = sparse.fused_plain(*args)
+    # fp32 sums in atomic order against index_add_'s
+    torch.testing.assert_close(gate, want_gate, rtol=0, atol=1e-6)
+    torch.testing.assert_close(bias, want_bias, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(deg, want_deg, rtol=1e-5, atol=1e-5)
+    if not gated:
+        assert torch.equal(deg, want_deg)  # sums of 1.0: exact
+        # as fused_neighbor_sums calls it: no gate output
+        bias2, deg2, none = sparse.fused_sddmm_spmm(*args, want_gate=False)
+        assert none is None
+        assert torch.equal(deg2, want_deg)
+        torch.testing.assert_close(bias2, want_bias, rtol=1e-5, atol=1e-5)
+    assert torch.all(gate[~args[3]] == 0)
+
+
+def _features(n, f, seed):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, f)).astype(np.float32)
+    feats[n - n // 8 :] = 0.0  # bucket padding
+    return torch.from_numpy(feats)
+
+
+@pytest.mark.cuda
+def test_forwards_launch_the_kernel_and_match_the_cpu(card):
+    (_, _, _), (src, dst, mask) = _edges(1024, 8192, 1, seed=7)
+    src[:3] = 0  # real snapshots carry no out-of-range ids
+    feats = _features(1024, 18, seed=8)
+    for model, params_of, launches in (
+        (graphsage, lambda d: graphsage.init_params(torch.Generator().manual_seed(1), hidden=64, num_features=18, device=d), 2),
+        (stlgt, lambda d: stlgt.init_params(torch.Generator().manual_seed(2), hidden=32, num_features=18, device=d), 1),
+    ):
+        before = sparse.fused_sddmm_spmm.launches
+        got = model.forward(params_of(card), *(t.to(card) for t in (feats, src, dst, mask)))
+        torch.cuda.synchronize()
+        assert sparse.fused_sddmm_spmm.launches == before + launches, model.__name__
+        want = model.forward(params_of("cpu"), feats, src, dst, mask)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
