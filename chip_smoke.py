@@ -11,9 +11,13 @@ Phases, each timed:
 3. the segment-stats kernel against its plain PyTorch version on card
    tensors, at the production window (2^20 spans, 10,000 endpoints x 8
    statuses) and at the Data Processor tick's own shape, both passes
-   (m = 5 stat rows, then m = 1 squared residuals); kernel, plain and
-   library times (CUDA events, median of 20 after warm-up) beside the
-   least time the card could take;
+   (m = 5 stat rows with timestamps, then m = 1 squared residuals
+   without); kernel, plain and library times (`ms`: CUDA events around 20
+   back-to-back calls, median of 10 runs after warm-up; `call_ms`: one
+   call between the events and a sync after it, median of 20) and the
+   kernel's device time (`device_ms`: every device event a call enqueues,
+   memset included, under torch.profiler, taken at the end of the run)
+   beside the least time the card could take;
 4. state load: the endpoint graph built to BASELINE size on the card with
    EndpointGraph.merge_window (150,000 synthetic traces x 7 spans, 1,000
    services x 10 urls, merged in chunks);
@@ -21,7 +25,11 @@ Phases, each timed:
    at the forecast's shapes: the BASELINE graph's edge columns (masked
    padding included) over node tables at the pow2 bucket of its
    endpoints, ungated at H = 18 and 64 (GraphSAGE's two layers) and gated
-   at H = 32 (STLGT); times and bound as in phase 3;
+   at H = 32 (STLGT), each launch given the prebuilt edge index as the
+   forward gives it; two launches on the same inputs must give the same
+   bits; times and bound as in phase 3; the edge index's build time and
+   row lengths (mean, p99, max), and a GraphSAGE forward's kernel work
+   (one index build and the launches at H = 18 and 64) timed together;
 6. the tick path: the port's DataProcessorServer on the card answers 4 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
    counter is zeroed just before and read just after, and the
@@ -45,9 +53,16 @@ Phases, each timed:
 10. profile: one more tick, and one GraphSAGE forecast forward, on the
    card under torch.profiler — the device's busy time (union of its
    kernel, copy and fill intervals), its share of the wall time, the top
-   device ops, and peak device memory.
+   device ops, and peak device memory; then the device times of phases 3
+   and 5, last, because a profiler session leaves every later launch
+   slower on the host and would inflate the card times taken after it.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
+With --kernels-only it stops after phase 5 and prints the kernel cases,
+for a comparison of two checkouts on the same card in one run. With
+--zeroing it stops after phase 3 and times the segment-stats kernel's
+zeroing prologue against the same source built to zero with a
+cudaMemsetAsync before a plain launch (SEGMENT_STATS_ZERO_BY_MEMSET).
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -79,6 +94,8 @@ PROD_SPANS = 1 << 20
 PROD_ENDPOINTS = 10_000
 PROD_STATUSES = 8
 TIMING_REPS = 20
+TIMING_RUNS = 10
+TIMING_CALLS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 HOUR_MS = 3_600_000
 FORECAST_HOURS = (910, 911)  # two ticks in successive hours: one fold
@@ -111,9 +128,30 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(torch, fn, reps: int = TIMING_REPS) -> float:
-    """Median ms of fn() on the card: CUDA events around each call, after
-    three warm-up calls."""
+def cuda_ms(torch, fn, runs: int = TIMING_RUNS, calls: int = TIMING_CALLS) -> float:
+    """Card time of one fn() call: CUDA events around `calls` back-to-back
+    calls (no sync between them, as a caller's stream sees them), divided
+    by `calls`; the median of `runs` runs after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
+    """Median ms of one fn() call alone: CUDA events around each call and a
+    sync after it, after three warm-up calls (chip_smoke's earlier
+    method; it also counts the host's wake-up after each sync)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -129,14 +167,55 @@ def cuda_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def segment_stats_case(torch, ss, label, values, seg, ts, num_segments):
-    """One shape of the segment-stats kernel: agreement with the plain
-    version on the same card tensors, and its times beside the bound."""
+def device_ms(torch, fn, reps: int = 10, attempts: int = 3) -> float:
+    """Device time of one fn() call: the summed duration of every device
+    event (kernels, memsets, copies) that reps calls enqueue under
+    torch.profiler, over reps; after one warm-up call. A session that
+    records no device event at all (seen now and then on the card's
+    machine) is tried again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            evt.time_range.end - evt.time_range.start
+            for evt in prof.events()
+            if evt.device_type == DeviceType.CUDA
+        )
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError(f"the profiler saw no device event in {attempts} sessions")
+
+
+def device_times(torch, jobs) -> None:
+    """Fill in the device times that phases 3 and 5 queued as (case, key,
+    fn). They run after every CUDA-event timing of the run: a profiler
+    session leaves the host slower at each launch for the rest of the
+    process, which would inflate the card times taken after it."""
+    for case, key, fn in jobs:
+        case[key] = device_ms(torch, fn)
+        log(f"   {case.get('shape', 'edge index')}: {key} {case[key]}")
+
+
+def segment_stats_case(torch, ss, label, values, seg, ts, num_segments, jobs):
+    """One shape of the segment-stats kernel (ts None: no timestamps, as
+    window_stats's second pass calls it): agreement with the plain version
+    on the same card tensors, and its times beside the bound; its device
+    time is queued on jobs."""
     m, n = values.shape
     sums, ts_max = ss.segment_stats(values, seg, ts, num_segments)
     torch.cuda.synchronize()
     want_sums, want_max = ss.segment_stats_plain(values, seg, ts, num_segments)
-    check(torch.equal(ts_max, want_max), f"{label}: ts_max differs")
+    if ts is None:
+        check(ts_max is None and want_max is None, f"{label}: a ts_max without ts")
+    else:
+        check(torch.equal(ts_max, want_max), f"{label}: ts_max differs")
     exact_rows = 3 if m == 5 else 0  # count, 4xx, 5xx are integers in f32
     check(
         torch.equal(sums[:exact_rows], want_sums[:exact_rows]),
@@ -151,29 +230,39 @@ def segment_stats_case(torch, ss, label, values, seg, ts, num_segments):
     def library():
         out = torch.zeros((m, num_segments + 1), dtype=torch.float32, device=values.device)
         out.index_add_(1, idx, values)
-        top = torch.zeros(num_segments + 1, dtype=torch.int32, device=values.device)
-        top.scatter_reduce_(0, idx, ts, "amax", include_self=True)
+        if ts is not None:
+            top = torch.zeros(num_segments + 1, dtype=torch.int32, device=values.device)
+            top.scatter_reduce_(0, idx, ts, "amax", include_self=True)
 
-    read = values.numel() * 4 + seg.numel() * 4 + ts.numel() * 4
-    written = m * num_segments * 4 + num_segments * 4
-    ops = (m + 1) * n  # one add per stat row and one max per span
+    with_ts = ts is not None
+    read = values.numel() * 4 + seg.numel() * 4 + (ts.numel() * 4 if with_ts else 0)
+    written = m * num_segments * 4 + (num_segments * 4 if with_ts else 0)
+    ops = (m + int(with_ts)) * n  # one add per stat row and one max per span
     t_bytes = (read + written) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+
+    def kernel():
+        ss.segment_stats(values, seg, ts, num_segments)
+
     case = {
         "shape": label,
         "m": m,
         "n": n,
         "segments": num_segments,
+        "timestamps": with_ts,
         "max_abs_err": max_abs_err,
-        "ms": cuda_ms(torch, lambda: ss.segment_stats(values, seg, ts, num_segments)),
+        "ms": cuda_ms(torch, kernel),
+        "call_ms": call_ms(torch, kernel),
         "plain_ms": cuda_ms(
             torch, lambda: ss.segment_stats_plain(values, seg, ts, num_segments)
         ),
         "library_ms": cuda_ms(torch, library),
+        "library_call_ms": call_ms(torch, library),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": read + written,
     }
+    jobs.append((case, "device_ms", kernel))
     log("   " + json.dumps(case))
     return case
 
@@ -188,9 +277,10 @@ def synth_groups(n_traces: int, t_start: int, prefix: str):
     )
 
 
-def kernel_cases(torch, device, tick_groups):
-    """Phase 3: the segment-stats kernel at the production window and at
-    the tick's shape, both passes of window_stats."""
+def segment_inputs(torch, device, tick_groups):
+    """Phase 3's inputs: (label, values, seg, ts, num_segments) at the
+    production window and at the tick's shape, both passes of window_stats
+    (the second takes no timestamps)."""
     import numpy as np
 
     from kmamiz_tpu_torch.domain.traces import Traces
@@ -218,7 +308,7 @@ def kernel_cases(torch, device, tick_groups):
         timestamp_rel=cols.timestamp_rel,
         valid_server=cols.valid,
     )
-    cases = []
+    inputs = []
     for label, arrays, ne, ns in (
         ("production window", prod, PROD_ENDPOINTS, PROD_STATUSES),
         ("tick", tick, cols.num_endpoints, cols.num_statuses),
@@ -227,32 +317,110 @@ def kernel_cases(torch, device, tick_groups):
         values, seg, ts, n_seg = window_ops.stat_rows(
             **dev, num_endpoints=ne, num_statuses=ns
         )
-        cases.append(
-            segment_stats_case(torch, ss, f"{label} pass 1", values, seg, ts, n_seg)
-        )
+        inputs.append((f"{label} pass 1", values, seg, ts, n_seg))
         sums, _ = ss.segment_stats_plain(values, seg, ts, n_seg)
         resid = window_ops.residual_rows(values, seg, sums, n_seg)
-        zeros = torch.zeros_like(ts)
-        cases.append(
-            segment_stats_case(torch, ss, f"{label} pass 2", resid, seg, zeros, n_seg)
-        )
-    return cases
+        inputs.append((f"{label} pass 2", resid, seg, None, n_seg))
+    return inputs
 
 
-def fused_case(torch, sparse, label, v, src, dst, mask, gated_args):
+def kernel_cases(torch, device, tick_groups, jobs):
+    """Phase 3: the segment-stats kernel at the production window and at
+    the tick's shape, both passes of window_stats."""
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+
+    return [
+        segment_stats_case(torch, ss, *case, jobs)
+        for case in segment_inputs(torch, device, tick_groups)
+    ]
+
+
+def zeroing_cases(torch, device, tick_groups, jobs):
+    """--zeroing: the segment-stats kernel as shipped (a zeroing prologue
+    and a grid barrier in one cooperative launch) against the same source
+    built with SEGMENT_STATS_ZERO_BY_MEMSET (a cudaMemsetAsync, then a plain
+    launch), at phase 3's shapes. A memset call allocates and launches as
+    the wrapper does but skips its input checks, which favours that side;
+    `ms` is timed in turns (shipped, memset, memset, shipped, shipped,
+    memset), `device_ms` is queued on jobs."""
+    import ctypes
+
+    from kmamiz_tpu_torch.ops import cuda_build
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+
+    variant = ctypes.CDLL(str(cuda_build.build(ss.KERNEL, ("SEGMENT_STATS_ZERO_BY_MEMSET",))))
+    memset_fn = variant.kmamiz_segment_stats
+    memset_fn.argtypes = ss._kernel().argtypes
+    memset_fn.restype = ctypes.c_int
+
+    def case_of(label, values, seg, ts, n_seg):
+        m, n = values.shape
+        device = values.device  # with its index, as the wrapper passes it
+
+        def memset_call():
+            buf, sums, ts_max = ss._outputs(m, n_seg, ts is not None, device)
+            args = (
+                values.data_ptr(),
+                m,
+                n,
+                seg.data_ptr(),
+                None if ts is None else ts.data_ptr(),
+                n_seg,
+                ss.row_stride(m),
+                buf.data_ptr(),
+            )
+            check(cuda_build.launch(memset_fn, args, device) == 0, f"{label}: memset variant launch")
+            return sums, ts_max
+
+        def shipped_call():
+            return ss.segment_stats(values, seg, ts, n_seg)
+
+        (got, got_ts), (want, want_ts) = memset_call(), shipped_call()
+        torch.cuda.synchronize()
+        exact_rows = 3 if m == 5 else 0  # count, 4xx, 5xx
+        check(torch.equal(got[:exact_rows], want[:exact_rows]), f"{label}: variant counts differ")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        check(got_ts is None or torch.equal(got_ts, want_ts), f"{label}: variant ts_max differs")
+        times = {"prologue": [], "memset": []}
+        for name in ("prologue", "memset", "memset", "prologue", "prologue", "memset"):
+            times[name].append(cuda_ms(torch, shipped_call if name == "prologue" else memset_call))
+        case = {
+            "shape": label,
+            "prologue_ms": statistics.median(times["prologue"]),
+            "memset_ms": statistics.median(times["memset"]),
+            "runs_ms": times,
+        }
+        jobs.append((case, "prologue_device_ms", shipped_call))
+        jobs.append((case, "memset_device_ms", memset_call))
+        log("   " + json.dumps(case))
+        return case
+
+    return [case_of(*case) for case in segment_inputs(torch, device, tick_groups)]
+
+
+def fused_case(torch, sparse, label, v, src, dst, mask, gated_args, index, jobs):
     """One shape of the fused SDDMM/SpMM, called as the model calls it
-    (the ungated mode without the gate output, as fused_neighbor_sums
-    does): agreement with the plain version on the same card tensors, and
+    (with the forward's prebuilt edge index; the ungated mode without the
+    gate output, as fused_neighbor_sums does): agreement with the plain
+    version on the same card tensors, the same bits from two launches, and
     its times beside the bound."""
     n, h = v.shape
     e = src.shape[0]
     gated = bool(gated_args)
     args = (v, src, dst, mask, *gated_args)
-    bias, deg, gate = sparse.fused_sddmm_spmm(*args, want_gate=gated)
+    kw = {"want_gate": gated, "index": index}
+    bias, deg, gate = sparse.fused_sddmm_spmm(*args, **kw)
     torch.cuda.synchronize()
+    again = sparse.fused_sddmm_spmm(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("bias", "deg", "gate"), (bias, deg, gate), again):
+        check(
+            a is None and b is None or torch.equal(a, b),
+            f"{label}: two launches give different {name}",
+        )
     want_bias, want_deg, want_gate = sparse.fused_plain(*args)
     # the gate is one sigmoid per edge: atol 1e-6; bias and deg are fp32
-    # sums in atomic order against index_add_'s: rtol/atol 1e-5
+    # sums in the index's row order against index_add_'s: rtol/atol 1e-5
     torch.testing.assert_close(bias, want_bias, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(deg, want_deg, rtol=1e-5, atol=1e-5)
     pairs = [(bias, want_bias), (deg, want_deg)]
@@ -296,6 +464,10 @@ def fused_case(torch, sparse, label, v, src, dst, mask, gated_args):
     ops = live * ((4 * h + 2) + ((2 * h + 6) if gated else 0))
     t_bytes = (read + written) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+
+    def kernel():
+        sparse.fused_sddmm_spmm(*args, **kw)
+
     case = {
         "shape": label,
         "n": n,
@@ -304,21 +476,28 @@ def fused_case(torch, sparse, label, v, src, dst, mask, gated_args):
         "live_edges": live,
         "table_rows_read": rows,
         "gated": gated,
+        "bit_equal_relaunch": True,
         "max_abs_err": max_abs_err,
-        "ms": cuda_ms(torch, lambda: sparse.fused_sddmm_spmm(*args, want_gate=gated)),
+        "ms": cuda_ms(torch, kernel),
+        "call_ms": call_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, lambda: sparse.fused_plain(*args)),
         "library_ms": cuda_ms(torch, library),
+        "library_call_ms": call_ms(torch, library),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": read + written,
     }
+    jobs.append((case, "device_ms", kernel))
     log("   " + json.dumps(case))
     return case
 
 
-def fused_cases(torch, graph):
+def fused_cases(torch, graph, jobs):
     """Phase 5: the fused kernel at the forecast's shapes, on the BASELINE
-    graph's edge columns and seeded node tables."""
+    graph's edge columns and seeded node tables; the edge index's build
+    and row lengths; and a GraphSAGE forward's share of it (one index
+    build and the launches at H = 18 and 64). Returns (cases, index
+    report)."""
     import numpy as np
 
     from kmamiz_tpu_torch.core.spans import _pad_size
@@ -327,11 +506,30 @@ def fused_cases(torch, graph):
     src, dst, _dist, mask = graph.edge_arrays()
     # the store's capacity is a power of two: the forward's edge bucket
     check(src.shape[0] == _pad_size(src.shape[0]), "edge capacity not a pow2 bucket")
-    n = _pad_size(len(graph.interner.endpoints))
+    n_eps = len(graph.interner.endpoints)
+    n = _pad_size(n_eps)
     rng = np.random.default_rng(SEED)
 
     def table(h):
         return torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(src.device)
+
+    index = sparse.edge_index(src, dst, mask, n)
+    lengths = (index.row_ptr[1:] - index.row_ptr[:-1]).float()
+    real = lengths[:n_eps]
+    report = {
+        "index_ms": cuda_ms(torch, lambda: sparse.edge_index(src, dst, mask, n)),
+        "entries": int(index.row_ptr[-1]),
+        # row lengths of the endpoints' rows (the bucket's padding rows past
+        # them are empty)
+        "row_length": {
+            "mean": float(real.mean()),
+            "p99": float(torch.quantile(real, 0.99)),
+            "max": float(real.max()),
+            "empty_padding_rows": int((lengths[n_eps:] == 0).sum()),
+        },
+    }
+    log("   edge index " + json.dumps(report))
+    jobs.append((report, "index_device_ms", lambda: sparse.edge_index(src, dst, mask, n)))
 
     cases = []
     for label, h, gated in (
@@ -343,8 +541,25 @@ def fused_cases(torch, graph):
         if gated:
             b = torch.tensor([0.1], dtype=torch.float32, device=src.device)
             gated_args = (table(h), table(h), b)
-        cases.append(fused_case(torch, sparse, label, table(h), src, dst, mask, gated_args))
-    return cases
+        cases.append(
+            fused_case(torch, sparse, label, table(h), src, dst, mask, gated_args, index, jobs)
+        )
+
+    # a GraphSAGE forward's kernel work: one index build and two launches
+    v18, v64 = table(18), table(64)
+
+    def forward_share():
+        idx = sparse.edge_index(src, dst, mask, n)
+        sparse.fused_sddmm_spmm(v18, src, dst, mask, want_gate=False, index=idx)
+        sparse.fused_sddmm_spmm(v64, src, dst, mask, want_gate=False, index=idx)
+
+    report["forward_ms"] = cuda_ms(torch, forward_share)
+    report["forward_call_ms"] = call_ms(torch, forward_share)
+    jobs.append((report, "forward_device_ms", forward_share))
+    log("   per forward (index build + 2 launches) " + json.dumps(
+        {k: report[k] for k in ("forward_ms", "forward_call_ms")}
+    ))
+    return cases, report
 
 
 def get_json(port: int, path: str):
@@ -748,9 +963,28 @@ def profile_forecast(torch, proc, kernel_names) -> dict:
     )
 
 
+def write_report(path, report) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--report", help="also write the full report as JSON here")
+    parser.add_argument(
+        "--kernels-only",
+        action="store_true",
+        help="phases 1-5 only (card, build, both kernel checks with the state "
+        "load they need), then the report: for timing two checkouts on one card",
+    )
+    parser.add_argument(
+        "--zeroing",
+        action="store_true",
+        help="phases 1-3, then the segment-stats kernel's zeroing prologue timed "
+        "against a cudaMemsetAsync before a plain launch, then the report",
+    )
     args = parser.parse_args(argv)
 
     import torch
@@ -774,6 +1008,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     walls: dict = {}
     report: dict = {}
+    jobs: list = []  # device times to take after every event timing
 
     with Phase("card", walls):
         smi = subprocess.run(
@@ -793,8 +1028,18 @@ def main(argv=None) -> int:
 
     tick_shape_groups = synth_groups(TICK_TRACES, STATE_TRACES, "shape")
     with Phase("kernel check", walls):
-        cases = kernel_cases(torch, device, tick_shape_groups)
+        cases = kernel_cases(torch, device, tick_shape_groups, jobs)
         report["segment_stats_cases"] = cases
+
+    if args.zeroing:
+        with Phase("zeroing", walls):
+            report["zeroing"] = zeroing_cases(torch, device, tick_shape_groups, jobs)
+        with Phase("device times", walls):
+            device_times(torch, jobs)
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"zeroing": report["zeroing"]}))
+        return 0
 
     with Phase("state load", walls):
         proc, feed = load_state(device)
@@ -806,8 +1051,16 @@ def main(argv=None) -> int:
         report["state"] = {"traces": STATE_TRACES, "endpoints": n_eps, "edges": n_edges}
 
     with Phase("fused kernel check", walls):
-        f_cases = fused_cases(torch, proc.graph)
+        f_cases, report["edge_index"] = fused_cases(torch, proc.graph, jobs)
         report["fused_sddmm_spmm_cases"] = f_cases
+
+    if args.kernels_only:
+        with Phase("device times", walls):
+            device_times(torch, jobs)
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"segment_stats": cases, "fused_sddmm_spmm": f_cases, "edge_index": report["edge_index"]}))
+        return 0
 
     with Phase("serve ticks", walls):
         timings, launches = serve_ticks(
@@ -851,6 +1104,9 @@ def main(argv=None) -> int:
         report["profile_forecast"] = profile_forecast(torch, fproc, kernel_names)
         log("   " + json.dumps(report["profile_forecast"]))
 
+    with Phase("device times", walls):
+        device_times(torch, jobs)
+
     def entry(wrapper, source, replaces, n_launches, all_cases, shown):
         return {
             "name": wrapper.__name__,
@@ -860,10 +1116,12 @@ def main(argv=None) -> int:
             "launches": n_launches,
             "max_abs_err": max(c["max_abs_err"] for c in all_cases),
             "ms": shown["ms"],
+            "call_ms": shown["call_ms"],
             "plain_ms": shown["plain_ms"],
             "bound_ms": shown["bound_ms"],
             "bound_by": shown["bound_by"],
             "library_ms": shown["library_ms"],
+            "device_ms": shown["device_ms"],
             "shape": shown["shape"],
             "ok": True,
             "cases": all_cases,
@@ -879,10 +1137,7 @@ def main(argv=None) -> int:
         ]
     }
     report["walls_s"] = walls
-    if args.report:
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
-        with open(args.report, "w") as f:
-            json.dump(report, f, indent=1)
+    write_report(args.report, report)
     log("   phase walls (s): " + json.dumps({k: round(v, 2) for k, v in walls.items()}))
     log(json.dumps(line))
     log(smi)

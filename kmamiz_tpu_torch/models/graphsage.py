@@ -8,8 +8,8 @@ features from the window statistics predicting next-hour latency
 Aggregation uses both edge directions (callers and callees are both
 signal for an endpoint's health) as segment means. Each neighbor mean is
 one launch of the fused SDDMM/SpMM kernel (ops/sparse.py) on the card, so
-a forward launches it twice. The loss, optimizer and train step come with
-the training slice.
+a forward launches it twice, over one edge index built per forward. The
+loss, optimizer and train step come with the training slice.
 """
 from __future__ import annotations
 
@@ -149,12 +149,15 @@ def neighbor_mean(
     src_ep: torch.Tensor,  # [E]
     dst_ep: torch.Tensor,  # [E]
     edge_mask: torch.Tensor,  # [E]
+    index: Optional[sparse.EdgeIndex] = None,
 ) -> torch.Tensor:
     """Mean of neighbor states over both edge directions: one fused
     SDDMM/SpMM (ops/sparse.py) gives the sums and the masked degree (exact:
-    sums of 1.0); the division stays out here."""
+    sums of 1.0); the division stays out here. `index` is the edge list's
+    sparse.edge_index over N rows (built by the kernel's wrapper when not
+    given)."""
     agg, deg = sparse.fused_neighbor_sums(
-        h.to(torch.float32), src_ep, dst_ep, edge_mask
+        h.to(torch.float32), src_ep, dst_ep, edge_mask, index=index
     )
     return (agg / torch.clamp(deg, min=1.0)[:, None]).to(h.dtype)
 
@@ -166,11 +169,15 @@ def forward(
     dst_ep: torch.Tensor,
     edge_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two SAGE layers -> (latency prediction [N], anomaly logits [N])."""
+    """Two SAGE layers -> (latency prediction [N], anomaly logits [N]).
+    On the card both layers aggregate over one edge index
+    (sparse.edge_index over the N feature rows), built here once; the
+    plain CPU version reads no index."""
     x = concat_embedding(features, params.embedding)
-    agg1 = neighbor_mean(x, src_ep, dst_ep, edge_mask)
+    index = sparse.edge_index(src_ep, dst_ep, edge_mask, x.shape[0]) if x.is_cuda else None
+    agg1 = neighbor_mean(x, src_ep, dst_ep, edge_mask, index=index)
     h1 = torch.relu(x @ params.w_self_1 + agg1 @ params.w_neigh_1 + params.b_1)
-    agg2 = neighbor_mean(h1, src_ep, dst_ep, edge_mask)
+    agg2 = neighbor_mean(h1, src_ep, dst_ep, edge_mask, index=index)
     h2 = torch.relu(h1 @ params.w_self_2 + agg2 @ params.w_neigh_2 + params.b_2)
     latency = (
         h2 @ params.w_latency + features @ params.w_latency_skip + params.b_latency

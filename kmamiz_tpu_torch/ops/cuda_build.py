@@ -19,7 +19,9 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -37,10 +39,13 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: Sequence[str] = ()) -> Path:
     """Compile csrc/<name>.cu unless its current build exists; returns
-    the library path. Raises RuntimeError with nvcc's output on failure."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    the library path. `defines` are preprocessor macros (-D) that select a
+    variant of the source, built apart. Raises RuntimeError with nvcc's
+    output on failure."""
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + "\0".join(defines).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if out.exists():
         return out
@@ -56,6 +61,7 @@ def build(name: str) -> Path:
         "-fPIC",
         "-Xptxas",
         "-v",
+        *(f"-D{d}" for d in defines),
         "-o",
         str(tmp),
         str(CSRC / f"{name}.cu"),
@@ -66,7 +72,8 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
         )
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
+    variant = "".join(f".{d}" for d in defines)
+    (BUILD_DIR / f"{name}{variant}.ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
@@ -86,3 +93,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch(fn, args, device: torch.device) -> int:
+    """Call a kernel's C entry with args and the current stream of `device`
+    (a CUDA device with its index) appended, with that device current;
+    returns the entry's cudaError code."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    # the raw stream pointer, without building a torch.cuda.Stream object
+    return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))

@@ -283,11 +283,10 @@ def window_stats(
     )
     sums, ts = segment_stats(values, seg, ts_in, num_segments)
     resid_sq, _ = segment_stats(
-        residual_rows(values, seg, sums, num_segments),
-        seg,
-        torch.zeros_like(ts_in),
-        num_segments,
+        residual_rows(values, seg, sums, num_segments), seg, None, num_segments
     )
+    # sums is the strided [5, S] view of segment-major storage: every row
+    # below is a strided [S] view, which the elementwise ops take as is
     count, e4, e5, lat_sum, lat_sq = sums.unbind(0)
     safe_count = count.clamp(min=1)
     mean = lat_sum / safe_count

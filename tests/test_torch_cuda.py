@@ -59,6 +59,7 @@ def test_kernel_matches_plain_on_card(card, n):
     sums, ts_max = ss.segment_stats(values, seg, ts, num_segments)
     torch.cuda.synchronize()
     assert ss.segment_stats.launches == before + 1
+    assert sums.stride() == (1, ss.row_stride(sums.shape[0]))  # segment-major
     want_sums, want_max = ss.segment_stats_plain(values, seg, ts, num_segments)
     assert torch.equal(ts_max, want_max)
     assert torch.equal(sums[:3], want_sums[:3])  # count, 4xx, 5xx: exact
@@ -157,7 +158,12 @@ def _features(n, f, seed):
 
 
 @pytest.mark.cuda
-def test_forwards_launch_the_kernel_and_match_the_cpu(card):
+def test_forwards_launch_the_kernel_and_match_the_cpu(card, monkeypatch):
+    """GraphSAGE launches the kernel twice over one edge index, STLGT once
+    over one; both match the CPU forward."""
+    builds = []
+    edge_index = sparse.edge_index
+    monkeypatch.setattr(sparse, "edge_index", lambda *a: builds.append(1) or edge_index(*a))
     (_, _, _), (src, dst, mask) = _edges(1024, 8192, 1, seed=7)
     src[:3] = 0  # real snapshots carry no out-of-range ids
     feats = _features(1024, 18, seed=8)
@@ -166,9 +172,78 @@ def test_forwards_launch_the_kernel_and_match_the_cpu(card):
         (stlgt, lambda d: stlgt.init_params(torch.Generator().manual_seed(2), hidden=32, num_features=18, device=d), 1),
     ):
         before = sparse.fused_sddmm_spmm.launches
+        builds.clear()
         got = model.forward(params_of(card), *(t.to(card) for t in (feats, src, dst, mask)))
         torch.cuda.synchronize()
         assert sparse.fused_sddmm_spmm.launches == before + launches, model.__name__
+        assert len(builds) == 1, model.__name__
         want = model.forward(params_of("cpu"), feats, src, dst, mask)
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5])
+def test_kernel_takes_no_timestamps(card, m):
+    arrays, sizes = _window(1 << 16, 300, 8, seed=m)
+    dev = {k: torch.from_numpy(v).to(card) for k, v in arrays.items()}
+    values, seg, _ts, num_segments = window_ops.stat_rows(**dev, **sizes)
+    values = values[:m].contiguous()
+    sums, ts_max = ss.segment_stats(values, seg, None, num_segments)
+    torch.cuda.synchronize()
+    assert ts_max is None
+    assert sums.stride() == (1, ss.row_stride(m))
+    want, none = ss.segment_stats_plain(values, seg, None, num_segments)
+    assert none is None
+    assert torch.equal(sums[:3], want[:3])  # count (and 4xx, 5xx): exact
+    torch.testing.assert_close(sums, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_kernel_is_bit_for_bit_repeatable(card, gated):
+    """No atomics: two launches on the same inputs give the same bits,
+    with a hub row of ~2,300 entries (many 32-entry batches) included;
+    ungated, deg is each row's live incident-edge count."""
+    n, e, h = 4096, 65_536, 32 if gated else 64
+    (v, q, k), (src, dst, mask) = _edges(n, e, h, seed=21)
+    src[100:3000] = 0  # a hub
+    extra = [t.to(card) for t in (q, k, torch.tensor([-0.2]))] if gated else []
+    args = [t.to(card) for t in (v, src, dst, mask)] + extra
+    index = sparse.edge_index(*args[1:4], n)
+    first = sparse.fused_sddmm_spmm(*args, index=index)
+    second = sparse.fused_sddmm_spmm(*args)  # builds its own index
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want_bias, want_deg, want_gate = sparse.fused_plain(*args)
+    # the hub row sums ~2,300 terms in fp32, in the index's order against
+    # index_add_'s: the two differ by up to ~3e-5 there, so 1e-4 (the other
+    # rows hold ~20 terms and sit within the 1e-5 of the shape grid above)
+    torch.testing.assert_close(first[0], want_bias, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(first[1], want_deg, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(first[0][1:], want_bias[1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(first[2], want_gate, rtol=0, atol=1e-6)
+    if not gated:
+        s, d, live = src.numpy(), dst.numpy(), mask.numpy()
+        count = np.zeros(n)
+        for ends in (s, d):
+            keep = live & (ends >= 0) & (ends < n)
+            np.add.at(count, ends[keep], 1)
+        assert count[0] > 2000  # the hub: 80% of 2,900 slots are live
+        np.testing.assert_array_equal(first[1].cpu().numpy(), count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 40_000])  # int16 and int32 sort keys
+def test_edge_index_on_the_card_matches_the_cpu(card, n):
+    """The keys kernel against edge_keys_plain, through the whole index:
+    masked slots, sentinel padding, ids past n and negative ids."""
+    _tables, (src, dst, mask) = _edges(n, 65_536, 1, seed=17)
+    dst[3:6] = -1
+    mask[3:6] = True
+    got = sparse.edge_index(src.to(card), dst.to(card), mask.to(card), n)
+    torch.cuda.synchronize()
+    want = sparse.edge_index(src, dst, mask, n)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

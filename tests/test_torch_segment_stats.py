@@ -129,3 +129,49 @@ def test_window_stats_matches_jax(backend):
     np.testing.assert_allclose(
         got.latency_cv.numpy(), np.asarray(want.latency_cv), rtol=1e-4, atol=1e-6
     )
+
+
+@pytest.mark.parametrize("m", [1, 5])
+def test_plain_takes_no_timestamps(m):
+    vals, seg, ts, s = _segment_inputs(m, seed=4)
+    args = (torch.from_numpy(vals), torch.from_numpy(seg))
+    sums, ts_max = port_ss.segment_stats(*args, None, s)
+    assert ts_max is None
+    with_ts, _ = port_ss.segment_stats(*args, torch.from_numpy(ts), s)
+    assert torch.equal(sums, with_ts)
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 9])
+def test_sums_are_the_m_by_s_view_of_segment_major_storage(m):
+    """The kernel wrapper's output layout (allocated here on the CPU, as the
+    wrapper allocates it on the card): sums is [m, S] over [S, ld] storage
+    (ld = m rounded up to 4 from m = 4 on, 16-byte rows for the vector
+    atomic), ts_max follows it in the same buffer, and sums in that layout
+    equal the plain version's contiguous ones, and a reference built by
+    hand, on integer rows whatever the strides."""
+    vals, seg, ts, s = _segment_inputs(m, seed=5)
+    vals = np.round(vals * 4)  # integer-valued rows: exact in any order
+    ld = port_ss.row_stride(m)
+    assert ld == {1: 1, 2: 2, 5: 8, 9: 12}[m]
+    buf, sums, ts_max = port_ss._outputs(m, s, True, torch.device("cpu"))
+    assert sums.shape == (m, s) and sums.stride() == (1, ld)
+    assert sums.storage_offset() == 0 and sums.data_ptr() == buf.data_ptr()
+    assert ts_max.shape == (s,) and ts_max.dtype == torch.int32 and ts_max.is_contiguous()
+    assert ts_max.data_ptr() == buf.data_ptr() + s * ld * 4  # sums, then ts_max
+    bare, bare_sums, none = port_ss._outputs(m, s, False, torch.device("cpu"))
+    assert none is None and bare is bare_sums and bare_sums.stride() == (1, ld)
+    plain, plain_ts = port_ss.segment_stats(
+        torch.from_numpy(vals), torch.from_numpy(seg), torch.from_numpy(ts), s
+    )
+    sums.copy_(plain)
+    ts_max.copy_(plain_ts)
+    want = np.zeros((m, s), dtype=np.float32)
+    keep = (seg >= 0) & (seg < s)
+    for r in range(m):
+        np.add.at(want[r], seg[keep], vals[r, keep])
+    assert torch.equal(plain, torch.from_numpy(want))
+    assert torch.equal(sums, plain)
+    assert all(torch.equal(a, b) for a, b in zip(sums.unbind(0), plain.unbind(0)))
+    want_ts = np.zeros(s, dtype=np.int32)
+    np.maximum.at(want_ts, seg[keep], np.maximum(ts[keep], 0))
+    np.testing.assert_array_equal(ts_max.numpy(), want_ts)

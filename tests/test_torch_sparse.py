@@ -179,3 +179,117 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         sparse.fused_sddmm_spmm(torch.zeros((0, 3)), ids, ids, mask)
     with pytest.raises(ValueError, match="device"):
         sparse.fused_sddmm_spmm(v, ids, ids, mask.to("meta"))
+
+
+def _index_reference(src, dst, mask, n):
+    """edge_index by hand: row r lists (other end, j) for j in order,
+    j < E the dst side of edge j and j >= E the src side of edge j - E; a
+    masked edge or an end outside [0, n) lists nothing."""
+    e = len(src)
+    rows = [[] for _ in range(n)]
+    for j in range(2 * e):
+        edge = j % e
+        row, other = (dst[edge], src[edge]) if j < e else (src[edge], dst[edge])
+        if mask[edge] and 0 <= row < n:
+            rows[row].append((int(other), j))
+    row_ptr = np.cumsum([0] + [len(r) for r in rows])
+    nbr = np.array([x for r in rows for x, _ in r], dtype=np.int64)
+    eid = np.array([j for r in rows for _, j in r], dtype=np.int64)
+    return row_ptr, nbr, eid
+
+
+def _index_case(case):
+    """(src, dst, mask, n) of one edge_index case."""
+    rng = np.random.default_rng(11)
+    if case == "n1":
+        src = np.array([0, 0, 1, -1, 0], dtype=np.int32)
+        dst = np.array([0, 3, 0, 0, 0], dtype=np.int32)
+        return src, dst, np.array([True, True, True, True, False]), 1
+    if case == "no-edges":
+        empty = np.zeros(0, dtype=np.int32)
+        return empty, empty, np.zeros(0, dtype=bool), 5
+    n, e = 64, 400
+    src = rng.integers(0, n // 2, e).astype(np.int32)  # rows n/2.. stay empty
+    dst = rng.integers(0, n // 2, e).astype(np.int32)
+    mask = rng.random(e) < 0.7
+    src[-50:] = SENTINEL  # padding
+    dst[-50:] = SENTINEL
+    mask[-50:] = False
+    src[:4] = [-3, n, 5, 7]  # live edges with one end out of range
+    dst[:4] = [9, 9, n + 8, -1]
+    mask[:4] = True
+    src[10:16] = 3  # one (src, dst) pair in six slots, e.g. at six distances
+    dst[10:16] = 4
+    mask[10:16] = True
+    src[16], dst[16], mask[16] = 6, 6, True  # a self loop
+    return src, dst, mask, n
+
+
+@pytest.mark.parametrize("case", ["random", "n1", "no-edges"])
+def test_edge_index_matches_a_hand_built_csr(case):
+    src, dst, mask, n = _index_case(case)
+    index = sparse.edge_index(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(mask), n)
+    row_ptr, nbr, eid = _index_reference(src, dst, mask, n)
+    assert index.row_ptr.dtype == index.nbr.dtype == torch.int32
+    assert index.eid.dtype == torch.int64
+    assert index.nbr.shape == index.eid.shape == (2 * len(src),)
+    np.testing.assert_array_equal(index.row_ptr.numpy(), row_ptr)
+    live = int(row_ptr[-1])
+    np.testing.assert_array_equal(index.nbr.numpy()[:live], nbr)
+    np.testing.assert_array_equal(index.eid.numpy()[:live], eid)
+    # the parked entries are the rest of the 2E: eid is a permutation
+    np.testing.assert_array_equal(np.sort(index.eid.numpy()), np.arange(2 * len(src)))
+    if case == "random":
+        assert (np.diff(row_ptr)[32:] == 0).all()  # empty rows
+        e = len(src)  # every slot of the duplicated pair 3 -> 4, both sides
+        assert set(range(10, 16)) <= set(eid[row_ptr[4] : row_ptr[5]])
+        assert set(range(e + 10, e + 16)) <= set(eid[row_ptr[3] : row_ptr[4]])
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,e,h", SHAPES)
+def test_plain_sums_rebuild_from_the_index(gated, n, e, h):
+    """fused_plain's bias and deg are the per-row sums over the index's
+    entries: g(j) * v[nbr clamped into [0, n)] and g(j), g the gate of edge
+    j mod E."""
+    (v, q, k), src, dst, mask = _graph(3 * n + h, n, e, h, out_of_range=5)
+    t = torch.from_numpy
+    extra = (t(q), t(k), torch.tensor([0.4])) if gated else ()
+    bias, deg, gate = sparse.fused_plain(t(v), t(src), t(dst), t(mask), *extra)
+    index = sparse.edge_index(t(src), t(dst), t(mask), n)
+    row_ptr, nbr, eid = (a.numpy().astype(np.int64) for a in index)
+    nbr = nbr.clip(0, n - 1)
+    g = gate.numpy()[eid % e]
+    want_bias = np.zeros((n, h), dtype=np.float64)
+    want_deg = np.zeros(n, dtype=np.float64)
+    for r in range(n):
+        p = slice(row_ptr[r], row_ptr[r + 1])
+        want_bias[r] = (g[p, None] * v[nbr[p]]).sum(axis=0)
+        want_deg[r] = g[p].sum()
+    np.testing.assert_allclose(bias.numpy(), want_bias, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(deg.numpy(), want_deg, rtol=1e-5, atol=1e-5)
+
+
+def test_index_of_a_bucket_padded_snapshot():
+    """edge_index over the forward's bucket-padded inputs (models/serving's
+    padded_inputs): the padding rows past the real endpoints and the
+    padding edge slots list nothing, and each row's length is the node's
+    ungated degree (graphsage.neighbor_degree), exactly."""
+    from kmamiz_tpu_torch.models import graphsage, serving
+
+    rng = np.random.default_rng(12)
+    n, e = 150, 1200
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    mask = rng.random(e) < 0.9
+    feats, src_p, dst_p, mask_p, _n, _e = serving.padded_inputs(
+        np.ones((n, 18), dtype=np.float32), src, dst, mask, torch.device("cpu")
+    )
+    n_pad = feats.shape[0]
+    assert (n_pad, src_p.shape[0]) == (256, 2048)
+    index = sparse.edge_index(src_p, dst_p, mask_p, n_pad)
+    lengths = (index.row_ptr[1:] - index.row_ptr[:-1]).numpy()
+    assert int(index.row_ptr[-1]) == 2 * int(mask.sum())
+    assert (lengths[n:] == 0).all()
+    assert (index.eid[: int(index.row_ptr[-1])] % src_p.shape[0] < e).all()
+    deg = graphsage.neighbor_degree(n_pad, src_p, dst_p, mask_p)
+    np.testing.assert_array_equal(lengths.astype(np.float32), deg.numpy())
