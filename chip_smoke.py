@@ -30,14 +30,19 @@ Phases, each timed:
    bits; times and bound as in phase 3; the edge index's build time and
    row lengths (mean, p99, max), and a GraphSAGE forward's kernel work
    (one index build and the launches at H = 18 and 64) timed together;
-6. the tick path: the port's DataProcessorServer on the card answers 4 DP
+6. the backward kernels against their plain versions on the same graph
+   and bucket: the row pass ungated at H = 18 and 64 and gated at H = 32,
+   the SDDMM of the gate's grad at H = 32, over one gather index, each
+   relaunched for the same bits, with times and bound; the whole gated
+   backward beside autograd of the index_add_ formulation;
+7. the tick path: the port's DataProcessorServer on the card answers 4 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
    counter is zeroed just before and read just after, and the
    segment-stats kernel must have run exactly twice per tick;
-7. card against CPU: one more tick on the card and on the port's CPU path,
+8. card against CPU: one more tick on the card and on the port's CPU path,
    both from the carried BASELINE graph (export_named_edges ->
    graph_from_export), compared field by field and by graph signature;
-8. the forecast path: a processor on the same graph serves two ticks in
+9. the forecast path: a processor on the same graph serves two ticks in
    successive hours (910 and 911), which folds the hour and publishes a
    forecast snapshot of every endpoint; the port's ApiServer, with
    KMAMIZ_MODEL_DIR at tests/fixtures/model10k_torch, answers GET
@@ -46,19 +51,36 @@ Phases, each timed:
    GET is served from the memo (no launch), and the STLGT quantile forward
    (hidden 32, seeded weights) runs on the same snapshot (one gated
    launch);
-9. forecast card against CPU: the same snapshot and weights through the
+10. forecast card against CPU: the same snapshot and weights through the
    port on the CPU, compared output by output, and the payload the route
    served compared per endpoint with the CPU forward after the route's
    rounding;
-10. profile: one more tick, and one GraphSAGE forecast forward, on the
-   card under torch.profiler — the device's busy time (union of its
-   kernel, copy and fill intervals), its share of the wall time, the top
-   device ops, and peak device memory; then the device times of phases 3
-   and 5, last, because a profiler session leaves every later launch
-   slower on the host and would inflate the card times taken after it.
+11. GraphSAGE training at the served head's shape (hidden 64, 18 features)
+   over the BASELINE graph's live edges: 24 seeded slots, 8 fused epochs,
+   lr 1e-2, pos_weight 4, through trainer.train with a checkpoint; the
+   losses must fall, and the counters, zeroed just before, must show 2
+   forward launches and 1 backward row pass per step; one steady epoch
+   timed and profiled; one epoch over 2 slots on the card against the
+   CPU (losses rtol 1e-3); then the checkpoint served by GET
+   /api/v1/model/forecast (one edge index for the snapshot);
+12. the STLGT continual trainer behind the fold hook (KMAMIZ_STLGT=1,
+   production defaults) fed by a processor's ticks in 5 successive
+   hours (4 folds, 3 refreshes) through the DP server, counters zeroed
+   just before: GET /model/stlgt must show the refreshes and no failure,
+   the fold hook no error; the last refresh replayed on the port's CPU
+   path from the same ring and params (rtol 1e-3 / atol 1e-5); GET
+   /api/v1/model/forecast?quantile=p99&horizon=3 with the trained
+   GraphSAGE checkpoint beside the live params (3 launches, one edge index);
+13. profile: one more tick, one GraphSAGE forecast forward, and one
+   STLGT fold tick (with its refresh), on the card under torch.profiler
+   — the device's busy time (union of its kernel, copy and fill
+   intervals), its share of the wall time, the top device ops, and peak
+   device memory; then the device times of phases 3, 5 and 6, last,
+   because a profiler session leaves every later launch slower on the
+   host and would inflate the card times taken after it.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
-With --kernels-only it stops after phase 5 and prints the kernel cases,
+With --kernels-only it stops after phase 6 and prints the kernel cases,
 for a comparison of two checkouts on the same card in one run. With
 --zeroing it stops after phase 3 and times the segment-stats kernel's
 zeroing prologue against the same source built to zero with a
@@ -70,6 +92,7 @@ holds this script without the kmamiz_tpu_torch package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gzip
 import json
 import math
@@ -77,6 +100,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -102,6 +126,13 @@ FORECAST_HOURS = (910, 911)  # two ticks in successive hours: one fold
 MODEL_DIR = "tests/fixtures/model10k_torch"
 STLGT_HIDDEN = 32  # the STLGT head's default width
 SEED = 0
+# GraphSAGE training at the served head's shape (bench.py's training setup)
+SAGE_SLOTS = 24
+SAGE_EPOCHS = 8
+SAGE_HIDDEN = 64
+SAGE_FEATURES = 18  # 10 base + 8 history columns
+SAGE_LR = 1e-2
+STLGT_HOURS = (920, 921, 922, 923, 924)  # 5 ticks: 4 folds, 3 refreshes
 
 
 def log(msg: str) -> None:
@@ -577,7 +608,7 @@ def get_json(port: int, path: str):
 
 
 def serve_forecast(torch, graph, device, launch_counters, t_start: int):
-    """Phase 8, the forecast path: two ticks in successive hours through
+    """Phase 9, the forecast path: two ticks in successive hours through
     the DP server of a processor on the carried graph (its hourly history
     starts empty), then the forecast routes over HTTP and the STLGT
     quantile forward on the published snapshot. Returns the report, the
@@ -635,9 +666,11 @@ def serve_forecast(torch, graph, device, launch_counters, t_start: int):
         zero()
         status, st, status_ms = get_json(api.port, "/api/v1/model/status")
         check(status == 200 and st["modelLoaded"] is True, f"model not loaded: {st}")
+        builds = sparse.edge_index.builds
         status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast")
         check(status == 200, f"forecast answered {status}")
         first = counts()
+        index_builds = sparse.edge_index.builds - builds
         zero()
         status, fc2, memo_ms = get_json(api.port, "/api/v1/model/forecast")
         memo = counts()
@@ -653,6 +686,7 @@ def serve_forecast(torch, graph, device, launch_counters, t_start: int):
         check(math.isfinite(p) and 0.0 <= p <= 1.0, f"probability {p} of {e['uniqueEndpointName']}")
         check(math.isfinite(e["predictedLatencyMs"]), f"latency of {e['uniqueEndpointName']}")
     check(first[sparse.fused_sddmm_spmm.__name__] == 2, f"GraphSAGE GET launched {first}")
+    check(index_builds == 1, f"{index_builds} edge index builds for one snapshot")
     check(memo[sparse.fused_sddmm_spmm.__name__] == 0, f"memoized GET launched {memo}")
     check(fc2 == fc, "memoized forecast differs")
 
@@ -684,12 +718,13 @@ def serve_forecast(torch, graph, device, launch_counters, t_start: int):
         "memo_get_ms": memo_ms,
         "stlgt_forward_ms": stlgt_ms,
         "launches": {"graphsage_get": first, "memo_get": memo, "stlgt": st_counts},
+        "graphsage_get_index_builds": index_builds,
     }
     return report, proc, fc, (q_ms, prob, gate)
 
 
 def forecast_card_against_cpu(torch, proc, served, card_stlgt) -> dict:
-    """Phase 9: the snapshot's GraphSAGE forecast and STLGT forward on the
+    """Phase 10: the snapshot's GraphSAGE forecast and STLGT forward on the
     card against the port on the CPU, with the same weights; and the
     payload the forecast route served against the CPU forward after the
     route's rounding."""
@@ -802,7 +837,7 @@ def check_response(resp: dict, unique_id: str) -> None:
 
 
 def serve_ticks(torch, proc, feed, launch_counters, t_start: int, ticks: int = TICKS):
-    """Phase 5, the main path: DP ticks through the port's HTTP server.
+    """Phase 7, the tick path: DP ticks through the port's HTTP server.
     Returns per-tick stage timings and the launch counts of the run."""
     from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
 
@@ -859,7 +894,7 @@ def compare_ticks(got: dict, want: dict) -> None:
 
 
 def card_against_cpu(proc, device, t_start: int) -> dict:
-    """Phase 6: one tick on the card and on the CPU from the same carried
+    """Phase 8: one tick on the card and on the CPU from the same carried
     graph."""
     from kmamiz_tpu_torch.graph.convert import graph_from_export
     from kmamiz_tpu_torch.graph.store import graph_signature
@@ -940,7 +975,7 @@ def profile_device(torch, run, kernel_names) -> dict:
 
 
 def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
-    """Phase 10a: one more tick on the card processor under the profiler."""
+    """Phase 13a: one more tick on the card processor under the profiler."""
     feed.groups = synth_groups(TICK_TRACES, t_start, "profile")
     out = profile_device(
         torch, lambda: proc.collect({"uniqueId": "profile", "lookBack": 30_000}), kernel_names
@@ -950,7 +985,7 @@ def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
 
 
 def profile_forecast(torch, proc, kernel_names) -> dict:
-    """Phase 10b: one GraphSAGE forecast forward of the snapshot (the work
+    """Phase 13b: one GraphSAGE forecast forward of the snapshot (the work
     behind an un-memoized GET) on the card under the profiler."""
     from kmamiz_tpu_torch.models import checkpoint, graphsage, serving
 
@@ -961,6 +996,537 @@ def profile_forecast(torch, proc, kernel_names) -> dict:
     return profile_device(
         torch, lambda: serving.forecast_forward(params, *inputs, graphsage), kernel_names
     )
+
+
+def kernel_case(torch, label, kernel, plain, library, nbytes, ops, jobs, **info):
+    """One shape of a backward kernel: its outputs against the plain
+    version's on the same card tensors (rtol 1e-4 / atol 1e-5: fp32 sums
+    in the gather index's order against index_add_'s), the same bits from
+    two launches, and its times beside the bound; the device time is
+    queued on jobs. kernel() and plain() return tuples of tensors (None
+    where an output is not computed); library() is one PyTorch call of the
+    same function, or None."""
+    got = kernel()
+    torch.cuda.synchronize()
+    again = kernel()
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        check(a is None and b is None or torch.equal(a, b), f"{label}: two launches give different bits")
+    want = plain()
+    errs = []
+    for a, w in zip(got, want):
+        if w is None:
+            continue
+        a, w = a.reshape(-1), w.reshape(-1)
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5, msg=label)
+        errs.append(float((a - w).abs().max()) if a.numel() else 0.0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    case = {
+        "shape": label,
+        **info,
+        "bit_equal_relaunch": True,
+        "max_abs_err": max(errs),
+        "ms": cuda_ms(torch, kernel),
+        "call_ms": call_ms(torch, kernel),
+        "plain_ms": cuda_ms(torch, plain),
+        "library_ms": None if library is None else cuda_ms(torch, library),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+    }
+    jobs.append((case, "device_ms", kernel))
+    log("   " + json.dumps(case))
+    return case
+
+
+def backward_cases(torch, graph, jobs):
+    """Phase 6: the backward kernels against their plain versions on card
+    tensors at the training shapes: the BASELINE graph's edge columns over
+    node tables at the pow2 bucket of its endpoints, the row pass ungated
+    at H = 18 and 64 (GraphSAGE's layers) and gated at H = 32 (STLGT, with
+    the SDDMM of da before it), over one gather index; the whole gated
+    backward beside autograd of the index_add_ formulation. Returns
+    (rows cases, edges cases, report)."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.core.spans import _pad_size
+    from kmamiz_tpu_torch.ops import sparse
+
+    src, dst, _dist, mask = graph.edge_arrays()
+    n_eps = len(graph.interner.endpoints)
+    n = _pad_size(n_eps)
+    e = src.shape[0]
+    dev = src.device
+    rng = np.random.default_rng(SEED + 1)
+
+    def table(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    index = sparse.edge_index(src, dst, mask, n, for_backward=True)
+    report = {
+        "index_with_gather_ms": cuda_ms(
+            torch, lambda: sparse.edge_index(src, dst, mask, n, for_backward=True)
+        ),
+        "gather_equals_forward_index": all(
+            torch.equal(a, b) for a, b in zip(index[:3], index.gather[:3])
+        ),
+    }
+    live = int(mask.sum())
+    src_l, dst_l = src.long(), dst.long()
+    src_c, dst_c = src_l.clamp(0, n - 1), dst_l.clamp(0, n - 1)
+    ends = int(torch.unique(torch.cat([src_c[mask], dst_c[mask]])).numel())
+    src_rows = int(torch.unique(src_c[mask]).numel())
+    dst_rows = int(torch.unique(dst_c[mask]).numel())
+    ids_bytes = e * 1 + live * 8  # the mask of every slot, the ids of live edges
+    # the library yardstick: autograd of the index_add_ formulation
+    src_s = torch.where(mask & (src_l < n), src_l, n)
+    dst_s = torch.where(mask & (dst_l < n), dst_l, n)
+    em = mask.float()
+
+    def library_of(v, q=None, k=None, b=None):
+        # gathers by index_select, whose backward is an index_add_ (an
+        # advanced-indexing gather's backward is a sort-based index_put_)
+        def rows(t, ids):
+            return t.index_select(0, ids)
+
+        if q is None:
+            g = em
+        else:
+            g = torch.sigmoid((rows(q, src_c) * rows(k, dst_c)).sum(dim=1) / math.sqrt(v.shape[1]) + b) * em
+        bias = torch.zeros((n + 1, v.shape[1]), device=dev).index_add(0, dst_s, rows(v, src_c) * g[:, None])
+        bias = bias.index_add(0, src_s, rows(v, dst_c) * g[:, None])
+        deg = torch.zeros(n + 1, device=dev).index_add(0, dst_s, g).index_add(0, src_s, g)
+        return bias, deg, g
+
+    rows_cases, edges_cases = [], []
+    for label, h, gated in (
+        ("graphsage layer 1 backward (ungated)", 18, False),
+        ("graphsage layer 2 backward (ungated)", 64, False),
+        ("stlgt backward (gated)", STLGT_HIDDEN, True),
+    ):
+        v, d_bias = table(n, h), table(n, h)
+        info = {"n": n, "h": h, "edges": e, "live_edges": live, "gated": gated}
+        if not gated:
+            leaf = v.clone().requires_grad_()
+            lib_out = library_of(leaf)[0]
+            d_pad = torch.cat([d_bias, torch.zeros(1, h, device=dev)])
+            rows_cases.append(
+                kernel_case(
+                    torch,
+                    label,
+                    lambda: sparse.fused_sddmm_spmm_grad_rows(n, src, dst, mask, None, d_bias, index=index),
+                    lambda: sparse.grad_rows_plain(n, src, dst, mask, em, d_bias),
+                    lambda: torch.autograd.grad(lib_out, leaf, d_pad, retain_graph=True),
+                    # d_bias rows at the live ends, dv written whole
+                    ids_bytes + ends * h * 4 + n * h * 4,
+                    live * 4 * h,
+                    jobs,
+                    **info,
+                )
+            )
+            continue
+        q, k = table(n, h), table(n, h)
+        b = torch.tensor([0.1], device=dev)
+        d_deg, d_gate = table(n), table(e)
+        with torch.no_grad():
+            _bias, _deg, gate = sparse.fused_sddmm_spmm(v, src, dst, mask, q, k, b, index=index)
+        edge_args = (v, src, dst, mask, gate, d_bias, d_deg, d_gate)
+        edges_cases.append(
+            kernel_case(
+                torch,
+                label + ": da (SDDMM)",
+                lambda: (sparse.fused_sddmm_spmm_grad_edges(*edge_args),),
+                lambda: (sparse.grad_edges_plain(*edge_args),),
+                None,
+                # the gate and d_gate of live edges, d_deg at the live ends,
+                # v and d_bias rows at the live ends, da written whole
+                ids_bytes + live * 8 + ends * 4 + 2 * ends * h * 4 + e * 4,
+                live * (4 * h + 10),
+                jobs,
+                **info,
+            )
+        )
+        da = sparse.grad_edges_plain(*edge_args)
+        rows_cases.append(
+            kernel_case(
+                torch,
+                label + ": dv, dq, dk (row pass)",
+                lambda: sparse.fused_sddmm_spmm_grad_rows(n, src, dst, mask, gate, d_bias, da, q, k, index=index),
+                lambda: sparse.grad_rows_plain(n, src, dst, mask, gate, d_bias, da, q, k),
+                None,
+                # gate and da of live edges; d_bias at the live ends, q at the
+                # live sources, k at the live destinations; dv, dq, dk whole
+                ids_bytes + live * 8 + (ends + src_rows + dst_rows) * h * 4 + 3 * n * h * 4,
+                live * 8 * h + 2 * n * h,
+                jobs,
+                **info,
+            )
+        )
+        # the whole gated backward (two launches and a sum) against autograd
+        # of the index_add_ formulation
+        leaves = [t.clone().requires_grad_() for t in (v, q, k, b)]
+        lib_out = library_of(*leaves)
+        ups = (
+            torch.cat([d_bias, torch.zeros(1, h, device=dev)]),
+            torch.cat([d_deg, torch.zeros(1, device=dev)]),
+            d_gate,
+        )
+        whole = lambda: sparse.fused_backward(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k, index)  # noqa: E731
+        got = whole()
+        want = sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5, msg="whole gated backward")
+        report["stlgt_backward"] = {
+            "ms": cuda_ms(torch, whole),
+            "plain_ms": cuda_ms(
+                torch, lambda: sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
+            ),
+            "library_ms": cuda_ms(
+                torch, lambda: torch.autograd.grad(lib_out, leaves, ups, retain_graph=True)
+            ),
+        }
+        jobs.append((report["stlgt_backward"], "device_ms", whole))
+        log("   whole gated backward " + json.dumps(report["stlgt_backward"]))
+    return rows_cases, edges_cases, report
+
+
+class PlainOnCard:
+    """Counts the calls of the fused kernel's plain versions (forward and
+    backward) that are handed a card tensor, while the block runs: a
+    training path on the card must make none."""
+
+    NAMES = ("fused_plain", "fused_backward_plain", "grad_edges_plain", "grad_rows_plain")
+
+    def __init__(self, torch, sparse) -> None:
+        self.torch, self.sparse, self.calls = torch, sparse, 0
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.sparse, name) for name in self.NAMES}
+        for name, plain in self.saved.items():
+            setattr(self.sparse, name, self._counting(plain))
+        return self
+
+    def _counting(self, plain):
+        def call(*args, **kw):
+            if any(isinstance(a, self.torch.Tensor) and a.is_cuda for a in args):
+                self.calls += 1
+            return plain(*args, **kw)
+
+        return call
+
+    def __exit__(self, *exc):
+        for name, plain in self.saved.items():
+            setattr(self.sparse, name, plain)
+        return False
+
+
+def zero_counts(counters) -> None:
+    for counter in counters:
+        counter.launches = 0
+
+
+def read_counts(torch, counters) -> dict:
+    torch.cuda.synchronize()
+    return {c.__name__: c.launches for c in counters}
+
+
+def training_dataset(torch, graph, slots: int):
+    """GraphSAGE training slots over the BASELINE graph's live edges: seeded
+    18-column features (the served width), latency targets, a quarter of
+    the endpoints anomalous in every slot (pos_weight 4), every endpoint
+    active."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import trainer
+
+    src, dst, _dist, mask = graph.edge_arrays()
+    cols = torch.stack([src, dst, mask.to(torch.int32)]).cpu().numpy()
+    live = cols[2].astype(bool)
+    n = len(graph.interner.endpoints)
+    rng = np.random.default_rng(SEED + 2)
+    anomalous = np.zeros(n, dtype=np.float32)
+    anomalous[: n // 4] = 1.0
+    return trainer.GraphDataset(
+        endpoint_names=[graph.interner.endpoints.lookup(i) for i in range(n)],
+        src=cols[0][live],
+        dst=cols[1][live],
+        edge_mask=np.ones(int(live.sum()), dtype=bool),
+        features=[rng.normal(size=(n, SAGE_FEATURES)).astype(np.float32) for _ in range(slots)],
+        target_latency=[rng.normal(size=n).astype(np.float32) for _ in range(slots)],
+        target_anomaly=[rng.permutation(anomalous) for _ in range(slots)],
+        node_mask=[np.ones(n, dtype=bool) for _ in range(slots)],
+        slot_keys=[f"0-{i}-0" for i in range(slots)],
+    )
+
+
+def train_graphsage(torch, graph, device, counters, ckpt_dir: str) -> dict:
+    """Phase 11: GraphSAGE training at the model10k head's shape (hidden
+    64, 18 features) over the BASELINE graph: 24 slots, 8 fused epochs,
+    lr 1e-2, through trainer.train with a checkpoint at the end; the
+    launches per step; one steady epoch timed and profiled; one epoch over
+    2 slots on the card against the port on the CPU."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import graphsage, stacked, trainer
+    from kmamiz_tpu_torch.ops import sparse
+
+    ds = training_dataset(torch, graph, SAGE_SLOTS)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.train(
+        ds, epochs=SAGE_EPOCHS, hidden=SAGE_HIDDEN, lr=SAGE_LR, seed=SEED,
+        checkpoint_dir=ckpt_dir, checkpoint_every=0, device=device,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    steps = SAGE_SLOTS * SAGE_EPOCHS
+    losses = result.losses
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"losses did not fall: {losses}")
+    check(launches[sparse.fused_sddmm_spmm.__name__] == 2 * steps, f"forward launches {launches}")
+    # layer 1 aggregates the features (no grad); layer 2 its hidden state
+    check(launches[sparse.fused_sddmm_spmm_grad_rows.__name__] == steps, f"backward launches {launches}")
+    check(launches[sparse.fused_sddmm_spmm_grad_edges.__name__] == 0, f"gated backward in GraphSAGE {launches}")
+
+    # one steady epoch on the stacked slots (no upload, no index build)
+    st = stacked.stack_dataset(ds, device)
+    pos_weight = 1.0 / float(np.mean([a.mean() for a in ds.target_anomaly]))
+    run = stacked.epoch_runner(graphsage, SAGE_LR, pos_weight)
+    slots = (st.features, st.target_latency, st.target_anomaly, st.node_mask, st.src, st.dst, st.edge_mask)
+    opt = graphsage.make_optimizer(SAGE_LR)
+
+    def epoch():
+        p = result.params
+        run(p, opt.init(p), *slots, 1, index=st.index)[2].cpu()
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    epoch_s = time.perf_counter() - t0
+    profile = profile_device(torch, epoch, [sparse.KERNEL])
+
+    # one epoch over 2 slots: card against CPU
+    two = dataclasses.replace(
+        ds,
+        features=ds.features[:2],
+        target_latency=ds.target_latency[:2],
+        target_anomaly=ds.target_anomaly[:2],
+        node_mask=ds.node_mask[:2],
+        slot_keys=ds.slot_keys[:2],
+    )
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        r = trainer.train(two, epochs=1, hidden=SAGE_HIDDEN, lr=SAGE_LR, seed=SEED, device=dev)
+        out[str(dev)] = (r, time.perf_counter() - t0)
+    card_r, cpu_r = out[str(device)][0], out["cpu"][0]
+    np.testing.assert_allclose(card_r.losses, cpu_r.losses, rtol=1e-3, err_msg="2-slot epoch losses")
+    param_diff = max(
+        float((a.cpu() - b).abs().max()) for a, b in zip(card_r.params, cpu_r.params) if b is not None
+    )
+    return {
+        "slots": SAGE_SLOTS,
+        "epochs": SAGE_EPOCHS,
+        "hidden": SAGE_HIDDEN,
+        "features": SAGE_FEATURES,
+        "endpoints": ds.num_nodes,
+        "live_edges": int(ds.src.shape[0]),
+        "layout": st.layout(),
+        "pos_weight": pos_weight,
+        "losses": losses,
+        "train_wall_s": wall,
+        "train_slots_per_s": steps / wall,
+        "steady_epoch_s": epoch_s,
+        "steady_slots_per_s": SAGE_SLOTS / epoch_s,
+        "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profile_epoch": profile,
+        "two_slot_epoch": {
+            "card_loss": card_r.losses[0],
+            "cpu_loss": cpu_r.losses[0],
+            "card_s": out[str(device)][1],
+            "cpu_s": out["cpu"][1],
+            "max_abs_param_diff": param_diff,
+        },
+    }
+
+
+def serve_trained_checkpoint(torch, proc, counters, ckpt_dir: str) -> dict:
+    """Phase 11b: the checkpoint phase 11 saved, served by GET
+    /api/v1/model/forecast on the forecast processor's snapshot (one edge
+    index built for it, two forward launches)."""
+    from kmamiz_tpu_torch.api.app import build_router
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.config import Settings
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.server.initializer import AppContext
+
+    os.environ["KMAMIZ_MODEL_DIR"] = ckpt_dir
+    api = ApiServer(build_router(AppContext(settings=Settings(), processor=proc)), host="127.0.0.1", port=0)
+    api.start()
+    try:
+        zero_counts(counters)
+        builds = sparse.edge_index.builds
+        status, st, _ms = get_json(api.port, "/api/v1/model/status")
+        check(status == 200 and st["modelLoaded"], f"trained checkpoint not loaded: {st}")
+        check(st["checkpoint"]["step"] == SAGE_EPOCHS, f"checkpoint {st['checkpoint']}")
+        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast")
+        launches = read_counts(torch, counters)
+        index_builds = sparse.edge_index.builds - builds
+    finally:
+        api.stop()
+    check(status == 200 and fc["model"] == "graphsage", f"forecast answered {status}")
+    check(len(fc["endpoints"]) == len(proc.forecast_snapshot["names"]), "forecast misses endpoints")
+    for e in fc["endpoints"]:
+        check(0.0 <= e["anomalyProbability"] <= 1.0, f"probability of {e['uniqueEndpointName']}")
+        check(math.isfinite(e["predictedLatencyMs"]), f"latency of {e['uniqueEndpointName']}")
+    check(launches[sparse.fused_sddmm_spmm.__name__] == 2, f"trained head's GET launched {launches}")
+    check(index_builds == 1, f"{index_builds} edge index builds for one snapshot")
+    return {"forecast_get_ms": get_ms, "launches": launches, "index_builds": index_builds}
+
+
+def serve_stlgt(torch, graph, device, counters, t_start: int, ckpt_dir: str) -> dict:
+    """Phase 12: the STLGT continual trainer behind the fold hook
+    (KMAMIZ_STLGT=1, production defaults: depth 8, refresh every fold, 2
+    epochs, hidden 32, lr 0.05), fed by a processor's folds: ticks in 5
+    successive hours through the DP server (4 folds, 3 refreshes), GET
+    /model/stlgt, the last refresh replayed on the CPU from the same ring
+    and params, then GET /api/v1/model/forecast?quantile=p99&horizon=3
+    with the GraphSAGE checkpoint of phase 11 beside the live params (one
+    edge index for the snapshot, shared by both heads)."""
+    from kmamiz_tpu_torch.api.app import build_router
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.config import Settings
+    from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
+    from kmamiz_tpu_torch.server.initializer import AppContext
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    os.environ["KMAMIZ_STLGT"] = "1"
+    stlgt_pkg.reset_for_tests()  # the process trainer, built anew at the first fold
+    feed = TickFeed()
+    proc = DataProcessor(trace_source=feed, device=device, graph=graph)
+    dp_server = DataProcessorServer(proc, host="127.0.0.1", port=0)
+    dp_server.start()
+    ticks = []
+    try:
+        zero_counts(counters)
+        for k, hour in enumerate(STLGT_HOURS):
+            if k == len(STLGT_HOURS) - 1:
+                # the trainer as the last fold finds it, for the CPU replay
+                replica = stlgt_pkg.get_trainer().replica("cpu")
+            feed.groups = synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"stlgt{hour}-")
+            t0 = time.perf_counter()
+            resp = post_tick(
+                dp_server.port,
+                {"uniqueId": f"stlgt{hour}", "lookBack": 30_000, "time": hour * HOUR_MS},
+            )
+            wall = (time.perf_counter() - t0) * 1e3
+            check_response(resp, f"stlgt{hour}")
+            status = stlgt_pkg.trainer_status()
+            ticks.append(
+                {
+                    "hour": hour,
+                    "wall_ms": round(wall, 3),
+                    "history_ms": round(proc.last_stage_ms["history"], 3),
+                    # the trainer exists from the first fold on
+                    "refreshes": status.get("refreshes", 0),
+                    "examples": status.get("examples", 0),
+                    "staleSlots": status.get("staleSlots", 0),
+                    "lastLoss": status.get("lastLoss"),
+                }
+            )
+            log("   " + json.dumps(ticks[-1]))
+        launches = read_counts(torch, counters)
+        status, doc, _ms = get_json(dp_server.port, "/model/stlgt")
+    finally:
+        dp_server.stop()
+    check(status == 200, f"/model/stlgt answered {status}")
+    check(doc["refreshes"] >= 2, f"{doc['refreshes']} refreshes")
+    check(doc["refreshFailures"] == 0 and doc["lastError"] is None, f"refresh failures: {doc}")
+    check(proc.fold_errors["stlgtFoldErrors"] == 0, f"fold hook errors {proc.fold_errors}")
+    for name in (
+        sparse.fused_sddmm_spmm.__name__,
+        sparse.fused_sddmm_spmm_grad_edges.__name__,
+        sparse.fused_sddmm_spmm_grad_rows.__name__,
+    ):
+        check(launches[name] > 0, f"{name} never launched on the STLGT path: {launches}")
+
+    # the last refresh, replayed on the CPU from the same ring and params
+    t0 = time.perf_counter()
+    cpu_report = replica.observe_fold(proc.forecast_snapshot)
+    cpu_s = time.perf_counter() - t0
+    check(cpu_report is not None and cpu_report["ok"], f"CPU replay {cpu_report}")
+    card, cpu = stlgt_pkg.serving_params(), replica.serving()
+    check(cpu["version"] == card["version"], "replay versions differ")
+    param_diff = 0.0
+    for name, a, b in zip(card["params"]._fields, card["params"], cpu["params"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5, msg=f"replayed {name}")
+        param_diff = max(param_diff, float((a.cpu() - b).abs().max()))
+
+    os.environ["KMAMIZ_MODEL_DIR"] = ckpt_dir
+    api = ApiServer(build_router(AppContext(settings=Settings(), processor=proc)), host="127.0.0.1", port=0)
+    api.start()
+    try:
+        zero_counts(counters)
+        builds = sparse.edge_index.builds
+        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
+        get_launches = read_counts(torch, counters)
+        index_builds = sparse.edge_index.builds - builds
+        zero_counts(counters)
+        status2, fc2, memo_ms = get_json(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
+        memo_launches = read_counts(torch, counters)
+    finally:
+        api.stop()
+    check(status == 200 and status2 == 200, f"quantile forecast answered {status}, {status2}")
+    sec = fc.get("stlgt")
+    check(sec is not None and sec["quantile"] == "p99" and sec["horizon"] == 3, f"stlgt section {sec and {k: sec[k] for k in ('quantile', 'horizon')}}")
+    check(sec["paramsVersion"] == doc["paramsVersion"], "served params version")
+    check(len(sec["endpoints"]) == len(proc.forecast_snapshot["names"]), "stlgt section misses endpoints")
+    for row in sec["endpoints"]:
+        q = row["latencyQuantilesMs"]
+        check(set(q) == {"p99"} and math.isfinite(q["p99"]), f"quantiles of {row['uniqueEndpointName']}")
+    check(len(sec["attributions"]) > 0, "no attributions")
+    check(fc["model"] == "graphsage", f"model {fc['model']}")
+    check(get_launches[sparse.fused_sddmm_spmm.__name__] == 3, f"quantile GET launched {get_launches}")
+    check(index_builds == 1, f"{index_builds} edge index builds for one snapshot")
+    check(memo_launches[sparse.fused_sddmm_spmm.__name__] == 0 and fc2 == fc, "memoized quantile GET")
+    return proc, feed, {
+        "ticks": ticks,
+        "fold_walls_ms": [t["wall_ms"] for t in ticks if t["refreshes"] > 0],
+        "status": doc,
+        "launches": launches,
+        "cpu_replay_s": cpu_s,
+        "cpu_replay_max_abs_param_diff": param_diff,
+        "quantile_get_ms": get_ms,
+        "quantile_memo_get_ms": memo_ms,
+        "quantile_get_launches": get_launches,
+        "quantile_get_index_builds": index_builds,
+    }
+
+
+def profile_fold(torch, proc, feed, t_start: int, kernel_names) -> dict:
+    """Phase 13c: one more tick of the STLGT processor, in the next hour,
+    on the card under the profiler: the tick, its fold and the refresh the
+    fold triggers."""
+    from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
+
+    hour = STLGT_HOURS[-1] + 1
+    feed.groups = synth_groups(TICK_TRACES, t_start, "stlgt-profile")
+    before = stlgt_pkg.trainer_status()["refreshes"]
+    out = profile_device(
+        torch,
+        lambda: proc.collect({"uniqueId": "stlgt-profile", "lookBack": 30_000, "time": hour * HOUR_MS}),
+        kernel_names,
+    )
+    check(stlgt_pkg.trainer_status()["refreshes"] == before + 1, "the profiled fold did not refresh")
+    out["stages_ms"] = dict(proc.last_stage_ms)
+    return out
 
 
 def write_report(path, report) -> None:
@@ -976,7 +1542,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--kernels-only",
         action="store_true",
-        help="phases 1-5 only (card, build, both kernel checks with the state "
+        help="phases 1-6 only (card, build, the kernel checks with the state "
         "load they need), then the report: for timing two checkouts on one card",
     )
     parser.add_argument(
@@ -998,10 +1564,15 @@ def main(argv=None) -> int:
 
     from kmamiz_tpu_torch.ops import sparse
 
-    # every kernel: (wrapper, source, TPU kernel it replaces)
+    # every kernel: (wrapper, source, TPU kernel it replaces); the two
+    # backward kernels are kernel 2's backward (the JAX package has none:
+    # it differentiates its XLA formulation)
+    fused_src = f"kmamiz_tpu_torch/csrc/{sparse.KERNEL}.cu"
     kernels = [
         (ss.segment_stats, f"kmamiz_tpu_torch/csrc/{ss.KERNEL}.cu", ss.REPLACES),
-        (sparse.fused_sddmm_spmm, f"kmamiz_tpu_torch/csrc/{sparse.KERNEL}.cu", sparse.REPLACES),
+        (sparse.fused_sddmm_spmm, fused_src, sparse.REPLACES),
+        (sparse.fused_sddmm_spmm_grad_edges, fused_src, sparse.REPLACES),
+        (sparse.fused_sddmm_spmm_grad_rows, fused_src, sparse.REPLACES),
     ]
     counters = [k[0] for k in kernels]
     kernel_names = [ss.KERNEL, sparse.KERNEL]
@@ -1054,12 +1625,28 @@ def main(argv=None) -> int:
         f_cases, report["edge_index"] = fused_cases(torch, proc.graph, jobs)
         report["fused_sddmm_spmm_cases"] = f_cases
 
+    with Phase("backward kernel check", walls):
+        rows_cases, edges_cases, report["backward"] = backward_cases(torch, proc.graph, jobs)
+        report["fused_sddmm_spmm_grad_rows_cases"] = rows_cases
+        report["fused_sddmm_spmm_grad_edges_cases"] = edges_cases
+
     if args.kernels_only:
         with Phase("device times", walls):
             device_times(torch, jobs)
         report["walls_s"] = walls
         write_report(args.report, report)
-        log(json.dumps({"segment_stats": cases, "fused_sddmm_spmm": f_cases, "edge_index": report["edge_index"]}))
+        log(
+            json.dumps(
+                {
+                    "segment_stats": cases,
+                    "fused_sddmm_spmm": f_cases,
+                    "edge_index": report["edge_index"],
+                    "grad_rows": rows_cases,
+                    "grad_edges": edges_cases,
+                    "backward": report["backward"],
+                }
+            )
+        )
         return 0
 
     with Phase("serve ticks", walls):
@@ -1096,6 +1683,26 @@ def main(argv=None) -> int:
         report["forecast_compare"] = forecast_card_against_cpu(torch, fproc, served, card_stlgt)
         log("   " + json.dumps(report["forecast_compare"]))
 
+    ckpt_root = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    ckpt_dir = ckpt_root.name
+    with Phase("graphsage training", walls), PlainOnCard(torch, sparse) as plain_calls:
+        report["train"] = train_graphsage(torch, proc.graph, device, counters, ckpt_dir)
+        train_launches = report["train"]["launches"]
+        log("   " + json.dumps({k: v for k, v in report["train"].items() if k != "profile_epoch"}))
+        report["train_serve"] = serve_trained_checkpoint(torch, fproc, counters, ckpt_dir)
+        log("   served " + json.dumps(report["train_serve"]))
+
+    with Phase("stlgt continual training", walls), PlainOnCard(torch, sparse) as stlgt_plain_calls:
+        sproc, sfeed, report["stlgt"] = serve_stlgt(
+            torch, proc.graph, device, counters, STATE_TRACES + (TICKS + 5) * TICK_TRACES, ckpt_dir
+        )
+        stlgt_launches = report["stlgt"]["launches"]
+        log("   " + json.dumps({k: v for k, v in report["stlgt"].items() if k != "ticks"}))
+    # the training paths on the card ran the kernels, never a plain version
+    check(plain_calls.calls == 0, f"{plain_calls.calls} plain calls on card tensors in training")
+    check(stlgt_plain_calls.calls == 0, f"{stlgt_plain_calls.calls} plain calls on card tensors (STLGT)")
+    report["plain_calls_on_card"] = {"graphsage": plain_calls.calls, "stlgt": stlgt_plain_calls.calls}
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -1103,6 +1710,11 @@ def main(argv=None) -> int:
         log("   " + json.dumps(report["profile"]))
         report["profile_forecast"] = profile_forecast(torch, fproc, kernel_names)
         log("   " + json.dumps(report["profile_forecast"]))
+        report["profile_fold"] = profile_fold(
+            torch, sproc, sfeed, STATE_TRACES + (TICKS + 5 + len(STLGT_HOURS)) * TICK_TRACES, kernel_names
+        )
+        log("   " + json.dumps(report["profile_fold"]))
+    ckpt_root.cleanup()
 
     with Phase("device times", walls):
         device_times(torch, jobs)
@@ -1128,12 +1740,26 @@ def main(argv=None) -> int:
         }
 
     # launches: the segment-stats kernel on the tick path, the fused kernel
-    # on the forecast path; the shown times are the tick's first pass and
-    # GraphSAGE's second layer (H = 64)
+    # on the forecast path, the backward's row pass on the GraphSAGE
+    # training path and its SDDMM on the STLGT path; the shown times are the
+    # tick's first pass, GraphSAGE's second layer (H = 64) forward and
+    # backward, and STLGT's gated backward (H = 32)
     line = {
         "kernels": [
             entry(*kernels[0], launches[ss.segment_stats.__name__], cases, cases[2]),
             entry(*kernels[1], forecast_launches[sparse.fused_sddmm_spmm.__name__], f_cases, f_cases[1]),
+            entry(
+                *kernels[2],
+                stlgt_launches[sparse.fused_sddmm_spmm_grad_edges.__name__],
+                edges_cases,
+                edges_cases[0],
+            ),
+            entry(
+                *kernels[3],
+                train_launches[sparse.fused_sddmm_spmm_grad_rows.__name__],
+                rows_cases,
+                rows_cases[1],
+            ),
         ]
     }
     report["walls_s"] = walls

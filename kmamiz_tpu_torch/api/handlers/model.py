@@ -7,10 +7,14 @@ dependency graph, on the processor's device:
 
 - `GET /model/status` — checkpoint metadata and feature freshness.
 - `GET /model/forecast` — per-endpoint anomaly probability and predicted
-  latency for the upcoming hour, memoized per published snapshot.
-  `?quantile=` (p50|p95|p99|all) and `?horizon=` (hours) belong to the
-  STLGT continual trainer, which is not ported: the route checks them as
-  the JAX package does and answers 503 for any but the defaults.
+  latency for the upcoming hour, memoized per published snapshot and
+  STLGT params version. With the STLGT continual trainer live
+  (KMAMIZ_STLGT=1, models/stlgt/trainer.py) the route grows `?quantile=`
+  (p50|p95|p99|all) and `?horizon=` (hours, sqrt widening of the tail)
+  and a `stlgt` payload section: per-endpoint latency quantiles and the
+  top per-edge attribution gates; with no checkpoint configured the live
+  STLGT params serve the legacy shape too (model "stlgt-live"). Each
+  published snapshot is padded and indexed once for both heads.
 
 Configuration: KMAMIZ_MODEL_DIR points at a checkpoint directory of the
 port (models/checkpoint.py). Only identity-free heads serve (num_nodes=0):
@@ -52,6 +56,9 @@ class ModelHandler(IRequestHandler):
         # (snapshot, payload, encoded, gzipped, memo key): forecasts change
         # once per hour fold; polls in between serve the memoized payload
         self._forecast_cache = None
+        # ((cache_key, device), PaddedSnapshot): the published snapshot on
+        # the device, with its edge index, shared by the heads' forwards
+        self._padded = None
 
         self.add_route("get", "/status", self._status)
         self.add_route("get", "/forecast", self._forecast)
@@ -160,13 +167,89 @@ class ModelHandler(IRequestHandler):
     #: quantile selector values the route accepts (column order of
     #: models/stlgt/model.QUANTILES)
     _QUANTILE_COLS = {"p50": 0, "p95": 1, "p99": 2}
+    #: attribution edges returned per forecast (highest STLGT edge gate)
+    _TOP_EDGES = 20
+
+    def _padded_snapshot(self, snap: dict, device):
+        """The snapshot padded on `device` with its edge index: built once
+        per published snapshot and device, for every forward of it."""
+        from kmamiz_tpu_torch.models import serving
+
+        key = (snap["cache_key"], str(device))
+        cached = self._padded
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        padded = serving.pad_snapshot(
+            snap["features"], snap["src"], snap["dst"], snap["mask"], device
+        )
+        self._padded = (key, padded)
+        return padded
+
+    def _stlgt_section(self, live, snap, qsel, horizon):
+        """(stlgt payload section, quantiles ms [N, 3], probability [N])
+        of the live STLGT params on the snapshot."""
+        from kmamiz_tpu_torch.models.stlgt import serving as stlgt_serving
+
+        names = snap["names"]
+        q_ms, s_prob, gate = stlgt_serving.quantile_forward_padded(
+            live["params"],
+            self._padded_snapshot(snap, live["params"][0].device),
+            live["model"],
+        )
+        if horizon > 1:
+            # multi-hour horizon: the tail spread widens by the
+            # independent-increments heuristic (sqrt scaling of the
+            # above-median excess); p50 is carried flat
+            scale = float(np.sqrt(horizon))
+            q_ms = q_ms.copy()
+            q_ms[:, 1:] = q_ms[:, :1] + (q_ms[:, 1:] - q_ms[:, :1]) * scale
+        cols = self._QUANTILE_COLS if qsel == "all" else {qsel: self._QUANTILE_COLS[qsel]}
+        stlgt_endpoints = [
+            {
+                "uniqueEndpointName": names[i],
+                "anomalyProbability": round(float(s_prob[i]), 4),
+                "latencyQuantilesMs": {
+                    level: round(float(max(q_ms[i, c], 0.0)), 2) for level, c in cols.items()
+                },
+            }
+            for i in np.argsort(-s_prob)
+        ]
+        edge_mask = np.asarray(snap["mask"], dtype=bool)
+        src_ids = np.asarray(snap["src"])
+        dst_ids = np.asarray(snap["dst"])
+        n = len(names)
+        attributions = []
+        for e in np.argsort(-gate):
+            if len(attributions) >= self._TOP_EDGES:
+                break
+            e = int(e)
+            if not edge_mask[e]:
+                continue
+            s, d = int(src_ids[e]), int(dst_ids[e])
+            if s >= n or d >= n:
+                continue
+            attributions.append(
+                {"source": names[s], "target": names[d], "score": round(float(gate[e]), 4)}
+            )
+        section = {
+            "paramsVersion": live["version"],
+            "quantile": qsel,
+            "horizon": horizon,
+            "quantileLevels": list(live["quantiles"]),
+            "endpoints": stlgt_endpoints,
+            "attributions": attributions,
+        }
+        return section, q_ms, s_prob
 
     def _forecast(self, req: Request) -> Response:
         from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
 
-        live = stlgt_pkg.serving_params()  # None until the trainer is ported
+        # live STLGT params (the continual trainer's last-good) serve the
+        # quantile surface, and the whole route when no checkpoint is
+        # configured; a checkpointed head alone serves the legacy shape
+        live = stlgt_pkg.serving_params()
         loaded = self._load()
-        if loaded is None:
+        if loaded is None and live is None:
             return Response(status=503, payload={"error": self._load_error})
         qsel = (req.query.get("quantile") or "all").lower()
         if qsel != "all" and qsel not in self._QUANTILE_COLS:
@@ -208,32 +291,49 @@ class ModelHandler(IRequestHandler):
                     "forecast is available after one full hour of ticks)"
                 },
             )
-        # memoized per published snapshot: dashboards poll every few
-        # seconds, the forecast changes once per fold. Keyed on the fold's
-        # (graph version, label epoch, hour)
-        memo_key = (snap["cache_key"], qsel, horizon)
+        # memoized per published snapshot (the fold's graph version, label
+        # epoch and hour), STLGT params version and selection: dashboards
+        # poll every few seconds, the forecast changes once per fold
+        memo_key = (
+            snap["cache_key"],
+            live["version"] if live is not None else 0,
+            qsel,
+            horizon,
+        )
         cached = self._forecast_cache
         if cached is not None and cached[4] == memo_key:
             return Response(payload=cached[1], raw_body=cached[2], raw_gzip=cached[3])
         feats = snap["features"]
         names = snap["names"]
-        params, meta, model = loaded
-        if feats.shape[1] != int(meta["num_features"]):
-            return Response(
-                status=409,
-                payload={
-                    "error": (
-                        f"feature width {feats.shape[1]} != checkpoint's "
-                        f"{meta['num_features']} (train with the matching "
-                        "feature layout)"
-                    )
-                },
-            )
-        from kmamiz_tpu_torch.models import serving
+        if loaded is not None:
+            params, meta, model = loaded
+            if feats.shape[1] != int(meta["num_features"]):
+                return Response(
+                    status=409,
+                    payload={
+                        "error": (
+                            f"feature width {feats.shape[1]} != checkpoint's "
+                            f"{meta['num_features']} (train with the matching "
+                            "feature layout)"
+                        )
+                    },
+                )
 
-        lat_ms, prob = serving.forecast_forward(
-            params, feats, snap["src"], snap["dst"], snap["mask"], model
-        )
+        stlgt_section = None
+        if live is not None:
+            stlgt_section, q_ms, s_prob = self._stlgt_section(live, snap, qsel, horizon)
+        if loaded is not None:
+            from kmamiz_tpu_torch.models import serving
+
+            lat_ms, prob = serving.forecast_forward_padded(
+                params, self._padded_snapshot(snap, params[0].device), model
+            )
+            model_name = meta.get("model")
+        else:
+            # no checkpoint configured: the live STLGT head serves the
+            # legacy shape too (p50 column and its anomaly probability)
+            lat_ms, prob = q_ms[:, 0], s_prob
+            model_name = "stlgt-live"
         order = np.argsort(-prob)
         endpoints = [
             {
@@ -245,9 +345,11 @@ class ModelHandler(IRequestHandler):
         ]
         payload = {
             "predictedHour": snap["predicted_hour"],
-            "model": meta.get("model"),
+            "model": model_name,
             "endpoints": endpoints,
         }
+        if stlgt_section is not None:
+            payload["stlgt"] = stlgt_section
         encoded = json.dumps(payload).encode()
         zipped = gzip.compress(encoded)
         self._forecast_cache = (snap, payload, encoded, zipped, memo_key)

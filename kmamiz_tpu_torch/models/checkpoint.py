@@ -6,14 +6,19 @@ alone:
 
     <dir>/step_<N>.npz        one array per params field, named after the
                               field (a None field, e.g. no embedding, is
-                              absent); loaded with allow_pickle=False
+                              absent); with the optimizer state
+                              (save_checkpoint) also "opt_state.count",
+                              "opt_state.mu.<field>", "opt_state.nu.<field>";
+                              loaded with allow_pickle=False
     <dir>/step_<N>.meta.json  {"step": N, "model": ..., "hidden": ...,
                               "num_features": ..., ...}
 
 The sidecar marks a complete save: it is written last, atomically, and a
 step without one is an incomplete save that readers skip. The JAX
 package's sidecars carry over unchanged; `params_from_numpy` turns the
-JAX package's parameters (as numpy arrays) into the port's.
+JAX package's parameters (as numpy arrays) into the port's. A reader of
+params alone (`restore_params`, the forecast route) skips the optimizer
+arrays.
 """
 from __future__ import annotations
 
@@ -26,10 +31,13 @@ import torch
 
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.models import graphsage
+from kmamiz_tpu_torch.models.common import AdamState
 from kmamiz_tpu_torch.models.stlgt import model as stlgt
 
 #: the params NamedTuple of each model module of the port
 _PARAMS_TYPES = {graphsage: graphsage.SageParams, stlgt: stlgt.StlgtParams}
+#: name prefix of the optimizer-state arrays in an archive
+_OPT = "opt_state."
 
 
 def params_from_numpy(model, arrays: Mapping[str, np.ndarray], device: DeviceLike = None):
@@ -59,17 +67,38 @@ def save_params(directory: str, params, step: int, metadata: Optional[dict] = No
     """Write params under directory/step_<N>.npz and the metadata as the
     step_<N>.meta.json sidecar, each atomically, the sidecar last; returns
     the archive's path."""
+    return _save(directory, _arrays(params), step, metadata)
+
+
+def save_checkpoint(
+    directory: str, params, opt_state: AdamState, step: int, metadata: Optional[dict] = None
+) -> str:
+    """save_params with the optimizer state beside the params, so that a
+    resumed run continues the same update sequence; returns the archive's
+    path."""
+    arrays = _arrays(params)
+    arrays[f"{_OPT}count"] = opt_state.count.detach().cpu().numpy()
+    for moment in ("mu", "nu"):
+        values = getattr(opt_state, moment)
+        for field, t in zip(params._fields, values):
+            if t is not None:
+                arrays[f"{_OPT}{moment}.{field}"] = t.detach().cpu().numpy()
+    return _save(directory, arrays, step, metadata)
+
+
+def _arrays(params) -> dict:
+    return {
+        f: t.detach().cpu().numpy() for f, t in params._asdict().items() if t is not None
+    }
+
+
+def _save(directory: str, arrays: dict, step: int, metadata: Optional[dict]) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, f"step_{step}"))
     # a re-save drops the old sidecar first: a crash mid-re-save must not
     # pair old metadata with a new archive
     if os.path.isfile(f"{path}.meta.json"):
         os.remove(f"{path}.meta.json")
-    arrays = {
-        f: t.detach().cpu().numpy()
-        for f, t in params._asdict().items()
-        if t is not None
-    }
     tmp = f"{path}.npz.tmp"
     with open(tmp, "wb") as fh:
         np.savez(fh, **arrays)
@@ -102,6 +131,12 @@ def _step_numbers(directory: str, complete_only: bool) -> list:
     return steps
 
 
+def latest_step(directory: str) -> Optional[int]:
+    """The newest step with an archive, complete or not."""
+    steps = _step_numbers(directory, complete_only=False)
+    return max(steps) if steps else None
+
+
 def latest_complete_step(directory: str) -> Optional[int]:
     """The newest step whose sidecar exists: an incomplete save is skipped
     in favour of the previous complete one."""
@@ -123,12 +158,9 @@ def load_metadata(directory: str, step: Optional[int] = None) -> Optional[dict]:
         return json.load(fh)
 
 
-def restore_params(
-    directory: str, model, step: Optional[int] = None, device: DeviceLike = None
-) -> Optional[Tuple[object, dict]]:
-    """(params, meta) of `model` from directory/step_<N> (the latest
-    complete step when step is None), on `device` (the card when None);
-    None when no such checkpoint exists."""
+def _read(directory: str, step: Optional[int]):
+    """(arrays, meta) of directory/step_<N> (the latest complete step when
+    step is None), or None."""
     if step is None:
         step = latest_complete_step(directory)
         if step is None:
@@ -139,4 +171,61 @@ def restore_params(
     meta = load_metadata(directory, step) or {"step": step}
     with np.load(f"{path}.npz", allow_pickle=False) as archive:
         arrays = {name: archive[name] for name in archive.files}
-    return params_from_numpy(model, arrays, device), meta
+    return arrays, meta
+
+
+def restore_params(
+    directory: str, model, step: Optional[int] = None, device: DeviceLike = None
+) -> Optional[Tuple[object, dict]]:
+    """(params, meta) of `model` from directory/step_<N> (the latest
+    complete step when step is None), on `device` (the card when None);
+    None when no such checkpoint exists. Optimizer arrays are skipped."""
+    read = _read(directory, step)
+    if read is None:
+        return None
+    arrays, meta = read
+    params = {k: v for k, v in arrays.items() if not k.startswith(_OPT)}
+    return params_from_numpy(model, params, device), meta
+
+
+def restore_checkpoint(
+    directory: str,
+    params_template,
+    opt_state_template: AdamState,
+    step: Optional[int] = None,
+) -> Optional[Tuple[object, AdamState, dict]]:
+    """(params, opt_state, meta) from directory/step_<N> (the latest
+    complete step when step is None), on the templates' device; None when
+    no such checkpoint exists. The templates (init_params and the
+    optimizer's init of them) give the params type, the fields that are
+    None and the device; a shape that differs from the template raises."""
+    read = _read(directory, step)
+    if read is None:
+        return None
+    arrays, meta = read
+    device = next(t for t in params_template if t is not None).device
+
+    def tensor(name, like):
+        if name not in arrays:
+            raise ValueError(f"checkpoint {directory} step {meta.get('step')} lacks {name}")
+        t = torch.from_numpy(np.array(arrays[name]))
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(
+                f"checkpoint {directory}: {name} is {tuple(t.shape)}, the template "
+                f"{tuple(like.shape)}"
+            )
+        return t.to(device=device, dtype=like.dtype)
+
+    fields = params_template._fields
+    params = type(params_template)(
+        *(None if like is None else tensor(f, like) for f, like in zip(fields, params_template))
+    )
+    moments = {
+        moment: tuple(
+            None if like is None else tensor(f"{_OPT}{moment}.{f}", like)
+            for f, like in zip(fields, getattr(opt_state_template, moment))
+        )
+        for moment in ("mu", "nu")
+    }
+    count = tensor(f"{_OPT}count", opt_state_template.count)
+    return params, AdamState(count, moments["mu"], moments["nu"]), meta

@@ -8,8 +8,9 @@ features from the window statistics predicting next-hour latency
 Aggregation uses both edge directions (callers and callees are both
 signal for an endpoint's health) as segment means. Each neighbor mean is
 one launch of the fused SDDMM/SpMM kernel (ops/sparse.py) on the card, so
-a forward launches it twice, over one edge index built per forward. The
-loss, optimizer and train step come with the training slice.
+a forward launches it twice, over one edge index: the caller's (an owner
+of a fixed edge list builds it once), else one built per forward. The
+loss, optimizer and train step are the family's (models/common.py).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
+from kmamiz_tpu_torch.models import common as _common
 from kmamiz_tpu_torch.models.common import concat_embedding
 from kmamiz_tpu_torch.ops import sparse
 
@@ -168,13 +170,18 @@ def forward(
     src_ep: torch.Tensor,
     dst_ep: torch.Tensor,
     edge_mask: torch.Tensor,
+    index: Optional[sparse.EdgeIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two SAGE layers -> (latency prediction [N], anomaly logits [N]).
     On the card both layers aggregate over one edge index
-    (sparse.edge_index over the N feature rows), built here once; the
+    (sparse.edge_index over the N feature rows): `index` when given, else
+    one built here (with its gather part when a param wants a grad); the
     plain CPU version reads no index."""
     x = concat_embedding(features, params.embedding)
-    index = sparse.edge_index(src_ep, dst_ep, edge_mask, x.shape[0]) if x.is_cuda else None
+    if index is None and x.is_cuda:
+        index = sparse.edge_index(
+            src_ep, dst_ep, edge_mask, x.shape[0], for_backward=sparse.wants_grad(*params)
+        )
     agg1 = neighbor_mean(x, src_ep, dst_ep, edge_mask, index=index)
     h1 = torch.relu(x @ params.w_self_1 + agg1 @ params.w_neigh_1 + params.b_1)
     agg2 = neighbor_mean(h1, src_ep, dst_ep, edge_mask, index=index)
@@ -186,6 +193,19 @@ def forward(
         h2 @ params.w_anomaly + features @ params.w_anomaly_skip + params.b_anomaly
     )[:, 0]
     return latency, anomaly_logit
+
+
+# loss / optimizer / train step are the family-shared scaffolding
+loss_fn = _common.make_loss_fn(forward)  # unweighted default
+make_optimizer = _common.make_optimizer
+
+
+def make_train_step(optimizer, pos_weight: float = 1.0):
+    """(params, opt_state, batch..., index=None) -> (params, opt_state,
+    loss, aux)."""
+    if pos_weight == 1.0:
+        return _common.make_train_step(optimizer, loss_fn)
+    return _common.make_train_step(optimizer, _common.make_loss_fn(forward, pos_weight))
 
 
 def features_from_stats(

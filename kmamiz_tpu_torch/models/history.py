@@ -1,10 +1,12 @@
 """Identity-free history features: the online state behind the forecast.
 
-Counterpart of kmamiz_tpu/models/history.py for serving: `HistoryState`
-(fed one completed hourly bucket at a time by the processor's fold) and
-the array codec of its persisted documents. Host numpy throughout, copied
-from the JAX package. `augment_with_history` needs the trainer's
-GraphDataset and comes with the training slice.
+Counterpart of kmamiz_tpu/models/history.py: `HistoryState` (fed one
+completed hourly bucket at a time by the processor's fold), the array
+codec of its persisted documents, and the trainer's side:
+`augment_with_history` (a dataset's slots replayed through the same
+state, so training and serving share one feature formula),
+`mask_endpoints` and `split_endpoints`. Host numpy throughout, copied
+from the JAX package.
 
 Columns (NUM_HISTORY_FEATURES, appended after the base features):
 same-hour mean past anomaly label and 5xx share plus a log count of
@@ -16,9 +18,12 @@ the end of slot t.
 from __future__ import annotations
 
 import base64
+import dataclasses
 from typing import List
 
 import numpy as np
+
+from kmamiz_tpu_torch.simulator.slot_metrics import parse_slot_key
 
 #: next-slot 5xx share that counts as anomalous (kmamiz_tpu/models/trainer.py)
 ANOMALY_ERROR_SHARE = 0.10
@@ -26,6 +31,11 @@ ANOMALY_ERROR_SHARE = 0.10
 SLOT_SECONDS = 3600.0
 
 NUM_HISTORY_FEATURES = 8
+
+#: base-feature columns the history builder reads
+_COL_ERR5 = 2
+_COL_LOG_LATENCY = 3
+_COL_ACTIVE = 7
 
 
 def encode_array(a: np.ndarray) -> dict:
@@ -48,6 +58,59 @@ def decode_array(d) -> np.ndarray:
         .reshape(d["shape"])
         .copy()
     )
+
+
+def augment_with_history(dataset):
+    """New GraphDataset (models/trainer.py) whose per-slot features carry
+    NUM_HISTORY_FEATURES extra columns (same graph, targets and masks):
+    the dataset's slots replayed through the online state
+    (`HistoryState.step`), the formula serving uses."""
+    state = HistoryState(dataset.num_nodes)
+    state.set_degrees(dataset.src, dataset.dst, dataset.edge_mask, dataset.num_nodes)
+    out_features: List[np.ndarray] = []
+    for t in range(len(dataset.features)):
+        base = np.asarray(dataset.features[t])
+        hour = parse_slot_key(dataset.slot_keys[t])[1]
+        cols = state.step(
+            hour,
+            base[:, _COL_ERR5],
+            base[:, _COL_LOG_LATENCY],
+            base[:, _COL_ACTIVE],
+        )
+        out_features.append(np.concatenate([base, cols], axis=1).astype(np.float32))
+    return dataclasses.replace(
+        dataset,
+        features=out_features,
+        target_latency=list(dataset.target_latency),
+        target_anomaly=list(dataset.target_anomaly),
+        node_mask=list(dataset.node_mask),
+        slot_keys=list(dataset.slot_keys),
+    )
+
+
+def mask_endpoints(dataset, keep: np.ndarray):
+    """View whose per-slot node_mask is restricted to `keep` (bool [N]).
+    The graph and features are untouched (masked-out endpoints still pass
+    messages as neighbors), but losses, threshold calibration and every
+    metric only see kept endpoints."""
+    keep = np.asarray(keep).astype(bool)
+    return dataclasses.replace(
+        dataset,
+        features=list(dataset.features),
+        target_latency=list(dataset.target_latency),
+        target_anomaly=list(dataset.target_anomaly),
+        node_mask=[np.asarray(m) & keep for m in dataset.node_mask],
+        slot_keys=list(dataset.slot_keys),
+    )
+
+
+def split_endpoints(n: int, held_fraction: float = 0.2, seed: int = 0) -> np.ndarray:
+    """bool [n]: True = HELD-OUT endpoint (labels unseen in training)."""
+    rng = np.random.default_rng(seed)
+    held = np.zeros(n, dtype=bool)
+    k = max(1, int(round(n * held_fraction)))
+    held[rng.choice(n, size=k, replace=False)] = True
+    return held
 
 
 class HistoryState:

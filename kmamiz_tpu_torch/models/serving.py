@@ -6,17 +6,21 @@ kernels see the same few shapes over a deployment's life and padded rows
 stay inert; the forward runs on the device the params lie on, sigmoid and
 expm1 included, and returns host arrays sliced to the real endpoint count.
 PyTorch compiles nothing per shape, so there is no program registry.
+`pad_snapshot` uploads a snapshot once, with its edge index on the card,
+for every forward that reads it (the forecast route shares one between
+the GraphSAGE and STLGT heads).
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kmamiz_tpu_torch.core.spans import _pad_size
+from kmamiz_tpu_torch.ops import sparse
 
 _lock = threading.Lock()
 _stats = {
@@ -47,25 +51,54 @@ def padded_inputs(features, src, dst, mask, device: torch.device):
     return put(feats), put(src_p), put(dst_p), put(mask_p), n, e
 
 
+class PaddedSnapshot(NamedTuple):
+    """A snapshot's forward inputs on one device, bucket-padded."""
+
+    features: torch.Tensor  # [Nb, F]
+    src: torch.Tensor  # [Eb] int32
+    dst: torch.Tensor  # [Eb] int32
+    mask: torch.Tensor  # [Eb] bool
+    n: int  # real rows
+    e: int  # real edges
+    index: Optional[sparse.EdgeIndex]  # the card's edge index over Nb rows
+
+
+def pad_snapshot(features, src, dst, mask, device: torch.device) -> PaddedSnapshot:
+    """padded_inputs plus, on the card, the edge list's index, built once
+    for every forward of the snapshot."""
+    feats, src_p, dst_p, mask_p, n, e = padded_inputs(features, src, dst, mask, device)
+    index = (
+        sparse.edge_index(src_p, dst_p, mask_p, feats.shape[0]) if feats.is_cuda else None
+    )
+    return PaddedSnapshot(feats, src_p, dst_p, mask_p, n, e, index)
+
+
 def forecast_forward(
     params, features, src, dst, mask, model
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One bucket-padded forward of `model` (a model module) on the
     params' device -> (predicted latency ms [N], anomaly probability [N])
     as host float arrays for the real N rows."""
-    device = params[0].device
+    padded = pad_snapshot(features, src, dst, mask, params[0].device)
+    return forecast_forward_padded(params, padded, model)
+
+
+def forecast_forward_padded(params, padded: PaddedSnapshot, model) -> Tuple[np.ndarray, np.ndarray]:
+    """forecast_forward over a snapshot already padded on the params'
+    device (pad_snapshot), with its edge index."""
     t0 = time.perf_counter()
-    feats, src_p, dst_p, mask_p, n, _e = padded_inputs(features, src, dst, mask, device)
     with torch.no_grad():
-        lat, logit = model.forward(params, feats, src_p, dst_p, mask_p)
+        lat, logit = model.forward(
+            params, padded.features, padded.src, padded.dst, padded.mask, index=padded.index
+        )
         # one copy back of both outputs
         out = torch.stack([torch.expm1(lat), torch.sigmoid(logit)]).cpu().numpy()
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     with _lock:
         _stats["calls"] += 1
         _stats["last_ms"] = elapsed_ms
-        _stats["last_bucket"] = [int(feats.shape[0]), int(src_p.shape[0])]
-    return out[0, :n], out[1, :n]
+        _stats["last_bucket"] = [int(padded.features.shape[0]), int(padded.src.shape[0])]
+    return out[0, : padded.n], out[1, : padded.n]
 
 
 def serve_stats() -> dict:

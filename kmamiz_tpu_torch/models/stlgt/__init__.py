@@ -1,33 +1,24 @@
 """STLGT subsystem: the linear graph transformer tail-latency head.
 
 - model.py    — kernelized softmax-free transformer block, monotone
-                p50/p95/p99 quantile head, per-edge attribution gates.
+                p50/p95/p99 quantile head (pinball loss), per-edge
+                attribution gates.
+- trainer.py  — the continual trainer driven from the tick's folds: fold
+                snapshots become next-hour examples, dirty endpoints mark
+                ring slots stale, a refresh trains only stale slots.
 - serving.py  — bucket-padded quantile forward.
 
-The continual trainer (kmamiz_tpu/models/stlgt/trainer.py) is not ported
-yet, so there are no live serving params: `serving_params()` returns None
-and the forecast route serves the checkpointed head alone.
+`serving_params()` gives the process trainer's last-good params (None
+before its first refresh) to the forecast route.
 """
-from __future__ import annotations
-
-import os
-from typing import Optional
-
-from kmamiz_tpu_torch.models.stlgt import model, serving  # noqa: F401
-
-
-def serving_params() -> Optional[dict]:
-    """Last-good params of the process's continual trainer: None until the
-    trainer is ported."""
-    return None
-
-
-def horizon_max() -> int:
-    """KMAMIZ_STLGT_HORIZON_MAX (default 24): upper clamp on the
-    ``/model/forecast?horizon=`` sqrt-widening; beyond it the route
-    answers 400."""
-    try:
-        value = int(os.environ.get("KMAMIZ_STLGT_HORIZON_MAX", "24"))
-    except ValueError:
-        value = 24
-    return max(1, value)
+from kmamiz_tpu_torch.models.stlgt import model, serving, trainer  # noqa: F401
+from kmamiz_tpu_torch.models.stlgt.trainer import (  # noqa: F401
+    configured_quantiles,
+    enabled,
+    get_trainer,
+    horizon_max,
+    on_fold,
+    reset_for_tests,
+    serving_params,
+    trainer_status,
+)

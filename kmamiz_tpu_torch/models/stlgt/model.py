@@ -11,15 +11,17 @@ gated mode) on the card.
 Heads: a monotone quantile stack (p50 raw, p95 = p50 + softplus, p99 =
 p95 + softplus) over log1p latency, and the anomaly logit. `forward`
 returns (p50, anomaly_logit) like every model module; `forward_quantiles`
-is the full surface. The pinball loss comes with the training slice.
+is the full surface. Training uses the masked pinball loss plus the
+family's weighted BCE (`make_pinball_loss_fn`) and the family's AdamW.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
+from kmamiz_tpu_torch.models import common as _common
 from kmamiz_tpu_torch.models.graphsage import (  # noqa: F401 - one feature layout for every head
     NUM_FEATURES,
     assemble_features,
@@ -103,10 +105,13 @@ def encode(
     src_ep: torch.Tensor,  # [E]
     dst_ep: torch.Tensor,  # [E]
     edge_mask: torch.Tensor,  # [E]
+    index: Optional[sparse.EdgeIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One linear-transformer block -> (node states [N, H], edge gates
     [E]). Padded lanes (all-zero feature rows) are masked out of the
-    attention sums; padded edges out of the bias by edge_mask."""
+    attention sums; padded edges out of the bias by edge_mask. `index` is
+    the edge list's sparse.edge_index over the N rows (the kernel's wrapper
+    builds one when not given)."""
     # a padded slot has an all-zero feature row; real slots always carry
     # at least the hour-of-day cos column
     lane = (features.abs().sum(dim=1) > 0).to(torch.float32)[:, None]
@@ -124,7 +129,7 @@ def encode(
     # neighbor bias: the gate and the gated sums over both directions in
     # one fused SDDMM/SpMM; the deg normalisation stays out here
     bias, deg, gate = sparse.fused_gated_bias(
-        q, k, v, params.b_edge, src_ep, dst_ep, edge_mask
+        q, k, v, params.b_edge, src_ep, dst_ep, edge_mask, index=index
     )
     bias = bias / torch.clamp(deg, min=1.0)[:, None]
 
@@ -141,11 +146,12 @@ def forward_quantiles(
     src_ep: torch.Tensor,
     dst_ep: torch.Tensor,
     edge_mask: torch.Tensor,
+    index: Optional[sparse.EdgeIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full STLGT surface -> (latency quantiles [N, NUM_QUANTILES] in
     log1p-ms, anomaly logits [N], per-edge attribution gates [E]).
     Quantile columns are monotone by construction."""
-    h, gate = encode(params, features, src_ep, dst_ep, edge_mask)
+    h, gate = encode(params, features, src_ep, dst_ep, edge_mask, index=index)
     softplus = torch.nn.functional.softplus
     raw = h @ params.w_quant + features @ params.w_quant_skip + params.b_quant
     q50 = raw[:, 0]
@@ -164,9 +170,47 @@ def forward(
     src_ep: torch.Tensor,
     dst_ep: torch.Tensor,
     edge_mask: torch.Tensor,
+    index: Optional[sparse.EdgeIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Model-module surface: (p50 latency, anomaly logit)."""
     quantiles, anomaly_logit, _gate = forward_quantiles(
-        params, features, src_ep, dst_ep, edge_mask
+        params, features, src_ep, dst_ep, edge_mask, index=index
     )
     return quantiles[:, 0], anomaly_logit
+
+
+def make_pinball_loss_fn(
+    pos_weight: float = 1.0, quantiles: Tuple[float, ...] = QUANTILES
+):
+    """Masked pinball (quantile) loss over the three levels + the family's
+    weighted BCE anomaly term, with common.make_loss_fn's signature."""
+
+    def loss_fn(
+        params,
+        features,
+        src_ep,
+        dst_ep,
+        edge_mask,
+        target_latency,
+        target_anomaly,
+        node_mask,
+        index=None,
+    ):
+        pred_q, anomaly_logit, _gate = forward_quantiles(
+            params, features, src_ep, dst_ep, edge_mask, index=index
+        )
+        taus = torch.tensor(quantiles, dtype=torch.float32, device=pred_q.device)
+        w = node_mask.to(torch.float32)
+        denom = torch.clamp(w.sum(), min=1.0)
+        diff = target_latency[:, None] - pred_q  # [N, Q]
+        pinball = torch.maximum(taus * diff, (taus - 1.0) * diff)
+        quant_loss = torch.sum(w[:, None] * pinball) / denom
+        anomaly_loss = _common.weighted_bce(
+            anomaly_logit, target_anomaly, w, denom, pos_weight
+        )
+        return quant_loss + anomaly_loss, (quant_loss, anomaly_loss)
+
+    return loss_fn
+
+
+make_optimizer = _common.make_optimizer

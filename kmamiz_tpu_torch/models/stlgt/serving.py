@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from kmamiz_tpu_torch.models.serving import padded_inputs
+from kmamiz_tpu_torch.models.serving import PaddedSnapshot, pad_snapshot
 
 
 def quantile_forward(
@@ -21,11 +21,20 @@ def quantile_forward(
     """Bucket-padded STLGT forward -> (latency quantiles ms [N, 3],
     anomaly probability [N], edge attribution score [E]) as host float
     arrays for the real rows and edges."""
-    device = params[0].device
-    feats, src_p, dst_p, mask_p, n, e = padded_inputs(features, src, dst, mask, device)
+    padded = pad_snapshot(features, src, dst, mask, params[0].device)
+    return quantile_forward_padded(params, padded, model)
+
+
+def quantile_forward_padded(
+    params, padded: PaddedSnapshot, model
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """quantile_forward over a snapshot already padded on the params'
+    device (models/serving.pad_snapshot), with its edge index."""
     with torch.no_grad():
-        q_log, logit, gate = model.forward_quantiles(params, feats, src_p, dst_p, mask_p)
+        q_log, logit, gate = model.forward_quantiles(
+            params, padded.features, padded.src, padded.dst, padded.mask, index=padded.index
+        )
         q_ms = torch.expm1(q_log).cpu().numpy()
         prob = torch.sigmoid(logit).cpu().numpy()
         gate = gate.cpu().numpy()
-    return q_ms[:n], prob[:n], gate[:e]
+    return q_ms[: padded.n], prob[: padded.n], gate[: padded.e]

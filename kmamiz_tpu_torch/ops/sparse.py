@@ -17,8 +17,15 @@ edge to N-1; real snapshots carry no such ids.)
 
 `fused_sddmm_spmm` routes by the device of its inputs: CUDA tensors launch
 the kernel (or raise), CPU tensors take `fused_plain`. There is no switch
-and no fallback between the two. The sparse counting primitives of the
-JAX module belong to the scorers and are not ported here.
+and no fallback between the two. When an input wants a grad, both
+routes run inside one torch.autograd.Function, whose backward is the
+kernel's backward on the card (`fused_backward`: the SDDMM of the gate's
+grad and a row pass over the edge list's gather index, in
+csrc/fused_sddmm_spmm.cu) and its plain versions on the CPU
+(`fused_backward_plain` composes them). The JAX package has no backward
+kernel: JAX differentiates its XLA formulation, whose VJP these equal.
+The sparse counting primitives of the JAX module belong to the scorers
+and are not ported here.
 """
 from __future__ import annotations
 
@@ -38,33 +45,54 @@ REPLACES = "kmamiz_tpu/ops/sparse.py:162"
 class EdgeIndex(NamedTuple):
     """The edge list by node row (CSR), both directions: row n holds an
     entry for every live edge with dst == n (edge id j = e) and every live
-    edge with src == n (j = E + e), in order of j."""
+    edge with src == n (j = E + e), in order of j. `gather` is the index
+    the backward reads (rows by the clamped gather id of every live side;
+    equal to this one when every live id lies in [0, N)), or None when the
+    index was built for forwards only."""
 
     row_ptr: torch.Tensor  # int32[N+1]: row n is entries row_ptr[n]:row_ptr[n+1]
     nbr: torch.Tensor  # int32[2E]: the other end (the kernel clamps its gather)
     eid: torch.Tensor  # int64[2E]: j, the edge id with its direction
+    gather: Optional["EdgeIndex"] = None
 
 
 def edge_keys_plain(
-    src_ep: torch.Tensor, dst_ep: torch.Tensor, edge_mask: torch.Tensor, n: int
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    n: int,
+    gather: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """edge_index's sort keys and opposite ends for the 2E entries (dst
     sides, then src sides), in plain PyTorch: key = that end's row, or n
-    when the edge is masked off or the row lies outside [0, n)."""
+    when the edge is masked off or the row lies outside [0, n). With
+    gather=True the gather index's keys: the row clamped into [0, n) for
+    every live side, n for masked-off edges."""
     rows = torch.cat([dst_ep, src_ep])
-    keys = torch.where(edge_mask.repeat(2) & (rows >= 0) & (rows < n), rows, n)
+    live = edge_mask.repeat(2)
+    if gather:
+        keys = torch.where(live, rows.clamp(0, n - 1), n)
+    else:
+        keys = torch.where(live & (rows >= 0) & (rows < n), rows, n)
     return keys, torch.cat([src_ep, dst_ep])
 
 
 def edge_index(
-    src_ep: torch.Tensor, dst_ep: torch.Tensor, edge_mask: torch.Tensor, n: int
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    n: int,
+    for_backward: bool = False,
 ) -> EdgeIndex:
     """The CSR index of the edge list over n node rows, as the kernel reads
     it. A side whose id lies outside [0, n), and both sides of a masked-off
     edge, park at key n past the last row, so only the first row_ptr[n] of
     the 2E entries are live. The keys come from a small kernel of
     csrc/fused_sddmm_spmm.cu on the card (edge_keys_plain on the CPU), then
-    one stable sort and one searchsorted: no host sync."""
+    one stable sort and one searchsorted: no host sync. for_backward=True
+    also builds the gather index the backward reads (`EdgeIndex.gather`):
+    one more keys launch, sort and searchsorted. Owners of an edge list
+    that stays fixed build the index once and pass it to every call."""
     e = src_ep.shape[0]
     if src_ep.shape != (e,) or dst_ep.shape != (e,) or edge_mask.shape != (e,):
         raise ValueError("edge_index wants src[E], dst[E] and mask[E]")
@@ -75,6 +103,21 @@ def edge_index(
         raise ValueError("edge_index inputs lie on different devices")
     if not 0 < n < 2**31 or 2 * e >= 2**31:
         raise ValueError(f"edge_index: N={n} or 2E={2 * e} out of int32 range")
+    edge_index.builds += 1
+    index = _csr(src_ep, dst_ep, edge_mask, n, gather=False)
+    if for_backward:
+        index = index._replace(gather=_csr(src_ep, dst_ep, edge_mask, n, gather=True))
+    return index
+
+
+#: edge_index calls in this process (each builds one index, or two with
+#: for_backward)
+edge_index.builds = 0
+
+
+def _csr(src_ep, dst_ep, edge_mask, n: int, gather: bool) -> EdgeIndex:
+    e = src_ep.shape[0]
+    device = src_ep.device
     if device.type == "cuda":
         # int16 keys when n fits: the radix sort then runs two 8-bit passes
         # instead of four
@@ -87,15 +130,14 @@ def edge_index(
             edge_mask.contiguous().data_ptr(),
             e,
             n,
+            int(gather),
             keys.element_size(),
             keys.data_ptr(),
             other.data_ptr(),
         )
-        err = cuda_build.launch(_kernel("kmamiz_edge_index_keys"), args, device)
-        if err != 0:
-            raise RuntimeError(f"edge_index keys kernel launch failed: cudaError {err}")
+        _launch("kmamiz_edge_index_keys", args, device)
     else:
-        keys, other = edge_keys_plain(src_ep, dst_ep, edge_mask, n)
+        keys, other = edge_keys_plain(src_ep, dst_ep, edge_mask, n, gather)
     sorted_keys, order = torch.sort(keys, stable=True)
     row_ptr = torch.searchsorted(
         sorted_keys, torch.arange(n + 1, dtype=keys.dtype, device=device), out_int32=True
@@ -114,13 +156,13 @@ def fused_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: gather, mask, gate, index_add_ in both
     directions. Gated when q, k and b_edge are given. Returns
-    (bias[N, H], deg[N], gate[E]), the un-normalised sums."""
+    (bias[N, H], deg[N], gate[E]), the un-normalised sums, in v's dtype."""
     n, h = v.shape
     src = src_ep.long()
     dst = dst_ep.long()
     src_c = src.clamp(0, n - 1)
     dst_c = dst.clamp(0, n - 1)
-    em = edge_mask.to(torch.float32)
+    em = edge_mask.to(v.dtype)
     if q is None:
         gate = em
     else:
@@ -130,13 +172,113 @@ def fused_plain(
     src_s = torch.where(edge_mask & (src >= 0) & (src < n), src, n)
     dst_s = torch.where(edge_mask & (dst >= 0) & (dst < n), dst, n)
     g = gate[:, None]
-    bias = torch.zeros((n + 1, h), dtype=torch.float32, device=v.device)
+    bias = torch.zeros((n + 1, h), dtype=v.dtype, device=v.device)
     bias.index_add_(0, dst_s, v[src_c] * g)
     bias.index_add_(0, src_s, v[dst_c] * g)
-    deg = torch.zeros(n + 1, dtype=torch.float32, device=v.device)
+    deg = torch.zeros(n + 1, dtype=v.dtype, device=v.device)
     deg.index_add_(0, dst_s, gate)
     deg.index_add_(0, src_s, gate)
     return bias[:n], deg[:n], gate
+
+
+def grad_edges_plain(
+    v: torch.Tensor,
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    gate: torch.Tensor,
+    d_bias: torch.Tensor,
+    d_deg: Optional[torch.Tensor] = None,
+    d_gate: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """da[E], the grad of the gated forward's gate logit, in plain
+    PyTorch (the plain version of fused_sddmm_spmm_grad_edges): for edge
+    e = (s, d) with gather rows sc, dc (the ids clamped into [0, N))
+
+        dg_e = d_gate[e] + [d in [0, N)] (d_bias[d]·v[sc] + d_deg[d])
+                         + [s in [0, N)] (d_bias[s]·v[dc] + d_deg[s])
+        da_e = dg_e g_e (1 - g_e)
+
+    (a scatter the forward dropped passes no grad back; masked-off edges
+    have g_e = 0). d_deg and d_gate may be None (no grad)."""
+    n = v.shape[0]
+    src, dst = src_ep.long(), dst_ep.long()
+    src_c, dst_c = src.clamp(0, n - 1), dst.clamp(0, n - 1)
+    to_dst = (edge_mask & (dst >= 0) & (dst < n)).to(v.dtype)
+    to_src = (edge_mask & (src >= 0) & (src < n)).to(v.dtype)
+    dg = to_dst * (d_bias[dst_c] * v[src_c]).sum(dim=1) + to_src * (d_bias[src_c] * v[dst_c]).sum(dim=1)
+    if d_deg is not None:
+        dg = dg + to_dst * d_deg[dst_c] + to_src * d_deg[src_c]
+    if d_gate is not None:
+        dg = dg + d_gate
+    return dg * (gate * (1.0 - gate))
+
+
+def grad_rows_plain(
+    n: int,
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    gate: torch.Tensor,
+    d_bias: Optional[torch.Tensor],
+    da: Optional[torch.Tensor] = None,
+    q: Optional[torch.Tensor] = None,
+    k: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dv, dq, dk) [N, H] in plain PyTorch (the plain version of
+    fused_sddmm_spmm_grad_rows), by gather row:
+
+        dv[sc] += g_e d_bias[d]  if d lies in [0, N)
+        dv[dc] += g_e d_bias[s]  if s lies in [0, N)
+        dq[sc] += da_e k[dc] / sqrt(H),  dk[dc] += da_e q[sc] / sqrt(H)
+
+    dv is None when d_bias is; dq and dk are None unless q, k and da are
+    given. gate None is the ungated gate, the mask."""
+    src, dst = src_ep.long(), dst_ep.long()
+    src_c, dst_c = src.clamp(0, n - 1), dst.clamp(0, n - 1)
+    dv = dq = dk = None
+    if d_bias is not None:
+        if gate is None:
+            gate = edge_mask.to(d_bias.dtype)
+        to_dst = (edge_mask & (dst >= 0) & (dst < n)).to(d_bias.dtype)
+        to_src = (edge_mask & (src >= 0) & (src < n)).to(d_bias.dtype)
+        dv = torch.zeros_like(d_bias)
+        dv.index_add_(0, src_c, (gate * to_dst)[:, None] * d_bias[dst_c])
+        dv.index_add_(0, dst_c, (gate * to_src)[:, None] * d_bias[src_c])
+    if q is not None and da is not None:
+        scale = math.sqrt(q.shape[1])
+        dq = torch.zeros_like(q)
+        dq.index_add_(0, src_c, da[:, None] * k[dst_c] / scale)
+        dk = torch.zeros_like(k)
+        dk.index_add_(0, dst_c, da[:, None] * q[src_c] / scale)
+    return dv, dq, dk
+
+
+def fused_backward_plain(
+    v: torch.Tensor,
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    gate: torch.Tensor,
+    d_bias: Optional[torch.Tensor],
+    d_deg: Optional[torch.Tensor] = None,
+    d_gate: Optional[torch.Tensor] = None,
+    q: Optional[torch.Tensor] = None,
+    k: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The plain PyTorch VJP of fused_plain: (dv, dq, dk, db) for the
+    upstream grads d_bias[N, H], d_deg[N] and d_gate[E] (each may be None:
+    no grad) at the forward's gate[E] (ungated: the mask, or None); dq,
+    dk and db are None ungated (q None). grad_edges_plain's da, then
+    grad_rows_plain, and db = sum of da."""
+    if d_bias is None:
+        d_bias = torch.zeros_like(v)
+    if q is None:
+        dv, _, _ = grad_rows_plain(v.shape[0], src_ep, dst_ep, edge_mask, gate, d_bias)
+        return dv, None, None, None
+    da = grad_edges_plain(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
+    dv, dq, dk = grad_rows_plain(v.shape[0], src_ep, dst_ep, edge_mask, gate, d_bias, da, q, k)
+    return dv, dq, dk, da.sum()
 
 
 def _check(v, src_ep, dst_ep, edge_mask, q, k, b_edge) -> None:
@@ -150,8 +292,10 @@ def _check(v, src_ep, dst_ep, edge_mask, q, k, b_edge) -> None:
         )
     if v.shape[0] < 1 or v.shape[1] < 1:
         raise ValueError(f"fused_sddmm_spmm: empty node table {tuple(v.shape)}")
+    # float64 only on the CPU: the plain version is dtype-generic (gradcheck)
+    floats = (torch.float32, torch.float64) if v.device.type == "cpu" else (torch.float32,)
     if (
-        v.dtype != torch.float32
+        v.dtype not in floats
         or src_ep.dtype != torch.int32
         or dst_ep.dtype != torch.int32
         or edge_mask.dtype != torch.bool
@@ -172,23 +316,26 @@ def _check(v, src_ep, dst_ep, edge_mask, q, k, b_edge) -> None:
             f"gated mode wants q, k shaped like v {tuple(v.shape)} and one "
             f"b_edge, got {tuple(q.shape)}, {tuple(k.shape)}, {b_edge.numel()}"
         )
-    if not (q.dtype == k.dtype == b_edge.dtype == torch.float32):
-        raise TypeError("gated mode wants float32 q, k and b_edge")
+    if not (q.dtype == k.dtype == b_edge.dtype == v.dtype):
+        raise TypeError("gated mode wants q, k and b_edge of v's float type")
     if q.device != device or k.device != device or b_edge.device != device:
         raise ValueError("fused_sddmm_spmm inputs lie on different devices")
 
 
 def _check_index(index: EdgeIndex, n: int, e: int, device) -> None:
-    row_ptr, nbr, eid = index
-    if row_ptr.shape != (n + 1,) or nbr.shape != (2 * e,) or eid.shape != (2 * e,):
-        raise ValueError(
-            f"edge index shaped {tuple(row_ptr.shape)}, {tuple(nbr.shape)}, "
-            f"{tuple(eid.shape)} for N={n}, E={e}"
-        )
-    if row_ptr.dtype != torch.int32 or nbr.dtype != torch.int32 or eid.dtype != torch.int64:
-        raise TypeError("the edge index is int32 row_ptr and nbr, int64 eid")
-    if row_ptr.device != device or nbr.device != device or eid.device != device:
-        raise ValueError("the edge index lies on another device")
+    for part in (index, index.gather):
+        if part is None:
+            continue
+        row_ptr, nbr, eid = part.row_ptr, part.nbr, part.eid
+        if row_ptr.shape != (n + 1,) or nbr.shape != (2 * e,) or eid.shape != (2 * e,):
+            raise ValueError(
+                f"edge index shaped {tuple(row_ptr.shape)}, {tuple(nbr.shape)}, "
+                f"{tuple(eid.shape)} for N={n}, E={e}"
+            )
+        if row_ptr.dtype != torch.int32 or nbr.dtype != torch.int32 or eid.dtype != torch.int64:
+            raise TypeError("the edge index is int32 row_ptr and nbr, int64 eid")
+        if row_ptr.device != device or nbr.device != device or eid.device != device:
+            raise ValueError("the edge index lies on another device")
 
 
 #: argtypes of the C entries of csrc/fused_sddmm_spmm.cu
@@ -220,9 +367,44 @@ _ARGTYPES = {
         ctypes.c_void_p,  # mask
         ctypes.c_int64,  # e
         ctypes.c_int32,  # n
+        ctypes.c_int,  # gather (1: the backward's gather index)
         ctypes.c_int,  # key_bytes (2: int16 keys, 4: int32)
         ctypes.c_void_p,  # keys
         ctypes.c_void_p,  # other
+        ctypes.c_void_p,  # stream
+    ],
+    "kmamiz_fused_sddmm_spmm_grad_edges": [
+        ctypes.c_void_p,  # src
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # mask
+        ctypes.c_void_p,  # v
+        ctypes.c_void_p,  # d_bias
+        ctypes.c_void_p,  # d_deg (nullable)
+        ctypes.c_void_p,  # d_gate (nullable)
+        ctypes.c_void_p,  # gate
+        ctypes.c_int64,  # e
+        ctypes.c_int32,  # n
+        ctypes.c_int32,  # h
+        ctypes.c_void_p,  # da
+        ctypes.c_void_p,  # stream
+    ],
+    "kmamiz_fused_sddmm_spmm_grad_rows": [
+        ctypes.c_void_p,  # row_ptr (gather index)
+        ctypes.c_void_p,  # nbr
+        ctypes.c_void_p,  # eid (int64)
+        ctypes.c_void_p,  # d_bias
+        ctypes.c_void_p,  # gate
+        ctypes.c_void_p,  # da
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k
+        ctypes.c_int,  # gated
+        ctypes.c_int64,  # e
+        ctypes.c_int32,  # n
+        ctypes.c_int32,  # h
+        ctypes.c_float,  # sqrt_h
+        ctypes.c_void_p,  # dv (nullable)
+        ctypes.c_void_p,  # dq (nullable)
+        ctypes.c_void_p,  # dk (nullable)
         ctypes.c_void_p,  # stream
     ],
 }
@@ -238,6 +420,230 @@ def _kernel(name: str = "kmamiz_fused_sddmm_spmm"):
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, args, device) -> None:
+    err = cuda_build.launch(_kernel(name), args, device)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _forward_kernel(v, src_ep, dst_ep, edge_mask, q, k, b_edge, want_gate, index):
+    """The forward launch on card tensors (contiguous, checked)."""
+    n, h = v.shape
+    e = src_ep.shape[0]
+    gated = q is not None
+    # the kernel writes every element once: nothing is zero-filled (the
+    # gate is scratch for the row pass when gated and not wanted)
+    bias = torch.empty((n, h), dtype=torch.float32, device=v.device)
+    deg = torch.empty(n, dtype=torch.float32, device=v.device)
+    gate = torch.empty(e, dtype=torch.float32, device=v.device) if want_gate or gated else None
+    args = (
+        src_ep.data_ptr(),
+        dst_ep.data_ptr(),
+        edge_mask.data_ptr(),
+        index.row_ptr.data_ptr(),
+        index.nbr.data_ptr(),
+        index.eid.data_ptr(),
+        v.data_ptr(),
+        _ptr(q),
+        _ptr(k),
+        _ptr(b_edge),
+        int(gated),
+        e,
+        n,
+        h,
+        math.sqrt(h),
+        bias.data_ptr(),
+        deg.data_ptr(),
+        _ptr(gate),
+    )
+    _launch("kmamiz_fused_sddmm_spmm", args, v.device)
+    fused_sddmm_spmm.launches += 1
+    return bias, deg, gate
+
+
+def fused_sddmm_spmm_grad_edges(
+    v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg=None, d_gate=None
+) -> torch.Tensor:
+    """da[E] of the gated backward (see grad_edges_plain, its plain
+    version, which CPU tensors take). Card tensors: one launch of the
+    backward's SDDMM (csrc/fused_sddmm_spmm.cu, kernel 3)."""
+    if not v.is_cuda:
+        return grad_edges_plain(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
+    n, h = v.shape
+    e = src_ep.shape[0]
+    da = torch.empty(e, dtype=torch.float32, device=v.device)
+    args = (
+        src_ep.data_ptr(),
+        dst_ep.data_ptr(),
+        edge_mask.data_ptr(),
+        v.data_ptr(),
+        d_bias.data_ptr(),
+        _ptr(d_deg),
+        _ptr(d_gate),
+        gate.data_ptr(),
+        e,
+        n,
+        h,
+        da.data_ptr(),
+    )
+    _launch("kmamiz_fused_sddmm_spmm_grad_edges", args, v.device)
+    fused_sddmm_spmm_grad_edges.launches += 1
+    return da
+
+
+#: launches of the backward's SDDMM kernel in this process
+fused_sddmm_spmm_grad_edges.launches = 0
+
+
+def fused_sddmm_spmm_grad_rows(
+    n: int,
+    src_ep,
+    dst_ep,
+    edge_mask,
+    gate,
+    d_bias,
+    da=None,
+    q=None,
+    k=None,
+    index: Optional[EdgeIndex] = None,
+):
+    """(dv, dq, dk) [N, H] of the backward (see grad_rows_plain, its plain
+    version, which CPU tensors take): dv when d_bias is given, dq and dk
+    when q, k and da are. Card tensors: one launch of the backward's row
+    pass over index.gather (csrc/fused_sddmm_spmm.cu, kernel 4); the gate
+    is read only gated (None will do ungated)."""
+    ref = d_bias if d_bias is not None else q
+    if not ref.is_cuda:
+        return grad_rows_plain(n, src_ep, dst_ep, edge_mask, gate, d_bias, da, q, k)
+    if index is None or index.gather is None:
+        raise ValueError(
+            "the fused kernel's backward reads the gather index: build the "
+            "edge index with edge_index(..., for_backward=True)"
+        )
+    h = ref.shape[1]
+    e = src_ep.shape[0]
+    gated = q is not None
+    want_qk = gated and da is not None
+
+    def out(wanted):
+        return torch.empty((n, h), dtype=torch.float32, device=ref.device) if wanted else None
+
+    dv, dq, dk = out(d_bias is not None), out(want_qk), out(want_qk)
+    gather = index.gather
+    args = (
+        gather.row_ptr.data_ptr(),
+        gather.nbr.data_ptr(),
+        gather.eid.data_ptr(),
+        _ptr(d_bias),
+        _ptr(gate if gated else None),
+        _ptr(da),
+        _ptr(q),
+        _ptr(k),
+        int(gated),
+        e,
+        n,
+        h,
+        math.sqrt(h),
+        _ptr(dv),
+        _ptr(dq),
+        _ptr(dk),
+    )
+    _launch("kmamiz_fused_sddmm_spmm_grad_rows", args, ref.device)
+    fused_sddmm_spmm_grad_rows.launches += 1
+    return dv, dq, dk
+
+
+#: launches of the backward's row-pass kernel in this process
+fused_sddmm_spmm_grad_rows.launches = 0
+
+
+def fused_backward(
+    v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg=None, d_gate=None,
+    q=None, k=None, index: Optional[EdgeIndex] = None,
+    needs: Tuple[bool, bool, bool, bool] = (True, True, True, True),
+):
+    """(dv, dq, dk, db) of the fused forward for the upstream grads, as
+    fused_backward_plain computes them; `needs` says which of (v, q, k,
+    b_edge) want a grad (the others come back None, uncomputed). The SDDMM
+    of da runs when q, k or b_edge want a grad, then one row pass gives
+    dv, dq and dk; db is torch.sum(da), one reduction in a fixed order.
+    On the card that is two launches gated and one ungated (none when v
+    wants no grad), over index.gather, which edge_index(...,
+    for_backward=True) builds; CPU tensors take the plain versions."""
+    n = v.shape[0]
+    gated = q is not None
+    need_v, need_q, need_k, need_b = needs
+    if not gated:
+        need_q = need_k = need_b = False
+    if d_bias is None and (need_v or gated):
+        d_bias = torch.zeros_like(v)
+    d_bias, d_deg, d_gate = (None if t is None else t.contiguous() for t in (d_bias, d_deg, d_gate))
+    da = None
+    if need_q or need_k or need_b:
+        da = fused_sddmm_spmm_grad_edges(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
+    dv = dq = dk = None
+    if need_v or need_q or need_k:
+        dv, dq, dk = fused_sddmm_spmm_grad_rows(
+            n, src_ep, dst_ep, edge_mask, gate,
+            d_bias if need_v else None,
+            da if (need_q or need_k) else None,
+            q, k, index,
+        )
+    db = torch.sum(da) if need_b else None
+    return dv, dq if need_q else None, dk if need_k else None, db
+
+
+class _Fused(torch.autograd.Function):
+    """fused_sddmm_spmm with its VJP: the kernels on the card, the plain
+    versions on the CPU. The forward saves the gate (and, on the card, the
+    edge index the backward reads); the backward builds no index."""
+
+    @staticmethod
+    def forward(ctx, v, q, k, b_edge, src_ep, dst_ep, edge_mask, index, want_gate):
+        gated = q is not None
+        if v.is_cuda:
+            bias, deg, gate = _forward_kernel(
+                v, src_ep, dst_ep, edge_mask, q, k, b_edge, want_gate, index
+            )
+        else:
+            bias, deg, gate = fused_plain(v, src_ep, dst_ep, edge_mask, q, k, b_edge)
+        ctx.set_materialize_grads(False)
+        ctx.index = index
+        ctx.b_shape = None if b_edge is None else b_edge.shape
+        # ungated, the gate is the mask and deg counts it: no input moves them
+        if not gated:
+            # one call: a second would replace the first's set
+            ctx.mark_non_differentiable(*(t for t in (deg, gate) if t is not None))
+        ctx.save_for_backward(v, q, k, src_ep, dst_ep, edge_mask, gate)
+        if not want_gate:
+            return bias, deg, None
+        return bias, deg, gate
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_bias, d_deg, d_gate):
+        v, q, k, src_ep, dst_ep, edge_mask, gate = ctx.saved_tensors
+        needs = tuple(ctx.needs_input_grad[:4])
+        dv, dq, dk, db = fused_backward(
+            v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate,
+            q, k, ctx.index, needs,
+        )
+        if db is not None:
+            db = db.reshape(ctx.b_shape)
+        return dv, dq, dk, db, None, None, None, None, None
+
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd records and one of the tensors wants a grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
 
 
 def fused_sddmm_spmm(
@@ -258,62 +664,49 @@ def fused_sddmm_spmm(
     edge_index(src_ep, dst_ep, edge_mask, N), built here when not given;
     callers that aggregate one edge list several times build it once.
 
-    CUDA inputs launch the kernel on the current stream without a sync;
-    CPU inputs run fused_plain and ignore the index."""
+    Differentiable in v, q, k and b_edge (the autograd Function above;
+    when no input wants a grad the launch runs without it). CUDA inputs
+    launch the kernel on the current stream without a sync; a
+    backward on the card needs the index's gather part, which the index
+    built here has whenever an input wants a grad (a given index without
+    it raises). CPU inputs run fused_plain and fused_backward_plain and
+    ignore the index."""
     _check(v, src_ep, dst_ep, edge_mask, q, k, b_edge)
-    gated = q is not None
-    if not v.is_cuda:
-        if v.device.type == "cpu":
-            bias, deg, gate = fused_plain(v, src_ep, dst_ep, edge_mask, q, k, b_edge)
-            return bias, deg, gate if want_gate else None
+    if v.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_sddmm_spmm: unsupported device {v.device}")
-    n, h = v.shape
-    e = src_ep.shape[0]
-    if n >= 2**31 or 2 * e >= 2**31:
-        raise ValueError(f"fused_sddmm_spmm: N={n} or 2E={2 * e} out of int32 range")
-    if index is None:
-        index = edge_index(src_ep, dst_ep, edge_mask, n)
-    _check_index(index, n, e, v.device)
-    row_ptr, nbr, eid = (t.contiguous() for t in index)
-    v = v.contiguous()
-    src_ep = src_ep.contiguous()
-    dst_ep = dst_ep.contiguous()
-    edge_mask = edge_mask.contiguous()
-    if gated:
-        q, k, b_edge = q.contiguous(), k.contiguous(), b_edge.contiguous()
-    # the kernel writes every element once: nothing is zero-filled (the
-    # gate is scratch for the row pass when gated and not wanted)
-    bias = torch.empty((n, h), dtype=torch.float32, device=v.device)
-    deg = torch.empty(n, dtype=torch.float32, device=v.device)
-    gate = torch.empty(e, dtype=torch.float32, device=v.device) if want_gate or gated else None
-    args = (
-        src_ep.data_ptr(),
-        dst_ep.data_ptr(),
-        edge_mask.data_ptr(),
-        row_ptr.data_ptr(),
-        nbr.data_ptr(),
-        eid.data_ptr(),
-        v.data_ptr(),
-        q.data_ptr() if gated else None,
-        k.data_ptr() if gated else None,
-        b_edge.data_ptr() if gated else None,
-        int(gated),
-        e,
-        n,
-        h,
-        math.sqrt(h),
-        bias.data_ptr(),
-        deg.data_ptr(),
-        None if gate is None else gate.data_ptr(),
-    )
-    err = cuda_build.launch(_kernel(), args, v.device)
-    if err != 0:
-        raise RuntimeError(f"fused_sddmm_spmm kernel launch failed: cudaError {err}")
-    fused_sddmm_spmm.launches += 1
-    return bias, deg, gate if want_gate else None
+    grad = wants_grad(v, q, k, b_edge)
+    if v.is_cuda:
+        n, h = v.shape
+        e = src_ep.shape[0]
+        if n >= 2**31 or 2 * e >= 2**31:
+            raise ValueError(f"fused_sddmm_spmm: N={n} or 2E={2 * e} out of int32 range")
+        if index is None:
+            index = edge_index(src_ep, dst_ep, edge_mask, n, for_backward=grad)
+        _check_index(index, n, e, v.device)
+        if grad and index.gather is None:
+            raise ValueError(
+                "fused_sddmm_spmm: an input wants a grad and the given edge index "
+                "has no gather part; build it with edge_index(..., for_backward=True)"
+            )
+        index = EdgeIndex(
+            *(t.contiguous() for t in index[:3]),
+            None if index.gather is None else EdgeIndex(*(t.contiguous() for t in index.gather[:3])),
+        )
+        v, src_ep, dst_ep, edge_mask = (t.contiguous() for t in (v, src_ep, dst_ep, edge_mask))
+        if q is not None:
+            q, k, b_edge = q.contiguous(), k.contiguous(), b_edge.contiguous()
+    if not grad:
+        # nothing to differentiate (serving, no_grad): the launch alone,
+        # without an autograd node and its host cost
+        if v.is_cuda:
+            bias, deg, gate = _forward_kernel(v, src_ep, dst_ep, edge_mask, q, k, b_edge, want_gate, index)
+        else:
+            bias, deg, gate = fused_plain(v, src_ep, dst_ep, edge_mask, q, k, b_edge)
+        return bias, deg, gate if want_gate else None
+    return _Fused.apply(v, q, k, b_edge, src_ep, dst_ep, edge_mask, index, want_gate)
 
 
-#: launches of the CUDA kernel in this process (CPU calls do not count)
+#: launches of the forward kernel in this process (CPU calls do not count)
 fused_sddmm_spmm.launches = 0
 
 
@@ -325,12 +718,13 @@ def fused_gated_bias(
     src_ep: torch.Tensor,
     dst_ep: torch.Tensor,
     edge_mask: torch.Tensor,
+    index: Optional[EdgeIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """STLGT neighbor bias: the gate ``sigmoid(q[src]·k[dst] / sqrt(H) +
     b_edge) * mask`` and the bidirectional gated SpMM in one kernel.
     Returns (bias_sum[N, H], gate_deg[N], gate[E]), un-normalised; the
-    model divides by max(gate_deg, 1)."""
-    return fused_sddmm_spmm(v, src_ep, dst_ep, edge_mask, q, k, b_edge)
+    model divides by max(gate_deg, 1). `index` as in fused_sddmm_spmm."""
+    return fused_sddmm_spmm(v, src_ep, dst_ep, edge_mask, q, k, b_edge, index=index)
 
 
 def fused_neighbor_sums(

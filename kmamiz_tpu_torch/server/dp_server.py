@@ -6,7 +6,8 @@ the sibling of the reference's Rust service
 health, POST / takes a TExternalDataProcessorRequest ({uniqueId,
 lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
-datatype, log}). Gzip request bodies (Content-Encoding: gzip) are
+datatype, log}). GET /model/stlgt answers the STLGT continual trainer's
+health (ring, stale slots, refreshes, params version). Gzip request bodies (Content-Encoding: gzip) are
 accepted; responses are gzip-compressed when the client sends
 Accept-Encoding: gzip.
 """
@@ -45,7 +46,13 @@ def make_handler(processor: DataProcessor):
             self.wfile.write(body)
 
         def do_GET(self) -> None:  # health check (main.rs:28-31)
-            if self.path.split("?", 1)[0].rstrip("/") != "":
+            path = self.path.split("?", 1)[0].rstrip("/")
+            if path == "/model/stlgt":
+                from kmamiz_tpu_torch.models.stlgt import trainer as stlgt_trainer
+
+                self._send_json(200, stlgt_trainer.trainer_status())
+                return
+            if path != "":
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
             self._send_json(

@@ -31,6 +31,7 @@ cost model).
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -51,6 +52,8 @@ from kmamiz_tpu_torch.graph.store import EndpointGraph
 from kmamiz_tpu_torch.models import graphsage
 from kmamiz_tpu_torch.models.history import SLOT_SECONDS, HistoryState
 from kmamiz_tpu_torch.ops import window as window_ops
+
+logger = logging.getLogger("kmamiz_tpu_torch.processor")
 
 PROCESSED_TRACE_TTL_MS = 300_000  # Rust DP keeps the dedup map for 5 min
 ZIPKIN_LIMIT = 2_500
@@ -156,6 +159,8 @@ class DataProcessor:
         self._hour_bucket = None  # [abs_hour, count, e4, e5, lat, lat^2,
         #                            cls_count, cls_lat, cls_lat^2]
         self._history_lock = threading.Lock()
+        #: failures the fold hooks contained (the fold itself went on)
+        self.fold_errors: Dict[str, int] = {"stlgtFoldErrors": 0}
 
     # -- trace dedup (data_processor.rs:30-73) -------------------------------
 
@@ -405,6 +410,17 @@ class DataProcessor:
                 int(hour),
             ),
         }
+        # STLGT continual-training hook (KMAMIZ_STLGT=1): each fold becomes
+        # an online example and may trigger a stale-slot refresh on this
+        # processor's device. A trainer failure must not take the fold
+        # down: it is counted, logged, and the fold goes on.
+        try:
+            from kmamiz_tpu_torch.models import stlgt as _stlgt
+
+            _stlgt.on_fold(self.forecast_snapshot, device=self.device)
+        except Exception:  # noqa: BLE001 - containment, counted
+            self.fold_errors["stlgtFoldErrors"] += 1
+            logger.exception("STLGT fold hook failed")
 
     # -- hybrid combine: device numeric stats + host body merge --------------
 

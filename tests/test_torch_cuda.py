@@ -161,9 +161,6 @@ def _features(n, f, seed):
 def test_forwards_launch_the_kernel_and_match_the_cpu(card, monkeypatch):
     """GraphSAGE launches the kernel twice over one edge index, STLGT once
     over one; both match the CPU forward."""
-    builds = []
-    edge_index = sparse.edge_index
-    monkeypatch.setattr(sparse, "edge_index", lambda *a: builds.append(1) or edge_index(*a))
     (_, _, _), (src, dst, mask) = _edges(1024, 8192, 1, seed=7)
     src[:3] = 0  # real snapshots carry no out-of-range ids
     feats = _features(1024, 18, seed=8)
@@ -172,11 +169,11 @@ def test_forwards_launch_the_kernel_and_match_the_cpu(card, monkeypatch):
         (stlgt, lambda d: stlgt.init_params(torch.Generator().manual_seed(2), hidden=32, num_features=18, device=d), 1),
     ):
         before = sparse.fused_sddmm_spmm.launches
-        builds.clear()
+        builds = sparse.edge_index.builds
         got = model.forward(params_of(card), *(t.to(card) for t in (feats, src, dst, mask)))
         torch.cuda.synchronize()
         assert sparse.fused_sddmm_spmm.launches == before + launches, model.__name__
-        assert len(builds) == 1, model.__name__
+        assert sparse.edge_index.builds == builds + 1, model.__name__
         want = model.forward(params_of("cpu"), feats, src, dst, mask)
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
@@ -242,8 +239,128 @@ def test_edge_index_on_the_card_matches_the_cpu(card, n):
     _tables, (src, dst, mask) = _edges(n, 65_536, 1, seed=17)
     dst[3:6] = -1
     mask[3:6] = True
-    got = sparse.edge_index(src.to(card), dst.to(card), mask.to(card), n)
+    got = sparse.edge_index(src.to(card), dst.to(card), mask.to(card), n, for_backward=True)
     torch.cuda.synchronize()
-    want = sparse.edge_index(src, dst, mask, n)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    want = sparse.edge_index(src, dst, mask, n, for_backward=True)
+    for part_got, part_want in ((got, want), (got.gather, want.gather)):
+        for a, b in zip(part_got[:3], part_want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def _backward_case(card, gated, n, e, h, seed):
+    """Leaves on the card (v; q, k, b when gated), the edge list with live
+    out-of-range ids, its index with the gather part, and upstream grads."""
+    (v, q, k), (src, dst, mask) = _edges(n, e, h, seed=seed)
+    dst[3:5] = n  # live edges whose dst lies out of range too
+    mask[3:5] = True
+    leaves = [t.to(card).requires_grad_() for t in ((v, q, k, torch.tensor([0.2])) if gated else (v,))]
+    ids = [t.to(card) for t in (src, dst, mask)]
+    index = sparse.edge_index(*ids, n, for_backward=True)
+    rng = np.random.default_rng(seed + 1)
+    ups = [
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(card)
+        for shape in ((n, h), (n,), (e,))
+    ]
+    return leaves, ids, index, ups
+
+
+def _kernel_grads(leaves, ids, index, ups, gated):
+    v = leaves[0]
+    if gated:
+        q, k, b = leaves[1:]
+        outs = sparse.fused_gated_bias(q, k, v, b, *ids, index=index)
+        return torch.autograd.grad(outs, (v, q, k, b), ups)
+    agg, _deg = sparse.fused_neighbor_sums(v, *ids, index=index)
+    return torch.autograd.grad(agg, (v,), ups[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,e,h", [(1, 1, 1), (300, 5000, 18), (2048, 40_000, 32), (4096, 65_536, 64)])
+def test_backward_kernels_match_plain_on_card(card, gated, n, e, h):
+    """The backward kernels against fused_backward_plain on the same card
+    tensors (atol 1e-5 / rtol 1e-4: fp32 sums in the gather index's order
+    against index_add_'s), live out-of-range ids and masked edges
+    included, two runs the same bits, one launch of each kernel."""
+    leaves, ids, index, ups = _backward_case(card, gated, n, e, h, seed=n + h)
+    rows, edges = sparse.fused_sddmm_spmm_grad_rows.launches, sparse.fused_sddmm_spmm_grad_edges.launches
+    got = _kernel_grads(leaves, ids, index, ups, gated)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm_grad_rows.launches == rows + 1
+    assert sparse.fused_sddmm_spmm_grad_edges.launches == edges + int(gated)
+    again = _kernel_grads(leaves, ids, index, ups, gated)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        plain_in = [t.detach() for t in leaves]
+        if gated:
+            _, _, gate = sparse.fused_plain(plain_in[0], *ids, *plain_in[1:])
+            want = sparse.fused_backward_plain(plain_in[0], *ids, gate, *ups, plain_in[1], plain_in[2])
+        else:
+            want = sparse.fused_backward_plain(plain_in[0], *ids, ids[2].float(), ups[0])[:1]
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w.reshape(a.shape), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_needs_the_gather_index(card):
+    leaves, ids, _index, _ups = _backward_case(card, False, 64, 256, 8, seed=3)
+    forward_only = sparse.edge_index(*ids, 64)
+    with pytest.raises(ValueError, match="gather"):
+        sparse.fused_neighbor_sums(leaves[0], *ids, index=forward_only)
+    with torch.no_grad():  # serving needs no gather part
+        sparse.fused_neighbor_sums(leaves[0], *ids, index=forward_only)
+
+
+def _refuse_plain_on_card(monkeypatch):
+    """Make every plain version of the fused kernel and its backward raise
+    when it is handed a card tensor."""
+    for name in ("fused_plain", "fused_backward_plain", "grad_edges_plain", "grad_rows_plain"):
+        plain = getattr(sparse, name)
+
+        def guarded(*args, _plain=plain, _name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{_name} ran on card tensors")
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(sparse, name, guarded)
+
+
+@pytest.mark.cuda
+def test_training_grads_reach_the_first_layer_on_card(card, monkeypatch):
+    """A GraphSAGE and an STLGT train step on the card: the grads reach
+    w_self_1 and w_q through the fused kernels' backward (no plain version
+    runs on the card), and match the CPU's within rtol 1e-3 / atol 1e-5."""
+    from kmamiz_tpu_torch.models import common
+
+    _refuse_plain_on_card(monkeypatch)
+
+    (_, _, _), (src, dst, mask) = _edges(1024, 8192, 1, seed=9)
+    src[:3] = 0
+    feats = _features(1024, 18, seed=10)
+    rng = np.random.default_rng(11)
+    t_lat = torch.from_numpy(rng.normal(size=1024).astype(np.float32))
+    t_ano = torch.from_numpy((rng.random(1024) < 0.2).astype(np.float32))
+    n_mask = torch.from_numpy(rng.random(1024) < 0.9)
+    batch = (feats, src, dst, mask, t_lat, t_ano, n_mask)
+    for model, loss_fn, field in (
+        (graphsage, common.make_loss_fn(graphsage.forward, 4.0), "w_self_1"),
+        (stlgt, stlgt.make_pinball_loss_fn(2.0), "w_q"),
+    ):
+        grads = {}
+        for dev in (card, "cpu"):
+            params = model.init_params(torch.Generator().manual_seed(5), hidden=32, num_features=18, device=dev)
+            index = sparse.edge_index(*(t.to(dev) for t in (src, dst, mask)), 1024, for_backward=True)
+            rows = sparse.fused_sddmm_spmm_grad_rows.launches
+            _loss, _aux, g = common.value_and_grad(
+                loss_fn, params, *(t.to(dev) for t in batch), index=index if dev == card else None
+            )
+            if dev == card:
+                torch.cuda.synchronize()
+                assert sparse.fused_sddmm_spmm_grad_rows.launches > rows, model.__name__
+            grads[str(dev)] = g
+        card_g, cpu_g = grads[str(card)], grads["cpu"]
+        assert float(getattr(card_g, field).abs().sum()) > 0, field
+        for name, a, b in zip(card_g._fields, card_g, cpu_g):
+            if b is not None:
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5, msg=name)

@@ -82,3 +82,29 @@ def test_processor_refuses_a_cluster_source():
 
     with pytest.raises(NotImplementedError):
         DataProcessor(lambda lb, t, lim: [], k8s_source=object(), device="cpu")
+
+
+def test_training_entry_points_raise_without_a_card(no_card):
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import stacked, trainer
+    from kmamiz_tpu_torch.models.stlgt.trainer import ContinualTrainer
+
+    ds = trainer.GraphDataset(
+        endpoint_names=["a", "b"],
+        src=np.zeros(1, dtype=np.int32),
+        dst=np.ones(1, dtype=np.int32),
+        edge_mask=np.ones(1, dtype=bool),
+        features=[np.ones((2, 10), dtype=np.float32)],
+        target_latency=[np.zeros(2, dtype=np.float32)],
+        target_anomaly=[np.zeros(2, dtype=np.float32)],
+        node_mask=[np.ones(2, dtype=bool)],
+        slot_keys=["0-0-0"],
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.train(ds, epochs=1, hidden=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stacked.stack_dataset(ds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinualTrainer()
+    assert ContinualTrainer(device="cpu").device.type == "cpu"

@@ -257,7 +257,7 @@ def test_plain_sums_rebuild_from_the_index(gated, n, e, h):
     extra = (t(q), t(k), torch.tensor([0.4])) if gated else ()
     bias, deg, gate = sparse.fused_plain(t(v), t(src), t(dst), t(mask), *extra)
     index = sparse.edge_index(t(src), t(dst), t(mask), n)
-    row_ptr, nbr, eid = (a.numpy().astype(np.int64) for a in index)
+    row_ptr, nbr, eid = (a.numpy().astype(np.int64) for a in (index.row_ptr, index.nbr, index.eid))
     nbr = nbr.clip(0, n - 1)
     g = gate.numpy()[eid % e]
     want_bias = np.zeros((n, h), dtype=np.float64)
@@ -293,3 +293,196 @@ def test_index_of_a_bucket_padded_snapshot():
     assert (index.eid[: int(index.row_ptr[-1])] % src_p.shape[0] < e).all()
     deg = graphsage.neighbor_degree(n_pad, src_p, dst_p, mask_p)
     np.testing.assert_array_equal(lengths.astype(np.float32), deg.numpy())
+
+
+# -- the backward --------------------------------------------------------------
+#
+# fused_backward_plain against autograd of fused_plain (float64: the same
+# VJP, rtol 1e-10) and against jax.vjp of the JAX package's XLA formulas
+# (float32: rtol 1e-4 / atol 1e-5, the bias tolerance above), gated and
+# ungated, with masked edges, padding and live edges whose ids lie out of
+# range.
+
+
+def _upstream(seed, n, e, h):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=(n, h)).astype(np.float32),
+        rng.normal(size=n).astype(np.float32),
+        rng.normal(size=e).astype(np.float32),
+    )
+
+
+def _xla_vjp(v, src, dst, mask, q, k, b, d_bias, d_deg, d_gate):
+    """jax.vjp of the XLA formulas (_xla's arithmetic) at (v[, q, k, b])."""
+    src, dst, mask = map(jnp.asarray, (src, dst, mask))
+    n, h = v.shape
+
+    def f(v, q=None, k=None, b=None):
+        em = mask.astype(jnp.float32)
+        src_c, dst_c = jnp.minimum(src, n - 1), jnp.minimum(dst, n - 1)
+        if q is None:
+            gate = em
+        else:
+            aff = (q[src_c] * k[dst_c]).sum(axis=1) / jnp.sqrt(jnp.float32(h))
+            gate = jax.nn.sigmoid(aff + b) * em
+        src_s, dst_s = jnp.where(mask, src, n), jnp.where(mask, dst, n)
+        bias = jax.ops.segment_sum(v[src_c] * gate[:, None], dst_s, num_segments=n + 1)[:-1]
+        bias = bias + jax.ops.segment_sum(v[dst_c] * gate[:, None], src_s, num_segments=n + 1)[:-1]
+        deg = jax.ops.segment_sum(gate, dst_s, num_segments=n + 1)[:-1]
+        deg = deg + jax.ops.segment_sum(gate, src_s, num_segments=n + 1)[:-1]
+        return bias, deg, gate
+
+    args = (jnp.asarray(v),) if q is None else tuple(map(jnp.asarray, (v, q, k, np.float32(b))))
+    _, vjp = jax.vjp(f, *args)
+    cot = (jnp.asarray(d_bias), jnp.asarray(d_deg), jnp.asarray(d_gate))
+    return [np.asarray(g) for g in vjp(cot)]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,e,h", SHAPES)
+def test_backward_plain_matches_jax_vjp(gated, n, e, h):
+    (v, q, k), src, dst, mask = _graph(5 * n + h, n, e, h, out_of_range=6)
+    d_bias, d_deg, d_gate = _upstream(n + e, n, e, h)
+    b = 0.3
+    t = torch.from_numpy
+    if gated:
+        _, _, gate = sparse.fused_plain(t(v), t(src), t(dst), t(mask), t(q), t(k), torch.tensor([b]))
+        got = sparse.fused_backward_plain(
+            t(v), t(src), t(dst), t(mask), gate, t(d_bias), t(d_deg), t(d_gate), t(q), t(k)
+        )
+        want = _xla_vjp(v, src, dst, mask, q, k, b, d_bias, d_deg, d_gate)
+        for name, a, w in zip(("dv", "dq", "dk", "db"), got, want):
+            np.testing.assert_allclose(a.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
+    else:
+        gate = t(mask).to(torch.float32)
+        dv, dq, dk, db = sparse.fused_backward_plain(t(v), t(src), t(dst), t(mask), gate, t(d_bias))
+        assert dq is None and dk is None and db is None
+        [want] = _xla_vjp(v, src, dst, mask, None, None, None, d_bias, d_deg, d_gate)
+        np.testing.assert_allclose(dv.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_backward_plain_is_autograd_of_fused_plain(gated):
+    n, e, h = 24, 160, 6
+    (v, q, k), src, dst, mask = _graph(77, n, e, h, out_of_range=8)
+    d_bias, d_deg, d_gate = (torch.from_numpy(a).double() for a in _upstream(5, n, e, h))
+    ids = [torch.from_numpy(a) for a in (src, dst, mask)]
+    leaves = [torch.from_numpy(v).double().requires_grad_()]
+    if gated:
+        leaves += [torch.from_numpy(a).double().requires_grad_() for a in (q, k)]
+        leaves.append(torch.tensor([0.2], dtype=torch.float64, requires_grad=True))
+    bias, deg, gate = sparse.fused_plain(leaves[0], *ids, *leaves[1:])
+    want = torch.autograd.grad(
+        (bias, deg, gate) if gated else (bias,),
+        leaves,
+        (d_bias, d_deg, d_gate) if gated else (d_bias,),
+    )
+    got = sparse.fused_backward_plain(
+        leaves[0].detach(), *ids, gate.detach(), d_bias, d_deg if gated else None,
+        d_gate if gated else None, *(x.detach() for x in leaves[1:3]),
+    )
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.reshape(w.shape).numpy(), w.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_gradcheck_of_the_cpu_route(gated):
+    """The autograd Function's CPU route (fused_plain forward,
+    fused_backward_plain backward) in float64 at N = 12, with masked edges
+    and live out-of-range ids."""
+    n, e, h = 12, 40, 4
+    (v, q, k), src, dst, mask = _graph(3, n, e, h, out_of_range=4)
+    ids = [torch.from_numpy(a) for a in (src, dst, mask)]
+    v = torch.from_numpy(v).double().requires_grad_()
+    if not gated:
+        assert torch.autograd.gradcheck(
+            lambda v: sparse.fused_neighbor_sums(v, *ids)[0], (v,)
+        )
+        return
+    q, k = (torch.from_numpy(a).double().requires_grad_() for a in (q, k))
+    b = torch.tensor([0.1], dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda v, q, k, b: sparse.fused_gated_bias(q, k, v, b, *ids), (v, q, k, b)
+    )
+
+
+def test_backward_respects_what_wants_a_grad():
+    n, e, h = 16, 64, 4
+    (v, q, k), src, dst, mask = _graph(8, n, e, h)
+    t = torch.from_numpy
+    ids = [t(src), t(dst), t(mask)]
+    q_leaf = t(q).requires_grad_()
+    bias, deg, gate = sparse.fused_gated_bias(q_leaf, t(k), t(v), torch.tensor([0.0]), *ids)
+    (dq,) = torch.autograd.grad(bias.sum() + gate.sum(), (q_leaf,))
+    assert dq.shape == (n, h) and bool(dq.abs().sum() > 0)
+    # ungated: deg and the gate are constants of the edge list
+    v_leaf = t(v).requires_grad_()
+    agg, deg = sparse.fused_neighbor_sums(v_leaf, *ids)
+    assert agg.requires_grad and not deg.requires_grad
+
+
+def _gather_rows_reference(index, n, e, g, da, d_bias, q, k, h):
+    """The backward's row pass (csrc kernel 4) by hand over the gather
+    index: dv[r] sums g * d_bias[nbr] over entries whose other end lies in
+    [0, n); dq[r] sums da * k[clamp(nbr)] over the row's src-side entries
+    (j >= E), dk[r] da * q[clamp(nbr)] over its dst-side entries."""
+    row_ptr, nbr, eid = (a.numpy().astype(np.int64) for a in (index.row_ptr, index.nbr, index.eid))
+    dv, dq, dk = (np.zeros((n, h)) for _ in range(3))
+    for r in range(n):
+        for p in range(row_ptr[r], row_ptr[r + 1]):
+            j, other = eid[p], nbr[p]
+            edge = j % e
+            if 0 <= other < n:
+                dv[r] += g[edge] * d_bias[other]
+            row = np.clip(other, 0, n - 1)
+            if j >= e:
+                dq[r] += da[edge] * k[row] / np.sqrt(h)
+            else:
+                dk[r] += da[edge] * q[row] / np.sqrt(h)
+    return dv, dq, dk
+
+
+def test_gather_index_rebuilds_the_plain_grads():
+    """The card's backward reads the gather index (edge_index(...,
+    for_backward=True)): each live side by its clamped id. Its row sums,
+    done by hand as the kernel does them, give fused_backward_plain's
+    grads, with live out-of-range ids (the case where the gather index
+    and the forward index differ)."""
+    n, e, h = 40, 300, 6
+    (v, q, k), src, dst, mask = _graph(21, n, e, h, out_of_range=9)
+    d_bias, d_deg, d_gate = _upstream(9, n, e, h)
+    t = torch.from_numpy
+    ids = (t(src), t(dst), t(mask))
+    index = sparse.edge_index(*ids, n, for_backward=True)
+    gather = index.gather
+    assert not torch.equal(gather.row_ptr, index.row_ptr)  # out-of-range ids move entries
+    # every live side is listed once, by its clamped row
+    assert int(gather.row_ptr[-1]) == 2 * int(mask.sum())
+    _, _, gate = sparse.fused_plain(t(v), *ids, t(q), t(k), torch.tensor([0.3]))
+    dv, dq, dk, _db = sparse.fused_backward_plain(
+        t(v), *ids, gate, t(d_bias), t(d_deg), t(d_gate), t(q), t(k)
+    )
+    # da as the card's edge kernel writes it, from the plain formulas
+    src_c, dst_c = np.clip(src, 0, n - 1), np.clip(dst, 0, n - 1)
+    to_dst = mask & (dst >= 0) & (dst < n)
+    to_src = mask & (src >= 0) & (src < n)
+    dg = (
+        to_dst * ((d_bias[dst_c] * v[src_c]).sum(1) + d_deg[dst_c])
+        + to_src * ((d_bias[src_c] * v[dst_c]).sum(1) + d_deg[src_c])
+        + d_gate
+    )
+    g = gate.numpy()
+    da = dg * g * (1 - g)
+    want = _gather_rows_reference(gather, n, e, g, da, d_bias, q, k, h)
+    for name, a, w in zip(("dv", "dq", "dk"), (dv, dq, dk), want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_gather_index_equals_the_forward_index_when_ids_are_in_range():
+    (_, _, _), src, dst, mask = _graph(4, 64, 500, 4)
+    t = torch.from_numpy
+    index = sparse.edge_index(t(src), t(dst), t(mask), 64, for_backward=True)
+    for a, b in zip(index[:3], index.gather[:3]):
+        assert torch.equal(a, b)
+    assert sparse.edge_index(t(src), t(dst), t(mask), 64).gather is None
