@@ -71,13 +71,43 @@ Phases, each timed:
    path from the same ring and params (rtol 1e-3 / atol 1e-5); GET
    /api/v1/model/forecast?quantile=p99&horizon=3 with the trained
    GraphSAGE checkpoint beside the live params (3 launches, one edge index);
-13. profile: one more tick, one GraphSAGE forecast forward, and one
+13. the graph scorers (ops/scorers.py, no kernel of their own): (a) on
+   the BASELINE graph of phase 7's processor, after one more served tick
+   whose combined records give the risk inputs, the refresh chain
+   (service scores, cohesion, risk) through the store with its caches
+   dropped, and the same chain's ops alone over the card snapshot
+   (median of 7 synchronised runs, synchronising calls counted under
+   torch.cuda.set_sync_debug_mode("warn")); a memoized read (one more
+   hit, no upload, and under torch.profiler no device event between two
+   marker kernels); a served full-mesh tick (the full recompute) and a
+   served tick confined to 16 services (the dirty-service incremental
+   splice), each refresh bit-equal to the uncached pipeline; (b) the
+   chain at bench.py's refresh shape (10,000 endpoints, 1,000 services,
+   50,000 seeded edges, no dist_bits: the legacy pipeline); (c) both
+   chains' snapshots through the same functions on the CPU, integer
+   lanes and instability equal, relying factor and risk within rel 1e-5,
+   cohesion within rel 1e-6; (d) a fresh AppContext fed two 2,500-trace
+   ticks over the mesh's endpoints, each endpoint serving at most one
+   span per tick (so that the reference's per-window records drop no
+   edge: see distinct_endpoint_groups), through
+   operator.retrieve_realtime_data(), whose ApiServer
+   answers the seven graph routes with every device scorer payload equal
+   to its ?scorer=host payload (and 404 for /line and /statistics); then
+   the BASELINE graph served: /graph/{instability,coupling,cohesion} at
+   200 with one row per active service (1,000), instability and coupling
+   equal to rows built from CPU lanes, and each route's first GET after a
+   merge and its memoized GET timed;
+14. profile: one more tick, one GraphSAGE forecast forward, and one
    STLGT fold tick (with its refresh), on the card under torch.profiler
    — the device's busy time (union of its kernel, copy and fill
    intervals), its share of the wall time, the top device ops, and peak
-   device memory; then the device times of phases 3, 5 and 6, last,
+   device memory; then the device times of phases 3, 5, 6 and 13, last,
    because a profiler session leaves every later launch slower on the
-   host and would inflate the card times taken after it.
+   host and would inflate the card times taken after it. Every profiler
+   session brackets its work with marker kernels and pads it with small
+   launches on both sides (a session on the card's machine can lose the
+   device records at its edges); a job whose sessions all lose a marker is
+   timed with CUDA events instead, and says so.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -102,6 +132,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
@@ -198,40 +229,77 @@ def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 10, attempts: int = 3) -> float:
-    """Device time of one fn() call: the summed duration of every device
-    event (kernels, memsets, copies) that reps calls enqueue under
-    torch.profiler, over reps; after one warm-up call. A session that
-    records no device event at all (seen now and then on the card's
-    machine) is tried again."""
+#: a profiler session on the card's machine sometimes loses device records
+#: at its edges (seen: a session of one kernel that records none, while
+#: larger sessions in the same process record theirs), so measured work is
+#: bracketed by marker kernels (torch.cuda._sleep's spin kernel, which no
+#: measured path launches) with PAD_LAUNCHES small fills before and after
+PAD_LAUNCHES = 64
+MARK = "spin_kernel"
+
+
+def pad_launches(torch, buf) -> None:
+    for _ in range(PAD_LAUNCHES):
+        buf.fill_(0)
+
+
+def traced(torch, fn):
+    """The device events (kernels, copies, fills) that fn() enqueues, under
+    torch.profiler: those between the two marker kernels, the session
+    being padded before and after. None when the session lost a marker."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    buf = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad_launches(torch, buf)
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda._sleep(1000)
+        pad_launches(torch, buf)
+        torch.cuda.synchronize()
+    events = sorted(
+        (evt for evt in prof.events() if evt.device_type == DeviceType.CUDA),
+        key=lambda evt: evt.time_range.start,
+    )
+    marks = [k for k, evt in enumerate(events) if MARK in evt.name]
+    if len(marks) != 2:
+        return None
+    return events[marks[0] + 1 : marks[1]]
+
+
+def device_ms(torch, fn, reps: int = 10, attempts: int = 3):
+    """Device time of one fn() call, and how it was taken: the summed
+    duration of every device event (kernels, memsets, copies) that reps
+    calls enqueue under torch.profiler (see traced), over reps, after one
+    warm-up call ("profiler"). A session that lost a marker is tried
+    again; after `attempts` such sessions the time is CUDA events around
+    the reps back-to-back calls ("cuda events", which also counts the gaps
+    between launches). Returns (ms, method, sessions that lost a marker)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(
-            evt.time_range.end - evt.time_range.start
-            for evt in prof.events()
-            if evt.device_type == DeviceType.CUDA
-        )
-        if total_us > 0:
-            return total_us / reps / 1e3
-    raise AssertionError(f"the profiler saw no device event in {attempts} sessions")
+    for lost in range(attempts):
+        events = traced(torch, lambda: [fn() for _ in range(reps)])
+        if events is not None:
+            total_us = sum(evt.time_range.end - evt.time_range.start for evt in events)
+            return total_us / reps / 1e3, "profiler", lost
+    return cuda_ms(torch, fn, calls=reps), "cuda events", attempts
 
 
-def device_times(torch, jobs) -> None:
-    """Fill in the device times that phases 3 and 5 queued as (case, key,
-    fn). They run after every CUDA-event timing of the run: a profiler
-    session leaves the host slower at each launch for the rest of the
-    process, which would inflate the card times taken after it."""
+def device_times(torch, jobs) -> int:
+    """Fill in the device times that phases 3, 5, 6 and 13 queued as (case, key,
+    fn), each beside how it was taken (key + "_by"); returns the number of
+    profiler sessions that lost a marker. They run after every
+    CUDA-event timing of the run: a profiler session leaves the host slower
+    at each launch for the rest of the process, which would inflate the
+    card times taken after it."""
+    empty = 0
     for case, key, fn in jobs:
-        case[key] = device_ms(torch, fn)
-        log(f"   {case.get('shape', 'edge index')}: {key} {case[key]}")
+        case[key], case[f"{key}_by"], n = device_ms(torch, fn)
+        empty += n
+        log(f"   {case.get('shape', 'edge index')}: {key} {case[key]} ({case[f'{key}_by']})")
+    return empty
 
 
 def segment_stats_case(torch, ss, label, values, seg, ts, num_segments, jobs):
@@ -547,8 +615,14 @@ def fused_cases(torch, graph, jobs):
     index = sparse.edge_index(src, dst, mask, n)
     lengths = (index.row_ptr[1:] - index.row_ptr[:-1]).float()
     real = lengths[:n_eps]
+    e, live = int(src.shape[0]), int(mask.sum())
     report = {
         "index_ms": cuda_ms(torch, lambda: sparse.edge_index(src, dst, mask, n)),
+        # bytes: every slot's mask and both ids of each live edge read once;
+        # row_ptr and the 2E entries (int32 neighbour, int64 edge id)
+        # written once
+        "index_bound_ms": (e + 8 * live + 4 * (n + 1) + 12 * 2 * e) / PEAK_BYTES_PER_S * 1e3,
+        "index_bound_by": "bytes",
         "entries": int(index.row_ptr[-1]),
         # row lengths of the endpoints' rows (the bucket's padding rows past
         # them are empty)
@@ -934,15 +1008,23 @@ def profile_device(torch, run, kernel_names) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # padded with marker kernels on both sides (see traced), outside
+        # the wall time and left out of the counts
+        for _ in range(PAD_LAUNCHES):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(PAD_LAUNCHES):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
     # device-side events only (kernels, copies, fills); the busy time is
     # the union of their intervals, so overlapping work counts once
     spans, per_op = [], {}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or MARK in evt.name:
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
@@ -975,7 +1057,7 @@ def profile_device(torch, run, kernel_names) -> dict:
 
 
 def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
-    """Phase 13a: one more tick on the card processor under the profiler."""
+    """Phase 14a: one more tick on the card processor under the profiler."""
     feed.groups = synth_groups(TICK_TRACES, t_start, "profile")
     out = profile_device(
         torch, lambda: proc.collect({"uniqueId": "profile", "lookBack": 30_000}), kernel_names
@@ -985,7 +1067,7 @@ def profile_tick(torch, proc, feed, t_start: int, kernel_names) -> dict:
 
 
 def profile_forecast(torch, proc, kernel_names) -> dict:
-    """Phase 13b: one GraphSAGE forecast forward of the snapshot (the work
+    """Phase 14b: one GraphSAGE forecast forward of the snapshot (the work
     behind an un-memoized GET) on the card under the profiler."""
     from kmamiz_tpu_torch.models import checkpoint, graphsage, serving
 
@@ -1511,7 +1593,7 @@ def serve_stlgt(torch, graph, device, counters, t_start: int, ckpt_dir: str) -> 
 
 
 def profile_fold(torch, proc, feed, t_start: int, kernel_names) -> dict:
-    """Phase 13c: one more tick of the STLGT processor, in the next hour,
+    """Phase 14c: one more tick of the STLGT processor, in the next hour,
     on the card under the profiler: the tick, its fold and the refresh the
     fold triggers."""
     from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
@@ -1526,6 +1608,445 @@ def profile_fold(torch, proc, feed, t_start: int, kernel_names) -> dict:
     )
     check(stlgt_pkg.trainer_status()["refreshes"] == before + 1, "the profiled fold did not refresh")
     out["stages_ms"] = dict(proc.last_stage_ms)
+    return out
+
+
+# -- phase 13: the graph scorers ----------------------------------------------
+
+
+def count_syncs(torch, fn) -> int:
+    """fn() once under torch.cuda.set_sync_debug_mode("warn"): the number
+    of synchronising CUDA calls it made (uploads from pageable memory,
+    scalar reads)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def memo_device_events(torch, graph, attempts: int = 3) -> int:
+    """Device events (kernels, copies, fills) of a memoized refresh
+    (service scores and cohesion read back from the memo), under
+    torch.profiler between marker kernels (see traced): must be none. A
+    session that lost a marker is tried again."""
+    for _ in range(attempts):
+        events = traced(torch, lambda: (graph.service_scores(), graph.usage_cohesion()))
+        if events is not None:
+            return len(events)
+    raise AssertionError(f"the profiler lost a marker kernel in {attempts} sessions")
+
+
+def synced_median_ms(torch, fn, runs: int = 7) -> float:
+    """Median wall ms of fn() followed by a synchronize, over `runs` runs."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def risk_inputs(torch, graph, combined, num_services, device):
+    """Risk inputs from a served tick's combined records, built as
+    tests/test_graph_scorers.py builds them: per service the requests,
+    the 5xx errors and the cv-weighted latency sum; replicas 1; active
+    where the window saw the service."""
+    import numpy as np
+
+    req = np.zeros(num_services, dtype=np.float32)
+    err = np.zeros(num_services, dtype=np.float32)
+    cvw = np.zeros(num_services, dtype=np.float32)
+    active = np.zeros(num_services, dtype=bool)
+    for r in combined:
+        sid = graph.interner.services.get(r["uniqueServiceName"])
+        check(sid is not None, f"service {r['uniqueServiceName']} not interned")
+        req[sid] += r["combined"]
+        if str(r["status"]).startswith("5"):
+            err[sid] += r["combined"]
+        cvw[sid] += (r["latency"].get("cv") or 0.0) * r["combined"]
+        active[sid] = True
+    check(bool(active.any()), "no active service in the tick")
+    host = (np.ones(num_services, dtype=np.float32), req, err, cvw, active)
+    return [torch.from_numpy(a).to(device) for a in host]
+
+
+def assert_scores_match(got, want, what: str) -> float:
+    """Integer lanes and instability equal; relying_factor, risk and
+    norm_risk (and the risk chain's impact and probability) within rel
+    1e-5, usage_cohesion within rel 1e-6. Returns the largest relative
+    difference of the float lanes."""
+    rtol = {
+        "relying_factor": 1e-5, "impact": 1e-5, "probability": 1e-5, "risk": 1e-5,
+        "norm_risk": 1e-5, "usage_cohesion": 1e-6,
+    }
+    worst = 0.0
+    for name, g, w in zip(want._fields, got, want):
+        g, w = g.cpu(), w.cpu()
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: {name} shape or dtype differs")
+        if name in rtol:
+            diff = (g - w).abs()
+            bound = rtol[name] * w.abs()
+            check(bool((diff <= bound).all()), f"{what}: {name} off by {float(diff.max())}")
+            rel = diff / w.abs().clamp(min=1e-30)
+            worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+        else:
+            check(bool((g == w).all()), f"{what}: {name} differs")
+    return worst
+
+
+def assert_bits(got, want, what: str) -> None:
+    for name, g, w in zip(want._fields, got, want):
+        check(bool((g == w).all()), f"{what}: {name} not bit-equal")
+
+
+def scorer_chain(scorers, graph, risk_in):
+    """One refresh through the store: service scores, cohesion, risk."""
+    s = graph.service_scores()
+    c = graph.usage_cohesion()
+    r = scorers.risk_scores(s.relying_factor, s.acs, *risk_in)
+    return s, c, r
+
+
+def ops_chain(scorers, snap, risk_in, num_services, dist_bits):
+    """The same refresh's device work alone, over tensors on the device."""
+    src, dst, dist, mask, ep_service, ep_ml, ep_record = snap
+    s = scorers.service_scores(
+        src, dst, dist, mask, ep_service, ep_ml, ep_record, num_services=num_services, dist_bits=dist_bits
+    )
+    c = scorers.usage_cohesion(src, dst, dist, mask, ep_service, ep_record, num_services=num_services)
+    r = scorers.risk_scores(s.relying_factor, s.acs, *risk_in)
+    return s, c, r
+
+
+def store_snapshot(torch, graph, device):
+    """The store's scorer snapshot (edge columns and per-endpoint tables,
+    unlabeled) on `device`, with its service capacity and dist_bits."""
+    src, dst, dist, mask = graph.edge_arrays()
+    ep_service, ep_ml, ep_record, _ep_cap = graph._ep_tables()
+    tables = [torch.from_numpy(a).to(device) for a in (ep_service, ep_ml, ep_record)]
+    cols = [t.to(device) for t in (src, dst, dist, mask)]
+    from kmamiz_tpu_torch.core.spans import _pad_size
+
+    return cols + tables, _pad_size(max(len(graph.interner.services), 1)), graph._scorer_dist_bits()
+
+
+def quiet_groups(n_traces: int, t_start: int, prefix: str, hot: int = 16):
+    """A tick in which only `hot` services take traffic: BASELINE-named
+    7-span chains (the same endpoint names as the mesh's first `hot`
+    services) whose every hop stays among those services."""
+    from kmamiz_tpu_torch import synth
+
+    return json.loads(
+        synth.make_raw_window(
+            n_traces, SPANS_PER_TRACE, t_start=t_start, trace_prefix=prefix,
+            n_services=hot, urls_per_service=BASELINE["urls_per_service"],
+        )
+    )
+
+
+def distinct_endpoint_groups(n_traces: int, t_start: int, prefix: str, mult: int):
+    """A tick over the BASELINE mesh's endpoints in which every endpoint
+    serves at most one SERVER span: trace t's four SERVER spans call the
+    endpoints numbered (4t + i) * mult mod 10,000 (i = 0..3) in a chain,
+    each CLIENT span naming its callee; mult (coprime with 10,000) varies
+    the chains between ticks. The mesh's own windows serve an endpoint many
+    times, and the reference's per-window dependency records keep only
+    the last record of an endpoint (the JAX package's and the port's
+    alike), so their cache holds fewer edges than the graph's union; in
+    these windows nothing is overwritten, and the cache and the graph hold
+    the same dependencies."""
+    groups = synth_groups(n_traces, t_start, prefix)
+    urls = BASELINE["urls_per_service"]
+    n_ep = BASELINE["n_services"] * urls
+    for k, group in enumerate(groups):
+        for j, span in enumerate(group):
+            svc, ep = divmod(((4 * (t_start + k) + (j + 1) // 2) * mult) % n_ep, urls)
+            ns = svc % 8
+            span["name"] = f"svc{svc}.ns{ns}.svc.cluster.local:80/*"
+            span["localEndpoint"] = {"serviceName": f"svc{svc}"}
+            span["tags"]["http.url"] = f"http://svc{svc}.ns{ns}.svc.cluster.local/api/v1/ep{ep}"
+            span["tags"]["istio.canonical_service"] = f"svc{svc}"
+            span["tags"]["istio.namespace"] = f"ns{ns}"
+    return groups
+
+
+def bench_refresh_inputs(torch, device):
+    """bench.py's graph-refresh shape: 10,000 endpoints, 1,000 services,
+    50,000 seeded edges (distances 1..7), ep_ml in 0..4095, every endpoint
+    a record holder, every service active; no dist_bits (the legacy
+    pipeline)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    n_ep, n_svc, n_edges = 10_000, 1_000, 50_000
+    ep_service = rng.integers(0, n_svc, n_ep, dtype=np.int32)
+    ep_ml = rng.integers(0, 4096, n_ep, dtype=np.int32)
+    src = rng.integers(0, n_ep, n_edges, dtype=np.int32)
+    dst = rng.integers(0, n_ep, n_edges, dtype=np.int32)
+    dist = rng.integers(1, 8, n_edges, dtype=np.int32)
+    req = rng.gamma(2.0, 100.0, n_svc).astype(np.float32)
+    snap = [src, dst, dist, np.ones(n_edges, dtype=bool), ep_service, ep_ml, np.ones(n_ep, dtype=bool)]
+    risk = [np.ones(n_svc, dtype=np.float32), req, req * 0.01, req * 0.5, np.ones(n_svc, dtype=bool)]
+    return [torch.from_numpy(a).to(device) for a in snap], [torch.from_numpy(a).to(device) for a in risk], n_svc
+
+
+def instability_rows(graph, scores, active):
+    """The instability and coupling routes' rows built from lanes: what
+    GraphHandler serves, from the given (CPU) scores."""
+    on, by = scores.instability_on.tolist(), scores.instability_by.tolist()
+    ais, ads = scores.ais.tolist(), scores.ads.tolist()
+    inst, coup = [], []
+    for sid in range(len(graph.interner.services)):
+        if not active[sid]:
+            continue
+        usn = graph.interner.services.lookup(sid)
+        service, ns, version = (usn.split("\t") + ["", ""])[:3]
+        name = f"{service}.{ns} ({version})"
+        d_on, d_by, d_ais, d_ads = int(on[sid]), int(by[sid]), int(ais[sid]), int(ads[sid])
+        total = d_on + d_by
+        inst.append({"uniqueServiceName": usn, "name": name, "dependingBy": d_by, "dependingOn": d_on,
+                     "instability": d_on / total if total else 0})
+        coup.append({"uniqueServiceName": usn, "name": name, "ais": d_ais, "ads": d_ads, "acs": d_ais * d_ads})
+    inst.sort(key=lambda r: r["name"])
+    coup.sort(key=lambda r: r["name"])
+    return inst, coup
+
+
+def canon_cohesion(payload):
+    return [{**row, "consumers": sorted(row["consumers"], key=lambda c: c["uniqueServiceName"])} for row in payload]
+
+
+GRAPH_ROUTES = (
+    "dependency/endpoint", "dependency/service", "chord/direct", "chord/indirect",
+    "cohesion", "instability", "coupling",
+)
+SCORER_ROUTES = ("instability", "coupling", "cohesion")
+
+
+def serve_scorers(torch, proc, feed, device, t_start: int, jobs) -> dict:
+    """Phase 13, the graph scorers: (a) on the BASELINE graph the store's
+    refresh chain cold, memoized, after a full-mesh tick and after a quiet
+    tick (the incremental splice); (b) the chain at bench.py's refresh
+    shape (the legacy pipeline); (c) both against the port on the CPU;
+    (d) the graph routes over HTTP, device payloads against the host
+    oracle, and the BASELINE graph served."""
+    from kmamiz_tpu_torch.api.app import build_router
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.ops import scorers
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
+    from kmamiz_tpu_torch.server.initializer import AppContext, Initializer
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    graph = proc.graph
+    out: dict = {}
+    dp_server = DataProcessorServer(proc, host="127.0.0.1", port=0)
+    dp_server.start()
+
+    def tick(groups, uid):
+        feed.groups = groups
+        t0 = time.perf_counter()
+        resp = post_tick(dp_server.port, {"uniqueId": uid, "lookBack": 30_000})
+        check_response(resp, uid)
+        return resp, (time.perf_counter() - t0) * 1e3
+
+    try:
+        # -- (a) the BASELINE graph ----------------------------------------------
+        resp, _ = tick(synth_groups(TICK_TRACES, t_start, "scorer-a-"), "scorer-a")
+        snap, svc_cap, dist_bits = store_snapshot(torch, graph, device)
+        risk_in = risk_inputs(torch, graph, resp["combined"], svc_cap, device)
+        out["baseline"] = {
+            "endpoints": len(graph.interner.endpoints),
+            "services": len(graph.interner.services),
+            "edges": graph.n_edges,
+            "capacity": graph.capacity,
+            "svc_cap": svc_cap,
+            "dist_bits": dist_bits,
+            "pipeline": "sparse" if dist_bits is not None and scorers._sparse_scorer_ok(
+                svc_cap, int(snap[4].shape[0]), graph.capacity, dist_bits) else "legacy",
+        }
+        log("   baseline " + json.dumps(out["baseline"]))
+
+        def cold():
+            graph.invalidate_labels()  # drops the memo, bases and device tables
+            return scorer_chain(scorers, graph, risk_in)
+
+        def ops():
+            return ops_chain(scorers, snap, risk_in, svc_cap, dist_bits)
+
+        # the refresh through the store (host tables, uploads, dispatch)
+        # and its device work alone over the same snapshot
+        for key, fn, shape in (
+            ("cold_chain", cold, "BASELINE refresh through the store, cold"),
+            ("ops_chain", ops, "BASELINE refresh, ops over the card snapshot"),
+        ):
+            out[key] = {"shape": shape, "wall_ms": synced_median_ms(torch, fn), "syncs": count_syncs(torch, fn)}
+            jobs.append((out[key], "device_ms", fn))
+        card_s, card_c, card_r = cold()
+        assert_bits(ops()[0], card_s, "ops chain against the store")
+
+        before = graph.scorer_cache_stats()
+        t0 = time.perf_counter()
+        memo_s, memo_c = graph.service_scores(), graph.usage_cohesion()
+        out["memo_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        after = graph.scorer_cache_stats()
+        check(memo_s is card_s and memo_c is card_c, "memoized scores recomputed")
+        check(after["hits"] == before["hits"] + 2, f"memo hits {before['hits']} -> {after['hits']}")
+        check(after["uploads"] == before["uploads"], "a memoized read uploaded")
+        out["memo_syncs"] = count_syncs(torch, graph.service_scores)
+        out["memo_device_events"] = memo_device_events(torch, graph)
+        check(out["memo_device_events"] == 0, f"a memoized read enqueued {out['memo_device_events']} device events")
+
+        # (c) the BASELINE snapshot on the CPU, through the same functions
+        cpu_snap = [t.cpu() for t in snap]
+        cpu_risk = [t.cpu() for t in risk_in]
+        t0 = time.perf_counter()
+        cpu_s, cpu_c, cpu_r = ops_chain(scorers, cpu_snap, cpu_risk, svc_cap, dist_bits)
+        out["cpu_chain_ms"] = (time.perf_counter() - t0) * 1e3
+        out["card_vs_cpu_max_rel"] = max(
+            assert_scores_match(card_s, cpu_s, "BASELINE service scores, card vs CPU"),
+            assert_scores_match(card_c, cpu_c, "BASELINE cohesion, card vs CPU"),
+            assert_scores_match(card_r, cpu_r, "BASELINE risk, card vs CPU"),
+        )
+        for name in ("risk", "norm_risk"):
+            lane = getattr(card_r, name)
+            check(bool(torch.isfinite(lane).all()), f"non-finite {name}")
+
+        # a full-mesh tick touches every service: the full recompute
+        def refresh_after(groups, uid, key):
+            """Serve a tick, then one timed service_scores (its syncs
+            counted): the first refresh after the merge."""
+            _, out[f"{key}_tick_wall_ms"] = tick(groups, uid)
+            held = {}
+
+            def call():
+                t0 = time.perf_counter()
+                held["scores"] = graph.service_scores()
+                torch.cuda.synchronize()
+                held["ms"] = (time.perf_counter() - t0) * 1e3
+
+            out[f"{key}_refresh_syncs"] = count_syncs(torch, call)
+            out[f"{key}_refresh_ms"] = held["ms"]
+            return held["scores"]
+
+        # a full-mesh tick touches every service: the full recompute
+        stats = graph.scorer_cache_stats()
+        full = refresh_after(synth_groups(TICK_TRACES, t_start + TICK_TRACES, "scorer-b-"), "scorer-b", "mesh")
+        after = graph.scorer_cache_stats()
+        check(after["full"] == stats["full"] + 1, f"a full-mesh tick took {after} (was {stats})")
+        assert_bits(full, graph.service_scores_uncached(), "after a full-mesh tick, cached vs uncached")
+
+        # a quiet tick (16 of 1,000 services): the incremental splice
+        stats = graph.scorer_cache_stats()
+        inc = refresh_after(quiet_groups(TICK_TRACES, t_start + 2 * TICK_TRACES, "scorer-q-"), "scorer-q", "quiet")
+        after = graph.scorer_cache_stats()
+        check(after["incremental"] == stats["incremental"] + 1, f"quiet tick: {after} (was {stats})")
+        assert_bits(inc, graph.service_scores_uncached(), "incremental splice vs uncached")
+        out["cache_stats"] = after
+        log("   " + json.dumps({k: v for k, v in out.items() if k != "baseline"}))
+    finally:
+        dp_server.stop()
+
+    # -- (b) bench.py's refresh shape: the legacy pipeline ------------------------
+    b_snap, b_risk, b_svc = bench_refresh_inputs(torch, device)
+
+    def b_ops():
+        return ops_chain(scorers, b_snap, b_risk, b_svc, None)
+
+    b_card = b_ops()
+    bench = {"shape": "bench.py refresh shape, legacy pipeline", "wall_ms": synced_median_ms(torch, b_ops)}
+    bench["syncs"] = count_syncs(torch, b_ops)
+    t0 = time.perf_counter()
+    b_cpu = ops_chain(scorers, [t.cpu() for t in b_snap], [t.cpu() for t in b_risk], b_svc, None)
+    bench["cpu_ms"] = (time.perf_counter() - t0) * 1e3
+    bench["card_vs_cpu_max_rel"] = max(
+        assert_scores_match(b_card[0], b_cpu[0], "bench shape service scores, card vs CPU"),
+        assert_scores_match(b_card[1], b_cpu[1], "bench shape cohesion, card vs CPU"),
+        assert_scores_match(b_card[2], b_cpu[2], "bench shape risk, card vs CPU"),
+    )
+    jobs.append((bench, "device_ms", b_ops))
+    out["bench_refresh"] = bench
+    log("   bench refresh " + json.dumps(bench))
+
+    # -- (d) HTTP -------------------------------------------------------------------
+    # a fresh context whose cache and graph hold the same dependencies
+    ffeed = TickFeed()
+    ctx = AppContext(processor=DataProcessor(trace_source=ffeed, device=device))
+    Initializer(ctx).register_data_caches()
+    for k, mult in enumerate((1, 7)):
+        ffeed.groups = distinct_endpoint_groups(TICK_TRACES, t_start + (3 + k) * TICK_TRACES, f"scorer-http{k}-", mult)
+        ctx.operator.retrieve_realtime_data()
+    api = ApiServer(build_router(ctx), host="127.0.0.1", port=0)
+    api.start()
+    http: dict = {"edges": ctx.processor.graph.n_edges}
+    try:
+        for route in GRAPH_ROUTES:
+            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            check(status == 200, f"/graph/{route} answered {status}")
+            http[f"{route}_ms"] = ms
+            if route in SCORER_ROUTES:
+                check(len(payload) > 0, f"/graph/{route} is empty")
+                status, host, host_ms = get_json(api.port, f"/api/v1/graph/{route}?scorer=host")
+                check(status == 200, f"/graph/{route}?scorer=host answered {status}")
+                if route == "cohesion":
+                    payload, host = canon_cohesion(payload), canon_cohesion(host)
+                check(payload == host, f"/graph/{route}: device payload differs from the host oracle")
+                http[f"{route}_host_ms"] = host_ms
+                http[f"{route}_rows"] = len(payload)
+        for route in ("line", "statistics"):
+            try:
+                get_json(api.port, f"/api/v1/graph/{route}")
+                check(False, f"/graph/{route} answered")
+            except urllib.error.HTTPError as e:
+                check(e.code == 404, f"/graph/{route} answered {e.code}")
+    finally:
+        api.stop()
+    out["http_fresh"] = http
+    log("   http " + json.dumps(http))
+
+    # the BASELINE graph served: rows against (c)'s CPU lanes, then the
+    # first GET after a merge and the memoized GET of each route
+    bctx = AppContext(processor=proc)
+    Initializer(bctx).register_data_caches()
+    api = ApiServer(build_router(bctx), host="127.0.0.1", port=0)
+    api.start()
+    served: dict = {}
+    try:
+        # the BASELINE graph has moved on since (c) (two more ticks):
+        # rebuild the CPU lanes from its current snapshot
+        snap_now, svc_cap, dist_bits = store_snapshot(torch, graph, "cpu")
+        cpu_now = scorers.service_scores(*snap_now, num_services=svc_cap, dist_bits=dist_bits)
+        active = graph.active_services()
+        want_inst, want_coup = instability_rows(graph, cpu_now, active)
+        for route, want in (("instability", want_inst), ("coupling", want_coup), ("cohesion", None)):
+            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            check(status == 200, f"BASELINE /graph/{route} answered {status}")
+            check(len(payload) == int(active.sum()) == 1000, f"BASELINE /graph/{route}: {len(payload)} rows")
+            if want is not None:
+                check(payload == want, f"BASELINE /graph/{route} differs from the CPU lanes' rows")
+            served[f"{route}_first_label_ms"] = ms
+        feed.groups = synth_groups(TICK_TRACES, t_start + 5 * TICK_TRACES, "scorer-m-")
+        proc.collect({"uniqueId": "scorer-m", "lookBack": 30_000})
+        for route in SCORER_ROUTES:
+            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            check(status == 200 and len(payload) == 1000, f"BASELINE /graph/{route} after a merge")
+            served[f"{route}_first_ms"] = ms
+            status, again, memo_ms = get_json(api.port, f"/api/v1/graph/{route}")
+            check(again == payload, f"BASELINE /graph/{route} memoized payload differs")
+            served[f"{route}_memo_ms"] = memo_ms
+    finally:
+        api.stop()
+    out["http_baseline"] = served
+    log("   baseline http " + json.dumps(served))
     return out
 
 
@@ -1606,7 +2127,7 @@ def main(argv=None) -> int:
         with Phase("zeroing", walls):
             report["zeroing"] = zeroing_cases(torch, device, tick_shape_groups, jobs)
         with Phase("device times", walls):
-            device_times(torch, jobs)
+            report["profiler_lost_sessions"] = device_times(torch, jobs)
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"zeroing": report["zeroing"]}))
@@ -1632,7 +2153,7 @@ def main(argv=None) -> int:
 
     if args.kernels_only:
         with Phase("device times", walls):
-            device_times(torch, jobs)
+            report["profiler_lost_sessions"] = device_times(torch, jobs)
         report["walls_s"] = walls
         write_report(args.report, report)
         log(
@@ -1703,6 +2224,17 @@ def main(argv=None) -> int:
     check(stlgt_plain_calls.calls == 0, f"{stlgt_plain_calls.calls} plain calls on card tensors (STLGT)")
     report["plain_calls_on_card"] = {"graphsage": plain_calls.calls, "stlgt": stlgt_plain_calls.calls}
 
+    with Phase("graph scorers", walls):
+        # the scorer phase's processors fold no hour: no STLGT hook
+        stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
+        try:
+            report["scorers"] = serve_scorers(
+                torch, proc, feed, device, STATE_TRACES + (TICKS + 12) * TICK_TRACES, jobs
+            )
+        finally:
+            if stlgt_env is not None:
+                os.environ["KMAMIZ_STLGT"] = stlgt_env
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -1717,7 +2249,7 @@ def main(argv=None) -> int:
     ckpt_root.cleanup()
 
     with Phase("device times", walls):
-        device_times(torch, jobs)
+        report["profiler_lost_sessions"] = device_times(torch, jobs)
 
     def entry(wrapper, source, replaces, n_launches, all_cases, shown):
         return {
@@ -1734,6 +2266,7 @@ def main(argv=None) -> int:
             "bound_by": shown["bound_by"],
             "library_ms": shown["library_ms"],
             "device_ms": shown["device_ms"],
+            "device_ms_by": shown["device_ms_by"],
             "shape": shown["shape"],
             "ok": True,
             "cases": all_cases,

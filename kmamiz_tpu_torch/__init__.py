@@ -1,4 +1,4 @@
-"""kmamiz-tpu on PyTorch and CUDA: the Data Processor tick on one GPU.
+"""kmamiz-tpu on PyTorch and CUDA, on one GPU.
 
 The port of the `kmamiz_tpu` package, module for module, to PyTorch with
 hand-written CUDA kernels for Hopper (H100). It imports neither JAX nor
@@ -11,11 +11,14 @@ Layout:
              URL/JSON-schema utilities (copies of the JAX package's)
   domain/    domain data model with reference-parity JSON output (copies)
   analytics/ risk analyzer and normalizers (copies)
-  ops/       tensor code of the window pipeline, sort/unique, and the
-             wrappers of the CUDA kernels
+  ops/       tensor code of the window pipeline, sort/unique, the graph
+             scorers, and the wrappers of the CUDA kernels
   csrc/      the CUDA kernels' sources, built with nvcc at first use
-  graph/     the device-resident endpoint-graph store
-  server/    the Data Processor tick and its HTTP server
+  graph/     the device-resident endpoint-graph store and its scorer caches
+  models/    the model plane: GraphSAGE, STLGT, training and serving
+  server/    the Data Processor tick, its HTTP server, the caches and the
+             realtime operator
+  api/       the REST API: the model and graph routes
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,3 @@
-"""REST handlers of the port (the model routes so far)."""
+"""REST handlers of the port (the graph and model routes so far)."""
+from kmamiz_tpu_torch.api.handlers.graph import GraphHandler  # noqa: F401
 from kmamiz_tpu_torch.api.handlers.model import ModelHandler  # noqa: F401

@@ -24,8 +24,11 @@ grad and a row pass over the edge list's gather index, in
 csrc/fused_sddmm_spmm.cu) and its plain versions on the CPU
 (`fused_backward_plain` composes them). The JAX package has no backward
 kernel: JAX differentiates its XLA formulation, whose VJP these equal.
-The sparse counting primitives of the JAX module belong to the scorers
-and are not ported here.
+
+The module also holds the JAX module's sparse counting primitives
+(`dense_rank_pairs`, `run_start_index`, `exclusive_cumsum`), the
+building blocks of ops/scorers.py's packed-key pipeline: plain PyTorch
+ops on any device, int32 throughout, with no host sync.
 """
 from __future__ import annotations
 
@@ -741,3 +744,57 @@ def fused_neighbor_sums(
         h, src_ep, dst_ep, edge_mask, want_gate=False, index=index
     )
     return agg, deg
+
+
+# ---------------------------------------------------------------------------
+# sparse counting primitives (scorer building blocks, plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def dense_rank_pairs(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense rank of (a, b) pairs: returns (gid[N] int32, a_of_gid[N]
+    int32) where gid is the 0-based rank of row (a[i], b[i]) in the sorted
+    distinct-pair order and a_of_gid[g] recovers a for group g (slots past
+    the group count are 0). The rank order is (a, b)-lexicographic, so
+    within any fixed a the gid is monotone in b and contiguous per a. One
+    sort of the pairs packed into an int64 key, one scatter back."""
+    n = a.shape[0]
+    a32, b32 = a.to(torch.int32), b.to(torch.int32)
+    key = (a32.to(torch.int64) << 32) | (b32.to(torch.int64) + 2**31)
+    order = torch.sort(key).indices
+    s_a, s_b = a32[order], b32[order]
+    first = torch.cat(
+        [
+            torch.ones(1, dtype=torch.bool, device=a.device),
+            (s_a[1:] != s_a[:-1]) | (s_b[1:] != s_b[:-1]),
+        ]
+    )
+    rank_sorted = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid = torch.zeros(n, dtype=torch.int32, device=a.device).scatter_(0, order, rank_sorted)
+    # idempotent per-group scatter: every row of group g writes the same a
+    # (include_self keeps the zero fill in the max, as `.at[].max` does)
+    a_of_gid = torch.zeros(n, dtype=torch.int32, device=a.device).scatter_reduce_(
+        0, rank_sorted.to(torch.int64), s_a, "amax"
+    )
+    return gid, a_of_gid
+
+
+def run_start_index(first: torch.Tensor) -> torch.Tensor:
+    """For each row of a sorted table, the index of its run's first row
+    (`first` marks run boundaries): a cummax over (first ? i : -1). Rows
+    before any boundary clamp to 0."""
+    iota = torch.arange(first.shape[0], dtype=torch.int32, device=first.device)
+    marked = torch.where(first, iota, -1)
+    return torch.cummax(marked, 0).values.clamp(min=0)
+
+
+def exclusive_cumsum(flags: torch.Tensor) -> torch.Tensor:
+    """int32 exclusive prefix sum with a trailing total, length N+1:
+    out[i] = number of set flags strictly before i. Boundary differences
+    out[hi] - out[lo] over it are exact distinct counts."""
+    return torch.cat(
+        [
+            torch.zeros(1, dtype=torch.int32, device=flags.device),
+            torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32),
+        ]
+    )

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the hand-written kernels against their plain
 PyTorch versions on the same card tensors, a whole tick on the card
-against the port's CPU path, and the model forwards' kernel launches.
+against the port's CPU path, the model forwards' kernel launches, and
+the graph scorers on the card against the CPU (with no host sync in the
+ops, and the store's incremental splice bit-exact).
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -364,3 +366,120 @@ def test_training_grads_reach_the_first_layer_on_card(card, monkeypatch):
         for name, a, b in zip(card_g._fields, card_g, cpu_g):
             if b is not None:
                 torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5, msg=name)
+
+
+def _scorer_inputs(seed, n_ep=4096, n_svc=256, cap=1 << 15, n_live=20_000, dist_hi=8):
+    """Seeded flat edge columns (SENTINEL past the live rows, a tenth of
+    them masked off) and per-endpoint tables for the scorer ops."""
+    from kmamiz_tpu_torch.ops.sortutil import SENTINEL
+
+    rng = np.random.default_rng(seed)
+    cols = [np.full(cap, SENTINEL, np.int32) for _ in range(3)]
+    cols[0][:n_live] = rng.integers(0, n_ep, n_live)
+    cols[1][:n_live] = rng.integers(0, n_ep, n_live)
+    cols[2][:n_live] = rng.integers(1, dist_hi, n_live)
+    mask = (cols[0] != SENTINEL) & (rng.random(cap) < 0.9)
+    tables = (
+        rng.integers(0, n_svc, n_ep).astype(np.int32),
+        rng.integers(0, 512, n_ep).astype(np.int32),
+        rng.random(n_ep) < 0.8,
+    )
+    return [torch.from_numpy(a) for a in (*cols, mask, *tables)]
+
+
+def _assert_scores_close(card_out, cpu_out):
+    """Integer lanes and instability equal; relying_factor, risk and
+    norm_risk within rel 1e-5, usage_cohesion within rel 1e-6."""
+    rtol = {"relying_factor": 1e-5, "risk": 1e-5, "norm_risk": 1e-5, "usage_cohesion": 1e-6,
+            "impact": 1e-5, "probability": 1e-5}
+    for name, a, b in zip(cpu_out._fields, card_out, cpu_out):
+        a = a.cpu()
+        if name in rtol:
+            torch.testing.assert_close(a, b, rtol=rtol[name], atol=0, msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_bits,dist_hi", [(3, 8), (4, 16), (None, 8)])
+def test_scorers_on_card_match_cpu(card, dist_bits, dist_hi):
+    """Both service-score pipelines, cohesion and risk on card tensors
+    against the same ops on the CPU, with no host sync on the card."""
+    from kmamiz_tpu_torch.ops import scorers
+
+    cpu_in = _scorer_inputs(21, dist_hi=dist_hi)
+    cpu_in.append(torch.rand(256, generator=torch.Generator().manual_seed(3)) * 100)
+    card_in = [t.to(card) for t in cpu_in]
+    torch.cuda.synchronize()
+    outs = {}
+    for name, args in (("cpu", cpu_in), ("card", card_in)):
+        if name == "card":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            s = scorers.service_scores(*args[:7], num_services=256, dist_bits=dist_bits)
+            coh = scorers.usage_cohesion(*args[:5], args[6], num_services=256)
+            req = args[7]
+            risk = scorers.risk_scores(
+                s.relying_factor, s.acs, torch.ones_like(req), req, req * 0.01, req * 0.5, coh.total_endpoints > 0
+            )
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs[name] = (s, coh, risk)
+    for card_out, cpu_out in zip(outs["card"], outs["cpu"]):
+        _assert_scores_close(card_out, cpu_out)
+    if dist_bits is not None:
+        # the sparse pipeline's relying factor: the same bits on both
+        assert torch.equal(outs["card"][0].relying_factor.cpu(), outs["cpu"][0].relying_factor)
+
+
+def _ring_trace(tid, svc_a, ep_a, svc_b, ep_b):
+    def span(sid, svc, ep, parent=None):
+        return {
+            "traceId": tid,
+            "id": sid,
+            "parentId": parent,
+            "kind": "SERVER",
+            "name": f"{svc}.ns.svc.cluster.local:80/*",
+            "timestamp": 1_700_000_000_000_000,
+            "duration": 1000,
+            "tags": {
+                "http.method": "GET",
+                "http.status_code": "200",
+                "http.url": f"http://{svc}.ns.svc.cluster.local/api/{ep}",
+                "istio.canonical_revision": "v1",
+                "istio.canonical_service": svc,
+                "istio.mesh_id": "cluster.local",
+                "istio.namespace": "ns",
+            },
+        }
+
+    return [span(f"{tid}-p", svc_a, ep_a), span(f"{tid}-c", svc_b, ep_b, parent=f"{tid}-p")]
+
+
+@pytest.mark.cuda
+def test_incremental_splice_is_bit_exact_on_card(card):
+    """The store on the card: after small merges the cached scores (the
+    dirty-service incremental path) equal the uncached full recompute bit
+    for bit, and equal the CPU store's."""
+    from kmamiz_tpu_torch.core.spans import spans_to_batch
+    from kmamiz_tpu_torch.graph.store import EndpointGraph
+
+    base = [_ring_trace(f"i{i}-{j}", f"svc{i}", j, f"svc{(i + 1) % 60}", j) for i in range(60) for j in range(5)]
+    windows = [
+        [_ring_trace(f"m{k}-{j}", f"svc{3 * k}", j + 4, f"svc{3 * k + 1}", j) for j in range(3)]
+        for k in range(4)
+    ]
+    graphs = {}
+    for dev in (card, "cpu"):
+        g = EndpointGraph(device=dev)
+        g.merge_window(spans_to_batch(base, interner=g.interner))
+        g.service_scores()
+        for w in windows:
+            g.merge_window(spans_to_batch(w, interner=g.interner))
+            got, want = g.service_scores(), g.service_scores_uncached()
+            for name, a, b in zip(got._fields, got, want):
+                assert torch.equal(a, b), name
+        assert g.scorer_cache_stats()["incremental"] == len(windows)
+        graphs[str(dev)] = g.service_scores()
+    for name, a, b in zip(graphs["cpu"]._fields, graphs[str(card)], graphs["cpu"]):
+        assert torch.equal(a.cpu(), b), name
