@@ -7,7 +7,8 @@ Phases, each timed:
 
 1. card identity (nvidia-smi name and power limit);
 2. build every hand-written kernel from kmamiz_tpu_torch/csrc with nvcc
-   (one process per source, all at once);
+   (one process per source, all at once) and, beside them, the port's
+   native host library (csrc/*.cpp) with g++;
 3. the segment-stats kernel against its plain PyTorch version on card
    tensors, at the production window (2^20 spans, 10,000 endpoints x 8
    statuses) and at the Data Processor tick's own shape, both passes
@@ -20,7 +21,8 @@ Phases, each timed:
    beside the least time the card could take;
 4. state load: the endpoint graph built to BASELINE size on the card with
    EndpointGraph.merge_window (150,000 synthetic traces x 7 spans, 1,000
-   services x 10 urls, merged in chunks);
+   services x 10 urls, merged in chunks); its graph signature is kept
+   before any tick;
 5. the fused SDDMM/SpMM kernel against its plain version on card tensors
    at the forecast's shapes: the BASELINE graph's edge columns (masked
    padding included) over node tables at the pow2 bucket of its
@@ -38,7 +40,8 @@ Phases, each timed:
 7. the tick path: the port's DataProcessorServer on the card answers 4 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
    counter is zeroed just before and read just after, and the
-   segment-stats kernel must have run exactly twice per tick;
+   segment-stats kernel must have run exactly twice per tick; every tick
+   must answer within 5,000 ms;
 8. card against CPU: one more tick on the card and on the port's CPU path,
    both from the carried BASELINE graph (export_named_edges ->
    graph_from_export), compared field by field and by graph signature;
@@ -101,13 +104,38 @@ Phases, each timed:
    STLGT fold tick (with its refresh), on the card under torch.profiler
    — the device's busy time (union of its kernel, copy and fill
    intervals), its share of the wall time, the top device ops, and peak
-   device memory; then the device times of phases 3, 5, 6 and 13, last,
-   because a profiler session leaves every later launch slower on the
-   host and would inflate the card times taken after it. Every profiler
+   device memory; then the device times of phases 3, 5, 6, 13 and 15,
+   last, because a profiler session leaves every later launch slower on
+   the host and would inflate the card times taken after it. Every profiler
    session brackets its work with marker kernels and pads it with small
    launches on both sides (a session on the card's machine can lose the
    device records at its edges); a job whose sessions all lose a marker is
-   timed with CUDA events instead, and says so.
+   timed with CUDA events instead, and says so;
+15. raw ingest (run after phase 13 and before phase 14's profiler
+   sessions): (a) the native host library that phase 2 built with g++ —
+   its path under kmamiz_tpu_torch/csrc/build/, the g++ wall time and the
+   -march it took; (b) phase 4's windows (the same traces, prefix
+   "state") as raw bytes through DataProcessor.ingest_raw_window into a
+   fresh card processor, chunked as phase 4 merged them: the graph
+   signature, endpoints and edges must equal phase 4's; (c) bench.py's
+   raw e2e window (150,000 traces x 7 spans, BASELINE mesh) through
+   ingest_raw_window into a fresh card processor, a warm-up and then the
+   median of 5 reps each on a fresh processor (counters zeroed just
+   before, read just after): spans/s, bytes per span, parse and merge ms,
+   the native parse's worker count, peak device memory; the same bytes
+   again must ingest 0 spans and 0 traces; (d) that window's parse split
+   (the native scan alone against the whole batch build, on fresh
+   sessions), and its batch columns through window_stats on the card (2 segment-stats launches, counters
+   zeroed just before), and both of its segment-stats passes against the
+   plain version on the same card tensors, with times and bound as in
+   phase 3, printed after the device times beside phase 3's production
+   window; (e) a 2,500-trace window POSTed gzipped to the DP server's
+   /ingest must answer the summary and graph of a direct
+   ingest_raw_window on a twin processor, and a malformed payload 400;
+   (f) the body fold of phase 7's ticks (the same pairs, rebuilt from the
+   same windows, and the same groups with seeded JSON bodies), native
+   against the Python fold, equal results, beside the served ticks'
+   combine_assemble.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -164,6 +192,9 @@ SAGE_HIDDEN = 64
 SAGE_FEATURES = 18  # 10 base + 8 history columns
 SAGE_LR = 1e-2
 STLGT_HOURS = (920, 921, 922, 923, 924)  # 5 ticks: 4 folds, 3 refreshes
+RAW_TRACES = 150_000  # bench.py's raw e2e window: 1.05M spans
+RAW_REPS = 5
+TICK_WALL_LIMIT_MS = 5_000  # the DP's realtime cadence (PERF.md section 2)
 
 
 def log(msg: str) -> None:
@@ -1259,7 +1290,25 @@ def backward_cases(torch, graph, jobs):
         want = sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
         for a, w in zip(got, want):
             torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5, msg="whole gated backward")
+        # the bound of the whole function: its inputs read once (ids; v and
+        # d_bias rows and d_deg at the live ends, q at the live sources, k at
+        # the live destinations, gate and d_gate of live edges) and its
+        # outputs written once (dv, dq, dk whole, db); da stays inside
+        whole_bytes = (
+            ids_bytes
+            + live * 8
+            + ends * 4
+            + (2 * ends + src_rows + dst_rows) * h * 4
+            + 3 * n * h * 4
+            + 4
+        )
+        whole_ops = live * (4 * h + 10) + live * 8 * h + 2 * n * h + e
+        t_bytes = whole_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = whole_ops / PEAK_F32_OPS_PER_S * 1e3
         report["stlgt_backward"] = {
+            "bytes": whole_bytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "ms": cuda_ms(torch, whole),
             "plain_ms": cuda_ms(
                 torch, lambda: sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
@@ -2050,6 +2099,304 @@ def serve_scorers(torch, proc, feed, device, t_start: int, jobs) -> dict:
     return out
 
 
+# -- phase 15: raw ingest -----------------------------------------------------
+
+#: the fold's body pool for the timing with bodies (Istio ticks that carry
+#: envoy logs fold request/response bodies of this kind)
+BODY_POOL = (
+    '{"id":1,"name":"a","tags":["x","y"],"price":9.5}',
+    '{"id":2,"name":"b","tags":[],"owner":{"id":7,"roles":["r"]}}',
+    '[{"k":1},{"k":"s","z":[{"q":false}]}]',
+    '{"items":[{"sku":"s1","qty":2},{"sku":"s2","qty":1,"note":null}],"total":3}',
+    '{"ok":true}',
+    None,
+)
+
+
+def raw_state_load(torch, device, state) -> dict:
+    """Phase 15 (b): phase 4's windows (the same traces and prefix) as raw
+    bytes through ingest_raw_window into a fresh card processor; the graph
+    must equal phase 4's."""
+    from kmamiz_tpu_torch import synth
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    spans = 0
+    wall_s = 0.0
+    parse_ms = merge_ms = 0.0
+    for start in range(0, STATE_TRACES, STATE_CHUNK):
+        raw = synth.make_raw_window(
+            min(STATE_CHUNK, STATE_TRACES - start),
+            SPANS_PER_TRACE,
+            t_start=start,
+            trace_prefix="state",
+            **BASELINE,
+        )
+        t0 = time.perf_counter()
+        summary = proc.ingest_raw_window(raw)
+        wall_s += time.perf_counter() - t0
+        spans += summary["spans"]
+        parse_ms += proc.last_ingest_ms["parse"]
+        merge_ms += proc.last_ingest_ms["merge"]
+    sig = graph_signature(proc.graph)
+    out = {
+        "spans": spans,
+        "endpoints": len(proc.graph.interner.endpoints),
+        "edges": proc.graph.n_edges,
+        "signature": sig,
+        "wall_s": wall_s,
+        "parse_ms": parse_ms,
+        "merge_ms": merge_ms,
+        "spans_per_s": spans / wall_s,
+    }
+    check(spans == STATE_TRACES * SPANS_PER_TRACE, f"raw load ingested {spans} spans")
+    check(sig == state["signature"], "raw-built graph signature differs from phase 4's")
+    check(out["endpoints"] == state["endpoints"], "raw-built endpoints differ from phase 4's")
+    check(out["edges"] == state["edges"], "raw-built edges differ from phase 4's")
+    return out
+
+
+def raw_one_shot(torch, device, counters) -> tuple:
+    """Phase 15 (c): bench.py's raw e2e window (150,000 traces x 7 spans)
+    through ingest_raw_window into a fresh card processor: a warm-up, then
+    RAW_REPS reps on fresh processors; then the same bytes again into the
+    last processor (the dedup). The launch counters are zeroed just before
+    the reps and read just after. Returns (report, raw bytes)."""
+    from kmamiz_tpu_torch import native, synth
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    raw = synth.make_raw_window(RAW_TRACES, SPANS_PER_TRACE, **BASELINE)
+    DataProcessor(trace_source=TickFeed(), device=device).ingest_raw_window(raw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    reps = []
+    zero_counts(counters)
+    for _ in range(RAW_REPS):
+        proc = DataProcessor(trace_source=TickFeed(), device=device)
+        t0 = time.perf_counter()
+        summary = proc.ingest_raw_window(raw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        reps.append({"wall_ms": wall_ms, **proc.last_ingest_ms, "summary": summary})
+    launches = read_counts(torch, counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    again = proc.ingest_raw_window(raw)
+    spans = reps[0]["summary"]["spans"]
+    check(spans == RAW_TRACES * SPANS_PER_TRACE, f"one-shot window ingested {spans} spans")
+    check(all(r["summary"]["spans"] == spans for r in reps), "reps ingested different windows")
+    check(again["spans"] == 0 and again["traces"] == 0, f"re-ingest not deduplicated: {again}")
+    wall = statistics.median(r["wall_ms"] for r in reps)
+    out = {
+        "traces": RAW_TRACES,
+        "spans": spans,
+        "bytes": len(raw),
+        "bytes_per_span": len(raw) / spans,
+        "endpoints": reps[0]["summary"]["endpoints"],
+        "edges": reps[0]["summary"]["edges"],
+        "reps": RAW_REPS,
+        "wall_ms": wall,
+        "parse_ms": statistics.median(r["parse"] for r in reps),
+        "merge_ms": statistics.median(r["merge"] for r in reps),
+        "spans_per_s": spans / (wall / 1e3),
+        "wall_ms_all": [r["wall_ms"] for r in reps],
+        "effective_parse_threads": native.effective_parse_threads(),
+        "peak_device_mib": peak_mib,
+        "peak_over_base_mib": peak_mib - base_mib,
+        "launches": launches,
+        "reingest": again,
+    }
+    return out, raw
+
+
+def raw_window_stats(torch, device, counters, raw, jobs) -> tuple:
+    """Phase 15 (d): the one-shot window's parse split (the native scan
+    alone, then the whole batch build on a fresh session, as
+    ingest_raw_window parses), its batch columns through window_stats on
+    the card, as bench.py's raw e2e window does (counters zeroed just
+    before, read just after: two segment_stats launches); then both of
+    its segment_stats passes against the plain version on the same card
+    tensors, as phase 3 holds the kernel."""
+    import numpy as np
+
+    from kmamiz_tpu_torch import native
+    from kmamiz_tpu_torch.core.interning import EndpointInterner
+    from kmamiz_tpu_torch.core.spans import RawIngestSession, raw_spans_to_batch
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.ops import window as window_ops
+
+    t0 = time.perf_counter()
+    scan_timings = native.parse_spans(raw, session=native.ParseSession())["timings"]
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch, _kept = raw_spans_to_batch(raw, session=RawIngestSession(EndpointInterner()))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    cols = dict(
+        endpoint_id=batch.endpoint_id,
+        status_id=batch.status_id,
+        status_class=batch.status_class,
+        latency_ms=batch.latency_ms.astype(np.float32),
+        timestamp_rel=batch.timestamp_rel,
+        valid_server=batch.valid,
+    )
+    dev = {k: torch.from_numpy(v).to(device) for k, v in cols.items()}
+    sizes = dict(num_endpoints=batch.num_endpoints, num_statuses=batch.num_statuses)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    stats = window_ops.window_stats(**dev, **sizes)
+    launches = read_counts(torch, counters)
+    check(
+        launches[ss.segment_stats.__name__] == 2,
+        f"window_stats launched segment_stats {launches[ss.segment_stats.__name__]} times",
+    )
+    check(int(stats.count.sum()) == batch.n_spans, "window_stats lost spans")
+    values, seg, ts, n_seg = window_ops.stat_rows(**dev, **sizes)
+    cases = [segment_stats_case(torch, ss, "raw window pass 1", values, seg, ts, n_seg, jobs)]
+    sums, _ = ss.segment_stats_plain(values, seg, ts, n_seg)
+    resid = window_ops.residual_rows(values, seg, sums, n_seg)
+    cases.append(segment_stats_case(torch, ss, "raw window pass 2", resid, seg, None, n_seg, jobs))
+    info = {"spans": batch.n_spans, "capacity": batch.capacity, "segments": n_seg, **sizes}
+    split = {"native_parse_ms": scan_ms, "native_timings_us": scan_timings, "batch_ms": batch_ms}
+    return {"launches": launches, "parse_split": split, **info}, cases
+
+
+def raw_http_ingest(torch, device, t_start: int) -> dict:
+    """Phase 15 (e): a 2,500-trace window POSTed gzipped to the port's DP
+    server's /ingest against a direct ingest_raw_window of the same bytes
+    on a twin processor; a malformed payload must answer 400."""
+    from kmamiz_tpu_torch import synth
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    raw = synth.make_raw_window(
+        TICK_TRACES, SPANS_PER_TRACE, t_start=t_start, trace_prefix="ingest", **BASELINE
+    )
+    twin = DataProcessor(trace_source=TickFeed(), device=device)
+    direct = twin.ingest_raw_window(raw)
+    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    server = DataProcessorServer(proc, host="127.0.0.1", port=0)
+    server.start()
+    try:
+
+        def post(body):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/ingest",
+                data=gzip.compress(body),
+                headers={"Content-Encoding": "gzip"},
+                method="POST",
+            )
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    status, answer = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                status, answer = e.code, json.loads(e.read())
+            return status, answer, (time.perf_counter() - t0) * 1e3
+
+        status, served, wall_ms = post(raw)
+        check(status == 200, f"/ingest answered {status}: {served}")
+        same = {k: v for k, v in served.items() if k != "ms"} == {
+            k: v for k, v in direct.items() if k != "ms"
+        }
+        check(same, f"/ingest summary {served} differs from the direct call's {direct}")
+        check(graph_signature(proc.graph) == graph_signature(twin.graph), "/ingest graph differs")
+        bad_status, bad, _ = post(b'[[{"traceId": "t", "id": ')
+        check(bad_status == 400, f"malformed /ingest answered {bad_status}: {bad}")
+    finally:
+        server.stop()
+    return {"summary": served, "wall_ms": wall_ms, "malformed_status": bad_status}
+
+
+def tick_body_fold(ticks, t_start: int) -> dict:
+    """Phase 15 (f): the body fold of phase 7's served ticks — the same
+    (bodies, content type) pairs, rebuilt from the same windows — native
+    against the Python fold (median of 5 each, results equal); and the
+    same groups with JSON bodies drawn from BODY_POOL (seeded), since the
+    synthetic spans carry none."""
+    import random
+
+    from kmamiz_tpu_torch.core import schema
+    from kmamiz_tpu_torch.domain.traces import Traces
+    from kmamiz_tpu_torch.server.processor import record_groups
+
+    def median_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), out
+
+    rng = random.Random(SEED)
+    cases = []
+    for k in range(TICKS):
+        groups = synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"tick{k}-")
+        records = Traces(groups).combine_logs_to_realtime_data([], []).to_json()
+        pairs = schema.body_pairs_for_groups([rows for _key, rows in record_groups(records)])
+        with_bodies = [
+            ([rng.choice(BODY_POOL) for _ in bodies], "application/json") for bodies, _ct in pairs
+        ]
+        for label, p in (("tick", pairs), ("tick with bodies", with_bodies)):
+            native_ms, got = median_ms(lambda: schema.merge_and_infer_bodies(p))
+            python_ms, want = median_ms(lambda: schema.merge_and_infer_bodies_python(p))
+            check(got == want, f"native body fold differs from the Python fold ({label} {k})")
+            cases.append(
+                {
+                    "tick": k,
+                    "pairs": label,
+                    "groups": len(p) // 2,
+                    "bodies": sum(len(b) for b, _ in p),
+                    "native_ms": native_ms,
+                    "python_ms": python_ms,
+                }
+            )
+            log("   " + json.dumps(cases[-1]))
+    return {"cases": cases, "combine_assemble_ms": [t["combine_assemble"] for t in ticks]}
+
+
+def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
+    """Phase 15: raw ingest on the card, (a)-(f). Returns the report and
+    the raw window's segment-stats cases."""
+    from kmamiz_tpu_torch import native
+    from kmamiz_tpu_torch.ops import host_build
+
+    path = native.library_path()
+    info = host_build.build_info(path)
+    check(
+        os.path.commonpath([path, host_build.BUILD_DIR]) == str(host_build.BUILD_DIR),
+        f"host library {path} is not the port's build",
+    )
+    out = {
+        "build": {
+            "library": os.path.relpath(path, REPO),
+            "built_in_this_run": build["built_in_this_run"],
+            "gxx_s": info["seconds"],
+            "march": info["march"],
+        }
+    }
+    log("   (a) " + json.dumps(out["build"]))
+    out["state_load"] = raw_state_load(torch, device, state)
+    log("   (b) " + json.dumps(out["state_load"]))
+    out["one_shot"], raw = raw_one_shot(torch, device, counters)
+    log("   (c) " + json.dumps(out["one_shot"]))
+    out["window_stats"], cases = raw_window_stats(torch, device, counters, raw, jobs)
+    log("   (d) " + json.dumps(out["window_stats"]))
+    del raw
+    out["http"] = raw_http_ingest(torch, device, STATE_TRACES + 40 * TICK_TRACES)
+    log("   (e) " + json.dumps(out["http"]))
+    out["body_fold"] = tick_body_fold(ticks, STATE_TRACES + TICK_TRACES)
+    log(
+        "   (f) served ticks' combine_assemble ms "
+        + json.dumps(out["body_fold"]["combine_assemble_ms"])
+        + " (77-180 ms with the Python fold: PERF.md section 5)"
+    )
+    torch.cuda.empty_cache()
+    return out, cases
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2115,8 +2462,21 @@ def main(argv=None) -> int:
         log(f"   torch {report['torch']}, {torch.cuda.get_device_name(0)}")
 
     with Phase("build", walls):
-        for path in cuda_build.build_all(kernel_names):
-            log(f"   built {os.path.relpath(path)}")
+        # the host library (g++) builds beside the kernels (nvcc), so that
+        # the first served tick's body fold does not pay for it
+        from concurrent.futures import ThreadPoolExecutor
+
+        from kmamiz_tpu_torch import native
+        from kmamiz_tpu_torch.ops import host_build
+
+        build = {
+            "built_in_this_run": not host_build.library_path(native.NAME, native.SOURCES).exists()
+        }
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            host_lib = pool.submit(native.library_path)
+            for path in cuda_build.build_all(kernel_names):
+                log(f"   built {os.path.relpath(path)}")
+            log(f"   built {os.path.relpath(host_lib.result())}")
 
     tick_shape_groups = synth_groups(TICK_TRACES, STATE_TRACES, "shape")
     with Phase("kernel check", walls):
@@ -2140,7 +2500,15 @@ def main(argv=None) -> int:
         log(f"   endpoints {n_eps}, edges {n_edges}, capacity {proc.graph.capacity}")
         check(n_eps >= 10_000, f"only {n_eps} endpoints")
         check(n_edges >= 100_000, f"only {n_edges} edges")
-        report["state"] = {"traces": STATE_TRACES, "endpoints": n_eps, "edges": n_edges}
+        from kmamiz_tpu_torch.graph.store import graph_signature
+
+        report["state"] = {
+            "traces": STATE_TRACES,
+            "endpoints": n_eps,
+            "edges": n_edges,
+            # before any tick: phase 15 rebuilds this graph from raw bytes
+            "signature": graph_signature(proc.graph),
+        }
 
     with Phase("fused kernel check", walls):
         f_cases, report["edge_index"] = fused_cases(torch, proc.graph, jobs)
@@ -2182,6 +2550,10 @@ def main(argv=None) -> int:
             f"segment_stats launched {launches[ss.segment_stats.__name__]} times in {TICKS} ticks",
         )
         report["max_tick_wall_ms"] = max(t["wall_ms"] for t in timings)
+        check(
+            report["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS,
+            f"a served tick took {report['max_tick_wall_ms']} ms",
+        )
         report["edges_after_ticks"] = proc.graph.n_edges
 
     with Phase("card against cpu", walls):
@@ -2235,6 +2607,13 @@ def main(argv=None) -> int:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
 
+    # phase 15 runs here, before phase 14's profiler sessions (which slow
+    # every later launch on the host) and the device times
+    with Phase("raw ingest", walls):
+        report["raw_ingest"], raw_cases = raw_ingest(
+            torch, device, counters, report["state"], report["ticks"], build, jobs
+        )
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -2250,6 +2629,15 @@ def main(argv=None) -> int:
 
     with Phase("device times", walls):
         report["profiler_lost_sessions"] = device_times(torch, jobs)
+    # the segment-stats kernel at the raw window's real shape beside phase
+    # 3's synthetic production window
+    for raw_case, prod_case in zip(raw_cases, cases[:2]):
+        log(
+            f"   {raw_case['shape']} ({raw_case['n']} spans, {raw_case['segments']} segments): "
+            f"ms {raw_case['ms']:.4f} device_ms {raw_case['device_ms']:.4f}; "
+            f"{prod_case['shape']} ({prod_case['n']} spans, {prod_case['segments']} segments): "
+            f"ms {prod_case['ms']:.4f} device_ms {prod_case['device_ms']:.4f}"
+        )
 
     def entry(wrapper, source, replaces, n_launches, all_cases, shown):
         return {
@@ -2279,7 +2667,7 @@ def main(argv=None) -> int:
     # backward, and STLGT's gated backward (H = 32)
     line = {
         "kernels": [
-            entry(*kernels[0], launches[ss.segment_stats.__name__], cases, cases[2]),
+            entry(*kernels[0], launches[ss.segment_stats.__name__], cases + raw_cases, cases[2]),
             entry(*kernels[1], forecast_launches[sparse.fused_sddmm_spmm.__name__], f_cases, f_cases[1]),
             entry(
                 *kernels[2],

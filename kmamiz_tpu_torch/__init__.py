@@ -7,13 +7,17 @@ here. Entry points run on the card unless the caller passes
 `device="cpu"`.
 
 Layout:
-  core/      host-side ingestion: string interning, SoA span batches,
+  core/      host-side ingestion: string interning, SoA span batches
+             (from dicts and from raw bytes), the KMZC wire codec,
              URL/JSON-schema utilities (copies of the JAX package's)
+  native/    ctypes binding of the native host library (raw span parse,
+             body fold), built from csrc/*.cpp with g++ at first use
   domain/    domain data model with reference-parity JSON output (copies)
   analytics/ risk analyzer and normalizers (copies)
   ops/       tensor code of the window pipeline, sort/unique, the graph
              scorers, and the wrappers of the CUDA kernels
-  csrc/      the CUDA kernels' sources, built with nvcc at first use
+  csrc/      the CUDA kernels' sources, built with nvcc at first use, and
+             the host C++ (copies of the JAX package's native/)
   graph/     the device-resident endpoint-graph store and its scorer caches
   models/    the model plane: GraphSAGE, STLGT, training and serving
   server/    the Data Processor tick, its HTTP server, the caches and the

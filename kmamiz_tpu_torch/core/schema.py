@@ -20,6 +20,8 @@ import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
+from kmamiz_tpu_torch import native
+
 
 def is_primitive(obj: Any) -> bool:
     return not isinstance(obj, (dict, list))
@@ -415,10 +417,38 @@ def merge_and_infer_bodies(
     group's raw JSON bodies with merge_string_body and, for JSON content,
     return (parsed_merged_body, interface_string).
 
-    Pure Python: the port carries no native JSON library. The JAX package
-    runs the same fold through its C++ twin (native/kmamiz_json.cpp) and
-    the port's parity tests hold the two to equal output.
+    Runs on the native C++ fold (csrc/kmamiz_json.cpp, the twin of
+    KMamiz's Rust json_utils.rs) in one call for every pair that holds a
+    body. A pair without one folds to None, which parses to (None, None)
+    under any content type, so it does not cross to the library: marshalling
+    it costs more than the fold (spans without envoy logs carry no bodies).
+    The pure-Python fold above runs only where the reference runs it: for a
+    group the native side hands back (nesting too deep), for an interface
+    it flags as needing Python, and for every pair when the native answer's
+    length does not match its input.
     """
+    todo = [i for i, (bodies, _ct) in enumerate(pairs) if any(b is not None for b in bodies)]
+    results = native.process_body_groups(
+        [(pairs[i][0], pairs[i][1] == "application/json") for i in todo]
+    )
+    if len(results) != len(todo):
+        return merge_and_infer_bodies_python(pairs)
+    out: List[Tuple[Optional[Any], Optional[str]]] = [(None, None)] * len(pairs)
+    for i, res in zip(todo, results):
+        bodies, ct = pairs[i]
+        if res is None:  # the native side handed this group back
+            out[i] = _parse_and_infer(fold_string_bodies(bodies), ct)
+            continue
+        merged, interface, needs_python = res
+        out[i] = _parse_and_infer(merged, ct, None if needs_python else interface)
+    return out
+
+
+def merge_and_infer_bodies_python(
+    pairs: Sequence[Tuple[Sequence[Optional[str]], Optional[str]]],
+) -> List[Tuple[Optional[Any], Optional[str]]]:
+    """merge_and_infer_bodies in pure Python: the plain version the native
+    fold is held to (tests, chip_smoke)."""
     return [
         _parse_and_infer(fold_string_bodies(bodies), ct) for bodies, ct in pairs
     ]

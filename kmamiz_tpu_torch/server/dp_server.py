@@ -6,10 +6,12 @@ the sibling of the reference's Rust service
 health, POST / takes a TExternalDataProcessorRequest ({uniqueId,
 lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
-datatype, log}). GET /model/stlgt answers the STLGT continual trainer's
-health (ring, stale slots, refreshes, params version). Gzip request bodies (Content-Encoding: gzip) are
-accepted; responses are gzip-compressed when the client sends
-Accept-Encoding: gzip.
+datatype, log}). POST /ingest takes a raw Zipkin response body (trace
+groups, or a KMZC columnar frame) into the processor's graph, uncapped,
+and answers the ingest summary. GET /model/stlgt answers the STLGT
+continual trainer's health (ring, stale slots, refreshes, params
+version). Gzip request bodies (Content-Encoding: gzip) are accepted;
+responses are gzip-compressed when the client sends Accept-Encoding: gzip.
 """
 from __future__ import annotations
 
@@ -70,13 +72,21 @@ def make_handler(processor: DataProcessor):
                 raw = self.rfile.read(length)
                 if self.headers.get("Content-Encoding") == "gzip":
                     raw = gzip.decompress(raw)
-                request = json.loads(raw) if raw else {}
             except (ValueError, OSError, EOFError) as e:
                 # EOFError: gzip.decompress raises it on a truncated stream
                 self._send_json(400, {"error": f"bad request: {e}"})
                 return
-            if self.path.split("?", 1)[0].rstrip("/") != "":
+            path = self.path.split("?", 1)[0].rstrip("/")
+            if path == "/ingest":
+                self._ingest(raw)
+                return
+            if path != "":
                 self._send_json(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                request = json.loads(raw) if raw else {}
+            except ValueError as e:
+                self._send_json(400, {"error": f"bad request: {e}"})
                 return
             try:
                 response = processor.collect(request)
@@ -85,6 +95,25 @@ def make_handler(processor: DataProcessor):
                 self._send_json(500, {"error": str(e)})
                 return
             self._send_json(200, response)
+
+        def _ingest(self, raw: bytes) -> None:
+            """POST /ingest: the body IS the Zipkin response (or a KMZC
+            frame), parsed whole by processor.ingest_raw_window. A
+            malformed payload answers 400, any other failure 500. Unlike
+            the JAX server, this route has no tenant routing and no
+            streaming split of large bodies (KMAMIZ_INGEST_STREAM_BYTES):
+            every body is one window, since neither the tenancy layer nor
+            the streaming ingest path is ported."""
+            try:
+                summary = processor.ingest_raw_window(raw)
+            except ValueError as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 - answer 500, keep serving
+                logger.exception("raw ingest failed")
+                self._send_json(500, {"error": str(e)})
+                return
+            self._send_json(200, summary)
 
     return Handler
 

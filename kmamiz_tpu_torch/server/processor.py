@@ -23,25 +23,40 @@ completed bucket into models.history.HistoryState and publishes
 snapshot holds host numpy copies of the edge columns: one device-to-host
 copy per fold, none per tick.
 
+Raw ingest (`ingest_raw_window`, POST /ingest on the DP server) takes a
+Zipkin response's raw bytes, or a KMZC columnar frame, through the native
+SoA loader (core.spans.raw_spans_to_batch) into the same device graph,
+uncapped. The tick and raw ingest share one processed-trace dedup map,
+which the native parse reads through a persistent skip set.
+
 Not ported yet: cluster state (a k8s source, so every replica count in
 the features is 1.0), the ingest WAL, the quarantine, telemetry spans,
-the raw-bytes ingest paths, history persistence, and the fold hooks of
-the JAX processor (the STLGT continual trainer, the control plane and the
-cost model).
+streaming raw ingest, history persistence, and the fold hooks of the JAX
+processor (the control plane and the cost model; the STLGT continual
+trainer is ported).
 """
 from __future__ import annotations
 
+import itertools
 import logging
+import struct
 import threading
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.core import schema
 from kmamiz_tpu_torch.core.interning import StringInterner
-from kmamiz_tpu_torch.core.spans import KIND_SERVER, _pad_size, spans_to_batch
+from kmamiz_tpu_torch.core.spans import (
+    KIND_SERVER,
+    RawIngestSession,
+    _pad_size,
+    raw_spans_to_batch,
+    spans_to_batch,
+)
 from kmamiz_tpu_torch.core.timeutils import to_precise
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.domain.combined import CombinedRealtimeDataList
@@ -133,8 +148,28 @@ class DataProcessor:
         self._trace_source = trace_source
         self._now_ms = now_ms  # the dedup map's clock
         self._processed: Dict[str, float] = {}
-        # collect() runs on several server threads; dedup-map transitions
-        # serialize here (the graph store carries its own lock)
+        # the processed map's keys as native skip entries
+        # (native.encode_skip_entry layout), in the map's order. Only the
+        # raw path reads them, so they encode when it asks
+        # (_skip_entries_locked): _skip_encoded counts the keys already in
+        # them, and a prune empties them and bumps _skip_gen, so the tick
+        # never encodes an id
+        self._skip_entries = bytearray()
+        self._skip_encoded = 0
+        self._skip_gen = 0
+        # persistent native mirror of the skip entries (native.SkipSet),
+        # passed to every raw parse; created lazily, synced by the appended
+        # delta, cleared and refilled after a prune
+        self._native_skipset: Optional[native.SkipSet] = None
+        self._skipset_synced = 0  # bytes of _skip_entries already pushed
+        self._skipset_gen = -1  # generation the native set reflects
+        # persistent raw-ingest session (core.spans.RawIngestSession): the
+        # shape/status tables survive across payloads, so warm payloads
+        # carry no naming strings; created lazily
+        self._raw_session: Optional[RawIngestSession] = None
+        # collect() and ingest_raw_window() run on several server threads;
+        # dedup-map transitions serialize here (the graph store carries its
+        # own lock)
         self._dedup_lock = threading.Lock()
         if graph is not None and graph.device != self.device:
             raise ValueError(
@@ -144,6 +179,8 @@ class DataProcessor:
         self.graph = graph if graph is not None else EndpointGraph(device=self.device)
         #: wall ms of the last finished tick's stages
         self.last_stage_ms: Dict[str, float] = {}
+        #: wall ms of the last raw ingest's parse and merge
+        self.last_ingest_ms: Dict[str, float] = {}
         # online history-feature state, created on the first observed
         # tick; ticks accumulate into the current hour's bucket and fold on
         # rollover. collect() runs on several server threads, so every
@@ -175,12 +212,136 @@ class DataProcessor:
                     continue
                 self._processed[trace_id] = request_time
                 kept.append(group)
-            cutoff = request_time - PROCESSED_TRACE_TTL_MS
-            if any(v < cutoff for v in self._processed.values()):
-                self._processed = {
-                    k: v for k, v in self._processed.items() if v >= cutoff
-                }
+            self._prune_processed_locked(request_time)
             return kept
+
+    def _prune_processed_locked(self, now_ms: float) -> None:
+        """TTL-prune the processed map. A prune that removes entries empties
+        the skip entries and bumps the generation (the native skip set
+        clears and resyncs); they re-encode when the raw path next asks."""
+        cutoff = now_ms - PROCESSED_TRACE_TTL_MS
+        if any(v < cutoff for v in self._processed.values()):
+            self._processed = {k: v for k, v in self._processed.items() if v >= cutoff}
+            self._skip_entries = bytearray()
+            self._skip_encoded = 0
+            self._skip_gen += 1
+
+    def _skip_entries_locked(self) -> bytearray:
+        """The skip entries, brought up to the processed map: the keys
+        registered since the last call encode now. New keys append at the
+        map's end and a prune resets the count, so the entries stay the
+        map's keys in order."""
+        if self._skip_encoded < len(self._processed):
+            for tid in itertools.islice(self._processed, self._skip_encoded, None):
+                self._skip_entries += native.encode_skip_entry(tid)
+            self._skip_encoded = len(self._processed)
+        return self._skip_entries
+
+    def _skip_blob_locked(self) -> bytes:
+        """The processed set as one native skip blob (count header +
+        entries): the serialized form the native skip set mirrors."""
+        entries = self._skip_entries_locked()
+        return struct.pack("<I", len(self._processed)) + bytes(entries)
+
+    def _skipset_locked(self) -> native.SkipSet:
+        """The persistent native skip set, synced to _skip_entries (caller
+        holds _dedup_lock): after a prune (a generation bump) it clears and
+        takes the rebuilt entries, otherwise only the appended delta."""
+        if self._native_skipset is None:
+            self._native_skipset = native.SkipSet()
+        ss = self._native_skipset
+        if self._skipset_gen != self._skip_gen:
+            ss.clear()
+            self._skipset_synced = 0
+            self._skipset_gen = self._skip_gen
+        entries = self._skip_entries_locked()
+        if self._skipset_synced < len(entries):
+            ss.extend(bytes(entries[self._skipset_synced :]))
+            self._skipset_synced = len(entries)
+        return ss
+
+    def _raw_session_locked(self) -> RawIngestSession:
+        """The persistent raw-ingest session (caller holds _dedup_lock for
+        the lazy create; the session has its own consumer lock)."""
+        if self._raw_session is None:
+            self._raw_session = RawIngestSession(self.graph.interner)
+        return self._raw_session
+
+    # -- raw ingest: the uncapped window path --------------------------------
+
+    def ingest_raw_window(self, raw: bytes) -> dict:
+        """Raw Zipkin response bytes (or a KMZC columnar frame) -> the
+        device graph, uncapped.
+
+        The tick (collect) keeps the reference's 2,500-trace cap; this is
+        the scale path without it: the native SoA loader scans the bytes
+        into span columns (no json.loads, no per-span dicts), applies the
+        tick's processed-trace dedup through the persistent skip set, and
+        merges the window into the graph on the processor's device.
+        Returns {spans, traces, endpoints, edges, ms}.
+
+        A payload that fails to parse raises ValueError with the interner
+        and the dedup map untouched, as the JAX processor does with its
+        quarantine off (KMAMIZ_QUARANTINE=0). A fault on this side (a
+        library answer that does not decode, a desynced session) raises
+        RuntimeError, where the JAX processor reports it as a malformed
+        payload. Absent here, with the
+        modules they need: the quarantine and its size gate (a malformed
+        payload diverted to disk, answered with a zero-span summary), the
+        write-ahead log append before the merge, and the telemetry spans
+        and step timers around the parse and the merge."""
+        t_start = self._now_ms()  # domain time for the dedup registration
+        wall_t0 = time.perf_counter()
+        with self._dedup_lock:
+            skipset = self._skipset_locked()
+            session = self._raw_session_locked()
+        out = raw_spans_to_batch(
+            raw, interner=self.graph.interner, skipset=skipset, session=session
+        )
+        if out is None:
+            raise ValueError("malformed span payload")
+        batch, kept = out
+        t_parsed = time.perf_counter()
+        # the dedup snapshot is the skip set as the parse saw it: a trace a
+        # concurrent collect() registers mid-parse may merge twice, which
+        # the set-union edge store absorbs
+        self._register_processed(kept, t_start)
+        if batch.n_spans:
+            self.graph.merge_window(batch)
+        edges = int(self.graph.n_edges)  # waits for the merge
+        t_end = time.perf_counter()
+        self.last_ingest_ms = {
+            "parse": (t_parsed - wall_t0) * 1e3,
+            "merge": (t_end - t_parsed) * 1e3,
+        }
+        return {
+            "spans": batch.n_spans,
+            "traces": len(kept),
+            "endpoints": batch.num_endpoints,
+            "edges": edges,
+            "ms": round((t_end - wall_t0) * 1e3, 1),
+        }
+
+    def _register_processed(self, kept, when_ms: float) -> None:
+        """Register kept trace ids in the processed map, then TTL-prune.
+        When the parse supplied the raw skip-entry bytes of the kept
+        records (KeptTraceIds.blob) and every id is new — the steady case —
+        the bytes append as ONE slice instead of one encoding per id."""
+        blob = getattr(kept, "blob", None)
+        with self._dedup_lock:
+            if blob is not None and kept and all(t not in self._processed for t in kept):
+                # prescan-deduped ids, all new: after the tick's backlog
+                # encodes, map entries and skip entries stay 1:1 (the blob
+                # is byte-identical to encode_skip_entry, absent markers
+                # included)
+                self._skip_entries_locked()
+                self._skip_entries += blob
+                self._processed.update(zip(kept, [when_ms] * len(kept)))
+                self._skip_encoded = len(self._processed)
+            else:
+                for tid in kept:
+                    self._processed[tid] = when_ms
+            self._prune_processed_locked(when_ms)
 
     # -- the tick ------------------------------------------------------------
 
@@ -430,18 +591,12 @@ class DataProcessor:
         if stats_job is None:
             return realtime.to_combined_realtime_data()
 
-        records = realtime.to_json()
-
-        # group records by (uniqueEndpointName, raw status) for body merging
-        # and base fields; numeric stats come from the device, whose
-        # interner also keys segments by the raw status value
-        groups: Dict[tuple, List[dict]] = {}
-        for r in records:
-            groups.setdefault((r["uniqueEndpointName"], r["status"]), []).append(r)
+        # numeric stats come from the device, whose interner also keys
+        # segments by the raw status value
+        group_items = record_groups(realtime.to_json())
 
         # the body merge runs BEFORE blocking on the device result, so the
         # copy back hides behind it
-        group_items = list(groups.items())
         merged_bodies = schema.merge_and_infer_bodies(
             schema.body_pairs_for_groups([rows for _key, rows in group_items])
         )
@@ -487,6 +642,16 @@ class DataProcessor:
                 }
             )
         return CombinedRealtimeDataList(out)
+
+
+def record_groups(records: List[dict]) -> List[Tuple[tuple, List[dict]]]:
+    """Realtime records grouped by (uniqueEndpointName, raw status), in
+    first-seen order: the unit of the tick's body merge and of its
+    combined records."""
+    groups: Dict[tuple, List[dict]] = {}
+    for r in records:
+        groups.setdefault((r["uniqueEndpointName"], r["status"]), []).append(r)
+    return list(groups.items())
 
 
 class StatsColumns(NamedTuple):

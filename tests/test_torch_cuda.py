@@ -2,7 +2,8 @@
 PyTorch versions on the same card tensors, a whole tick on the card
 against the port's CPU path, the model forwards' kernel launches, and
 the graph scorers on the card against the CPU (with no host sync in the
-ops, and the store's incremental splice bit-exact).
+ops, and the store's incremental splice bit-exact), and a raw window
+ingested on the card against the CPU.
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -483,3 +484,23 @@ def test_incremental_splice_is_bit_exact_on_card(card):
         graphs[str(dev)] = g.service_scores()
     for name, a, b in zip(graphs["cpu"]._fields, graphs[str(card)], graphs["cpu"]):
         assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+def test_raw_window_ingest_on_card_matches_cpu(card):
+    """A synth raw window through ingest_raw_window (the native loader,
+    then the graph merge) gives the same summary and graph signature on
+    the card as on the CPU, and its repeat deduplicates on both."""
+    from kmamiz_tpu_torch import synth
+
+    raw = synth.make_raw_window(2_000, 7, n_services=100, urls_per_service=10)
+    out = {}
+    for dev in (card, "cpu"):
+        dp = DataProcessor(trace_source=lambda lb, t, lim: [], device=dev)
+        summary = dp.ingest_raw_window(raw)
+        again = dp.ingest_raw_window(raw)
+        assert again["spans"] == 0 and again["traces"] == 0
+        summary.pop("ms")
+        out[str(dev)] = (summary, graph_signature(dp.graph))
+    assert out[str(card)] == out["cpu"]
+    assert out["cpu"][0]["spans"] == 14_000 and out["cpu"][0]["edges"] > 0

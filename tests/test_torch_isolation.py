@@ -1,6 +1,7 @@
 """The port stands alone: no module of kmamiz_tpu_torch imports jax or the
-kmamiz_tpu package, and its entry points refuse to run on a CUDA device
-that is not there instead of dropping to the CPU."""
+kmamiz_tpu package, its native host library is its own build, and its
+entry points refuse to run on a CUDA device that is not there instead of
+dropping to the CPU."""
 from __future__ import annotations
 
 import subprocess
@@ -27,7 +28,14 @@ leaked = sorted(
     if mod is not None and (m == "jax" or m.startswith(("jax.", "kmamiz_tpu.")))
 )
 assert not leaked, leaked
-print(len(names))
+# the native host library the port loads is its own build, never the JAX
+# package's native/build/
+from kmamiz_tpu_torch import native
+native.available()
+maps = open("/proc/self/maps").read()
+assert str(native.library_path()) in maps
+assert "/native/build/" not in maps
+print(" ".join(names))
 """
 
 
@@ -40,7 +48,13 @@ def test_every_module_imports_without_jax_or_reference():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25
+    names = proc.stdout.split()
+    assert len(names) >= 62
+    assert {
+        "kmamiz_tpu_torch.native",
+        "kmamiz_tpu_torch.ops.host_build",
+        "kmamiz_tpu_torch.core.wire",
+    } <= set(names)
 
 
 def test_no_source_mentions_an_import_of_the_reference():

@@ -145,9 +145,10 @@ def test_server_answers_like_collect():
 
 
 def test_body_merge_matches_jax():
-    """The port merges and types bodies in pure Python; the JAX package
-    uses its native JSON library where built. Both must give the same
-    (merged body, interface) pairs."""
+    """Both packages merge and type bodies through their own build of
+    the native JSON library (the port's copy of native/kmamiz_json.cpp),
+    handing deeply nested groups back to the Python fold. Both must give
+    the same (merged body, interface) pairs."""
     from kmamiz_tpu.core import schema as jax_schema
     from kmamiz_tpu_torch.core import schema as port_schema
     from test_processor_equivalence import BODIES
