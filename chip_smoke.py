@@ -29,8 +29,10 @@ Phases, each timed:
    endpoints, ungated at H = 18 and 64 (GraphSAGE's two layers) and gated
    at H = 32 (STLGT), each launch given the prebuilt edge index as the
    forward gives it; two launches on the same inputs must give the same
-   bits; times and bound as in phase 3; the edge index's build time and
-   row lengths (mean, p99, max), and a GraphSAGE forward's kernel work
+   bits; times and bound as in phase 3; the edge index's build time
+   (beside its plain version, keys in plain PyTorch, which must give the
+   same index, and the library call: one stable torch.sort of its keys)
+   and row lengths (mean, p99, max), and a GraphSAGE forward's kernel work
    (one index build and the launches at H = 18 and 64) timed together;
 6. the backward kernels against their plain versions on the same graph
    and bucket: the row pass ungated at H = 18 and 64 and gated at H = 32,
@@ -135,7 +137,24 @@ Phases, each timed:
    (f) the body fold of phase 7's ticks (the same pairs, rebuilt from the
    same windows, and the same groups with seeded JSON bodies), native
    against the Python fold, equal results, beside the served ticks'
-   combine_assemble.
+   combine_assemble;
+16. streaming ingest (run after phase 15, before phase 14's profiler
+   sessions): (a) phase 15 (c)'s window as bench.py's 4 chunks of 37,500
+   traces through DataProcessor.ingest_raw_stream into a persistent card
+   processor on a virtual clock: the graph signature, endpoints and edges
+   of 15 (c); beside it a twin that takes the same windows one shot; (b)
+   one uncounted steady window each; (c) 3 counted windows under fresh
+   trace prefixes, the clock stepped 301,000 ms (past the dedup TTL)
+   before each, the two paths in turns (counters zeroed just before each,
+   read just after, peak device memory over base): the streamed wall,
+   spans/s, parse, merge, saved and drain ms, the ring's peak, the chunk
+   breakdown and the upload pipeline's counters; (d) the twin's one-shot
+   wall, parse and merge on the same bytes; both graphs equal at the end;
+   (e) a 10,000-trace body (~41 MB) POSTed gzipped to /ingest takes the
+   stream branch (4 chunks) with the totals and graph of a direct
+   ingest_raw_stream on a twin; (f) ingest_from_zipkin against a local
+   stub serving the last counted window's chunks as 4 pages builds the
+   graph of that window taken one shot.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -647,8 +666,30 @@ def fused_cases(torch, graph, jobs):
     lengths = (index.row_ptr[1:] - index.row_ptr[:-1]).float()
     real = lengths[:n_eps]
     e, live = int(src.shape[0]), int(mask.sum())
+
+    def plain_index():
+        # the index with its keys in plain PyTorch (sparse.edge_keys_plain)
+        # in place of the keys kernel: the same sort and searchsorted
+        keys, other = sparse.edge_keys_plain(src, dst, mask, n)
+        sorted_keys, order = torch.sort(keys, stable=True)
+        bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+        return torch.searchsorted(sorted_keys, bounds, out_int32=True), other[order], order
+
+    row_ptr, nbr, order = plain_index()
+    check(
+        torch.equal(row_ptr, index.row_ptr) and torch.equal(nbr, index.nbr)
+        and torch.equal(order, index.eid),
+        "the edge index differs from its plain version",
+    )
+    # the library call: one stable torch.sort of the same keys, in the
+    # width the card path sorts
+    lib_keys = sparse.edge_keys_plain(src, dst, mask, n)[0].to(
+        torch.int16 if n < 2**15 else torch.int32
+    )
     report = {
         "index_ms": cuda_ms(torch, lambda: sparse.edge_index(src, dst, mask, n)),
+        "index_plain_ms": cuda_ms(torch, plain_index),
+        "index_library_ms": cuda_ms(torch, lambda: torch.sort(lib_keys, stable=True)),
         # bytes: every slot's mask and both ids of each live edge read once;
         # row_ptr and the 2E entries (int32 neighbour, int64 edge id)
         # written once
@@ -2164,6 +2205,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
     last processor (the dedup). The launch counters are zeroed just before
     the reps and read just after. Returns (report, raw bytes)."""
     from kmamiz_tpu_torch import native, synth
+    from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
     raw = synth.make_raw_window(RAW_TRACES, SPANS_PER_TRACE, **BASELINE)
@@ -2184,6 +2226,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
     launches = read_counts(torch, counters)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     again = proc.ingest_raw_window(raw)
+    signature = graph_signature(proc.graph)  # phase 16 streams to this graph
     spans = reps[0]["summary"]["spans"]
     check(spans == RAW_TRACES * SPANS_PER_TRACE, f"one-shot window ingested {spans} spans")
     check(all(r["summary"]["spans"] == spans for r in reps), "reps ingested different windows")
@@ -2207,6 +2250,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
         "peak_over_base_mib": peak_mib - base_mib,
         "launches": launches,
         "reingest": again,
+        "signature": signature,
     }
     return out, raw
 
@@ -2358,8 +2402,8 @@ def tick_body_fold(ticks, t_start: int) -> dict:
 
 
 def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
-    """Phase 15: raw ingest on the card, (a)-(f). Returns the report and
-    the raw window's segment-stats cases."""
+    """Phase 15: raw ingest on the card, (a)-(f). Returns the report, the
+    raw window's segment-stats cases and the window's bytes."""
     from kmamiz_tpu_torch import native
     from kmamiz_tpu_torch.ops import host_build
 
@@ -2384,7 +2428,6 @@ def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
     log("   (c) " + json.dumps(out["one_shot"]))
     out["window_stats"], cases = raw_window_stats(torch, device, counters, raw, jobs)
     log("   (d) " + json.dumps(out["window_stats"]))
-    del raw
     out["http"] = raw_http_ingest(torch, device, STATE_TRACES + 40 * TICK_TRACES)
     log("   (e) " + json.dumps(out["http"]))
     out["body_fold"] = tick_body_fold(ticks, STATE_TRACES + TICK_TRACES)
@@ -2394,7 +2437,334 @@ def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
         + " (77-180 ms with the Python fold: PERF.md section 5)"
     )
     torch.cuda.empty_cache()
-    return out, cases
+    return out, cases, raw
+
+
+# -- phase 16: streaming ingest -----------------------------------------------
+
+STREAM_CHUNKS = 4  # bench.py's streaming split: 4 chunks of 37,500 traces
+STREAM_WINDOWS = 3  # counted steady windows
+STREAM_CLOCK_STEP_MS = 301_000  # past the processed map's 5-minute TTL
+STREAM_HTTP_TRACES = 10_000  # ~41 MB of JSON: over /ingest's 32 MiB threshold
+
+
+def window_chunks(base, prefix: str) -> list:
+    """synth's chunks (trace prefix "w") with the trace ids renamed to
+    `prefix`: the bytes make_raw_chunks gives for that prefix, without
+    generating them again."""
+    old, new = b'"traceId": "w', f'"traceId": "{prefix}'.encode()
+    return [c.replace(old, new) for c in base]
+
+
+def join_chunks(chunks) -> bytes:
+    """One response holding the chunks' trace groups, in order."""
+    return b"[" + b", ".join(c[1:-1] for c in chunks) + b"]"
+
+
+class PageStub:
+    """A local Zipkin stub: GET /zipkin/api/v2/traces answers the queued
+    pages in request order, whatever the query."""
+
+    def __init__(self, pages) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub = self
+        self.pages, self.queries = list(pages), []
+        self._lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                with stub._lock:
+                    stub.queries.append(self.path)
+                    body = stub.pages[(len(stub.queries) - 1) % len(stub.pages)]
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+        return False
+
+
+def overlap_path_ms(chunk_detail, drain_ms: float) -> float:
+    """The streamed wall if the two threads did not slow each other: the
+    worker parses back to back, the consumer merges chunk k once it is
+    parsed and chunk k-1 merged, then the drain (measured per-chunk times,
+    transfers included)."""
+    parsed = merged = 0.0
+    for d in chunk_detail:
+        parsed += d["parse_ms"]
+        merged = max(parsed, merged) + d["merge_ms"]
+    return merged + drain_ms
+
+
+class HostTimer:
+    """Sums the wall ms of some methods of one object while it is
+    installed: the producer's work around the parse."""
+
+    def __init__(self, obj, names) -> None:
+        self.ms = dict.fromkeys(names, 0.0)
+        for name in names:
+            setattr(obj, name, self._wrap(name, getattr(obj, name)))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[name] += (time.perf_counter() - t0) * 1e3
+
+        return timed
+
+    def take(self) -> dict:
+        out, self.ms = self.ms, dict.fromkeys(self.ms, 0.0)
+        return out
+
+
+def stream_totals(summary: dict) -> dict:
+    return {k: summary[k] for k in ("spans", "traces", "chunks", "endpoints", "edges")}
+
+
+def stream_windows(torch, device, counters, one_shot, raw) -> dict:
+    """Phase 16 (a)-(d): one persistent card processor streaming bench.py's
+    window in 4 chunks, beside a twin taking the same bytes one shot, both
+    on one virtual clock: the cold window (the graph of phase 15 (c)), one
+    uncounted steady window, then STREAM_WINDOWS counted ones, each after
+    a clock step past the dedup TTL and under a fresh trace prefix, the
+    two processors in turns."""
+    from kmamiz_tpu_torch import synth
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    base = synth.make_raw_chunks(RAW_TRACES, SPANS_PER_TRACE, STREAM_CHUNKS, **BASELINE)
+    check(join_chunks(base) == raw, "the stream's chunks are not phase 15 (c)'s window")
+    spans = RAW_TRACES * SPANS_PER_TRACE
+    clock = {"ms": 1_700_000_000_000.0}
+    stream_proc = DataProcessor(trace_source=TickFeed(), device=device, now_ms=lambda: clock["ms"])
+    window_proc = DataProcessor(trace_source=TickFeed(), device=device, now_ms=lambda: clock["ms"])
+    # the dedup work around each parse: registration, skip-set sync
+    host_names = ("_register_processed", "_skipset_locked")
+    host_timers = {"stream": HostTimer(stream_proc, host_names), "window": HostTimer(window_proc, host_names)}
+
+    def streamed(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = stream_proc.ingest_raw_stream(chunks)
+        torch.cuda.synchronize()
+        return summary, (time.perf_counter() - t0) * 1e3
+
+    def one_shot_of(window):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = window_proc.ingest_raw_window(window)
+        torch.cuda.synchronize()
+        return summary, (time.perf_counter() - t0) * 1e3, dict(window_proc.last_ingest_ms)
+
+    # (a) the cold window: phase 15 (c)'s bytes in 4 chunks
+    cold, cold_ms = streamed(base)
+    check(cold["spans"] == spans and cold["chunks"] == STREAM_CHUNKS, f"cold stream: {cold}")
+    check(cold["endpoints"] == one_shot["endpoints"] == PROD_ENDPOINTS, f"cold stream endpoints {cold}")
+    check(cold["edges"] == one_shot["edges"], f"cold stream edges {cold['edges']} != {one_shot['edges']}")
+    check(graph_signature(stream_proc.graph) == one_shot["signature"], "streamed graph differs from 15 (c)'s")
+    one_shot_of(raw)
+    # (b) one uncounted steady window each
+    clock["ms"] += STREAM_CLOCK_STEP_MS
+    warm = window_chunks(base, "warm-")
+    streamed(warm)
+    one_shot_of(join_chunks(warm))
+    del warm
+    # (c), (d): counted windows, the two paths in turns
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    for timer in host_timers.values():
+        timer.take()
+    reps = []
+    for k in range(STREAM_WINDOWS):
+        clock["ms"] += STREAM_CLOCK_STEP_MS
+        chunks = window_chunks(base, f"stream{k}-")
+        window = join_chunks(chunks)
+        rep = {}
+        for path in ("stream", "window") if k % 2 == 0 else ("window", "stream"):
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(counters)
+            if path == "stream":
+                summary, wall_ms = streamed(chunks)
+                split = {}
+            else:
+                summary, wall_ms, split = one_shot_of(window)
+            launches = read_counts(torch, counters)
+            peak = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+            rep[path] = {"wall_ms": wall_ms, **split, "summary": summary,
+                         "peak_over_base_mib": peak, "launches": launches,
+                         "dedup_ms": host_timers[path].take()}
+        s, w = rep["stream"]["summary"], rep["window"]["summary"]
+        check(s["spans"] == w["spans"] == spans, f"window {k}: {s['spans']} / {w['spans']} spans")
+        check(s["traces"] == w["traces"] == RAW_TRACES, f"window {k}: traces {s['traces']} / {w['traces']}")
+        check(s["edges"] == w["edges"] == one_shot["edges"], f"window {k}: edges {s['edges']} / {w['edges']}")
+        check(s["chunks"] == STREAM_CHUNKS and s["pipeline_depth"] == 2, f"window {k}: {s}")
+        rep["stream"]["overlap_path_ms"] = overlap_path_ms(s["chunk_detail"], s["drain_ms"])
+        reps.append(rep)
+        log(f"   (c) window {k}: stream {rep['stream']['wall_ms']:.1f} ms "
+            f"(parse {s['parse_ms']}, merge {s['merge_ms']}, saved {s['saved_ms']}, "
+            f"drain {s['drain_ms']}, overlap path {rep['stream']['overlap_path_ms']:.1f}, "
+            f"dedup {json.dumps(rep['stream']['dedup_ms'])}), "
+            f"one shot {rep['window']['wall_ms']:.1f} ms (dedup {json.dumps(rep['window']['dedup_ms'])})")
+    check(
+        graph_signature(stream_proc.graph) == graph_signature(window_proc.graph),
+        "the streamed graph differs from the one-shot twin's",
+    )
+    med = statistics.median
+    stream_wall = med(r["stream"]["wall_ms"] for r in reps)
+    window_wall = med(r["window"]["wall_ms"] for r in reps)
+
+    def field(key):
+        return med(r["stream"]["summary"][key] for r in reps)
+
+    return {
+        "windows": STREAM_WINDOWS,
+        "chunks": STREAM_CHUNKS,
+        "traces": RAW_TRACES,
+        "spans": spans,
+        "cold": {"wall_ms": cold_ms, **{k: v for k, v in cold.items() if k != "chunk_detail"},
+                 "chunk_detail": cold["chunk_detail"]},
+        "stream": {
+            "wall_ms": stream_wall,
+            "spans_per_s": spans / (stream_wall / 1e3),
+            "parse_ms": field("parse_ms"),
+            "merge_ms": field("merge_ms"),
+            "saved_ms": field("saved_ms"),
+            "drain_ms": field("drain_ms"),
+            "overlap_path_ms": med(r["stream"]["overlap_path_ms"] for r in reps),
+            "dedup_ms": [r["stream"]["dedup_ms"] for r in reps],
+            "ring_peak": max(r["stream"]["summary"]["ring_peak"] for r in reps),
+            "peak_over_base_mib": max(r["stream"]["peak_over_base_mib"] for r in reps),
+            "launches_per_window": [r["stream"]["launches"] for r in reps],
+            "wall_ms_all": [r["stream"]["wall_ms"] for r in reps],
+            "chunk_detail": [r["stream"]["summary"]["chunk_detail"] for r in reps],
+            "upload_stats": stream_proc.graph.upload_stats(),
+        },
+        "one_shot": {
+            "wall_ms": window_wall,
+            "spans_per_s": spans / (window_wall / 1e3),
+            "parse_ms": med(r["window"]["parse"] for r in reps),
+            "merge_ms": med(r["window"]["merge"] for r in reps),
+            "dedup_ms": [r["window"]["dedup_ms"] for r in reps],
+            "peak_over_base_mib": max(r["window"]["peak_over_base_mib"] for r in reps),
+            "wall_ms_all": [r["window"]["wall_ms"] for r in reps],
+        },
+        "stream_over_one_shot": window_wall / stream_wall,
+        "base_mib": base_mib,
+    }, base
+
+
+def stream_http(torch, device, t_start: int) -> dict:
+    """Phase 16 (e): a body over /ingest's 32 MiB threshold POSTed gzipped
+    to the DP server takes the stream branch (4 chunks) and answers the
+    totals and graph of a direct ingest_raw_stream on a twin processor."""
+    from kmamiz_tpu_torch import native, synth
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.server.dp_server import DEFAULT_STREAM_BYTES, DataProcessorServer
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    raw = synth.make_raw_window(
+        STREAM_HTTP_TRACES, SPANS_PER_TRACE, t_start=t_start, trace_prefix="streamhttp", **BASELINE
+    )
+    check(len(raw) >= DEFAULT_STREAM_BYTES, f"/ingest body of {len(raw)} bytes is under the threshold")
+    body = gzip.compress(raw, compresslevel=1)
+    twin = DataProcessor(trace_source=TickFeed(), device=device)
+    direct = twin.ingest_raw_stream(native.split_groups(raw, STREAM_CHUNKS))
+    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    server = DataProcessorServer(proc, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/ingest",
+            data=body,
+            headers={"Content-Encoding": "gzip"},
+            method="POST",
+        )
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, served = resp.status, json.loads(resp.read())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.stop()
+    check(status == 200, f"/ingest answered {status}: {served}")
+    check(
+        served.get("pipeline_depth") == 2 and served.get("chunks") == STREAM_CHUNKS,
+        f"/ingest of {len(raw)} bytes did not stream: {served}",
+    )
+    check(stream_totals(served) == stream_totals(direct), f"/ingest {served} differs from {direct}")
+    check(graph_signature(proc.graph) == graph_signature(twin.graph), "streamed /ingest graph differs")
+    return {
+        "bytes": len(raw),
+        "gzip_bytes": len(body),
+        "wall_ms": wall_ms,
+        "summary": {k: v for k, v in served.items() if k != "chunk_detail"},
+    }
+
+
+def stream_zipkin(torch, device, chunks) -> dict:
+    """Phase 16 (f): ingest_from_zipkin against a local stub serving the
+    last counted window's 4 chunks as pages, into a fresh card processor:
+    the graph of the same window taken one shot by another."""
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.ingestion import ZipkinClient
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    one = DataProcessor(trace_source=TickFeed(), device=device)
+    want = one.ingest_raw_window(join_chunks(chunks))
+    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    with PageStub(chunks) as base_url:
+        t0 = time.perf_counter()
+        got = proc.ingest_from_zipkin(
+            ZipkinClient(base_url), look_back_ms=4 * 60_000, end_ts=1_700_000_000_000, pages=STREAM_CHUNKS
+        )
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(got["chunks"] == STREAM_CHUNKS, f"ingest_from_zipkin took {got['chunks']} pages")
+    check(
+        {k: got[k] for k in ("spans", "traces", "endpoints", "edges")}
+        == {k: want[k] for k in ("spans", "traces", "endpoints", "edges")},
+        f"ingest_from_zipkin {stream_totals(got)} differs from one shot {want}",
+    )
+    check(graph_signature(proc.graph) == graph_signature(one.graph), "ingest_from_zipkin graph differs")
+    return {"wall_ms": wall_ms, "summary": {k: v for k, v in got.items() if k != "chunk_detail"}}
+
+
+def stream_ingest(torch, device, counters, one_shot, raw) -> dict:
+    """Phase 16: streaming ingest on the card, (a)-(f)."""
+    out, base = stream_windows(torch, device, counters, one_shot, raw)
+    shown = {
+        k: v for k, v in out["stream"].items() if k not in ("chunk_detail", "launches_per_window", "dedup_ms")
+    }
+    log("   (a) cold " + json.dumps({k: v for k, v in out["cold"].items() if k != "chunk_detail"}))
+    log("   (c) stream " + json.dumps(shown))
+    log("   (c) chunk_detail " + json.dumps(out["stream"]["chunk_detail"]))
+    log("   (c) launches " + json.dumps(out["stream"]["launches_per_window"][0]))
+    log("   (d) one shot " + json.dumps(out["one_shot"]))
+    out["http"] = stream_http(torch, device, RAW_TRACES)
+    log("   (e) " + json.dumps(out["http"]))
+    out["zipkin"] = stream_zipkin(torch, device, window_chunks(base, f"stream{STREAM_WINDOWS - 1}-"))
+    log("   (f) " + json.dumps(out["zipkin"]))
+    torch.cuda.empty_cache()
+    return out
 
 
 def write_report(path, report) -> None:
@@ -2610,9 +2980,16 @@ def main(argv=None) -> int:
     # phase 15 runs here, before phase 14's profiler sessions (which slow
     # every later launch on the host) and the device times
     with Phase("raw ingest", walls):
-        report["raw_ingest"], raw_cases = raw_ingest(
+        report["raw_ingest"], raw_cases, raw = raw_ingest(
             torch, device, counters, report["state"], report["ticks"], build, jobs
         )
+
+    # phase 16 too: the same window, streamed
+    with Phase("streaming ingest", walls):
+        report["stream_ingest"] = stream_ingest(
+            torch, device, counters, report["raw_ingest"]["one_shot"], raw
+        )
+        del raw
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(

@@ -1,11 +1,20 @@
 """Device-resident endpoint-dependency graph store.
 
 Counterpart of kmamiz_tpu/graph/store.py, reduced to what the Data
-Processor tick uses. The edge set lives as capacity-padded int32 column
-tensors (src_ep, dst_ep, distance) on the graph's device, SENTINEL-padded
-at a power-of-two capacity that grows by re-padding; window merges (the
-reference's set-union combineWith, EndpointDependencies.ts:499-563) are
-sort+unique unions (ops/sortutil.py).
+Processor's tick and raw ingest use. The edge set lives as capacity-padded
+int32 column tensors (src_ep, dst_ep, distance) on the graph's device,
+SENTINEL-padded at a power-of-two capacity that grows by re-padding;
+window merges (the reference's set-union combineWith,
+EndpointDependencies.ts:499-563) are sort+unique unions
+(ops/sortutil.py). Window inputs upload through a
+double-buffered pipeline (ops/double_buffer.py). The streaming path
+stages its windows instead: each window's walk self-compacts on the
+device, staged windows collapse into one pending union while the next
+chunk parses, and the store adopts it at the next read.
+
+Not ported: the JAX store's 'segment' growth mode (a capacity crossing
+that recompiles no XLA program; PyTorch compiles nothing per shape) and
+its mesh-sharded staging.
 
 The store also serves the graph scorers (ops/scorers.py): the per-endpoint
 service/ml/record tables, the deprecated-endpoint horizon, an output memo
@@ -40,7 +49,14 @@ from kmamiz_tpu_torch.core.spans import (
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.ops import scorers as scorer_ops
 from kmamiz_tpu_torch.ops import window as window_ops
-from kmamiz_tpu_torch.ops.sortutil import SENTINEL, compact_unique
+from kmamiz_tpu_torch.ops.double_buffer import AsyncCount, UploadPipeline
+from kmamiz_tpu_torch.ops.sortutil import (
+    EDGE_KEY_MAX_DIST,
+    EDGE_KEY_MAX_EP,
+    SENTINEL,
+    compact_unique,
+    compact_unique_edges_packed,
+)
 
 #: window merges the dirty-service journal keeps; an older incremental
 #: base degrades to the full recompute (KMAMIZ_DIRTY_JOURNAL_MAX's default)
@@ -49,6 +65,22 @@ DIRTY_JOURNAL_MAX = 256
 #: paying for itself: 0 disables it, 1 always allows it
 #: (KMAMIZ_DIRTY_FRACTION's default)
 DIRTY_FRACTION = 0.25
+#: rows of a staged window's compacted prefix (KMAMIZ_STAGE_CAP's
+#: default): a window with more distinct edges still merges exactly,
+#: through the drain's re-walk; this only sets the fast path's width
+STAGE_CAP = 1 << 18
+#: staged rows (prefixes plus held walk inputs) past which staging drains
+#: inline, bounding an unread stream's device memory
+#: (KMAMIZ_STAGE_MAX_ROWS's default)
+STAGE_MAX_ROWS = 1 << 24
+
+
+def count_ready(count: AsyncCount) -> bool:
+    """Whether a staged count has landed on the host. The staged merges
+    read a count that has not landed only where they must, and defer it
+    elsewhere; the tests replace this probe to drive the deferred
+    branches on the CPU, where every count is ready."""
+    return count.ready()
 
 
 def _fit_edges(src, dst, dist, cap):
@@ -90,6 +122,53 @@ def _union_walk(edges, src, dst, dist, mask):
     return s, d, ds, v.sum()
 
 
+def _packed_depth(packed) -> int:
+    """Walk depth of a packed window: ancestor chains cannot outrun the
+    longest trace (pow2 buckets, as in the JAX package)."""
+    return min(window_ops.MAX_DEPTH, _pow2(max(1, packed.max_trace_len - 1), minimum=4))
+
+
+def _packed_inputs(packed, batch: SpanBatch):
+    """The packed walk's host inputs: parent slots, kind, valid, endpoint."""
+    return (
+        packed.pack(packed.parent_slots(batch.parent_idx), -1),
+        packed.pack(batch.kind, 0),
+        packed.pack(batch.valid, False),
+        packed.pack(batch.endpoint_id, 0),
+    )
+
+
+def _window_edges_packed(parent_slot, kind, valid, endpoint_id, max_depth):
+    """Walk only: a packed window's flat (ancestor, descendant,
+    distance, mask) candidate columns, the store untouched; the re-walk of
+    a staged window whose compacted prefix truncated."""
+    edges = window_ops.dependency_edges_packed(
+        parent_slot, kind, valid, endpoint_id, max_depth=max_depth
+    )
+    return (
+        edges.ancestor_ep.reshape(-1),
+        edges.descendant_ep.reshape(-1),
+        edges.distance.reshape(-1),
+        edges.mask.reshape(-1),
+    )
+
+
+def _window_edges_compact(
+    parent_slot, kind, valid, endpoint_id, max_depth, stage_cap, packed_key
+):
+    """The staged merge's walk: a window's candidates self-compacted to a
+    sorted unique prefix, sliced to stage_cap rows. Returns (src, dst,
+    dist, count); count is the true unique total, so count > stage_cap
+    means the prefix truncated. packed_key takes the single-int32-key
+    sort; the caller guarantees its id and distance bounds."""
+    a, d, ds, mask = _window_edges_packed(parent_slot, kind, valid, endpoint_id, max_depth)
+    if packed_key:
+        (s, d, ds), v = compact_unique_edges_packed(a, d, ds, mask)
+    else:
+        (s, d, ds), v = compact_unique((a, d, ds), mask)
+    return s[:stage_cap], d[:stage_cap], ds[:stage_cap], v.sum()
+
+
 class EndpointGraph:
     """Capacity-padded edge set keyed (src_ep -> dst_ep, distance).
 
@@ -126,6 +205,23 @@ class EndpointGraph:
         self._mask = self._src != SENTINEL
         self._n_edges = 0
         self._pending = None  # deferred (src, dst, dist, count) of last merge
+        # double-buffered uploads of the window merges (ops/double_buffer.py):
+        # touched only under self._lock, drained at the read fence
+        self._uploads = UploadPipeline(self.device)
+        # staged windows (compacted prefix columns, their AsyncCount, the
+        # walk inputs and depth) awaiting the union; bounded by
+        # STAGE_MAX_ROWS through _staged_rows
+        self._staged = []
+        self._staged_rows = 0
+        # the mid-stream pre-union: the staged windows so far collapsed into
+        # one pending union that already holds the store's edges, its
+        # AsyncCount, the truncation checks it deferred (count, cap, walk
+        # inputs, depth) and the packed slots those checks hold, which count
+        # toward the backstop too
+        self._preunion = None
+        self._preunion_count = None
+        self._preunion_checks = []
+        self._preunion_rows = 0
         # distance bounds ever merged (host-tracked): the scorers' dist_bits
         # promise. Walks emit dist >= 1; loaded records can carry anything.
         self._max_dist = 0
@@ -202,37 +298,55 @@ class EndpointGraph:
     # -- ingestion -----------------------------------------------------------
 
     def _to_device(self, *host_arrays):
+        """Upload a window's host arrays through the pipeline; returns
+        (tensors, wait_ms). The copies are asynchronous on the card: work
+        enqueued on the tensors runs after the bytes land, and wait_ms is
+        the stall this call paid (the whole copy at depth 0, otherwise the
+        retire of the oldest group past the pipeline's depth)."""
+        return self._uploads.put(host_arrays)
+
+    def _upload(self, *host_arrays):
+        """Plain synchronous copies, for the scorer path's tables (the JAX
+        store puts them with a plain device_put too)."""
         return [
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in host_arrays
         ]
 
-    def merge_window(self, batch: SpanBatch) -> None:
+    def upload_stats(self) -> dict:
+        """Upload-pipeline counters: depth, uploads, in_flight,
+        peak_in_flight, blocked_ms, fences."""
+        with self._lock:
+            return self._uploads.stats()
+
+    def merge_window(self, batch: SpanBatch, stage: bool = False) -> float:
         """Union this window's dependency edges into the store and update
         per-endpoint record/last-usage metadata: the packed ancestor walk
         plus the union, or the flat walk when the window cannot be packed
-        into trace rows (overlong traces, cross-trace parents)."""
-        with self._lock:
-            self._merge_window_locked(batch)
+        into trace rows (overlong traces, cross-trace parents). Returns
+        this call's upload wait in ms.
 
-    def _merge_window_locked(self, batch: SpanBatch) -> None:
+        stage=True (the streaming path) runs only the walk and its
+        self-compaction per window and stages the compacted prefix; the
+        staged windows collapse into one pending union while later chunks
+        parse (the pre-union), and the store adopts it at the next read
+        (_finalize_pending). A window that cannot be packed merges fused
+        either way."""
+        with self._lock:
+            return self._merge_window_locked(batch, stage)
+
+    def _merge_window_locked(self, batch: SpanBatch, stage: bool = False) -> float:
         self._version += 1
         self._note_dirty_locked(batch)
         packed = pack_trace_rows(batch.trace_of, batch.n_spans, batch.parent_idx)
+        if stage and packed is not None:
+            return self._stage_window_locked(batch, packed)
         self._finalize_pending_locked()
         if packed is not None:
             # ancestor chains cannot outrun the longest trace; cap the walk
             # depth (pow2 buckets, as in the JAX package)
-            depth = min(
-                window_ops.MAX_DEPTH,
-                _pow2(max(1, packed.max_trace_len - 1), minimum=4),
-            )
-            dev_in = self._to_device(
-                packed.pack(packed.parent_slots(batch.parent_idx), -1),
-                packed.pack(batch.kind, 0),
-                packed.pack(batch.valid, False),
-                packed.pack(batch.endpoint_id, 0),
-            )
+            depth = _packed_depth(packed)
+            dev_in, transfer_ms = self._to_device(*_packed_inputs(packed, batch))
             edges = window_ops.dependency_edges_packed(*dev_in, max_depth=depth)
         else:
             # size the walk to the window's TRUE longest parent chain
@@ -243,7 +357,7 @@ class EndpointGraph:
                 max(max_ancestor_chain(batch.parent_idx, batch.n_spans), 1),
                 minimum=window_ops.MAX_DEPTH,
             )
-            dev_in = self._to_device(
+            dev_in, transfer_ms = self._to_device(
                 batch.parent_idx, batch.kind, batch.valid, batch.endpoint_id
             )
             edges = window_ops.dependency_edges(*dev_in, max_depth=depth)
@@ -251,6 +365,37 @@ class EndpointGraph:
         self._max_dist = max(self._max_dist, depth)
         self._pending = _union_walk(edges, *self._store_cols_locked())
         self._update_ep_metadata(batch)
+        return transfer_ms
+
+    def _stage_window_locked(self, batch: SpanBatch, packed) -> float:
+        """The staged merge of one packed window: upload, walk and
+        self-compact it to a sorted unique prefix of STAGE_CAP rows, with
+        its unique count read back asynchronously. The walk inputs stay
+        held for the re-walk a truncated prefix needs (count > STAGE_CAP)."""
+        depth = _packed_depth(packed)
+        self._max_dist = max(self._max_dist, depth)
+        packed_key = (
+            len(self.interner.endpoints) <= EDGE_KEY_MAX_EP and depth <= EDGE_KEY_MAX_DIST
+        )
+        dev_in, transfer_ms = self._to_device(*_packed_inputs(packed, batch))
+        s, d, ds, count = _window_edges_compact(
+            *dev_in, max_depth=depth, stage_cap=STAGE_CAP, packed_key=packed_key
+        )
+        self._staged.append((s, d, ds, AsyncCount(count), dev_in, depth))
+        # the held walk inputs dominate a large window's staged memory, so
+        # they count toward the backstop too: one packed slot (~10 B over
+        # the four arrays) ~ one compacted edge row (3 int32)
+        self._staged_rows += int(s.shape[0]) + int(dev_in[0].numel())
+        self._update_ep_metadata(batch)
+        if self._staged_rows + self._preunion_rows > STAGE_MAX_ROWS:
+            # backstop: an unread stream must not grow device memory
+            # without bound
+            self._finalize_pending_locked()
+        elif self._preunion is not None or len(self._staged) >= 2:
+            # drain overlap: collapse what is staged into one pending union
+            # now, while the stream's next chunk parses on the host
+            self._preunion_staged_locked()
+        return transfer_ms
 
     def merge_window_edges(self, edges, batch: SpanBatch) -> bool:
         """Host-edge fast path for tick merges: union a window's
@@ -295,7 +440,7 @@ class EndpointGraph:
             col = np.full(_pow2(max(n, 1)), SENTINEL, dtype=np.int32)
             col[:n] = vals
             cols.append(col)
-        d_src, d_dst, d_dist = self._to_device(*cols)
+        (d_src, d_dst, d_dist), _wait_ms = self._to_device(*cols)
         s, d, ds, v = _merge_edges(
             *self._store_cols_locked(), d_src, d_dst, d_dist, d_src != SENTINEL
         )
@@ -327,7 +472,27 @@ class EndpointGraph:
         with self._lock:
             self._finalize_pending_locked()
 
+    def stage_fence(self) -> dict:
+        """Explicit stage hand-off fence: retire every in-flight upload and
+        resolve any deferred or staged merge before a score/serve stage
+        reads the graph. The same fence _finalize_pending applies lazily at
+        read time, named and counted in the upload stats. Returns the
+        graph version and the uploads still in flight."""
+        with self._lock:
+            self._uploads.note_fence()
+            self._finalize_pending_locked()
+            return {
+                "version": self._version,
+                "in_flight": self._uploads.stats()["in_flight"],
+            }
+
     def _finalize_pending_locked(self) -> None:
+        # retire the uploads still in flight first: this is the read fence
+        # the pipeline defers its waits to
+        self._uploads.drain()
+        if self._staged or self._preunion is not None:
+            self._drain_staged_locked()  # resolves _pending too
+            return
         if self._pending is None:
             return
         pending, self._pending = self._pending, None
@@ -338,9 +503,10 @@ class EndpointGraph:
         return self._src, self._dst, self._dist, self._mask
 
     def _apply_merged(self, src, dst, dist, valid_count) -> None:
-        """Adopt a merged edge set: read the count (the one device sync of
-        a merge), then re-pad to the next power-of-2 capacity."""
-        valid_count = int(valid_count.item())
+        """Adopt a merged edge set: read the count (a device scalar or an
+        AsyncCount; the one device sync of a merge), then re-pad to the
+        next power-of-2 capacity."""
+        valid_count = int(valid_count)
         new_cap = _pow2(valid_count, minimum=int(self._src.shape[0]))
         if new_cap == int(src.shape[0]):
             self._src, self._dst, self._dist = src, dst, dist
@@ -348,6 +514,156 @@ class EndpointGraph:
             self._src, self._dst, self._dist = _fit_edges(src, dst, dist, cap=new_cap)
         self._mask = self._src != SENTINEL
         self._n_edges = valid_count
+
+    # -- staged merges (the streaming path) ----------------------------------
+
+    def _base_edge_cols(self):
+        """Starting columns for a union: the pre-union when one exists (it
+        already holds the store's edges; its count slices it to a pow2
+        bucket), else the store columns."""
+        if self._preunion is not None:
+            s0, d0, ds0 = self._preunion
+            # the count's copy was issued a chunk ago; slicing
+            # unconditionally keeps the chained unions' widths
+            # deterministic
+            k = min(int(s0.shape[0]), _pow2(max(int(self._preunion_count), 1), minimum=256))
+            if k < int(s0.shape[0]):
+                s0, d0, ds0 = s0[:k], d0[:k], ds0[:k]
+            return [s0], [d0], [ds0], [s0 != SENTINEL]
+        src, dst, dist, mask = self._store_cols_locked()
+        return [src], [dst], [dist], [mask]
+
+    def _preunion_staged_locked(self) -> None:
+        """Collapse the windows staged so far into one pending union (drain
+        overlap): the device sorts while the host parses the next chunk,
+        and the stream's final drain unions only the tail. Counts that have
+        landed slice their prefixes; the others defer their truncation
+        checks to the drain."""
+        if not self._staged or self._pending is not None:
+            return
+        staged, self._staged = self._staged, []
+        self._staged_rows = 0
+        srcs, dsts, dists, masks = self._base_edge_cols()
+        # carried-over checks whose counts have landed: the ones that did
+        # not truncate release their walk inputs now, truncated ones
+        # re-walk into this union
+        still_deferred = []
+        for chk in self._preunion_checks:
+            count_c, cap_c, dev_in_c, depth_c = chk
+            if not count_ready(count_c):
+                still_deferred.append(chk)
+                continue
+            self._preunion_rows -= int(dev_in_c[0].numel())
+            if int(count_c) > cap_c:
+                walked = _window_edges_packed(*dev_in_c, depth_c)
+                for cols, col in zip((srcs, dsts, dists, masks), walked):
+                    cols.append(col)
+        self._preunion_checks = still_deferred
+        deferred = []
+        self._collect_staged_cols(staged, srcs, dsts, dists, masks, deferred)
+        (s, d, ds), v = self._union_edge_cols(srcs, dsts, dists, masks)
+        self._preunion = (s, d, ds)
+        self._preunion_count = AsyncCount(v.sum())
+        self._preunion_checks.extend(deferred)
+        self._preunion_rows += sum(int(c[2][0].numel()) for c in deferred)
+
+    def _drain_staged_locked(self) -> None:
+        """ONE set-union over the store (or the pre-union) and every staged
+        window's compacted prefix: the batched equivalent of k fused
+        merges. A window whose prefix truncated (count > STAGE_CAP) re-walks
+        here from its held inputs, so correctness never depends on the
+        cap."""
+        staged, self._staged = self._staged, []
+        self._staged_rows = 0
+        # a fused merge pending before the stream resolves first, so the
+        # union below sees the freshest store columns
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._apply_merged(*pending)
+        if not staged and self._preunion is not None:
+            # nothing staged since the last pre-union: adopt it as the
+            # merged result instead of sorting it again
+            s, d, ds = self._preunion
+            count = self._preunion_count
+            checks = self._preunion_checks
+            self._preunion = None
+            self._preunion_count = None
+            self._preunion_checks = []
+            self._preunion_rows = 0
+            self._apply_merged(*self._with_rewalks(s, d, ds, count, checks))
+            return
+        srcs, dsts, dists, masks = self._base_edge_cols()
+        deferred = list(self._preunion_checks)
+        self._preunion = None
+        self._preunion_count = None
+        self._preunion_checks = []
+        self._preunion_rows = 0
+        self._collect_staged_cols(staged, srcs, dsts, dists, masks, deferred)
+        (s, d, ds), v = self._union_edge_cols(srcs, dsts, dists, masks)
+        # the deferred truncation checks resolve after the union is issued,
+        # so their reads overlap its execution
+        self._apply_merged(*self._with_rewalks(s, d, ds, AsyncCount(v.sum()), deferred))
+
+    def _with_rewalks(self, s, d, ds, count, checks):
+        """Merged columns and their count, with the full candidates of
+        every checked window whose prefix truncated (count > cap) unioned
+        in."""
+        extra = [
+            _window_edges_packed(*dev_in, depth)
+            for c, cap, dev_in, depth in checks
+            if int(c) > cap
+        ]
+        if not extra:
+            return s, d, ds, count
+        (s, d, ds), v = self._union_edge_cols(
+            [s] + [e[0] for e in extra],
+            [d] + [e[1] for e in extra],
+            [ds] + [e[2] for e in extra],
+            [s != SENTINEL] + [e[3] for e in extra],
+        )
+        return s, d, ds, v.sum()
+
+    def _collect_staged_cols(self, staged, srcs, dsts, dists, masks, deferred) -> None:
+        """Append each staged window's compacted prefix to the union
+        columns: a landed count slices the prefix to its pow2 width (or
+        re-walks the window now when it truncated); a count still in
+        flight joins at full width and pushes its truncation check into
+        `deferred`."""
+        for s, d, ds, count, dev_in, depth in staged:
+            cap = int(s.shape[0])
+            if count_ready(count):
+                n = int(count)
+                if n > cap:  # truncated: re-walk now
+                    cols = _window_edges_packed(*dev_in, depth)
+                    for out, col in zip((srcs, dsts, dists, masks), cols):
+                        out.append(col)
+                    continue
+                # slice the prefix to its true unique count (pow2-bucketed)
+                # instead of sorting STAGE_CAP rows of padding
+                k = min(cap, _pow2(max(n, 1), minimum=256))
+                if k < cap:
+                    s, d, ds = s[:k], d[:k], ds[:k]
+            else:
+                # the final chunk's walk may still be queued: the whole
+                # prefix joins the union now and the check resolves after it
+                deferred.append((count, cap, dev_in, depth))
+            srcs.append(s)
+            dsts.append(d)
+            dists.append(ds)
+            masks.append(s != SENTINEL)
+
+    def _union_edge_cols(self, cols_src, cols_dst, cols_dist, cols_mask):
+        src = torch.cat(cols_src)
+        dst = torch.cat(cols_dst)
+        dist = torch.cat(cols_dist)
+        mask = torch.cat(cols_mask)
+        if (
+            len(self.interner.endpoints) <= EDGE_KEY_MAX_EP
+            and self._min_dist >= 1
+            and self._max_dist <= EDGE_KEY_MAX_DIST
+        ):
+            return compact_unique_edges_packed(src, dst, dist, mask)
+        return compact_unique((src, dst, dist), mask)
 
     def edge_arrays(self):
         """(src_ep, dst_ep, dist, mask) snapshot of the stored edges, on
@@ -581,7 +897,7 @@ class EndpointGraph:
             fresh = self._fresh_mask_locked(ep_cap, now_ms)
             svc_cap = _pow2(max(len(self.interner.services), 1))
         if not fresh.all():
-            (fresh_d,) = self._to_device(fresh)
+            (fresh_d,) = self._upload(fresh)
             mask = mask & fresh_d[src.clamp(0, ep_cap - 1)] & fresh_d[dst.clamp(0, ep_cap - 1)]
             ep_record = ep_record & fresh
         return src, dst, dist, mask, ep_service, ep_ml, ep_record, svc_cap
@@ -616,7 +932,7 @@ class EndpointGraph:
         src, dst, dist, mask, ep_service, ep_ml, ep_record, svc_cap = self._scorer_inputs(
             label_of, now_ms
         )
-        ep_service_d, ep_ml_d, ep_record_d = self._to_device(ep_service, ep_ml, ep_record)
+        ep_service_d, ep_ml_d, ep_record_d = self._upload(ep_service, ep_ml, ep_record)
         return scorer_ops.service_scores(
             src, dst, dist, mask, ep_service_d, ep_ml_d, ep_record_d,
             num_services=svc_cap, dist_bits=self._scorer_dist_bits(),
@@ -634,7 +950,7 @@ class EndpointGraph:
         src, dst, dist, mask, ep_service, _ep_ml, ep_record, svc_cap = self._scorer_inputs(
             None, now_ms
         )
-        ep_service_d, ep_record_d = self._to_device(ep_service, ep_record)
+        ep_service_d, ep_record_d = self._upload(ep_service, ep_record)
         return scorer_ops.usage_cohesion(
             src, dst, dist, mask, ep_service_d, ep_record_d, num_services=svc_cap
         )
@@ -653,7 +969,7 @@ class EndpointGraph:
 
     def _count_uploads(self, arrays):
         """Host-to-device copies of the scorer path, counted."""
-        out = self._to_device(*arrays)
+        out = self._upload(*arrays)
         with self._lock:
             self.scorer_stats["uploads"] += len(out)
         return out

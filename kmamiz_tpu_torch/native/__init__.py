@@ -14,9 +14,9 @@ needs the library. A None return from parse_spans means a malformed
 payload, never a missing library.
 
 Bound here: the span parse with its blob, skip-set and session variants,
-the skip-set and session handles, the body fold, and the profiling
-counters. The group splitter of the streaming path and the envoy-log
-parser are in the library and not bound yet.
+the skip-set and session handles, the group splitter of the streaming
+path, the body fold, and the profiling counters. The envoy-log parser is
+in the library and not bound yet.
 """
 from __future__ import annotations
 
@@ -60,6 +60,10 @@ _SIGNATURES = {
             ctypes.c_int,
             _size_p,
         ],
+        ctypes.c_void_p,
+    ),
+    "km_split_groups": (
+        [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, _size_p],
         ctypes.c_void_p,
     ),
     "km_skipset_new": ([], ctypes.c_void_p),
@@ -577,6 +581,34 @@ def parse_spans(
         "trace_ids": trace_ids,
         "timings": timings,
     }
+
+
+def split_groups(raw: bytes, n_chunks: int) -> Optional[List[bytes]]:
+    """Split a raw Zipkin response into at most n_chunks standalone
+    responses, each covering whole trace groups (the streaming ingest's
+    chunks). Returns None for a malformed input; raises RuntimeError when
+    the library's answer does not decode."""
+    lib = _load()
+    raw = bytes(raw) if not isinstance(raw, bytes) else raw
+    out_len = ctypes.c_size_t(0)
+    ptr = lib.km_split_groups(raw, len(raw), int(n_chunks), ctypes.byref(out_len))
+    if not ptr:
+        return None
+    try:
+        buf = ctypes.string_at(ptr, out_len.value)
+    finally:
+        lib.km_free(ptr)
+    try:
+        (n_ranges,) = struct.unpack_from("<I", buf, 0)
+        chunks = []
+        for k in range(n_ranges):
+            begin, end = struct.unpack_from("<2Q", buf, 4 + 16 * k)
+            if not begin <= end <= len(raw):
+                raise ValueError(f"range {begin}:{end} outside {len(raw)} bytes")
+            chunks.append(b"[" + raw[begin:end] + b"]")
+        return chunks
+    except (struct.error, ValueError) as e:
+        raise RuntimeError(f"native group split undecodable: {e}") from e
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
 datatype, log}). POST /ingest takes a raw Zipkin response body (trace
 groups, or a KMZC columnar frame) into the processor's graph, uncapped,
-and answers the ingest summary. GET /model/stlgt answers the STLGT
-continual trainer's health (ring, stale slots, refreshes, params
-version). Gzip request bodies (Content-Encoding: gzip) are accepted;
+and answers the ingest summary; a large JSON body streams through
+ingest_raw_stream in chunks of whole trace groups. GET /model/stlgt
+answers the STLGT continual trainer's health (ring, stale slots,
+refreshes, params version). Gzip request bodies (Content-Encoding: gzip) are accepted;
 responses are gzip-compressed when the client sends Accept-Encoding: gzip.
 """
 from __future__ import annotations
@@ -22,12 +23,22 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from kmamiz_tpu_torch.server.processor import DataProcessor
+from kmamiz_tpu_torch import native
+from kmamiz_tpu_torch.core import wire
+from kmamiz_tpu_torch.server.processor import DEFAULT_STREAM_CHUNKS, DataProcessor
 
 logger = logging.getLogger("kmamiz_tpu_torch.dp_server")
 
+#: decompressed /ingest bodies from this size on stream
+#: (KMAMIZ_INGEST_STREAM_BYTES's default): 32 MiB
+DEFAULT_STREAM_BYTES = 32 << 20
 
-def make_handler(processor: DataProcessor):
+
+def make_handler(
+    processor: DataProcessor,
+    stream_bytes: int = DEFAULT_STREAM_BYTES,
+    stream_chunks: int = DEFAULT_STREAM_CHUNKS,
+):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -98,14 +109,24 @@ def make_handler(processor: DataProcessor):
 
         def _ingest(self, raw: bytes) -> None:
             """POST /ingest: the body IS the Zipkin response (or a KMZC
-            frame), parsed whole by processor.ingest_raw_window. A
-            malformed payload answers 400, any other failure 500. Unlike
-            the JAX server, this route has no tenant routing and no
-            streaming split of large bodies (KMAMIZ_INGEST_STREAM_BYTES):
-            every body is one window, since neither the tenancy layer nor
-            the streaming ingest path is ported."""
+            frame). A decompressed JSON body of at least `stream_bytes`
+            splits into `stream_chunks` chunks of whole trace groups and
+            streams through processor.ingest_raw_stream (the parse of chunk
+            k+1 overlaps the merge of chunk k; span-id maps are scoped per
+            chunk); any other body, or one that splits into a single chunk,
+            is one window through processor.ingest_raw_window. A malformed
+            payload answers 400, any other failure 500. Unlike the JAX
+            server, this route has no tenant routing: the tenancy layer is
+            not ported."""
             try:
-                summary = processor.ingest_raw_window(raw)
+                summary = None
+                # a KMZC frame is indivisible: the splitter reads JSON only
+                if len(raw) >= stream_bytes and not wire.is_columnar(raw):
+                    chunks = native.split_groups(raw, stream_chunks)
+                    if chunks is not None and len(chunks) > 1:
+                        summary = processor.ingest_raw_stream(chunks)
+                if summary is None:
+                    summary = processor.ingest_raw_window(raw)
             except ValueError as e:
                 self._send_json(400, {"error": str(e)})
                 return
@@ -120,12 +141,20 @@ def make_handler(processor: DataProcessor):
 
 class DataProcessorServer:
     """The DP protocol on `host:port` (port 0 picks a free one), served
-    from a background thread between start() and stop()."""
+    from a background thread between start() and stop(). `stream_bytes`
+    and `stream_chunks` set when and how POST /ingest streams a body."""
 
     def __init__(
-        self, processor: DataProcessor, host: str = "0.0.0.0", port: int = 8600
+        self,
+        processor: DataProcessor,
+        host: str = "0.0.0.0",
+        port: int = 8600,
+        stream_bytes: int = DEFAULT_STREAM_BYTES,
+        stream_chunks: int = DEFAULT_STREAM_CHUNKS,
     ) -> None:
-        self._server = ThreadingHTTPServer((host, port), make_handler(processor))
+        self._server = ThreadingHTTPServer(
+            (host, port), make_handler(processor, stream_bytes, stream_chunks)
+        )
         self._thread: Optional[threading.Thread] = None
 
     @property

@@ -26,20 +26,24 @@ copy per fold, none per tick.
 Raw ingest (`ingest_raw_window`, POST /ingest on the DP server) takes a
 Zipkin response's raw bytes, or a KMZC columnar frame, through the native
 SoA loader (core.spans.raw_spans_to_batch) into the same device graph,
-uncapped. The tick and raw ingest share one processed-trace dedup map,
-which the native parse reads through a persistent skip set.
+uncapped. `ingest_raw_stream` does the same over a sequence of chunks
+(the pages of a Zipkin backfill, `ingest_from_zipkin`, or a large
+/ingest body split on trace-group boundaries), parsing chunk k+1 on a
+worker thread while chunk k stages its merge on the device. The tick and
+raw ingest share one processed-trace dedup map, which the native parse
+reads through a persistent skip set.
 
 Not ported yet: cluster state (a k8s source, so every replica count in
 the features is 1.0), the ingest WAL, the quarantine, telemetry spans,
-streaming raw ingest, history persistence, and the fold hooks of the JAX
-processor (the control plane and the cost model; the STLGT continual
-trainer is ported).
+history persistence, and the fold hooks of the JAX processor (the
+control plane and the cost model; the STLGT continual trainer is
+ported).
 """
 from __future__ import annotations
 
 import itertools
 import logging
-import struct
+import queue
 import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -72,6 +76,12 @@ logger = logging.getLogger("kmamiz_tpu_torch.processor")
 
 PROCESSED_TRACE_TTL_MS = 300_000  # Rust DP keeps the dedup map for 5 min
 ZIPKIN_LIMIT = 2_500
+#: chunks a large body splits into (POST /ingest) and pages a Zipkin
+#: backfill fetches (KMAMIZ_INGEST_STREAM_CHUNKS's default)
+DEFAULT_STREAM_CHUNKS = 4
+#: parsed chunks the streaming ingest's ring holds (KMAMIZ_INGEST_DEPTH's
+#: default); each pins its batch's host arrays
+DEFAULT_STREAM_DEPTH = 2
 
 
 def _pack_stats(count, mean, cv, ts_rel):
@@ -198,6 +208,8 @@ class DataProcessor:
         self._history_lock = threading.Lock()
         #: failures the fold hooks contained (the fold itself went on)
         self.fold_errors: Dict[str, int] = {"stlgtFoldErrors": 0}
+        #: parsed stream chunks that never merged (the consumer bailed out)
+        self.ingest_dropped = 0
 
     # -- trace dedup (data_processor.rs:30-73) -------------------------------
 
@@ -236,12 +248,6 @@ class DataProcessor:
                 self._skip_entries += native.encode_skip_entry(tid)
             self._skip_encoded = len(self._processed)
         return self._skip_entries
-
-    def _skip_blob_locked(self) -> bytes:
-        """The processed set as one native skip blob (count header +
-        entries): the serialized form the native skip set mirrors."""
-        entries = self._skip_entries_locked()
-        return struct.pack("<I", len(self._processed)) + bytes(entries)
 
     def _skipset_locked(self) -> native.SkipSet:
         """The persistent native skip set, synced to _skip_entries (caller
@@ -342,6 +348,169 @@ class DataProcessor:
                 for tid in kept:
                     self._processed[tid] = when_ms
             self._prune_processed_locked(when_ms)
+
+    # -- streaming raw ingest: a bounded ring, parse ahead of the merge -------
+
+    def ingest_raw_stream(self, chunks, depth: int = DEFAULT_STREAM_DEPTH) -> dict:
+        """Pipelined uncapped ingest over an iterable of raw Zipkin
+        responses (pages of a paginated fetch, or native.split_groups over
+        one large body), in three stages around a ring of `depth` parsed
+        chunks:
+
+        1. fetch/parse (a worker thread): pulls the next chunk (so a
+           paginated source's HTTP fetch overlaps everything after it),
+           parses it through the persistent skip set and session (host
+           arrays only: this thread launches no device work), registers
+           its kept trace ids, and enqueues the batch;
+        2. upload/dispatch (this thread): pops batches in order and stages
+           each into the graph (merge_window(stage=True): the upload, the
+           walk and its self-compaction);
+        3. the device merge: staged windows collapse into pending
+           pre-unions while later chunks parse, and the read at the end
+           adopts ONE union over everything.
+
+        Dedup matches chunk-by-chunk ingest_raw_window: chunk k's kept ids
+        register before chunk k+1's parse reads the processed set. The
+        span-id map is scoped per chunk, as the reference's is per
+        paginated response; groups never split across chunks, so the
+        graph equals the one-shot path's.
+
+        Failure: there is no quarantine (the JAX processor's behaviour
+        under KMAMIZ_QUARANTINE=0): every chunk parsed before a malformed
+        one merges and registers, then ValueError is raised. An error of
+        the source iterator, or a RuntimeError of the parse, propagates
+        the same way. A parsed chunk dropped when the consumer bails out
+        counts in `ingest_dropped`.
+
+        Returns the totals (spans, traces, chunks; quarantined is always
+        0), endpoints, edges, the overlap accounting (parse_ms, merge_ms,
+        saved_ms = parse + merge - wall), the per-chunk breakdown
+        (`chunk_detail`: spans, parse_ms, merge_ms, transfer_ms), the final
+        read's `drain_ms`, `ms`, `pipeline_depth` and the ring's peak
+        occupancy (`ring_peak`)."""
+        depth = max(1, int(depth))
+        wall_t0 = time.perf_counter()
+        parse_ms = merge_ms = 0.0
+        totals = {"spans": 0, "traces": 0, "chunks": 0}
+        chunk_detail = []
+        ring: "queue.Queue" = queue.Queue(maxsize=depth)
+        ring_peak = 0
+        stop = threading.Event()  # the consumer bailed out: unblock the worker
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    ring.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            if item[0] == "chunk":
+                # parsed and registered, but never merged
+                with self._dedup_lock:
+                    self.ingest_dropped += 1
+            return False
+
+        def produce() -> None:
+            """Fetch, parse and register, strictly in chunk order (a
+            chunk's parse_ms leaves its fetch out)."""
+            try:
+                it = iter(chunks)
+                while not stop.is_set():
+                    try:
+                        raw = next(it)
+                    except StopIteration:
+                        break
+                    with self._dedup_lock:
+                        skipset = self._skipset_locked()
+                        session = self._raw_session_locked()
+                    t0 = time.perf_counter()
+                    out = raw_spans_to_batch(
+                        raw, interner=self.graph.interner, skipset=skipset, session=session
+                    )
+                    dt = (time.perf_counter() - t0) * 1e3
+                    if out is None:
+                        put(("error", ValueError("malformed span payload"), dt))
+                        return
+                    batch, kept = out
+                    # registration precedes the next parse, whatever the depth
+                    self._register_processed(kept, self._now_ms())
+                    if not put(("chunk", (batch, kept), dt)):
+                        return
+            except BaseException as err:  # noqa: BLE001 - re-raised by the consumer
+                put(("error", err, 0.0))
+                return
+            put(("end", None, 0.0))
+
+        worker = threading.Thread(target=produce, name="ingest-raw-parse", daemon=True)
+        worker.start()
+        pending_err: Optional[BaseException] = None
+        try:
+            while True:
+                ring_peak = max(ring_peak, ring.qsize())
+                tag, payload, dt = ring.get()
+                if tag == "end":
+                    break
+                parse_ms += dt
+                if tag == "error":
+                    pending_err = payload
+                    break
+                batch, kept = payload
+                t0 = time.perf_counter()
+                transfer_ms = self.graph.merge_window(batch, stage=True) if batch.n_spans else 0.0
+                chunk_ms = (time.perf_counter() - t0) * 1e3
+                merge_ms += chunk_ms
+                chunk_detail.append(
+                    {
+                        "spans": batch.n_spans,
+                        "parse_ms": round(dt, 1),
+                        "merge_ms": round(chunk_ms, 1),
+                        "transfer_ms": round(transfer_ms, 1),
+                    }
+                )
+                totals["spans"] += batch.n_spans
+                totals["traces"] += len(kept)
+                totals["chunks"] += 1
+        finally:
+            stop.set()
+            worker.join(timeout=30.0)
+        if pending_err is not None:
+            raise pending_err
+        # the staged merges resolve here: n_edges waits for the device, the
+        # stream's one fence
+        t0 = time.perf_counter()
+        n_edges = int(self.graph.n_edges)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - wall_t0) * 1e3
+        return {
+            **totals,
+            "quarantined": 0,
+            "endpoints": len(self.graph.interner.endpoints),
+            "edges": n_edges,
+            "chunk_detail": chunk_detail,
+            "drain_ms": round(drain_ms, 1),
+            "ms": round(wall_ms, 1),
+            "parse_ms": round(parse_ms, 1),
+            "merge_ms": round(merge_ms, 1),
+            "saved_ms": round(max(0.0, parse_ms + merge_ms - wall_ms), 1),
+            "pipeline_depth": depth,
+            "ring_peak": ring_peak,
+        }
+
+    def ingest_from_zipkin(
+        self,
+        zipkin,
+        look_back_ms: float,
+        end_ts: Optional[float] = None,
+        pages: int = DEFAULT_STREAM_CHUNKS,
+    ) -> dict:
+        """The backfill route: a paginated raw Zipkin fetch
+        (ingestion.zipkin.ZipkinClient.iter_trace_pages_raw) through
+        ingest_raw_stream, each page's fetch and parse on the pipeline's
+        worker while the previous page merges. Uncapped, where the tick
+        keeps the reference's 2,500 traces."""
+        return self.ingest_raw_stream(
+            zipkin.iter_trace_pages_raw(look_back_ms, end_ts, pages=pages)
+        )
 
     # -- the tick ------------------------------------------------------------
 

@@ -2,8 +2,10 @@
 PyTorch versions on the same card tensors, a whole tick on the card
 against the port's CPU path, the model forwards' kernel launches, and
 the graph scorers on the card against the CPU (with no host sync in the
-ops, and the store's incremental splice bit-exact), and a raw window
-ingested on the card against the CPU.
+ops, and the store's incremental splice bit-exact), a raw window
+ingested on the card against the CPU, and the streaming ingest: a staged
+stream on the card against the CPU, the upload pipeline's bound on the
+groups in flight, and staging without a synchronising call.
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -504,3 +506,94 @@ def test_raw_window_ingest_on_card_matches_cpu(card):
         out[str(dev)] = (summary, graph_signature(dp.graph))
     assert out[str(card)] == out["cpu"]
     assert out["cpu"][0]["spans"] == 14_000 and out["cpu"][0]["edges"] > 0
+
+
+def _stream_chunks(n_traces=4_000, n_chunks=4, prefix="s"):
+    from kmamiz_tpu_torch import native, synth
+
+    raw = synth.make_raw_window(
+        n_traces, 7, trace_prefix=prefix, n_services=100, urls_per_service=10
+    )
+    return native.split_groups(raw, n_chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_staged_stream_on_card_matches_cpu(card, depth):
+    """ingest_raw_stream on the card (pinned uploads on a side stream, the
+    staged walks and pre-unions) gives the CPU's summary totals and graph,
+    with and without truncated prefixes."""
+    from kmamiz_tpu_torch.graph import store
+
+    chunks = _stream_chunks()
+    out = {}
+    for cap in (store.STAGE_CAP, 64):
+        for dev in (card, "cpu"):
+            saved, store.STAGE_CAP = store.STAGE_CAP, cap
+            try:
+                dp = DataProcessor(trace_source=lambda lb, t, lim: [], device=dev)
+                summary = dp.ingest_raw_stream(chunks, depth=depth)
+            finally:
+                store.STAGE_CAP = saved
+            totals = {k: summary[k] for k in ("spans", "traces", "chunks", "endpoints", "edges")}
+            out[(cap, str(dev))] = (totals, graph_signature(dp.graph))
+        assert out[(cap, str(card))] == out[(cap, "cpu")]
+    assert out[(64, "cpu")] == out[(store.STAGE_CAP, "cpu")]
+    assert out[(64, "cpu")][0]["spans"] == 28_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+def test_upload_pipeline_bounds_groups_in_flight(card, depth):
+    """At most `depth` upload groups stay in flight (none at depth 0), the
+    card tensors hold the host arrays, and a drain retires every group."""
+    from kmamiz_tpu_torch.ops.double_buffer import UploadPipeline
+
+    pipe = UploadPipeline(card, depth)
+    rng = np.random.default_rng(depth)
+    for k in range(6):
+        host = (
+            rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32),
+            rng.random(1 << 16) < 0.5,
+        )
+        out, waited = pipe.put(host)
+        assert waited >= 0.0
+        assert pipe.stats()["in_flight"] == min(k + 1, depth)
+        # the consumer's stream waits for the copy: no explicit sync here
+        for got, want in zip(out, host):
+            assert got.device.type == "cuda"
+            assert np.array_equal(got.cpu().numpy(), want)
+    pipe.drain()
+    stats = pipe.stats()
+    assert stats["in_flight"] == 0 and stats["uploads"] == 6
+    assert stats["peak_in_flight"] == min(depth, 6)
+
+
+@pytest.mark.cuda
+def test_staging_makes_no_host_sync(card):
+    """Under torch.cuda.set_sync_debug_mode("error"), staging chunks (the
+    pinned upload, the walk, its compaction, the pre-union and the count
+    copies) makes no synchronising call; the pipeline's and the counts'
+    waits are event waits. The read after it drains to the CPU's graph."""
+    from kmamiz_tpu_torch.core.interning import EndpointInterner
+    from kmamiz_tpu_torch.core.spans import raw_spans_to_batch
+    from kmamiz_tpu_torch.graph.store import EndpointGraph
+
+    chunks = _stream_chunks(n_traces=2_000, n_chunks=3, prefix="q")
+    graphs = {}
+    for dev in (card, "cpu"):
+        interner = EndpointInterner()
+        batches = [raw_spans_to_batch(c, interner=interner)[0] for c in chunks]
+        g = EndpointGraph(device=dev, interner=interner)
+        # the first staging warms the caching allocators and the side stream
+        g.merge_window(batches[0], stage=True)
+        if dev == card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in batches[1:]:
+                g.merge_window(b, stage=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert g._preunion is not None
+        graphs[str(dev)] = (g.n_edges, graph_signature(g))
+    assert graphs[str(card)] == graphs["cpu"]

@@ -49,11 +49,14 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 62
+    assert len(names) >= 65
     assert {
         "kmamiz_tpu_torch.native",
         "kmamiz_tpu_torch.ops.host_build",
         "kmamiz_tpu_torch.core.wire",
+        "kmamiz_tpu_torch.ops.double_buffer",
+        "kmamiz_tpu_torch.ingestion",
+        "kmamiz_tpu_torch.ingestion.zipkin",
     } <= set(names)
 
 

@@ -423,6 +423,13 @@ def _without_ms(summary):
     return {k: v for k, v in summary.items() if k != "ms"}
 
 
+def port_skip_blob_locked(dp) -> bytes:
+    """The port processor's processed set as one native skip blob (count
+    header + skip entries), the layout of the JAX processor's
+    _skip_blob_locked(); the caller holds dp._dedup_lock."""
+    return struct.pack("<I", len(dp._processed)) + bytes(dp._skip_entries_locked())
+
+
 @pytest.mark.parametrize("frame", [False, True])
 def test_ingest_raw_window_matches_jax(no_quarantine, frame):
     windows = [
@@ -444,7 +451,7 @@ def test_ingest_raw_window_matches_jax(no_quarantine, frame):
     assert got["traces"] == 30 and got["spans"] == 30 * 7
     assert port._processed.keys() == ref._processed.keys()
     with port._dedup_lock, ref._dedup_lock:
-        assert port._skip_blob_locked() == ref._skip_blob_locked()
+        assert port_skip_blob_locked(port) == ref._skip_blob_locked()
     for bad in (b"nope", b"[[{", synth.make_raw_window(5, 3).replace(b"svc1", b"s\xff", 1)):
         before = graph_signature(port.graph)
         with pytest.raises(ValueError):
@@ -487,9 +494,11 @@ def test_register_processed_blob_fast_path():
     states[1]._register_processed(list(ids), 1000.0)
     states[2]._register_processed(ref_spans.KeptTraceIds(ids, blob), 1000.0)
     blobs = []
-    for dp in states:
+    for dp in states[:2]:
         with dp._dedup_lock:
-            blobs.append(dp._skip_blob_locked())
+            blobs.append(port_skip_blob_locked(dp))
+    with states[2]._dedup_lock:
+        blobs.append(states[2]._skip_blob_locked())
     assert states[0]._processed == states[1]._processed == states[2]._processed
     assert blobs[0] == blobs[1] == blobs[2]
 
@@ -531,7 +540,7 @@ def test_tick_dedup_keeps_the_reference_lists():
         want = ref._filter_traces(window, clock["ms"])
         assert got == want
         with port._dedup_lock, ref._dedup_lock:
-            assert port._skip_blob_locked() == ref._skip_blob_locked()
+            assert port_skip_blob_locked(port) == ref._skip_blob_locked()
 
 
 def test_tick_encodes_no_skip_entries(monkeypatch):
@@ -553,8 +562,8 @@ def test_tick_encodes_no_skip_entries(monkeypatch):
         )
     assert encoded == [] and port._skip_gen == 1
     with port._dedup_lock, ref._dedup_lock:
-        assert port._skip_blob_locked() == ref._skip_blob_locked()
-        assert port._skip_blob_locked() == ref._skip_blob_locked()
+        assert port_skip_blob_locked(port) == ref._skip_blob_locked()
+        assert port_skip_blob_locked(port) == ref._skip_blob_locked()
     assert encoded == list(port._processed)
 
 
