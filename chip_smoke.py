@@ -31,14 +31,20 @@ Phases, each timed:
    forward gives it; two launches on the same inputs must give the same
    bits; times and bound as in phase 3; the edge index's build time
    (beside its plain version, keys in plain PyTorch, which must give the
-   same index, and the library call: one stable torch.sort of its keys)
-   and row lengths (mean, p99, max), and a GraphSAGE forward's kernel work
-   (one index build and the launches at H = 18 and 64) timed together;
+   same index) and its parts: the keys kernel alone against its plain
+   version, with its own bound, then the library ops it hands to, one
+   stable torch.sort and one searchsorted; the index's row lengths (mean,
+   p99, max), and a GraphSAGE forward's kernel work (one index build and
+   the launches at H = 18 and 64) timed together;
 6. the backward kernels against their plain versions on the same graph
-   and bucket: the row pass ungated at H = 18 and 64 and gated at H = 32,
-   the SDDMM of the gate's grad at H = 32, over one gather index, each
-   relaunched for the same bits, with times and bound; the whole gated
-   backward beside autograd of the index_add_ formulation;
+   and bucket, each alone: the row pass ungated at H = 18 and 64 and
+   gated at H = 32 (over the entries' gate and da that the SDDMM writes),
+   the SDDMM of the gate's grad at H = 32, over one gather index (its pos
+   and split equal to the CPU's), each relaunched for the same bits, with
+   times, bound, the bytes its gathers move per entry, and its kernel's
+   registers, shared memory, spills and resident warps; the whole gated
+   backward as one call (one ctypes call, the same bits twice, db
+   included) beside autograd of the index_add_ formulation;
 7. the tick path: the port's DataProcessorServer on the card answers 4 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
    counter is zeroed just before and read just after, and the
@@ -64,14 +70,16 @@ Phases, each timed:
    over the BASELINE graph's live edges: 24 seeded slots, 8 fused epochs,
    lr 1e-2, pos_weight 4, through trainer.train with a checkpoint; the
    losses must fall, and the counters, zeroed just before, must show 2
-   forward launches and 1 backward row pass per step; one steady epoch
+   forward launches and 1 backward C call per step, launching the row
+   pass alone; one steady epoch
    timed and profiled; one epoch over 2 slots on the card against the
    CPU (losses rtol 1e-3); then the checkpoint served by GET
    /api/v1/model/forecast (one edge index for the snapshot);
 12. the STLGT continual trainer behind the fold hook (KMAMIZ_STLGT=1,
    production defaults) fed by a processor's ticks in 5 successive
    hours (4 folds, 3 refreshes) through the DP server, counters zeroed
-   just before: GET /model/stlgt must show the refreshes and no failure,
+   just before (each backward one C call launching the SDDMM and the row
+   pass): GET /model/stlgt must show the refreshes and no failure,
    the fold hook no error; the last refresh replayed on the port's CPU
    path from the same ring and params (rtol 1e-3 / atol 1e-5); GET
    /api/v1/model/forecast?quantile=p99&horizon=3 with the trained
@@ -162,6 +170,13 @@ for a comparison of two checkouts on the same card in one run. With
 --zeroing it stops after phase 3 and times the segment-stats kernel's
 zeroing prologue against the same source built to zero with a
 cudaMemsetAsync before a plain launch (SEGMENT_STATS_ZERO_BY_MEMSET).
+With --backward-of DIR it imports the port from the checkout at DIR
+(a parent unpacked with git archive, or .) and times its fused_backward,
+the API every checkout since port PR 4 shares, on a seeded edge list:
+run once per checkout, in turns, for an A/B of their host work. With
+--backward-variants it stops after phase 4 and times the backward
+kernels as shipped against builds with other tuning values (KMZ_* in
+csrc/fused_sddmm_spmm.cu) on the BASELINE graph.
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -260,6 +275,25 @@ def cuda_ms(torch, fn, runs: int = TIMING_RUNS, calls: int = TIMING_CALLS) -> fl
     return statistics.median(times)
 
 
+def host_ms(torch, fn, runs: int = TIMING_RUNS, calls: int = TIMING_CALLS) -> float:
+    """Host time of one fn() call: the host clock around `calls`
+    back-to-back calls (no sync between them), divided by `calls`; the
+    median of `runs` runs after three warm-up calls, each run started on an
+    idle card. Where it is near cuda_ms, the host issuing the calls sets
+    their card time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     """Median ms of one fn() call alone: CUDA events around each call and a
     sync after it, after three warm-up calls (chip_smoke's earlier
@@ -326,27 +360,29 @@ def device_ms(torch, fn, reps: int = 10, attempts: int = 3):
     warm-up call ("profiler"). A session that lost a marker is tried
     again; after `attempts` such sessions the time is CUDA events around
     the reps back-to-back calls ("cuda events", which also counts the gaps
-    between launches). Returns (ms, method, sessions that lost a marker)."""
+    between launches). Returns (ms, method, sessions that lost a marker,
+    device events per call or None)."""
     fn()
     torch.cuda.synchronize()
     for lost in range(attempts):
         events = traced(torch, lambda: [fn() for _ in range(reps)])
         if events is not None:
             total_us = sum(evt.time_range.end - evt.time_range.start for evt in events)
-            return total_us / reps / 1e3, "profiler", lost
-    return cuda_ms(torch, fn, calls=reps), "cuda events", attempts
+            return total_us / reps / 1e3, "profiler", lost, len(events) / reps
+    return cuda_ms(torch, fn, calls=reps), "cuda events", attempts, None
 
 
 def device_times(torch, jobs) -> int:
     """Fill in the device times that phases 3, 5, 6 and 13 queued as (case, key,
-    fn), each beside how it was taken (key + "_by"); returns the number of
-    profiler sessions that lost a marker. They run after every
+    fn), each beside how it was taken (key + "_by") and the device events
+    per call (key + "_events"); returns the number of profiler sessions
+    that lost a marker. They run after every
     CUDA-event timing of the run: a profiler session leaves the host slower
     at each launch for the rest of the process, which would inflate the
     card times taken after it."""
     empty = 0
     for case, key, fn in jobs:
-        case[key], case[f"{key}_by"], n = device_ms(torch, fn)
+        case[key], case[f"{key}_by"], n, case[f"{key}_events"] = device_ms(torch, fn)
         empty += n
         log(f"   {case.get('shape', 'edge index')}: {key} {case[key]} ({case[f'{key}_by']})")
     return empty
@@ -681,20 +717,34 @@ def fused_cases(torch, graph, jobs):
         and torch.equal(order, index.eid),
         "the edge index differs from its plain version",
     )
-    # the library call: one stable torch.sort of the same keys, in the
-    # width the card path sorts
-    lib_keys = sparse.edge_keys_plain(src, dst, mask, n)[0].to(
-        torch.int16 if n < 2**15 else torch.int32
+    # the keys kernel alone against its plain version
+    keys, other = sparse.edge_keys(src, dst, mask, n)
+    keys_plain, other_plain = sparse.edge_keys_plain(src, dst, mask, n)
+    check(
+        torch.equal(keys.to(keys_plain.dtype), keys_plain) and torch.equal(other, other_plain),
+        "the keys kernel differs from edge_keys_plain",
     )
+    sorted_keys = torch.sort(keys, stable=True)[0]
+    bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
     report = {
         "index_ms": cuda_ms(torch, lambda: sparse.edge_index(src, dst, mask, n)),
         "index_plain_ms": cuda_ms(torch, plain_index),
-        "index_library_ms": cuda_ms(torch, lambda: torch.sort(lib_keys, stable=True)),
         # bytes: every slot's mask and both ids of each live edge read once;
         # row_ptr and the 2E entries (int32 neighbour, int64 edge id)
         # written once
         "index_bound_ms": (e + 8 * live + 4 * (n + 1) + 12 * 2 * e) / PEAK_BYTES_PER_S * 1e3,
         "index_bound_by": "bytes",
+        # the build's parts: the keys kernel (its own bound: every slot's
+        # mask and ids read, 2E keys and 2E int32 opposite ends written),
+        # then two library ops, one stable sort and one searchsorted
+        "keys_ms": cuda_ms(torch, lambda: sparse.edge_keys(src, dst, mask, n)),
+        "keys_plain_ms": cuda_ms(torch, lambda: sparse.edge_keys_plain(src, dst, mask, n)),
+        "keys_bound_ms": (9 * e + 2 * e * keys.element_size() + 8 * e) / PEAK_BYTES_PER_S * 1e3,
+        "keys_bound_by": "bytes",
+        "sort_library_ms": cuda_ms(torch, lambda: torch.sort(keys, stable=True)),
+        "searchsorted_library_ms": cuda_ms(
+            torch, lambda: torch.searchsorted(sorted_keys, bounds, out_int32=True)
+        ),
         "entries": int(index.row_ptr[-1]),
         # row lengths of the endpoints' rows (the bucket's padding rows past
         # them are empty)
@@ -707,6 +757,7 @@ def fused_cases(torch, graph, jobs):
     }
     log("   edge index " + json.dumps(report))
     jobs.append((report, "index_device_ms", lambda: sparse.edge_index(src, dst, mask, n)))
+    jobs.append((report, "keys_device_ms", lambda: sparse.edge_keys(src, dst, mask, n)))
 
     cases = []
     for label, h, gated in (
@@ -1152,21 +1203,22 @@ def profile_forecast(torch, proc, kernel_names) -> dict:
     )
 
 
-def kernel_case(torch, label, kernel, plain, library, nbytes, ops, jobs, **info):
+def kernel_case(torch, label, kernel, plain, library, nbytes, ops, jobs, select=None, **info):
     """One shape of a backward kernel: its outputs against the plain
     version's on the same card tensors (rtol 1e-4 / atol 1e-5: fp32 sums
     in the gather index's order against index_add_'s), the same bits from
-    two launches, and its times beside the bound; the device time is
-    queued on jobs. kernel() and plain() return tuples of tensors (None
-    where an output is not computed); library() is one PyTorch call of the
-    same function, or None."""
-    got = kernel()
+    two launches, and its times (`host_ms`: the host's share, see host_ms)
+    beside the bound; the device time is queued on jobs. kernel() and plain() return tuples of tensors (None
+    where an output is not computed), compared after select() when given;
+    library() is one PyTorch call of the same function, or None."""
+    select = select or (lambda out: out)
+    got = select(kernel())
     torch.cuda.synchronize()
-    again = kernel()
+    again = select(kernel())
     torch.cuda.synchronize()
     for a, b in zip(got, again):
         check(a is None and b is None or torch.equal(a, b), f"{label}: two launches give different bits")
-    want = plain()
+    want = select(plain())
     errs = []
     for a, w in zip(got, want):
         if w is None:
@@ -1183,6 +1235,7 @@ def kernel_case(torch, label, kernel, plain, library, nbytes, ops, jobs, **info)
         "max_abs_err": max(errs),
         "ms": cuda_ms(torch, kernel),
         "call_ms": call_ms(torch, kernel),
+        "host_ms": host_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, plain),
         "library_ms": None if library is None else cuda_ms(torch, library),
         "bound_ms": max(t_bytes, t_ops),
@@ -1194,18 +1247,31 @@ def kernel_case(torch, label, kernel, plain, library, nbytes, ops, jobs, **info)
     return case
 
 
+def vector_width(h: int) -> int:
+    """The vector loads the kernels take for fresh [N, H] tables."""
+    return 4 if h % 4 == 0 else 2 if h % 2 == 0 else 1
+
+
 def backward_cases(torch, graph, jobs):
     """Phase 6: the backward kernels against their plain versions on card
     tensors at the training shapes: the BASELINE graph's edge columns over
     node tables at the pow2 bucket of its endpoints, the row pass ungated
-    at H = 18 and 64 (GraphSAGE's layers) and gated at H = 32 (STLGT, with
-    the SDDMM of da before it), over one gather index; the whole gated
-    backward beside autograd of the index_add_ formulation. Returns
-    (rows cases, edges cases, report)."""
+    at H = 18 and 64 (GraphSAGE's layers) and gated at H = 32 (STLGT, over
+    the entries' (gate, da) that the SDDMM before it writes), each alone,
+    over one gather index (whose pos and split must equal the CPU's); the
+    whole gated backward as one call beside autograd of the index_add_
+    formulation, with its ctypes calls counted. Each case carries its
+    kernel's registers, shared memory, spills and resident warps
+    (`resources`), the bytes its gathers move per entry, and the bytes
+    that the SDDMM hands the gated row pass through the entries' (gate,
+    da) (`handoff_bytes`). Each bound counts the bytes of the kernel's
+    function alone, each once: the edge list, the rows the live edges
+    touch, the outputs, as port PR 4 counted them; neither the gathers'
+    repeats nor the handoff. Returns (rows cases, edges cases, report)."""
     import numpy as np
 
     from kmamiz_tpu_torch.core.spans import _pad_size
-    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.ops import cuda_build, sparse
 
     src, dst, _dist, mask = graph.edge_arrays()
     n_eps = len(graph.interner.endpoints)
@@ -1218,13 +1284,21 @@ def backward_cases(torch, graph, jobs):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
     index = sparse.edge_index(src, dst, mask, n, for_backward=True)
+    gather = index.gather
+    on_cpu = sparse.edge_index(src.cpu(), dst.cpu(), mask.cpu(), n, for_backward=True).gather
+    check(
+        torch.equal(gather.pos.cpu(), on_cpu.pos) and torch.equal(gather.split.cpu(), on_cpu.split),
+        "the gather index's pos/split differ from the CPU's",
+    )
+    entries = int(gather.row_ptr[-1])  # live entries: 2 per live edge
     report = {
         "index_with_gather_ms": cuda_ms(
             torch, lambda: sparse.edge_index(src, dst, mask, n, for_backward=True)
         ),
         "gather_equals_forward_index": all(
-            torch.equal(a, b) for a, b in zip(index[:3], index.gather[:3])
+            torch.equal(a, b) for a, b in zip(index[:3], gather[:3])
         ),
+        "entries": entries,
     }
     live = int(mask.sum())
     src_l, dst_l = src.long(), dst.long()
@@ -1254,13 +1328,14 @@ def backward_cases(torch, graph, jobs):
         return bias, deg, g
 
     rows_cases, edges_cases = [], []
-    for label, h, gated in (
-        ("graphsage layer 1 backward (ungated)", 18, False),
-        ("graphsage layer 2 backward (ungated)", 64, False),
-        ("stlgt backward (gated)", STLGT_HIDDEN, True),
-    ):
+
+    # one scope per shape: the device times run at the end of the run, and a
+    # lambda over a loop variable would then read the last shape's tables
+    def shape_cases(label, h, gated):
         v, d_bias = table(n, h), table(n, h)
-        info = {"n": n, "h": h, "edges": e, "live_edges": live, "gated": gated}
+        vw = vector_width(h)
+        info = {"n": n, "h": h, "edges": e, "live_edges": live, "gated": gated, "vector_width": vw}
+        rows_kernel = sparse.backward_info("rows", vw, gated)
         if not gated:
             leaf = v.clone().requires_grad_()
             lib_out = library_of(leaf)[0]
@@ -1269,17 +1344,20 @@ def backward_cases(torch, graph, jobs):
                 kernel_case(
                     torch,
                     label,
-                    lambda: sparse.fused_sddmm_spmm_grad_rows(n, src, dst, mask, None, d_bias, index=index),
+                    lambda: sparse.fused_sddmm_spmm_grad_rows(n, d_bias, index=index),
                     lambda: sparse.grad_rows_plain(n, src, dst, mask, em, d_bias),
                     lambda: torch.autograd.grad(lib_out, leaf, d_pad, retain_graph=True),
                     # d_bias rows at the live ends, dv written whole
                     ids_bytes + ends * h * 4 + n * h * 4,
                     live * 4 * h,
                     jobs,
+                    # each entry gathers one d_bias row beside its id
+                    gather_bytes_per_entry=h * 4 + 4,
+                    resources=rows_kernel,
                     **info,
                 )
             )
-            continue
+            return
         q, k = table(n, h), table(n, h)
         b = torch.tensor([0.1], device=dev)
         d_deg, d_gate = table(n), table(e)
@@ -1290,23 +1368,35 @@ def backward_cases(torch, graph, jobs):
             kernel_case(
                 torch,
                 label + ": da (SDDMM)",
-                lambda: (sparse.fused_sddmm_spmm_grad_edges(*edge_args),),
-                lambda: (sparse.grad_edges_plain(*edge_args),),
+                lambda: sparse.fused_sddmm_spmm_grad_edges(*edge_args, index=index),
+                lambda: (
+                    sparse.grad_edges_plain(*edge_args),
+                    sparse.entry_values_plain(gather, gate, sparse.grad_edges_plain(*edge_args)),
+                ),
                 None,
                 # the gate and d_gate of live edges, d_deg at the live ends,
                 # v and d_bias rows at the live ends, da written whole
                 ids_bytes + live * 8 + ends * 4 + 2 * ends * h * 4 + e * 4,
                 live * (4 * h + 10),
                 jobs,
+                # da, and the live entries' (gate, da): parked entries are
+                # not written
+                select=lambda out: (out[0], out[1][:entries]),
+                # each live edge gathers d_bias and v at both ends
+                gather_bytes_per_edge=4 * h * 4,
+                # pos read for each live edge, (gate, da) written into each
+                # live entry, for the row pass
+                handoff_bytes=live * 8 + entries * 8,
+                resources=sparse.backward_info("edges", vw, True),
                 **info,
             )
         )
-        da = sparse.grad_edges_plain(*edge_args)
+        da, gda = sparse.fused_sddmm_spmm_grad_edges(*edge_args, index=index)
         rows_cases.append(
             kernel_case(
                 torch,
                 label + ": dv, dq, dk (row pass)",
-                lambda: sparse.fused_sddmm_spmm_grad_rows(n, src, dst, mask, gate, d_bias, da, q, k, index=index),
+                lambda: sparse.fused_sddmm_spmm_grad_rows(n, d_bias, gda, q, k, index=index),
                 lambda: sparse.grad_rows_plain(n, src, dst, mask, gate, d_bias, da, q, k),
                 None,
                 # gate and da of live edges; d_bias at the live ends, q at the
@@ -1314,11 +1404,17 @@ def backward_cases(torch, graph, jobs):
                 ids_bytes + live * 8 + (ends + src_rows + dst_rows) * h * 4 + 3 * n * h * 4,
                 live * 8 * h + 2 * n * h,
                 jobs,
+                # each entry gathers a d_bias row and a q or k row beside its
+                # id and (gate, da)
+                gather_bytes_per_entry=2 * h * 4 + 12,
+                # the entries' (gate, da) and each row's split, read
+                handoff_bytes=entries * 8 + n * 4,
+                resources=rows_kernel,
                 **info,
             )
         )
-        # the whole gated backward (two launches and a sum) against autograd
-        # of the index_add_ formulation
+        # the whole gated backward (one C call: the SDDMM, then the row pass
+        # and db) against autograd of the index_add_ formulation
         leaves = [t.clone().requires_grad_() for t in (v, q, k, b)]
         lib_out = library_of(*leaves)
         ups = (
@@ -1327,10 +1423,20 @@ def backward_cases(torch, graph, jobs):
             d_gate,
         )
         whole = lambda: sparse.fused_backward(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k, index)  # noqa: E731
-        got = whole()
+        launch = cuda_build.launch
+        calls = []
+        cuda_build.launch = lambda *a: calls.append(a) or launch(*a)
+        try:
+            got = whole()
+        finally:
+            cuda_build.launch = launch
+        check(len(calls) == 1, f"the whole gated backward made {len(calls)} ctypes calls")
+        again = whole()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b2) for a, b2 in zip(got, again)), "whole backward: two calls give different bits")
         want = sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
         for a, w in zip(got, want):
-            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5, msg="whole gated backward")
+            torch.testing.assert_close(a.reshape(w.shape), w, rtol=1e-4, atol=1e-5, msg="whole gated backward")
         # the bound of the whole function: its inputs read once (ids; v and
         # d_bias rows and d_deg at the live ends, q at the live sources, k at
         # the live destinations, gate and d_gate of live edges) and its
@@ -1347,10 +1453,17 @@ def backward_cases(torch, graph, jobs):
         t_bytes = whole_bytes / PEAK_BYTES_PER_S * 1e3
         t_ops = whole_ops / PEAK_F32_OPS_PER_S * 1e3
         report["stlgt_backward"] = {
+            "ctypes_calls": len(calls),
+            "bit_equal_relaunch": True,
+            "max_abs_err": max(
+                float((a.reshape(w.shape) - w).abs().max()) for a, w in zip(got, want)
+            ),
             "bytes": whole_bytes,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "ms": cuda_ms(torch, whole),
+            "call_ms": call_ms(torch, whole),
+            "host_ms": host_ms(torch, whole),
             "plain_ms": cuda_ms(
                 torch, lambda: sparse.fused_backward_plain(v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
             ),
@@ -1360,7 +1473,214 @@ def backward_cases(torch, graph, jobs):
         }
         jobs.append((report["stlgt_backward"], "device_ms", whole))
         log("   whole gated backward " + json.dumps(report["stlgt_backward"]))
+
+    for label, h, gated in (
+        ("graphsage layer 1 backward (ungated)", 18, False),
+        ("graphsage layer 2 backward (ungated)", 64, False),
+        ("stlgt backward (gated)", STLGT_HIDDEN, True),
+    ):
+        shape_cases(label, h, gated)
     return rows_cases, edges_cases, report
+
+
+#: --backward-of's seeded edge list, at phase 6's shape: E slots, the first
+#: LIVE live between ENDPOINTS of N rows at random, the rest masked padding
+AB_N, AB_E, AB_LIVE, AB_ENDPOINTS = 16_384, 262_144, 166_000, 10_000
+
+
+def backward_of(torch, sparse, jobs):
+    """--backward-of: the fused kernel's backward of the checkout whose
+    package this process imported, called through the wrapper API that
+    every checkout since port PR 4 shares (edge_index(...,
+    for_backward=True), fused_sddmm_spmm for the gate, fused_backward, and
+    autograd of fused_gated_bias), on a seeded edge list (AB_*): the host
+    work per call does not depend on the graph, and phase 6 times the
+    kernels on the BASELINE graph. Per shape (ungated H = 18 and 64,
+    gated H = 32), after a check against fused_backward_plain (rtol 1e-4 /
+    atol 1e-5): ms, call_ms, host_ms, device_ms (queued on jobs); gated
+    also ms and call_ms through torch.autograd.grad, the engine's host
+    work included. For an A/B of two checkouts on one card: one process
+    each, in turns."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    src = np.full(AB_E, np.iinfo(np.int32).max, np.int32)
+    dst = src.copy()
+    src[:AB_LIVE] = rng.integers(0, AB_ENDPOINTS, AB_LIVE)
+    dst[:AB_LIVE] = rng.integers(0, AB_ENDPOINTS, AB_LIVE)
+    mask = np.arange(AB_E) < AB_LIVE
+    src, dst, mask = (torch.from_numpy(a).to(dev) for a in (src, dst, mask))
+    index = sparse.edge_index(src, dst, mask, AB_N, for_backward=True)
+
+    def table(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def shape_case(h, gated):
+        v, d_bias = table(AB_N, h), table(AB_N, h)
+        case = {
+            "shape": f"fused_backward, {'gated' if gated else 'ungated'} H = {h}",
+            "n": AB_N, "edges": AB_E, "live_edges": AB_LIVE, "h": h, "gated": gated,
+        }
+        if gated:
+            q, k = table(AB_N, h), table(AB_N, h)
+            b = torch.tensor([0.1], device=dev)
+            d_deg, d_gate = table(AB_N), table(AB_E)
+            with torch.no_grad():
+                gate = sparse.fused_sddmm_spmm(v, src, dst, mask, q, k, b, index=index)[2]
+            args = (v, src, dst, mask, gate, d_bias, d_deg, d_gate, q, k)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v, b)]
+            outs = sparse.fused_gated_bias(*leaves, src, dst, mask, index=index)
+
+            def through_autograd():
+                return torch.autograd.grad(outs, leaves, (d_bias, d_deg, d_gate), retain_graph=True)
+
+            case["autograd_ms"] = cuda_ms(torch, through_autograd)
+            case["autograd_call_ms"] = call_ms(torch, through_autograd)
+        else:
+            args = (v, src, dst, mask, None, d_bias)
+
+        def call():
+            return sparse.fused_backward(*args, index=index)
+
+        for a, w in zip(call(), sparse.fused_backward_plain(*args)):
+            if w is not None:
+                torch.testing.assert_close(a.reshape(w.shape), w, rtol=1e-4, atol=1e-5, msg=case["shape"])
+        case.update(ms=cuda_ms(torch, call), call_ms=call_ms(torch, call), host_ms=host_ms(torch, call))
+        jobs.append((case, "device_ms", call))
+        log("   " + json.dumps(case))
+        return case
+
+    return [shape_case(h, gated) for h, gated in ((18, False), (64, False), (STLGT_HIDDEN, True))]
+
+
+#: --backward-variants: settings of the backward kernels' tuning values
+#: (csrc/fused_sddmm_spmm.cu, KMZ_*), each built apart
+BACKWARD_VARIANTS = {
+    # the ungated pass with 2 or 8 entries in flight per lane group (4
+    # shipped)
+    "ungated u2": ("KMZ_ROW_UNGATED_UNROLL=2",),
+    "ungated u8": ("KMZ_ROW_UNGATED_UNROLL=8",),
+    # the gated pass with 4 (2 shipped)
+    "gated u4": ("KMZ_ROW_UNROLL=4",),
+    # 8 in flight in both passes, with registers for them (2 blocks per SM)
+    "u8, 2 blocks": (
+        "KMZ_ROW_UNROLL=8",
+        "KMZ_ROW_MIN_BLOCKS=2",
+        "KMZ_ROW_UNGATED_UNROLL=8",
+        "KMZ_ROW_UNGATED_MIN_BLOCKS=2",
+        "KMZ_EDGE_MIN_BLOCKS=2",
+    ),
+    # twice the resident warps (8 blocks per SM: 32 registers)
+    "8 blocks": ("KMZ_ROW_MIN_BLOCKS=8", "KMZ_ROW_UNGATED_MIN_BLOCKS=8", "KMZ_EDGE_MIN_BLOCKS=8"),
+}
+
+
+def backward_variants(torch, graph):
+    """--backward-variants: the backward kernels as shipped against the
+    same source built with each setting of BACKWARD_VARIANTS (one nvcc
+    each, all at once), on the BASELINE graph at phase 6's shapes: the row
+    pass ungated at H = 18 and 64, gated at H = 32 over the SDDMM's
+    entries, the SDDMM alone and the whole gated backward, each through
+    its wrapper with the library's backward entries swapped for the
+    variant's. Each variant's outputs must match the plain versions (rtol
+    1e-4 / atol 1e-5). device_ms (profiler) in turns: shipped, the
+    variants, the variants reversed, shipped; each variant's registers,
+    spills and resident warps beside."""
+    import contextlib
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from kmamiz_tpu_torch.core.spans import _pad_size
+    from kmamiz_tpu_torch.ops import cuda_build, sparse
+
+    with ThreadPoolExecutor(max_workers=len(BACKWARD_VARIANTS)) as pool:
+        paths = dict(
+            zip(
+                BACKWARD_VARIANTS,
+                pool.map(lambda d: cuda_build.build(sparse.KERNEL, d), BACKWARD_VARIANTS.values()),
+            )
+        )
+    entries = ("kmamiz_fused_sddmm_spmm_backward", "kmamiz_fused_sddmm_spmm_backward_info")
+
+    @contextlib.contextmanager
+    def entries_of(name):
+        shipped = {e: sparse._kernel(e) for e in entries}
+        if name != "shipped":
+            lib = ctypes.CDLL(str(paths[name]))
+            for e, fn in shipped.items():
+                variant = getattr(lib, e)
+                variant.argtypes, variant.restype = fn.argtypes, fn.restype
+                sparse._entries[e] = variant
+        try:
+            yield
+        finally:
+            sparse._entries.update(shipped)
+
+    src, dst, _dist, mask = graph.edge_arrays()
+    n = _pad_size(len(graph.interner.endpoints))
+    e = src.shape[0]
+    dev = src.device
+    rng = np.random.default_rng(SEED + 1)
+
+    def table(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    index = sparse.edge_index(src, dst, mask, n, for_backward=True)
+    entries_live = int(index.gather.row_ptr[-1])
+    em = mask.float()
+    d18, d64 = table(n, 18), table(n, 64)
+    v, d_bias, q, k = (table(n, STLGT_HIDDEN) for _ in range(4))
+    d_deg, d_gate = table(n), table(e)
+    b = torch.tensor([0.1], device=dev)
+    with torch.no_grad():
+        gate = sparse.fused_sddmm_spmm(v, src, dst, mask, q, k, b, index=index)[2]
+    edge_args = (v, src, dst, mask, gate, d_bias, d_deg, d_gate)
+    da = sparse.grad_edges_plain(*edge_args)
+    gda = sparse.entry_values_plain(index.gather, gate, da)
+    calls = {
+        "row pass, ungated H = 18": lambda: sparse.fused_sddmm_spmm_grad_rows(n, d18, index=index),
+        "row pass, ungated H = 64": lambda: sparse.fused_sddmm_spmm_grad_rows(n, d64, index=index),
+        "row pass, gated H = 32": lambda: sparse.fused_sddmm_spmm_grad_rows(n, d_bias, gda, q, k, index=index),
+        "SDDMM of da, H = 32": lambda: sparse.fused_sddmm_spmm_grad_edges(*edge_args, index=index),
+        "whole gated backward, H = 32": lambda: sparse.fused_backward(*edge_args, q, k, index),
+    }
+    wants = {
+        "row pass, ungated H = 18": sparse.grad_rows_plain(n, src, dst, mask, em, d18),
+        "row pass, ungated H = 64": sparse.grad_rows_plain(n, src, dst, mask, em, d64),
+        "row pass, gated H = 32": sparse.grad_rows_plain(n, src, dst, mask, gate, d_bias, da, q, k),
+        "SDDMM of da, H = 32": (da, gda[:entries_live]),
+        "whole gated backward, H = 32": sparse.fused_backward_plain(*edge_args, q, k),
+    }
+    report = {"variants": {"shipped": []}, "device_ms": {}, "device_ms_by": set()}
+    for name, defines in BACKWARD_VARIANTS.items():
+        report["variants"][name] = list(defines)
+    for name in report["variants"]:
+        with entries_of(name):
+            for label, fn in calls.items():
+                got = fn()
+                if label.startswith("SDDMM"):
+                    got = (got[0], got[1][:entries_live])
+                for a, w in zip(got, wants[label]):
+                    if w is not None:
+                        torch.testing.assert_close(a.reshape(w.shape), w, rtol=1e-4, atol=1e-5, msg=f"{name}: {label}")
+            report.setdefault("resources", {})[name] = {
+                f"{which} {'gated' if gated else 'ungated'} vw {vw}": sparse.backward_info(which, vw, gated)
+                for which, vw, gated in (("rows", 2, False), ("rows", 4, False), ("rows", 4, True), ("edges", 4, True))
+            }
+    names = list(BACKWARD_VARIANTS)
+    for name in ["shipped", *names, *reversed(names), "shipped"]:
+        with entries_of(name):
+            timed = {label: device_ms(torch, fn) for label, fn in calls.items()}
+        turn = {label: t[0] for label, t in timed.items()}
+        for label, (ms, by, _lost, _events) in timed.items():
+            report["device_ms"].setdefault(name, {}).setdefault(label, []).append(ms)
+            report["device_ms_by"].add(by)
+        log(f"   {name}: " + json.dumps(turn))
+    report["device_ms_by"] = sorted(report["device_ms_by"])
+    return report
 
 
 class PlainOnCard:
@@ -1368,7 +1688,14 @@ class PlainOnCard:
     backward) that are handed a card tensor, while the block runs: a
     training path on the card must make none."""
 
-    NAMES = ("fused_plain", "fused_backward_plain", "grad_edges_plain", "grad_rows_plain")
+    NAMES = (
+        "fused_plain",
+        "fused_backward_plain",
+        "grad_edges_plain",
+        "grad_rows_plain",
+        "entry_values_plain",
+        "grad_rows_index_plain",
+    )
 
     def __init__(self, torch, sparse) -> None:
         self.torch, self.sparse, self.calls = torch, sparse, 0
@@ -1460,6 +1787,8 @@ def train_graphsage(torch, graph, device, counters, ckpt_dir: str) -> dict:
     check(losses[-1] < losses[0], f"losses did not fall: {losses}")
     check(launches[sparse.fused_sddmm_spmm.__name__] == 2 * steps, f"forward launches {launches}")
     # layer 1 aggregates the features (no grad); layer 2 its hidden state
+    # one C call per step, launching the row pass alone (ungated)
+    check(launches[sparse.fused_backward.__name__] == steps, f"backward calls {launches}")
     check(launches[sparse.fused_sddmm_spmm_grad_rows.__name__] == steps, f"backward launches {launches}")
     check(launches[sparse.fused_sddmm_spmm_grad_edges.__name__] == 0, f"gated backward in GraphSAGE {launches}")
 
@@ -1628,6 +1957,13 @@ def serve_stlgt(torch, graph, device, counters, t_start: int, ckpt_dir: str) -> 
         sparse.fused_sddmm_spmm_grad_rows.__name__,
     ):
         check(launches[name] > 0, f"{name} never launched on the STLGT path: {launches}")
+    # each STLGT step's backward: one C call, launching both kernels
+    backward_calls = launches[sparse.fused_backward.__name__]
+    check(
+        launches[sparse.fused_sddmm_spmm_grad_edges.__name__] == backward_calls
+        and launches[sparse.fused_sddmm_spmm_grad_rows.__name__] == backward_calls,
+        f"STLGT backward calls and launches {launches}",
+    )
 
     # the last refresh, replayed on the CPU from the same ring and params
     t0 = time.perf_counter()
@@ -2789,6 +3125,20 @@ def main(argv=None) -> int:
         help="phases 1-3, then the segment-stats kernel's zeroing prologue timed "
         "against a cudaMemsetAsync before a plain launch, then the report",
     )
+    parser.add_argument(
+        "--backward-of",
+        metavar="DIR",
+        help="phase 1, then the fused kernel's backward of the port checked out at "
+        "DIR (. for this one) timed through the wrapper API that every checkout "
+        "since port PR 4 shares, then the report: for the host work of two "
+        "checkouts on one card, one process each, in turns",
+    )
+    parser.add_argument(
+        "--backward-variants",
+        action="store_true",
+        help="phases 1-4, then the backward kernels as shipped timed against "
+        "builds with other tuning values (BACKWARD_VARIANTS), then the report",
+    )
     args = parser.parse_args(argv)
 
     import torch
@@ -2796,7 +3146,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.abspath(args.backward_of) if args.backward_of else here)
     from kmamiz_tpu_torch.ops import cuda_build
     from kmamiz_tpu_torch.ops import segment_stats as ss
 
@@ -2812,7 +3163,8 @@ def main(argv=None) -> int:
         (sparse.fused_sddmm_spmm_grad_edges, fused_src, sparse.REPLACES),
         (sparse.fused_sddmm_spmm_grad_rows, fused_src, sparse.REPLACES),
     ]
-    counters = [k[0] for k in kernels]
+    # and the whole backward's C calls (each launches the backward's kernels)
+    counters = [k[0] for k in kernels] + [sparse.fused_backward]
     kernel_names = [ss.KERNEL, sparse.KERNEL]
     device = torch.device("cuda")
     walls: dict = {}
@@ -2830,6 +3182,21 @@ def main(argv=None) -> int:
         report["card"] = smi
         report["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
         log(f"   torch {report['torch']}, {torch.cuda.get_device_name(0)}")
+
+    if args.backward_of:
+        with Phase("build", walls):
+            cuda_build.build_all([sparse.KERNEL])
+        with Phase("backward", walls):
+            report["backward_of"] = {
+                "package": os.path.dirname(os.path.dirname(os.path.abspath(sparse.__file__))),
+                "cases": backward_of(torch, sparse, jobs),
+            }
+        with Phase("device times", walls):
+            report["profiler_lost_sessions"] = device_times(torch, jobs)
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"backward_of": report["backward_of"]}))
+        return 0
 
     with Phase("build", walls):
         # the host library (g++) builds beside the kernels (nvcc), so that
@@ -2879,6 +3246,14 @@ def main(argv=None) -> int:
             # before any tick: phase 15 rebuilds this graph from raw bytes
             "signature": graph_signature(proc.graph),
         }
+
+    if args.backward_variants:
+        with Phase("backward variants", walls):
+            report["backward_variants"] = backward_variants(torch, proc.graph)
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"backward_variants": report["backward_variants"]}))
+        return 0
 
     with Phase("fused kernel check", walls):
         f_cases, report["edge_index"] = fused_cases(torch, proc.graph, jobs)

@@ -82,28 +82,64 @@
 // for every live side). It equals the forward index when every live id
 // lies in [0, N); where one does not, the entry whose other end is out of
 // range still carries da into dq/dk, and adds nothing to dv (that end's
-// scatter was dropped in the forward). Two kernels:
+// scatter was dropped in the forward). Built once with it, the gather
+// index also holds pos[2E], the entry that holds slot j (-1 where the
+// slot is parked past row_ptr[N]: the inverse of its sort), and split[N],
+// the first src-side entry of each row (a row's dst-side entries, j < E,
+// come first: the sort is stable in j). One C call,
+// kmamiz_fused_sddmm_spmm_backward, launches the two kernels:
 //
-// 3. fused_sddmm_spmm_kernel_grad_edges (the SDDMM of da, gated only): a
-//    power-of-two group of lanes per edge slot reads d_bias and v at both
-//    ends with vector loads, reduces the two dots with xor shuffles in a
-//    fixed order, and writes da[e] once per edge slot.
+// 3. fused_sddmm_spmm_kernel_grad_edges (the SDDMM of da, gated only): per
+//    warp, batches of 32 edge slots. The lanes load the batch's mask and
+//    ids, one slot each (coalesced), and the next batch's before this
+//    batch's rows are reduced; a ballot over the mask ranks the live
+//    edges, whose ids go through shared memory to lane groups of lpe (a
+//    power of two) lanes, so a masked slot costs no group step. A group
+//    reduces one edge at a time (its d_bias and v rows at both ends: 4
+//    vector loads in flight per lane), with xor shuffles in a fixed
+//    order. The lane that loaded an edge (and, while
+//    the rows were in flight, its gate, d_gate, d_deg at both ends and its
+//    two entries pos[e], pos[E + e]) finishes da_e and writes (g_e, da_e)
+//    into both of its entries of the gather index (gda[2E], float2), and
+//    da[e] when asked. Each block writes the sum of its da in a fixed order
+//    (lanes by xor shuffles, warps in order) as one partial of db.
 // 4. fused_sddmm_spmm_kernel_grad_rows: one warp per gather row, lane
-//    groups as in (2); accumulates g·d_bias[nbr] (dv), and gated da·k[nbr]
-//    on the row's src-side entries (dq) and da·q[nbr] on its dst-side
-//    entries (dk; the entry's direction is j < E or j >= E), combines the
-//    groups in order and writes each output row once. No atomics, no
-//    zero-fill: the same bits on every run.
+//    groups of lpe = ceil(H / VW) lanes as in (2). The warp loads 32
+//    entries' neighbour ids and, gated, their (g, da) (two coalesced
+//    streams, no per-entry edge-id lookup) and hands them to the groups by
+//    shuffle; an entry's side is whether it lies at or past its row's
+//    split. Gated, each group holds 2 entries' row loads in flight (two
+//    tables an entry: d_bias, and k on the src side or q on the dst side),
+//    then accumulates g·d_bias[nbr] (dv), da·k[nbr] (dq) and da·q[nbr]
+//    (dk) in entry order; the groups combine in order, and each output
+//    row is written once. The next row's bounds load while the current
+//    row runs. Its first warp first sums the SDDMM's block partials in a
+//    fixed order into db (the SDDMM ran before it on the stream), so no
+//    reduction launch follows. Ungated (dv = the sum of d_bias[nbr] over
+//    the row's entries whose other end is in range) the same loop holds
+//    4 entries' row loads in flight per group, one table an entry.
 //
-// db is torch.sum(da) in the wrapper (one reduction in a fixed order).
-// Ungated, the whole backward is one launch of (4) for dv, none when v
-// needs no grad. Bound, as the forward: memory traffic. (3) reads the ids
-// and mask (9 B per edge), the gate, and at most four table rows per live
-// edge (d_bias and v at both ends; each row once: N*H*4 B per table) and
-// writes da (4 B per edge): ~9.5 MB gated at N = 16,384, E = 262,144,
-// H = 32, ~2.8 us at 3.35 TB/s. (4) reads the gather index (12 B per live
-// entry), the gate and da by entry (8 B), the tables d_bias, q, k once,
-// and writes dv, dq, dk once (N*H*4 B each).
+// No atomics and no zero-fill: two launches give the same bits, db
+// included (its partials follow the grid, which follows the card's SM
+// count). Ungated, the whole backward is one launch of (4) for dv, none
+// when v needs no grad.
+//
+// What bounds them on this card. The bytes their functions must move
+// once (ids, the table rows the live edges touch, the outputs; ~6.6 MB for
+// (3) and ~13 MB for (4) gated at N = 16,384, E = 262,144, H = 32, and
+// ~4 MB more that (3) hands (4) through pos and gda) would take 2-5 us at
+// 3.35 TB/s. The time goes to the row gathers, which hit the 50 MB L2:
+// (3) gathers 4 rows an edge and (4) 2 an entry gated, each ~85 MB of L2
+// reads at H = 32 (the ungated pass at H = 64 as much). Beside the
+// gathers, time went to chains of dependent loads in front of them (an
+// edge id per entry, then gate[edge] and da[edge] on separate sectors;
+// mask, ids, rows and scalars per few edges) and to group steps spent on
+// masked slots. The design above cuts the chain to ids, then rows, per
+// batch of 32, reads (4)'s per-entry data as coalesced streams, and sends
+// no masked slot to a group. Timed on an H100 (PERF.md §6), that made (3)
+// faster and (4) gated a little; more entries in flight made the ungated
+// pass faster (4 in its loop) but not the gated one, whose registers then
+// spill or cost resident warps, and more resident warps made none faster.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -327,165 +363,302 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The backward's SDDMM: da[e] for every edge slot (see the header). lpe
-// lanes (a power of two) per edge, 32 / lpe edges per warp step. d_deg and
+// Entries per lane group whose row loads a row pass keeps in flight at
+// once, and the blocks per SM that __launch_bounds__ keeps resident by
+// capping registers (4 blocks of 8 warps leave 64 registers a thread).
+// The gated row pass and the SDDMM run one wave of kRowMinBlocks and
+// kEdgeMinBlocks blocks per SM; the ungated row pass runs uncapped over
+// grid_for's grid. Each value can be set at build time (-D, as
+// cuda_build.build's defines); `chip_smoke.py --backward-variants` times
+// settings against these defaults on an H100 (PERF.md §6).
+#ifndef KMZ_EDGE_MIN_BLOCKS
+#define KMZ_EDGE_MIN_BLOCKS 4
+#endif
+#ifndef KMZ_ROW_UNROLL
+#define KMZ_ROW_UNROLL 2
+#endif
+#ifndef KMZ_ROW_MIN_BLOCKS
+#define KMZ_ROW_MIN_BLOCKS 4
+#endif
+#ifndef KMZ_ROW_UNGATED_UNROLL
+#define KMZ_ROW_UNGATED_UNROLL 4
+#endif
+#ifndef KMZ_ROW_UNGATED_MIN_BLOCKS
+#define KMZ_ROW_UNGATED_MIN_BLOCKS 1
+#endif
+constexpr int kEdgeMinBlocks = KMZ_EDGE_MIN_BLOCKS;  // the SDDMM: one edge per lane group
+constexpr int kRowUnroll = KMZ_ROW_UNROLL;           // gated: two row loads an entry
+constexpr int kRowMinBlocks = KMZ_ROW_MIN_BLOCKS;
+constexpr int kRowUngatedUnroll = KMZ_ROW_UNGATED_UNROLL;  // ungated: one row load an entry
+constexpr int kRowUngatedMinBlocks = KMZ_ROW_UNGATED_MIN_BLOCKS;
+static_assert(kEdgeMinBlocks >= 1 && kRowUnroll >= 1 && kRowMinBlocks >= 1 &&
+                  kRowUngatedUnroll >= 1 && kRowUngatedMinBlocks >= 1,
+              "backward tuning values out of range");
+
+// One edge slot of the SDDMM's batch: its mask and ids (i >= e: masked).
+__device__ __forceinline__ void load_slot(int64_t i, int64_t e, const int32_t* __restrict__ src,
+                                          const int32_t* __restrict__ dst,
+                                          const uint8_t* __restrict__ mask, bool& live,
+                                          int32_t& s, int32_t& d) {
+  live = false;
+  s = d = 0;
+  if (i < e) {
+    live = mask[i] != 0;
+    s = src[i];
+    d = dst[i];
+  }
+}
+
+// The backward's SDDMM (kernel 3 of the header): da for every live edge,
+// into both of its entries of the gather index (gda), into da[E] when da
+// is given (0 on masked slots), and one partial of db per block. d_deg and
 // d_gate may be null (no upstream grad).
 template <int VW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kEdgeMinBlocks)
     fused_sddmm_spmm_kernel_grad_edges(const int32_t* __restrict__ src,
                                        const int32_t* __restrict__ dst,
                                        const uint8_t* __restrict__ mask,
+                                       const int32_t* __restrict__ pos,
                                        const float* __restrict__ v,
                                        const float* __restrict__ d_bias,
                                        const float* __restrict__ d_deg,
                                        const float* __restrict__ d_gate,
                                        const float* __restrict__ gate, int64_t e,
                                        int32_t n, int32_t h, int lpe,
-                                       float* __restrict__ da) {
+                                       float2* __restrict__ gda, float* __restrict__ da,
+                                       float* __restrict__ partials) {
   using V = Vec<VW>;
+  using T = typename V::T;
+  __shared__ int32_t live_src[kWarpsPerBlock][32];
+  __shared__ int32_t live_dst[kWarpsPerBlock][32];
+  __shared__ float live_dot[kWarpsPerBlock][32];
+  __shared__ float warp_sum[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
-  const int per_warp = 32 / lpe;
+  const int warp = threadIdx.x >> 5;
+  const int groups = 32 / lpe;
+  const int g = lane / lpe;
   const int sl = lane & (lpe - 1);
   const int nvec = h / VW;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
-  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-       w * per_warp < e; w += warps) {
-    const int64_t i = w * per_warp + lane / lpe;
-    const bool live = i < e && mask[i];
-    int32_t s = 0, d = 0;
-    bool s_in = false, d_in = false;
-    float dot = 0.f;
+  const int64_t batches = (e + 31) / 32;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  int64_t batch = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  bool next_live;
+  int32_t next_s, next_d;
+  load_slot(batch * 32 + lane, batch < batches ? e : 0, src, dst, mask, next_live, next_s,
+            next_d);
+  float part = 0.f;
+  for (; batch < batches; batch += stride) {
+    const int64_t i = batch * 32 + lane;
+    const bool live = next_live;
+    const int32_t s = next_s, d = next_d;
+    // the next batch's ids go out before this batch's rows are reduced
+    const int64_t after = batch + stride;
+    load_slot(after * 32 + lane, after < batches ? e : 0, src, dst, mask, next_live, next_s,
+              next_d);
+    const bool s_in = s >= 0 && s < n;
+    const bool d_in = d >= 0 && d < n;
+    // the live edge's scalars, in flight with its rows
+    float g_e = 0.f, deg_d = 0.f, deg_s = 0.f, up = 0.f;
+    int32_t p_dst = -1, p_src = -1;
     if (live) {
-      s = src[i];
-      d = dst[i];
-      s_in = s >= 0 && s < n;
-      d_in = d >= 0 && d < n;
-      const auto* vs = reinterpret_cast<const typename V::T*>(
-          v + static_cast<int64_t>(gather_row(s, n)) * h);
-      const auto* vd = reinterpret_cast<const typename V::T*>(
-          v + static_cast<int64_t>(gather_row(d, n)) * h);
-      // the scatter into d (or s) was dropped in the forward when it lies
-      // out of range: no grad flows back through it
-      if (d_in) {
-        const auto* gd = reinterpret_cast<const typename V::T*>(
-            d_bias + static_cast<int64_t>(d) * h);
-        for (int c = sl; c < nvec; c += lpe) dot += V::dot(gd[c], vs[c]);
+      g_e = gate[i];
+      if (d_deg != nullptr) {
+        if (d_in) deg_d = d_deg[d];
+        if (s_in) deg_s = d_deg[s];
       }
-      if (s_in) {
-        const auto* gs = reinterpret_cast<const typename V::T*>(
-            d_bias + static_cast<int64_t>(s) * h);
-        for (int c = sl; c < nvec; c += lpe) dot += V::dot(gs[c], vd[c]);
-      }
+      if (d_gate != nullptr) up = d_gate[i];
+      p_dst = pos[i];
+      p_src = pos[e + i];
     }
-    for (int off = lpe >> 1; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-    if (i < e && sl == 0) {
-      float out = 0.f;
-      if (live) {
-        float dg = dot;
-        if (d_deg != nullptr) {
-          if (d_in) dg += d_deg[d];
-          if (s_in) dg += d_deg[s];
+    // the live edges by rank, through shared memory, to the lane groups
+    const unsigned ballot = __ballot_sync(kFull, live);
+    const int count = __popc(ballot);
+    const int rank = __popc(ballot & ((1u << lane) - 1u));
+    if (live) {
+      live_src[warp][rank] = s;
+      live_dst[warp][rank] = d;
+    }
+    __syncwarp();
+    // one live edge per group a step: its d_bias and v rows at both ends
+    for (int t = 0; t < count; t += groups) {
+      const int r = t + g;
+      const float* vs = v;  // v[sc], read when d is in range (with d_bias[d])
+      const float* vd = v;  // v[dc], read when s is in range (with d_bias[s])
+      const float* bd = nullptr;  // d_bias[d]
+      const float* bs = nullptr;  // d_bias[s]
+      if (r < count) {
+        const int32_t es = live_src[warp][r], ed = live_dst[warp][r];
+        vs = v + static_cast<int64_t>(gather_row(es, n)) * h;
+        vd = v + static_cast<int64_t>(gather_row(ed, n)) * h;
+        if (ed >= 0 && ed < n) bd = d_bias + static_cast<int64_t>(ed) * h;
+        if (es >= 0 && es < n) bs = d_bias + static_cast<int64_t>(es) * h;
+      }
+      float dot = 0.f;
+      for (int c = sl; c < nvec; c += lpe) {
+        T xb = V::zero(), xv = V::zero(), yb = V::zero(), yv = V::zero();
+        if (bd != nullptr) {
+          xb = reinterpret_cast<const T*>(bd)[c];
+          xv = reinterpret_cast<const T*>(vs)[c];
         }
-        if (d_gate != nullptr) dg += d_gate[i];
-        const float g = gate[i];
-        out = dg * (g * (1.f - g));
+        if (bs != nullptr) {
+          yb = reinterpret_cast<const T*>(bs)[c];
+          yv = reinterpret_cast<const T*>(vd)[c];
+        }
+        dot += V::dot(xb, xv);
+        dot += V::dot(yb, yv);
       }
-      da[i] = out;
+      for (int off = lpe >> 1; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+      if (sl == 0 && r < count) live_dot[warp][r] = dot;
     }
+    __syncwarp();
+    float a = 0.f;
+    if (live) {
+      float dg = live_dot[warp][rank];
+      dg += deg_d;
+      dg += deg_s;
+      dg += up;
+      a = dg * (g_e * (1.f - g_e));
+      const float2 entry = make_float2(g_e, a);
+      if (p_dst >= 0) gda[p_dst] = entry;
+      if (p_src >= 0) gda[p_src] = entry;
+    }
+    if (da != nullptr && i < e) da[i] = a;
+    part += a;
+    __syncwarp();  // the next batch reuses this warp's shared rows
+  }
+  // this block's partial of db: lanes by xor shuffles, warps in order
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+  if (lane == 0) warp_sum[warp] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) sum += warp_sum[w];
+    partials[blockIdx.x] = sum;
   }
 }
 
-// The backward's row pass over the gather index: one warp per node row,
-// lane groups as in fused_sddmm_spmm_kernel. dv, dq and dk may each be
-// null (not wanted); dq/dk are read only when gated. Ungated, every entry
-// of the gather index is a live edge with gate 1.
+// The backward's row pass over the gather index (kernel 4 of the header):
+// one warp per node row, lane groups as in fused_sddmm_spmm_kernel. dv, dq
+// and dk may each be null (not wanted); split, gda, q and k are read only
+// gated. Ungated, every entry of the gather index is a live edge with gate
+// 1. db (gated, with the SDDMM's n_partials partials) may be null.
 template <int VW, bool kGated>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kGated ? kRowMinBlocks : kRowUngatedMinBlocks)
     fused_sddmm_spmm_kernel_grad_rows(const int32_t* __restrict__ row_ptr,
                                       const int32_t* __restrict__ nbr,
-                                      const int64_t* __restrict__ eid,
+                                      const int32_t* __restrict__ split,
+                                      const float2* __restrict__ gda,
                                       const float* __restrict__ d_bias,
-                                      const float* __restrict__ gate,
-                                      const float* __restrict__ da,
                                       const float* __restrict__ q,
-                                      const float* __restrict__ k, int64_t e,
-                                      int32_t n, int32_t h, int lpe, float inv_sqrt_h,
-                                      float* __restrict__ dv, float* __restrict__ dq,
-                                      float* __restrict__ dk) {
+                                      const float* __restrict__ k, int32_t n, int32_t h,
+                                      int lpe, float inv_sqrt_h, float* __restrict__ dv,
+                                      float* __restrict__ dq, float* __restrict__ dk,
+                                      const float* __restrict__ partials, int n_partials,
+                                      float* __restrict__ db) {
   using V = Vec<VW>;
+  using T = typename V::T;
+  constexpr int U = kGated ? kRowUnroll : kRowUngatedUnroll;
   const int lane = threadIdx.x & 31;
+  if (kGated && db != nullptr && blockIdx.x == 0 && threadIdx.x < 32) {
+    float sum = 0.f;  // lanes stride the partials, then xor shuffles
+    for (int b = lane; b < n_partials; b += 32) sum += partials[b];
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+    if (lane == 0) *db = sum;
+  }
+  const bool want_v = dv != nullptr;
+  const bool want_q = kGated && dq != nullptr;
+  const bool want_k = kGated && dk != nullptr;
+  if (!want_v && !want_q && !want_k) return;
   const int groups = 32 / lpe;
   const int g = lane / lpe;
   const int sl = lane - g * lpe;
   const int nvec = h / VW;
-  const bool want_v = dv != nullptr;
-  const bool want_qk = kGated && (dq != nullptr || dk != nullptr);
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-       row < n; row += warps) {
-    const int32_t start = row_ptr[row];
-    const int32_t end = row_ptr[row + 1];
+  int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  int32_t next_start = 0, next_end = 0, next_mid = 0;
+  if (row < n) {
+    next_start = row_ptr[row];
+    next_end = row_ptr[row + 1];
+    next_mid = kGated ? split[row] : next_end;
+  }
+  for (; row < n; row += warps) {
+    const int32_t start = next_start, end = next_end, mid = next_mid;
+    if (row + warps < n) {  // the next row's bounds, in flight with this row
+      next_start = row_ptr[row + warps];
+      next_end = row_ptr[row + warps + 1];
+      next_mid = kGated ? split[row + warps] : next_end;
+    }
     for (int c0 = 0; c0 < nvec; c0 += lpe) {
       const int c = c0 + sl;
       const bool active = g < groups && c < nvec;
-      typename V::T acc_v = V::zero(), acc_q = V::zero(), acc_k = V::zero();
+      T acc_v = V::zero(), acc_q = V::zero(), acc_k = V::zero();
       for (int32_t base = start; base < end; base += 32) {
         const int cnt = min(32, end - base);
         int32_t my_id = 0;
-        int my_src_side = 0;
         float my_g = 1.f, my_da = 0.f;
         if (lane < cnt) {
           my_id = nbr[base + lane];
           if (kGated) {
-            const int64_t j = eid[base + lane];
-            my_src_side = j >= e;
-            const int64_t edge = my_src_side ? j - e : j;
-            my_g = gate[edge];
-            my_da = da != nullptr ? da[edge] : 0.f;
+            const float2 entry = gda[base + lane];
+            my_g = entry.x;
+            my_da = entry.y;
           }
         }
-#pragma unroll 2
-        for (int t = 0; t < cnt; t += groups) {
-          const int p = t + g;  // this group's entry in the batch
-          const int from = p < 32 ? p : 31;
-          const int32_t id = __shfl_sync(kFull, my_id, from);
-          const float gg = kGated ? __shfl_sync(kFull, my_g, from) : 1.f;
-          const float dd = kGated ? __shfl_sync(kFull, my_da, from) : 0.f;
-          const int src_side = kGated ? __shfl_sync(kFull, my_src_side, from) : 0;
-          if (active && p < cnt) {
-            if (want_v && id >= 0 && id < n) {
-              V::fma(acc_v, gg, reinterpret_cast<const typename V::T*>(
-                                    d_bias + static_cast<int64_t>(id) * h)[c]);
+        for (int t = 0; t < cnt; t += groups * U) {
+          T xv[U], xo[U];
+          float gg[U], dd[U];
+          bool on_v[U], on_o[U], src_side[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int p = t + u * groups + g;  // this group's entry in the batch
+            const int from = p < 32 ? p : 31;
+            const int32_t id = __shfl_sync(kFull, my_id, from);
+            gg[u] = kGated ? __shfl_sync(kFull, my_g, from) : 1.f;
+            dd[u] = kGated ? __shfl_sync(kFull, my_da, from) : 0.f;
+            const bool ok = active && p < cnt;
+            src_side[u] = kGated && base + p >= mid;
+            on_v[u] = ok && want_v && id >= 0 && id < n;
+            on_o[u] = ok && (src_side[u] ? want_q : want_k);
+            xv[u] = xo[u] = V::zero();
+            if (on_v[u]) {
+              xv[u] = reinterpret_cast<const T*>(d_bias + static_cast<int64_t>(id) * h)[c];
             }
-            if (want_qk) {
-              const int64_t other = static_cast<int64_t>(gather_row(id, n)) * h;
-              if (src_side) {  // this row is the edge's src: dq += da k[dst]
-                V::fma(acc_q, dd, reinterpret_cast<const typename V::T*>(k + other)[c]);
-              } else {  // this row is the edge's dst: dk += da q[src]
-                V::fma(acc_k, dd, reinterpret_cast<const typename V::T*>(q + other)[c]);
+            if (kGated && on_o[u]) {
+              // this row is the edge's src: dq += da k[dst]; its dst: dk += da q[src]
+              const float* table = src_side[u] ? k : q;
+              xo[u] = reinterpret_cast<const T*>(table +
+                                                 static_cast<int64_t>(gather_row(id, n)) * h)[c];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (on_v[u]) V::fma(acc_v, gg[u], xv[u]);
+            if (kGated && on_o[u]) {
+              if (src_side[u]) {
+                V::fma(acc_q, dd[u], xo[u]);
+              } else {
+                V::fma(acc_k, dd[u], xo[u]);
               }
             }
           }
         }
       }
       // groups' partials in group order, into the lanes of group 0
-      typename V::T tv = acc_v, tq = acc_q, tk = acc_k;
+      T tv = acc_v, tq = acc_q, tk = acc_k;
       for (int kk = 1; kk < groups; ++kk) {
         if (want_v) V::add(tv, V::shfl(acc_v, sl + kk * lpe));
-        if (want_qk) {
-          V::add(tq, V::shfl(acc_q, sl + kk * lpe));
-          V::add(tk, V::shfl(acc_k, sl + kk * lpe));
-        }
+        if (want_q) V::add(tq, V::shfl(acc_q, sl + kk * lpe));
+        if (want_k) V::add(tk, V::shfl(acc_k, sl + kk * lpe));
       }
       if (g == 0 && c < nvec) {
-        if (want_v) reinterpret_cast<typename V::T*>(dv + row * h)[c] = tv;
-        if (kGated && dq != nullptr) {
+        if (want_v) reinterpret_cast<T*>(dv + row * h)[c] = tv;
+        if (want_q) {
           V::scale(tq, inv_sqrt_h);
-          reinterpret_cast<typename V::T*>(dq + row * h)[c] = tq;
+          reinterpret_cast<T*>(dq + row * h)[c] = tq;
         }
-        if (kGated && dk != nullptr) {
+        if (want_k) {
           V::scale(tk, inv_sqrt_h);
-          reinterpret_cast<typename V::T*>(dk + row * h)[c] = tk;
+          reinterpret_cast<T*>(dk + row * h)[c] = tk;
         }
       }
     }
@@ -608,94 +781,163 @@ extern "C" int kmamiz_edge_index_keys(const int32_t* src, const int32_t* dst,
 
 namespace {
 
+// stages of kmamiz_fused_sddmm_spmm_backward
+constexpr int kStageEdges = 1;  // the SDDMM of da (gated only)
+constexpr int kStageRows = 2;   // the row pass (and db)
+
+// The backward's operands (see kmamiz_fused_sddmm_spmm_backward).
+struct Backward {
+  const int32_t *src, *dst;
+  const uint8_t* mask;
+  const int32_t *row_ptr, *nbr, *split, *pos;
+  const float *v, *q, *k, *gate, *d_bias, *d_deg, *d_gate;
+  int64_t e;
+  int32_t n, h;
+  float sqrt_h;
+  float *dv, *dq, *dk, *db, *da;
+  float2* gda;
+  float* partials;
+  int32_t partials_cap;
+};
+
+unsigned edges_grid(int64_t e, int32_t partials_cap) {
+  // one wave of resident blocks at most: each warp then strides over
+  // batches, the next one's ids in flight
+  const int64_t batches = (e + 31) / 32;
+  int64_t blocks = (batches + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  int64_t cap = static_cast<int64_t>(sm_count()) * kEdgeMinBlocks;
+  if (cap > partials_cap) cap = partials_cap;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned>(blocks);
+}
+
 template <int VW>
-int launch_grad_edges(const int32_t* src, const int32_t* dst, const uint8_t* mask,
-                      const float* v, const float* d_bias, const float* d_deg,
-                      const float* d_gate, const float* gate, int64_t e, int32_t n,
-                      int32_t h, float* da, cudaStream_t stream) {
-  const int nvec = h / VW;
-  int lpe = 1;  // a power of two for the xor reduction
-  while (lpe < nvec && lpe < 32) lpe <<= 1;
-  const unsigned grid = grid_for((e + 32 / lpe - 1) / (32 / lpe));
-  fused_sddmm_spmm_kernel_grad_edges<VW><<<grid, kThreads, 0, stream>>>(
-      src, dst, mask, v, d_bias, d_deg, d_gate, gate, e, n, h, lpe, da);
+int launch_backward(const Backward& a, bool gated, bool edges, bool rows,
+                    cudaStream_t stream) {
+  const int nvec = a.h / VW;
+  int n_partials = 0;
+  if (edges) {
+    int lpe = 1;  // a power of two for the xor reduction
+    while (lpe < nvec && lpe < 32) lpe <<= 1;
+    const unsigned grid = edges_grid(a.e, a.partials_cap);
+    n_partials = static_cast<int>(grid);
+    fused_sddmm_spmm_kernel_grad_edges<VW><<<grid, kThreads, 0, stream>>>(
+        a.src, a.dst, a.mask, a.pos, a.v, a.d_bias, a.d_deg, a.d_gate, a.gate, a.e, a.n, a.h,
+        lpe, a.gda, a.da, a.partials);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (!rows) return 0;
+  const int lpe = nvec < 32 ? nvec : 32;
+  // only db wanted: one block sums it
+  const bool any_rows = a.dv != nullptr || a.dq != nullptr || a.dk != nullptr;
+  unsigned grid = 1;
+  if (any_rows) {
+    grid = grid_for(a.n);
+    // gated: at most one wave of resident blocks; warps stride over the rows
+    const unsigned wave = sm_count() * kRowMinBlocks;
+    if (gated && grid > wave) grid = wave;
+  }
+  if (gated) {
+    fused_sddmm_spmm_kernel_grad_rows<VW, true><<<grid, kThreads, 0, stream>>>(
+        a.row_ptr, a.nbr, a.split, a.gda, a.d_bias, a.q, a.k, a.n, a.h, lpe, 1.f / a.sqrt_h,
+        a.dv, a.dq, a.dk, a.partials, n_partials, a.db);
+  } else {
+    fused_sddmm_spmm_kernel_grad_rows<VW, false><<<grid, kThreads, 0, stream>>>(
+        a.row_ptr, a.nbr, a.split, a.gda, a.d_bias, a.q, a.k, a.n, a.h, lpe, 1.f / a.sqrt_h,
+        a.dv, a.dq, a.dk, a.partials, n_partials, a.db);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int VW>
-int launch_grad_rows(const int32_t* row_ptr, const int32_t* nbr, const int64_t* eid,
-                     const float* d_bias, const float* gate, const float* da,
-                     const float* q, const float* k, bool gated, int64_t e, int32_t n,
-                     int32_t h, float inv_sqrt_h, float* dv, float* dq, float* dk,
-                     cudaStream_t stream) {
-  const int nvec = h / VW;
-  const int lpe = nvec < 32 ? nvec : 32;
-  const unsigned grid = grid_for(n);
-  if (gated) {
-    fused_sddmm_spmm_kernel_grad_rows<VW, true><<<grid, kThreads, 0, stream>>>(
-        row_ptr, nbr, eid, d_bias, gate, da, q, k, e, n, h, lpe, inv_sqrt_h, dv, dq, dk);
-  } else {
-    fused_sddmm_spmm_kernel_grad_rows<VW, false><<<grid, kThreads, 0, stream>>>(
-        row_ptr, nbr, eid, d_bias, gate, da, q, k, e, n, h, lpe, inv_sqrt_h, dv, dq, dk);
-  }
-  return static_cast<int>(cudaGetLastError());
+const void* backward_kernel(int which, bool gated) {
+  if (which == 0) return reinterpret_cast<const void*>(fused_sddmm_spmm_kernel_grad_edges<VW>);
+  return gated ? reinterpret_cast<const void*>(fused_sddmm_spmm_kernel_grad_rows<VW, true>)
+               : reinterpret_cast<const void*>(fused_sddmm_spmm_kernel_grad_rows<VW, false>);
 }
 
 }  // namespace
 
-// da[E] of the gated backward (kernel 3 of the header). d_deg and d_gate
-// may be null; v, d_bias and gate may not.
-extern "C" int kmamiz_fused_sddmm_spmm_grad_edges(const int32_t* src, const int32_t* dst,
-                                                  const uint8_t* mask, const float* v,
-                                                  const float* d_bias, const float* d_deg,
-                                                  const float* d_gate, const float* gate,
-                                                  int64_t e, int32_t n, int32_t h,
-                                                  float* da, cudaStream_t stream) {
-  if (v == nullptr || d_bias == nullptr || gate == nullptr || da == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The fused kernel's backward in one call (kernels 3 and 4 of the header),
+// on `stream`, without a sync. `stages` selects them: both for a training
+// step's backward; one alone to time or check it. Operands:
+//   edge list src/dst/mask (the SDDMM); the gather index row_ptr[N+1],
+//   nbr[2E] and, gated, split[N] and pos[2E]; the forward's v, q, k
+//   and gate; the upstream grads d_bias (required), d_deg and d_gate
+//   (nullable).
+// Outputs, each nullable (not wanted): dv, dq, dk [N, H] (dq and dk gated
+// only), db (gated, needs both stages in this call), da[E] (the SDDMM).
+// Scratch: gda[2E] (float2: each entry's (g, da), written by the SDDMM,
+// read by the row pass) and partials[partials_cap] (db's block partials).
+extern "C" int kmamiz_fused_sddmm_spmm_backward(
+    const int32_t* src, const int32_t* dst, const uint8_t* mask, const int32_t* row_ptr,
+    const int32_t* nbr, const int32_t* split, const int32_t* pos, const float* v,
+    const float* q, const float* k, const float* gate, const float* d_bias,
+    const float* d_deg, const float* d_gate, int gated, int stages, int64_t e, int32_t n,
+    int32_t h, float sqrt_h, float* dv, float* dq, float* dk, float* db, float* da,
+    float* gda, float* partials, int32_t partials_cap, cudaStream_t stream) {
+  const bool edges = (stages & kStageEdges) != 0;
+  const bool rows = (stages & kStageRows) != 0;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!edges && !rows) return invalid;
+  // an empty edge list (e == 0) gives null pointers for its [E] and [2E]
+  // operands, which no kernel then reads
+  const bool has_edges = e > 0;
+  if (edges && (!gated || v == nullptr || d_bias == nullptr || partials == nullptr ||
+                partials_cap < 1 ||
+                (has_edges && (src == nullptr || dst == nullptr || mask == nullptr ||
+                               pos == nullptr || gate == nullptr || gda == nullptr)))) {
+    return invalid;
   }
-  if (e == 0) return 0;
-  if (h % 4 == 0 && aligned(v, 16) && aligned(d_bias, 16)) {
-    return launch_grad_edges<4>(src, dst, mask, v, d_bias, d_deg, d_gate, gate, e, n, h, da,
-                                stream);
+  if (rows) {
+    if (row_ptr == nullptr || (has_edges && nbr == nullptr)) return invalid;
+    if (dv != nullptr && d_bias == nullptr) return invalid;
+    if (!gated && (dq != nullptr || dk != nullptr || db != nullptr)) return invalid;
+    if (gated && (dv != nullptr || dq != nullptr || dk != nullptr) &&
+        (split == nullptr || (has_edges && gda == nullptr))) {
+      return invalid;
+    }
+    if ((dq != nullptr && k == nullptr) || (dk != nullptr && q == nullptr)) return invalid;
+    if (db != nullptr && !edges) return invalid;  // the partials of this call's SDDMM
+  } else if (db != nullptr || dv != nullptr || dq != nullptr || dk != nullptr) {
+    return invalid;
   }
-  if (h % 2 == 0 && aligned(v, 8) && aligned(d_bias, 8)) {
-    return launch_grad_edges<2>(src, dst, mask, v, d_bias, d_deg, d_gate, gate, e, n, h, da,
-                                stream);
-  }
-  return launch_grad_edges<1>(src, dst, mask, v, d_bias, d_deg, d_gate, gate, e, n, h, da,
-                              stream);
+  const Backward a{src,    dst,   mask,   row_ptr, nbr, split, pos,
+                   v,      q,     k,      gate,    d_bias, d_deg, d_gate,
+                   e,      n,     h,      sqrt_h,  dv,  dq,    dk,
+                   db,     da,    reinterpret_cast<float2*>(gda), partials, partials_cap};
+  // vector width: whole rows of 16 or 8 bytes when H and the tables allow
+  const bool v4 = h % 4 == 0 && aligned(v, 16) && aligned(d_bias, 16) && aligned(q, 16) &&
+                  aligned(k, 16) && aligned(dv, 16) && aligned(dq, 16) && aligned(dk, 16);
+  const bool v2 = h % 2 == 0 && aligned(v, 8) && aligned(d_bias, 8) && aligned(q, 8) &&
+                  aligned(k, 8) && aligned(dv, 8) && aligned(dq, 8) && aligned(dk, 8);
+  if (!aligned(gda, 8)) return invalid;
+  if (v4) return launch_backward<4>(a, gated != 0, edges, rows, stream);
+  if (v2) return launch_backward<2>(a, gated != 0, edges, rows, stream);
+  return launch_backward<1>(a, gated != 0, edges, rows, stream);
 }
 
-// dv, dq, dk [N, H] of the backward (kernel 4 of the header) over the
-// gather index row_ptr/nbr/eid. Gated: gate and da are read, and dq/dk
-// are written where given (q and k must be given with them). Any of dv,
-// dq, dk may be null (not wanted); d_bias must be given with dv.
-extern "C" int kmamiz_fused_sddmm_spmm_grad_rows(const int32_t* row_ptr, const int32_t* nbr,
-                                                 const int64_t* eid, const float* d_bias,
-                                                 const float* gate, const float* da,
-                                                 const float* q, const float* k, int gated,
-                                                 int64_t e, int32_t n, int32_t h,
-                                                 float sqrt_h, float* dv, float* dq, float* dk,
-                                                 cudaStream_t stream) {
-  if (dv != nullptr && d_bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (gated && (gate == nullptr || ((dq != nullptr || dk != nullptr) &&
-                                    (da == nullptr || q == nullptr || k == nullptr)))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float inv = 1.f / sqrt_h;
-  const bool v4 = h % 4 == 0 && aligned(d_bias, 16) && aligned(q, 16) && aligned(k, 16) &&
-                  aligned(dv, 16) && aligned(dq, 16) && aligned(dk, 16);
-  const bool v2 = h % 2 == 0 && aligned(d_bias, 8) && aligned(q, 8) && aligned(k, 8) &&
-                  aligned(dv, 8) && aligned(dq, 8) && aligned(dk, 8);
-  if (v4) {
-    return launch_grad_rows<4>(row_ptr, nbr, eid, d_bias, gate, da, q, k, gated != 0, e, n, h,
-                               inv, dv, dq, dk, stream);
-  }
-  if (v2) {
-    return launch_grad_rows<2>(row_ptr, nbr, eid, d_bias, gate, da, q, k, gated != 0, e, n, h,
-                               inv, dv, dq, dk, stream);
-  }
-  return launch_grad_rows<1>(row_ptr, nbr, eid, d_bias, gate, da, q, k, gated != 0, e, n, h,
-                             inv, dv, dq, dk, stream);
+// What the card makes of a backward kernel (which: 0 the SDDMM, 1 the row
+// pass; vw: 1, 2 or 4 floats a vector load; gated): out[0] registers a
+// thread, out[1] static shared memory a block (bytes), out[2] local memory
+// a thread (bytes: spills), out[3] blocks resident on one SM, out[4]
+// threads a block.
+extern "C" int kmamiz_fused_sddmm_spmm_backward_info(int which, int vw, int gated, int* out) {
+  const void* fn = vw == 4   ? backward_kernel<4>(which, gated != 0)
+                   : vw == 2 ? backward_kernel<2>(which, gated != 0)
+                             : backward_kernel<1>(which, gated != 0);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = blocks;
+  out[4] = kThreads;
+  return 0;
 }

@@ -19,9 +19,9 @@ edge to N-1; real snapshots carry no such ids.)
 the kernel (or raise), CPU tensors take `fused_plain`. There is no switch
 and no fallback between the two. When an input wants a grad, both
 routes run inside one torch.autograd.Function, whose backward is the
-kernel's backward on the card (`fused_backward`: the SDDMM of the gate's
-grad and a row pass over the edge list's gather index, in
-csrc/fused_sddmm_spmm.cu) and its plain versions on the CPU
+kernel's backward on the card (`fused_backward`: one C call that launches
+the SDDMM of the gate's grad and a row pass over the edge list's gather
+index, in csrc/fused_sddmm_spmm.cu) and its plain versions on the CPU
 (`fused_backward_plain` composes them). The JAX package has no backward
 kernel: JAX differentiates its XLA formulation, whose VJP these equal.
 
@@ -51,12 +51,19 @@ class EdgeIndex(NamedTuple):
     edge with src == n (j = E + e), in order of j. `gather` is the index
     the backward reads (rows by the clamped gather id of every live side;
     equal to this one when every live id lies in [0, N)), or None when the
-    index was built for forwards only."""
+    index was built for forwards only. The gather index also holds `pos`
+    and `split`, what the backward's kernels read in place of eid."""
 
     row_ptr: torch.Tensor  # int32[N+1]: row n is entries row_ptr[n]:row_ptr[n+1]
     nbr: torch.Tensor  # int32[2E]: the other end (the kernel clamps its gather)
     eid: torch.Tensor  # int64[2E]: j, the edge id with its direction
     gather: Optional["EdgeIndex"] = None
+    # gather index only: int32[2E], the entry that holds slot j (the inverse
+    # of the sort), -1 where the slot is parked past row_ptr[N]
+    pos: Optional[torch.Tensor] = None
+    # gather index only: int32[N], the first src-side entry (j >= E) of each
+    # row; the row's dst-side entries, j < E, come before it
+    split: Optional[torch.Tensor] = None
 
 
 def edge_keys_plain(
@@ -94,7 +101,8 @@ def edge_index(
     csrc/fused_sddmm_spmm.cu on the card (edge_keys_plain on the CPU), then
     one stable sort and one searchsorted: no host sync. for_backward=True
     also builds the gather index the backward reads (`EdgeIndex.gather`):
-    one more keys launch, sort and searchsorted. Owners of an edge list
+    one more keys launch, sort and searchsorted, then its `pos` (one
+    scatter) and `split` (one more searchsorted). Owners of an edge list
     that stays fixed build the index once and pass it to every call."""
     e = src_ep.shape[0]
     if src_ep.shape != (e,) or dst_ep.shape != (e,) or edge_mask.shape != (e,):
@@ -118,34 +126,62 @@ def edge_index(
 edge_index.builds = 0
 
 
+def edge_keys(
+    src_ep: torch.Tensor,
+    dst_ep: torch.Tensor,
+    edge_mask: torch.Tensor,
+    n: int,
+    gather: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """edge_index's sort keys and opposite ends (see edge_keys_plain, its
+    plain version, which CPU tensors take). Card tensors: one launch of
+    csrc/fused_sddmm_spmm.cu's keys kernel, int16 keys when n < 2^15 (the
+    radix sort then runs two 8-bit passes instead of four), else int32."""
+    device = src_ep.device
+    if device.type != "cuda":
+        return edge_keys_plain(src_ep, dst_ep, edge_mask, n, gather)
+    e = src_ep.shape[0]
+    key_dtype = torch.int16 if n < 2**15 else torch.int32
+    keys = torch.empty(2 * e, dtype=key_dtype, device=device)
+    other = torch.empty(2 * e, dtype=torch.int32, device=device)
+    args = (
+        src_ep.contiguous().data_ptr(),
+        dst_ep.contiguous().data_ptr(),
+        edge_mask.contiguous().data_ptr(),
+        e,
+        n,
+        int(gather),
+        keys.element_size(),
+        keys.data_ptr(),
+        other.data_ptr(),
+    )
+    _launch("kmamiz_edge_index_keys", args, device)
+    return keys, other
+
+
 def _csr(src_ep, dst_ep, edge_mask, n: int, gather: bool) -> EdgeIndex:
     e = src_ep.shape[0]
     device = src_ep.device
-    if device.type == "cuda":
-        # int16 keys when n fits: the radix sort then runs two 8-bit passes
-        # instead of four
-        key_dtype = torch.int16 if n < 2**15 else torch.int32
-        keys = torch.empty(2 * e, dtype=key_dtype, device=device)
-        other = torch.empty(2 * e, dtype=torch.int32, device=device)
-        args = (
-            src_ep.contiguous().data_ptr(),
-            dst_ep.contiguous().data_ptr(),
-            edge_mask.contiguous().data_ptr(),
-            e,
-            n,
-            int(gather),
-            keys.element_size(),
-            keys.data_ptr(),
-            other.data_ptr(),
-        )
-        _launch("kmamiz_edge_index_keys", args, device)
-    else:
-        keys, other = edge_keys_plain(src_ep, dst_ep, edge_mask, n, gather)
+    keys, other = edge_keys(src_ep, dst_ep, edge_mask, n, gather)
     sorted_keys, order = torch.sort(keys, stable=True)
     row_ptr = torch.searchsorted(
         sorted_keys, torch.arange(n + 1, dtype=keys.dtype, device=device), out_int32=True
     )
-    return EdgeIndex(row_ptr, other[order], order)
+    index = EdgeIndex(row_ptr, other[order], order)
+    if not gather:
+        return index
+    # pos: entry p holds slot order[p]; parked entries give -1
+    entries = torch.arange(2 * e, dtype=torch.int32, device=device)
+    pos = torch.empty_like(entries).scatter_(
+        0, order, torch.where(entries < row_ptr[-1], entries, -1)
+    )
+    # split: with side = (j >= E), 2 * key + side is sorted too (the sort is
+    # stable in j), so row r's src side starts at the first 2r + 1
+    keys2 = sorted_keys.to(torch.int32) * 2 + (order >= e)
+    split = torch.searchsorted(
+        keys2, torch.arange(1, 2 * n, 2, dtype=torch.int32, device=device), out_int32=True
+    )
+    return index._replace(pos=pos, split=split)
 
 
 def fused_plain(
@@ -257,6 +293,68 @@ def grad_rows_plain(
     return dv, dq, dk
 
 
+def entry_values_plain(gather: EdgeIndex, gate: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """gda[2E, 2]: each entry of the gather index with its edge's (gate,
+    da), in entry order, in plain PyTorch (what the backward's SDDMM
+    writes through `gather.pos`; parked entries, past row_ptr[N], hold 0
+    here and are not written by the kernel)."""
+    e = gate.shape[0]
+    values = torch.stack([gate, da], dim=1).repeat(2, 1)  # slot j: edge j mod E
+    # parked slots land on a spill row past the 2E entries
+    to = torch.where(gather.pos >= 0, gather.pos, 2 * e).long()
+    out = torch.zeros((2 * e + 1, 2), dtype=gate.dtype, device=gate.device)
+    out.index_put_((to,), values)
+    return out[: 2 * e]
+
+
+def grad_rows_index_plain(
+    n: int,
+    gather: EdgeIndex,
+    d_bias: Optional[torch.Tensor],
+    gda: Optional[torch.Tensor] = None,
+    q: Optional[torch.Tensor] = None,
+    k: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dv, dq, dk) [N, H] in plain PyTorch from what the backward's row
+    pass reads: the gather index (row_ptr, nbr, split) and the entries'
+    (g, da) in entry order (gda, as entry_values_plain gives it). Per
+    entry of row r with other end o (clamped to oc):
+
+        dv[r] += g d_bias[o]   if o lies in [0, N)
+        dq[r] += da k[oc]      on the src side (the entry at or past split[r])
+        dk[r] += da q[oc]      on the dst side
+
+    and dq, dk times 1/sqrt(H) after the sums, as the kernel scales them.
+    dv is None when d_bias is; dq and dk unless q, k and gda are given.
+    gda None is the ungated gate, 1 for every live entry."""
+    entries = gather.nbr.shape[0]
+    device = gather.nbr.device
+    p = torch.arange(entries, device=device)
+    # each entry's row; parked entries (past row_ptr[N]) land on row n
+    row = torch.searchsorted(gather.row_ptr[1:], p, right=True)
+    other = gather.nbr.long()
+    oc = other.clamp(0, n - 1)
+    dv = dq = dk = None
+
+    def row_sums(rows, terms):
+        out = torch.zeros((n + 1, terms.shape[1]), dtype=terms.dtype, device=device)
+        return out.index_add_(0, rows, terms)[:n]
+
+    if d_bias is not None:
+        g = torch.ones(entries, dtype=d_bias.dtype, device=device) if gda is None else gda[:, 0]
+        g = g * ((other >= 0) & (other < n)).to(d_bias.dtype)
+        dv = row_sums(row, g[:, None] * d_bias[oc])
+    if q is not None and gda is not None:
+        last = torch.full((1,), entries, dtype=torch.int32, device=device)
+        bounds = torch.cat([gather.split, last])
+        src_side = p >= bounds[row]
+        da = gda[:, 1, None]
+        inv = 1.0 / math.sqrt(q.shape[1])
+        dq = row_sums(torch.where(src_side, row, n), da * k[oc]) * inv
+        dk = row_sums(torch.where(src_side, n, row), da * q[oc]) * inv
+    return dv, dq, dk
+
+
 def fused_backward_plain(
     v: torch.Tensor,
     src_ep: torch.Tensor,
@@ -339,6 +437,34 @@ def _check_index(index: EdgeIndex, n: int, e: int, device) -> None:
             raise TypeError("the edge index is int32 row_ptr and nbr, int64 eid")
         if row_ptr.device != device or nbr.device != device or eid.device != device:
             raise ValueError("the edge index lies on another device")
+    gather = index.gather
+    if gather is None:
+        return
+    pos, split = gather.pos, gather.split
+    if pos is None or split is None:
+        raise ValueError(
+            "the gather index has no pos/split: build it with edge_index(..., for_backward=True)"
+        )
+    if pos.shape != (2 * e,) or split.shape != (n,):
+        raise ValueError(
+            f"gather index pos {tuple(pos.shape)}, split {tuple(split.shape)} for N={n}, E={e}"
+        )
+    if pos.dtype != torch.int32 or split.dtype != torch.int32:
+        raise TypeError("the gather index's pos and split are int32")
+    if pos.device != device or split.device != device:
+        raise ValueError("the edge index lies on another device")
+
+
+def _contiguous(index: Optional[EdgeIndex]) -> Optional[EdgeIndex]:
+    """The index with every tensor (the gather part's included) contiguous."""
+    if index is None:
+        return None
+    return EdgeIndex(
+        *(
+            _contiguous(t) if isinstance(t, EdgeIndex) else (None if t is None else t.contiguous())
+            for t in index
+        )
+    )
 
 
 #: argtypes of the C entries of csrc/fused_sddmm_spmm.cu
@@ -376,31 +502,23 @@ _ARGTYPES = {
         ctypes.c_void_p,  # other
         ctypes.c_void_p,  # stream
     ],
-    "kmamiz_fused_sddmm_spmm_grad_edges": [
+    "kmamiz_fused_sddmm_spmm_backward": [
         ctypes.c_void_p,  # src
         ctypes.c_void_p,  # dst
         ctypes.c_void_p,  # mask
+        ctypes.c_void_p,  # row_ptr (gather index)
+        ctypes.c_void_p,  # nbr
+        ctypes.c_void_p,  # split
+        ctypes.c_void_p,  # pos
         ctypes.c_void_p,  # v
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k
+        ctypes.c_void_p,  # gate
         ctypes.c_void_p,  # d_bias
         ctypes.c_void_p,  # d_deg (nullable)
         ctypes.c_void_p,  # d_gate (nullable)
-        ctypes.c_void_p,  # gate
-        ctypes.c_int64,  # e
-        ctypes.c_int32,  # n
-        ctypes.c_int32,  # h
-        ctypes.c_void_p,  # da
-        ctypes.c_void_p,  # stream
-    ],
-    "kmamiz_fused_sddmm_spmm_grad_rows": [
-        ctypes.c_void_p,  # row_ptr (gather index)
-        ctypes.c_void_p,  # nbr
-        ctypes.c_void_p,  # eid (int64)
-        ctypes.c_void_p,  # d_bias
-        ctypes.c_void_p,  # gate
-        ctypes.c_void_p,  # da
-        ctypes.c_void_p,  # q
-        ctypes.c_void_p,  # k
         ctypes.c_int,  # gated
+        ctypes.c_int,  # stages (_EDGES | _ROWS)
         ctypes.c_int64,  # e
         ctypes.c_int32,  # n
         ctypes.c_int32,  # h
@@ -408,7 +526,18 @@ _ARGTYPES = {
         ctypes.c_void_p,  # dv (nullable)
         ctypes.c_void_p,  # dq (nullable)
         ctypes.c_void_p,  # dk (nullable)
+        ctypes.c_void_p,  # db (nullable)
+        ctypes.c_void_p,  # da (nullable)
+        ctypes.c_void_p,  # gda: 2E float2 scratch
+        ctypes.c_void_p,  # partials: db's block partials
+        ctypes.c_int32,  # partials_cap
         ctypes.c_void_p,  # stream
+    ],
+    "kmamiz_fused_sddmm_spmm_backward_info": [
+        ctypes.c_int,  # which: 0 the SDDMM, 1 the row pass
+        ctypes.c_int,  # vw
+        ctypes.c_int,  # gated
+        ctypes.c_void_p,  # out: int32[5]
     ],
 }
 _entries: dict = {}
@@ -470,34 +599,89 @@ def _forward_kernel(v, src_ep, dst_ep, edge_mask, q, k, b_edge, want_gate, index
     return bias, deg, gate
 
 
-def fused_sddmm_spmm_grad_edges(
-    v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg=None, d_gate=None
-) -> torch.Tensor:
-    """da[E] of the gated backward (see grad_edges_plain, its plain
-    version, which CPU tensors take). Card tensors: one launch of the
-    backward's SDDMM (csrc/fused_sddmm_spmm.cu, kernel 3)."""
-    if not v.is_cuda:
-        return grad_edges_plain(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
-    n, h = v.shape
-    e = src_ep.shape[0]
-    da = torch.empty(e, dtype=torch.float32, device=v.device)
+#: stages of the backward's C entry
+_EDGES = 1  # the SDDMM of da (gated only)
+_ROWS = 2  # the row pass, and db
+#: room for the SDDMM's per-block partials of db (the kernel caps its grid
+#: to it; the card's SM count times the resident blocks is far below)
+_PARTIALS = 2048
+
+
+def _gather_part(index: Optional[EdgeIndex]) -> EdgeIndex:
+    if index is None or index.gather is None:
+        raise ValueError(
+            "the fused kernel's backward reads the gather index: build the "
+            "edge index with edge_index(..., for_backward=True)"
+        )
+    return index.gather
+
+
+def _backward_call(
+    stages, gated, device, v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate, q, k,
+    gather, n, h, dv=None, dq=None, dk=None, db=None, da=None, gda=None, partials=None,
+) -> None:
+    """One call of kmamiz_fused_sddmm_spmm_backward: the inputs are
+    contiguous card tensors or None, the outputs and scratch (dv ...
+    partials) raw device pointers or None (not wanted)."""
     args = (
-        src_ep.data_ptr(),
-        dst_ep.data_ptr(),
-        edge_mask.data_ptr(),
-        v.data_ptr(),
-        d_bias.data_ptr(),
+        _ptr(src_ep),
+        _ptr(dst_ep),
+        _ptr(edge_mask),
+        gather.row_ptr.data_ptr(),
+        gather.nbr.data_ptr(),
+        gather.split.data_ptr(),
+        gather.pos.data_ptr(),
+        _ptr(v),
+        _ptr(q),
+        _ptr(k),
+        _ptr(gate),
+        _ptr(d_bias),
         _ptr(d_deg),
         _ptr(d_gate),
-        gate.data_ptr(),
-        e,
+        int(gated),
+        stages,
+        gather.nbr.shape[0] // 2,
         n,
         h,
-        da.data_ptr(),
+        math.sqrt(h),
+        dv,
+        dq,
+        dk,
+        db,
+        da,
+        gda,
+        partials,
+        _PARTIALS,
     )
-    _launch("kmamiz_fused_sddmm_spmm_grad_edges", args, v.device)
+    _launch("kmamiz_fused_sddmm_spmm_backward", args, device)
+
+
+def fused_sddmm_spmm_grad_edges(
+    v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg=None, d_gate=None,
+    index: Optional[EdgeIndex] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's SDDMM alone: (da[E], gda[2E, 2]), da as
+    grad_edges_plain gives it and each gather-index entry's (gate, da) in
+    entry order, as entry_values_plain gives it (the plain versions, which
+    CPU tensors take). Card tensors: one launch (csrc/fused_sddmm_spmm.cu,
+    kernel 3), which leaves gda's parked entries, past the gather index's
+    row_ptr[N], unwritten. fused_backward runs it and the row pass in one
+    call; this entry times and checks it alone."""
+    gather = _gather_part(index)
+    if not v.is_cuda:
+        da = grad_edges_plain(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
+        return da, entry_values_plain(gather, gate, da)
+    n, h = v.shape
+    e = src_ep.shape[0]
+    # one allocation: gda [2E, 2], da [E], the partials of db
+    buf = torch.empty(5 * e + _PARTIALS, dtype=torch.float32, device=v.device)
+    base = buf.data_ptr()
+    _backward_call(
+        _EDGES, True, v.device, v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate,
+        None, None, gather, n, h, da=base + 16 * e, gda=base, partials=base + 20 * e,
+    )
     fused_sddmm_spmm_grad_edges.launches += 1
-    return da
+    return buf[4 * e : 5 * e], buf[: 4 * e].view(2 * e, 2)
 
 
 #: launches of the backward's SDDMM kernel in this process
@@ -506,64 +690,64 @@ fused_sddmm_spmm_grad_edges.launches = 0
 
 def fused_sddmm_spmm_grad_rows(
     n: int,
-    src_ep,
-    dst_ep,
-    edge_mask,
-    gate,
     d_bias,
-    da=None,
+    gda=None,
     q=None,
     k=None,
     index: Optional[EdgeIndex] = None,
 ):
-    """(dv, dq, dk) [N, H] of the backward (see grad_rows_plain, its plain
-    version, which CPU tensors take): dv when d_bias is given, dq and dk
-    when q, k and da are. Card tensors: one launch of the backward's row
-    pass over index.gather (csrc/fused_sddmm_spmm.cu, kernel 4); the gate
-    is read only gated (None will do ungated)."""
+    """The backward's row pass alone: (dv, dq, dk) [N, H] over
+    index.gather, dv when d_bias is given, dq and dk (gated) when q, k and
+    the entries' (gate, da), gda, are (see grad_rows_index_plain, its plain
+    version, which CPU tensors take). Card tensors: one launch
+    (csrc/fused_sddmm_spmm.cu, kernel 4). fused_backward runs it after the
+    SDDMM in one call; this entry times and checks it alone."""
+    gather = _gather_part(index)
     ref = d_bias if d_bias is not None else q
     if not ref.is_cuda:
-        return grad_rows_plain(n, src_ep, dst_ep, edge_mask, gate, d_bias, da, q, k)
-    if index is None or index.gather is None:
-        raise ValueError(
-            "the fused kernel's backward reads the gather index: build the "
-            "edge index with edge_index(..., for_backward=True)"
-        )
+        return grad_rows_index_plain(n, gather, d_bias, gda, q, k)
     h = ref.shape[1]
-    e = src_ep.shape[0]
     gated = q is not None
-    want_qk = gated and da is not None
-
-    def out(wanted):
-        return torch.empty((n, h), dtype=torch.float32, device=ref.device) if wanted else None
-
-    dv, dq, dk = out(d_bias is not None), out(want_qk), out(want_qk)
-    gather = index.gather
-    args = (
-        gather.row_ptr.data_ptr(),
-        gather.nbr.data_ptr(),
-        gather.eid.data_ptr(),
-        _ptr(d_bias),
-        _ptr(gate if gated else None),
-        _ptr(da),
-        _ptr(q),
-        _ptr(k),
-        int(gated),
-        e,
-        n,
-        h,
-        math.sqrt(h),
-        _ptr(dv),
-        _ptr(dq),
-        _ptr(dk),
+    want_qk = gated and gda is not None
+    # dv alone: an [N, H] tensor, no view of it to build on the host
+    out = torch.empty((3, n, h) if want_qk else (n, h), dtype=torch.float32, device=ref.device)
+    base, step = out.data_ptr(), 4 * n * h
+    _backward_call(
+        _ROWS, gated, ref.device, None, None, None, None, None, d_bias, None, None,
+        q if want_qk else None, k if want_qk else None, gather, n, h,
+        dv=base if d_bias is not None else None,
+        dq=base + step if want_qk else None,
+        dk=base + 2 * step if want_qk else None,
+        gda=None if gda is None else gda.data_ptr(),
     )
-    _launch("kmamiz_fused_sddmm_spmm_grad_rows", args, ref.device)
     fused_sddmm_spmm_grad_rows.launches += 1
-    return dv, dq, dk
+    if not want_qk:
+        return out if d_bias is not None else None, None, None
+    return out[0] if d_bias is not None else None, out[1], out[2]
 
 
 #: launches of the backward's row-pass kernel in this process
 fused_sddmm_spmm_grad_rows.launches = 0
+
+
+def backward_info(which: str, vw: int, gated: bool) -> dict:
+    """What the current card makes of a backward kernel ("edges": the
+    SDDMM, "rows": the row pass) at vector width vw (1, 2 or 4 floats):
+    registers a thread, static shared memory a block, local (spill) bytes a
+    thread, and resident warps an SM. Builds the kernel when it is not."""
+    out = (ctypes.c_int * 5)()
+    err = _kernel("kmamiz_fused_sddmm_spmm_backward_info")(
+        0 if which == "edges" else 1, vw, int(gated), ctypes.addressof(out)
+    )
+    if err != 0:
+        raise RuntimeError(f"kmamiz_fused_sddmm_spmm_backward_info failed: cudaError {err}")
+    regs, smem, local, blocks, threads = out
+    return {
+        "registers": regs,
+        "shared_bytes": smem,
+        "local_bytes": local,
+        "resident_warps_per_sm": blocks * threads // 32,
+    }
 
 
 def fused_backward(
@@ -573,33 +757,79 @@ def fused_backward(
 ):
     """(dv, dq, dk, db) of the fused forward for the upstream grads, as
     fused_backward_plain computes them; `needs` says which of (v, q, k,
-    b_edge) want a grad (the others come back None, uncomputed). The SDDMM
-    of da runs when q, k or b_edge want a grad, then one row pass gives
-    dv, dq and dk; db is torch.sum(da), one reduction in a fixed order.
-    On the card that is two launches gated and one ungated (none when v
-    wants no grad), over index.gather, which edge_index(...,
-    for_backward=True) builds; CPU tensors take the plain versions."""
-    n = v.shape[0]
+    b_edge) want a grad (the others come back None, uncomputed). On the
+    card: one C call over index.gather, which edge_index(...,
+    for_backward=True) builds, launching (gated) the SDDMM of da, which
+    writes each entry's (gate, da) in entry order, then the row pass for
+    dv, dq and dk, which also sums db from the SDDMM's block partials.
+    That is two launches gated and one ungated (none when nothing wants a
+    grad), into one allocation: dv, dq, dk as views of one [3, N, H]
+    tensor (one [N, H] tensor ungated), the entries' (gate, da), db's
+    partials and db. No host sync. Gated, the SDDMM runs even when only v wants a grad
+    (no caller of the port asks for that): only it writes the entries'
+    gate in entry order, which the row pass reads. CPU tensors take the
+    plain versions."""
+    n, h = v.shape
     gated = q is not None
     need_v, need_q, need_k, need_b = needs
     if not gated:
         need_q = need_k = need_b = False
-    if d_bias is None and (need_v or gated):
+    if not (need_v or need_q or need_k or need_b):
+        return None, None, None, None
+    if d_bias is None:
         d_bias = torch.zeros_like(v)
-    d_bias, d_deg, d_gate = (None if t is None else t.contiguous() for t in (d_bias, d_deg, d_gate))
-    da = None
-    if need_q or need_k or need_b:
-        da = fused_sddmm_spmm_grad_edges(v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate)
-    dv = dq = dk = None
-    if need_v or need_q or need_k:
-        dv, dq, dk = fused_sddmm_spmm_grad_rows(
-            n, src_ep, dst_ep, edge_mask, gate,
-            d_bias if need_v else None,
-            da if (need_q or need_k) else None,
-            q, k, index,
+    if not v.is_cuda:
+        dv, dq, dk, db = fused_backward_plain(
+            v, src_ep, dst_ep, edge_mask, gate, d_bias, d_deg, d_gate, q, k
         )
-    db = torch.sum(da) if need_b else None
-    return dv, dq if need_q else None, dk if need_k else None, db
+        return (
+            dv if need_v else None, dq if need_q else None, dk if need_k else None,
+            db if need_b else None,
+        )
+    gather = _gather_part(index)
+    d_bias, d_deg, d_gate = (None if t is None else t.contiguous() for t in (d_bias, d_deg, d_gate))
+    e = src_ep.shape[0]
+    # gated, the SDDMM always runs: it also hands the row pass each
+    # entry's gate, in entry order
+    edges = gated
+    slots = 3 if gated else 1
+    grads = slots * n * h
+    # past the grads, from a multiple of 4 floats (8-byte float2 access):
+    # the entries' (gate, da) [2E, 2], the partials, db
+    gda = (grads + 3) // 4 * 4
+    partials = gda + 4 * e
+    db = partials + _PARTIALS
+    # ungated: dv alone, an [N, H] tensor (no view of it to build on the host)
+    buf = torch.empty(db + 1 if edges else (n, h), dtype=torch.float32, device=v.device)
+    base = buf.data_ptr()
+    _backward_call(
+        (_EDGES if edges else 0) | _ROWS, gated, v.device, v, src_ep, dst_ep, edge_mask, gate,
+        d_bias, d_deg, d_gate, q, k, gather, n, h,
+        dv=base if need_v else None,
+        dq=base + 4 * n * h if need_q else None,
+        dk=base + 8 * n * h if need_k else None,
+        db=base + 4 * db if need_b else None,
+        gda=base + 4 * gda if edges else None,
+        partials=base + 4 * partials if edges else None,
+    )
+    fused_backward.launches += 1
+    if edges:
+        fused_sddmm_spmm_grad_edges.launches += 1
+    fused_sddmm_spmm_grad_rows.launches += 1
+    if not gated:
+        return buf, None, None, None
+    out = buf[:grads].view(slots, n, h)
+    return (
+        out[0] if need_v else None,
+        out[1] if need_q else None,
+        out[2] if need_k else None,
+        buf[db : db + 1] if need_b else None,
+    )
+
+
+#: C calls of the whole backward in this process (each launches the SDDMM,
+#: gated, and the row pass, and counts them on their wrappers' counters)
+fused_backward.launches = 0
 
 
 class _Fused(torch.autograd.Function):
@@ -691,10 +921,7 @@ def fused_sddmm_spmm(
                 "fused_sddmm_spmm: an input wants a grad and the given edge index "
                 "has no gather part; build it with edge_index(..., for_backward=True)"
             )
-        index = EdgeIndex(
-            *(t.contiguous() for t in index[:3]),
-            None if index.gather is None else EdgeIndex(*(t.contiguous() for t in index.gather[:3])),
-        )
+        index = _contiguous(index)
         v, src_ep, dst_ep, edge_mask = (t.contiguous() for t in (v, src_ep, dst_ep, edge_mask))
         if q is not None:
             q, k, b_edge = q.contiguous(), k.contiguous(), b_edge.contiguous()

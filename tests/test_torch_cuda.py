@@ -250,6 +250,10 @@ def test_edge_index_on_the_card_matches_the_cpu(card, n):
     for part_got, part_want in ((got, want), (got.gather, want.gather)):
         for a, b in zip(part_got[:3], part_want[:3]):
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    # the gather part's entry-ordered fields
+    for name in ("pos", "split"):
+        a, b = getattr(got.gather, name), getattr(want.gather, name)
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a.cpu(), b), name
 
 
 def _backward_case(card, gated, n, e, h, seed):
@@ -269,28 +273,51 @@ def _backward_case(card, gated, n, e, h, seed):
     return leaves, ids, index, ups
 
 
-def _kernel_grads(leaves, ids, index, ups, gated):
+def _kernel_grads(leaves, ids, index, ups, gated, calls=None):
+    """The grads through the autograd Function; `calls`, when given, is
+    emptied between the forward and the backward."""
     v = leaves[0]
     if gated:
         q, k, b = leaves[1:]
         outs = sparse.fused_gated_bias(q, k, v, b, *ids, index=index)
-        return torch.autograd.grad(outs, (v, q, k, b), ups)
-    agg, _deg = sparse.fused_neighbor_sums(v, *ids, index=index)
-    return torch.autograd.grad(agg, (v,), ups[0])
+    else:
+        outs = sparse.fused_neighbor_sums(v, *ids, index=index)[:1]
+    if calls is not None:
+        calls.clear()
+    return torch.autograd.grad(outs, leaves, ups if gated else ups[0])
+
+
+def _count_ctypes_calls(monkeypatch):
+    """A list that grows by one at each C call of a kernel library."""
+    from kmamiz_tpu_torch.ops import cuda_build
+
+    calls = []
+    launch = cuda_build.launch
+    monkeypatch.setattr(cuda_build, "launch", lambda *a: calls.append(a[0]) or launch(*a))
+    return calls
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gated", [False, True])
-@pytest.mark.parametrize("n,e,h", [(1, 1, 1), (300, 5000, 18), (2048, 40_000, 32), (4096, 65_536, 64)])
-def test_backward_kernels_match_plain_on_card(card, gated, n, e, h):
+@pytest.mark.parametrize(
+    "n,e,h",
+    # H = 5: scalar loads; H = 132: more columns than a warp's lanes hold
+    [(1, 1, 1), (300, 5000, 18), (2048, 40_000, 32), (4096, 65_536, 64), (300, 5000, 5), (512, 8192, 132)],
+)
+def test_backward_kernels_match_plain_on_card(card, gated, n, e, h, monkeypatch):
     """The backward kernels against fused_backward_plain on the same card
     tensors (atol 1e-5 / rtol 1e-4: fp32 sums in the gather index's order
     against index_add_'s), live out-of-range ids and masked edges
-    included, two runs the same bits, one launch of each kernel."""
+    included, two runs the same bits (db included), one C call per
+    backward launching the row pass and, gated, the SDDMM once each."""
     leaves, ids, index, ups = _backward_case(card, gated, n, e, h, seed=n + h)
     rows, edges = sparse.fused_sddmm_spmm_grad_rows.launches, sparse.fused_sddmm_spmm_grad_edges.launches
-    got = _kernel_grads(leaves, ids, index, ups, gated)
+    backwards = sparse.fused_backward.launches
+    calls = _count_ctypes_calls(monkeypatch)
+    got = _kernel_grads(leaves, ids, index, ups, gated, calls)
     torch.cuda.synchronize()
+    assert len(calls) == 1  # the backward's
+    assert sparse.fused_backward.launches == backwards + 1
     assert sparse.fused_sddmm_spmm_grad_rows.launches == rows + 1
     assert sparse.fused_sddmm_spmm_grad_edges.launches == edges + int(gated)
     again = _kernel_grads(leaves, ids, index, ups, gated)
@@ -305,6 +332,112 @@ def test_backward_kernels_match_plain_on_card(card, gated, n, e, h):
             want = sparse.fused_backward_plain(plain_in[0], *ids, ids[2].float(), ups[0])[:1]
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w.reshape(a.shape), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("case", ["hub", "all-masked"])
+def test_backward_of_a_hub_and_of_a_masked_list_on_card(card, gated, case):
+    """A hub row of more than 4,096 entries (many 32-entry batches in one
+    warp), and an edge list with every slot masked (no entry: zero grads,
+    db 0), against fused_backward_plain; two runs the same bits. The hub
+    row sums ~5,000 fp32 terms in the index's order against index_add_'s,
+    so its rows get rtol/atol 1e-4 (as the forward's hub test), the rest
+    1e-4 / 1e-5."""
+    n, e, h = 4096, 65_536, 32 if gated else 64
+    (v, q, k), (src, dst, mask) = _edges(n, e, h, seed=31)
+    if case == "hub":
+        src[100:6400] = 0
+    else:
+        mask[:] = False
+    leaves = [t.to(card).requires_grad_() for t in ((v, q, k, torch.tensor([-0.3])) if gated else (v,))]
+    ids = [t.to(card) for t in (src, dst, mask)]
+    index = sparse.edge_index(*ids, n, for_backward=True)
+    if case == "hub":
+        lengths = index.gather.row_ptr[1:] - index.gather.row_ptr[:-1]
+        assert int(lengths[0]) > 4096
+    rng = np.random.default_rng(32)
+    ups = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(card) for s in ((n, h), (n,), (e,))]
+    got = _kernel_grads(leaves, ids, index, ups, gated)
+    again = _kernel_grads(leaves, ids, index, ups, gated)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        plain_in = [t.detach() for t in leaves]
+        if gated:
+            _, _, gate = sparse.fused_plain(plain_in[0], *ids, *plain_in[1:])
+            want = sparse.fused_backward_plain(plain_in[0], *ids, gate, *ups, plain_in[1], plain_in[2])
+        else:
+            want = sparse.fused_backward_plain(plain_in[0], *ids, ids[2].float(), ups[0])[:1]
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w.reshape(a.shape), rtol=1e-4, atol=1e-4)
+        if a.dim() == 2:
+            torch.testing.assert_close(a[1:], w[1:], rtol=1e-4, atol=1e-5)
+    if case == "all-masked":
+        assert all(not a.any() for a in got)
+
+
+@pytest.mark.cuda
+def test_backward_stages_alone_match_plain_on_card(card):
+    """The SDDMM alone (da, and each live entry's (gate, da) in entry
+    order) and the row pass alone over its entries, against their plain
+    versions on the same card tensors; each one launch."""
+    n, e, h = 2048, 40_000, 32
+    leaves, ids, index, (d_bias, d_deg, d_gate) = _backward_case(card, True, n, e, h, seed=5)
+    v, q, k, b = (t.detach() for t in leaves)
+    with torch.no_grad():
+        _, _, gate = sparse.fused_sddmm_spmm(v, *ids, q, k, b, index=index)
+    args = (v, *ids, gate, d_bias, d_deg, d_gate)
+    edges = sparse.fused_sddmm_spmm_grad_edges.launches
+    da, gda = sparse.fused_sddmm_spmm_grad_edges(*args, index=index)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm_grad_edges.launches == edges + 1
+    want_da = sparse.grad_edges_plain(*args)
+    torch.testing.assert_close(da, want_da, rtol=1e-4, atol=1e-5)
+    live = int(index.gather.row_ptr[-1])
+    want_gda = sparse.entry_values_plain(index.gather, gate, want_da)
+    torch.testing.assert_close(gda[:live], want_gda[:live], rtol=1e-4, atol=1e-5)
+    rows = sparse.fused_sddmm_spmm_grad_rows.launches
+    got = sparse.fused_sddmm_spmm_grad_rows(n, d_bias, gda, q, k, index=index)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm_grad_rows.launches == rows + 1
+    want = sparse.grad_rows_plain(n, *ids, gate, d_bias, da, q, k)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+    # the plain version of what the row pass reads, on the card's entries
+    for a, w in zip(got, sparse.grad_rows_index_plain(n, index.gather, d_bias, gda, q, k)):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_backward_makes_no_host_sync(card, gated):
+    """The whole backward, called directly and through autograd, enqueues
+    its work without a synchronising call."""
+    leaves, ids, index, ups = _backward_case(card, gated, 2048, 40_000, 32, seed=7)
+    v = leaves[0].detach()
+    if gated:
+        q, k, b = (t.detach() for t in leaves[1:])
+        with torch.no_grad():
+            _, _, gate = sparse.fused_sddmm_spmm(v, *ids, q, k, b, index=index)
+        direct = lambda: sparse.fused_backward(v, *ids, gate, *ups, q, k, index)  # noqa: E731
+    else:
+        direct = lambda: sparse.fused_backward(v, *ids, None, ups[0], index=index)  # noqa: E731
+    direct()  # the build and the first load happen outside the check
+    outs = (
+        sparse.fused_gated_bias(leaves[1], leaves[2], leaves[0], leaves[3], *ids, index=index)
+        if gated
+        else sparse.fused_neighbor_sums(leaves[0], *ids, index=index)[:1]
+    )
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        direct()
+        torch.autograd.grad(outs, leaves, ups if gated else ups[:1], retain_graph=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -339,8 +339,13 @@ def _xla_vjp(v, src, dst, mask, q, k, b, d_bias, d_deg, d_gate):
     return [np.asarray(g) for g in vjp(cot)]
 
 
+# the forward's shapes, then an odd H (the kernels' scalar-load path) and
+# H > 128 (more columns than a warp's lanes hold in one vector each)
+BACKWARD_SHAPES = SHAPES + [(40, 300, 5), (24, 200, 7), (32, 256, 132)]
+
+
 @pytest.mark.parametrize("gated", [False, True])
-@pytest.mark.parametrize("n,e,h", SHAPES)
+@pytest.mark.parametrize("n,e,h", BACKWARD_SHAPES)
 def test_backward_plain_matches_jax_vjp(gated, n, e, h):
     (v, q, k), src, dst, mask = _graph(5 * n + h, n, e, h, out_of_range=6)
     d_bias, d_deg, d_gate = _upstream(n + e, n, e, h)
