@@ -105,7 +105,7 @@ Phases, each timed:
    edge: see distinct_endpoint_groups), through
    operator.retrieve_realtime_data(), whose ApiServer
    answers the seven graph routes with every device scorer payload equal
-   to its ?scorer=host payload (and 404 for /line and /statistics); then
+   to its ?scorer=host payload (and /line and /statistics at 200); then
    the BASELINE graph served: /graph/{instability,coupling,cohesion} at
    200 with one row per active service (1,000), instability and coupling
    equal to rows built from CPU lanes, and each route's first GET after a
@@ -162,7 +162,34 @@ Phases, each timed:
    stream branch (4 chunks) with the totals and graph of a direct
    ingest_raw_stream on a twin; (f) ingest_from_zipkin against a local
    stub serving the last counted window's chunks as 4 pages builds the
-   graph of that window taken one shot.
+   graph of that window taken one shot;
+17. the application (run after phase 16, before phase 14's profiler
+   sessions): (a) boot 1, `Application` in production mode over a
+   FileStore in a temporary directory, its card processor preloaded as in
+   phase 4; the realtime schedule on a six-field one-second cron fires 5
+   ticks of 2,500 fresh traces through the operator (the first 2 an hour
+   back, so one hour folds), each under 5,000 ms, 2 segment-stats launches
+   each (counters zeroed just before the boot, read after tear_down); the
+   realtime schedule parked, the aggregation job once, tear_down (every
+   cache flushed, the history snapshot among them), each timed; (b) boot
+   2, a new card processor over the same store: the cache load and the
+   graph warm start timed, its graph signature equal to a read-only CPU
+   app's over the same store and its history snapshot equal to the one
+   boot 1 flushed; (c) every GET route of boot 2 over HTTP at 200 with
+   its wall, the memoized routes (scorers, forecast) a second time, their
+   payloads equal to the CPU app's (scorers: integers equal, floats rel
+   1e-5, cohesion 1e-6; the forecast within the route's rounding), the
+   forecast GET's launches (2, and 1 more while phase 12's STLGT trainer
+   serves);
+18. GAT (after phase 17): a GAT head (hidden 64, no hand-written kernel:
+   no counter may move) trained through trainer.train(model=gat) on phase
+   11's dataset for 4 epochs with a checkpoint, its losses falling; a
+   2-slot epoch on the card against the CPU (rtol 1e-3); the checkpoint
+   served by GET /api/v1/model/forecast (model "gat") on phase 9's
+   snapshot, its forward on the card against the CPU (rtol 1e-4 / atol
+   1e-5) and the payload within the route's rounding; a warm forward's
+   wall and device time, a training step's wall, and, last, the card's
+   busy share in each under the profiler.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -195,6 +222,7 @@ import sys
 import tempfile
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
@@ -790,18 +818,19 @@ def fused_cases(torch, graph, jobs):
     return cases, report
 
 
-def get_json(port: int, path: str):
-    """GET an API route over HTTP (gzip accepted): (status, body, wall ms)."""
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{port}{path}", headers={"Accept-Encoding": "gzip"}
-    )
+def get_route(port: int, path: str):
+    """GET any API route over HTTP (gzip accepted): (status, body, wall
+    ms), the body parsed when it is JSON, else its bytes (the export's
+    tgz, the swagger YAML)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers={"Accept-Encoding": "gzip"})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as resp:
         body = resp.read()
         if resp.headers.get("Content-Encoding") == "gzip":
             body = gzip.decompress(body)
-        status = resp.status
-    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+        status, kind = resp.status, resp.headers.get("Content-Type", "")
+    ms = (time.perf_counter() - t0) * 1e3
+    return status, json.loads(body) if kind.startswith("application/json") else body, ms
 
 
 def serve_forecast(torch, graph, device, launch_counters, t_start: int):
@@ -861,15 +890,15 @@ def serve_forecast(torch, graph, device, launch_counters, t_start: int):
     api.start()
     try:
         zero()
-        status, st, status_ms = get_json(api.port, "/api/v1/model/status")
+        status, st, status_ms = get_route(api.port, "/api/v1/model/status")
         check(status == 200 and st["modelLoaded"] is True, f"model not loaded: {st}")
         builds = sparse.edge_index.builds
-        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast")
+        status, fc, get_ms = get_route(api.port, "/api/v1/model/forecast")
         check(status == 200, f"forecast answered {status}")
         first = counts()
         index_builds = sparse.edge_index.builds - builds
         zero()
-        status, fc2, memo_ms = get_json(api.port, "/api/v1/model/forecast")
+        status, fc2, memo_ms = get_route(api.port, "/api/v1/model/forecast")
         memo = counts()
     finally:
         api.stop()
@@ -1872,10 +1901,10 @@ def serve_trained_checkpoint(torch, proc, counters, ckpt_dir: str) -> dict:
     try:
         zero_counts(counters)
         builds = sparse.edge_index.builds
-        status, st, _ms = get_json(api.port, "/api/v1/model/status")
+        status, st, _ms = get_route(api.port, "/api/v1/model/status")
         check(status == 200 and st["modelLoaded"], f"trained checkpoint not loaded: {st}")
         check(st["checkpoint"]["step"] == SAGE_EPOCHS, f"checkpoint {st['checkpoint']}")
-        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast")
+        status, fc, get_ms = get_route(api.port, "/api/v1/model/forecast")
         launches = read_counts(torch, counters)
         index_builds = sparse.edge_index.builds - builds
     finally:
@@ -1944,7 +1973,7 @@ def serve_stlgt(torch, graph, device, counters, t_start: int, ckpt_dir: str) -> 
             )
             log("   " + json.dumps(ticks[-1]))
         launches = read_counts(torch, counters)
-        status, doc, _ms = get_json(dp_server.port, "/model/stlgt")
+        status, doc, _ms = get_route(dp_server.port, "/model/stlgt")
     finally:
         dp_server.stop()
     check(status == 200, f"/model/stlgt answered {status}")
@@ -1983,11 +2012,11 @@ def serve_stlgt(torch, graph, device, counters, t_start: int, ckpt_dir: str) -> 
     try:
         zero_counts(counters)
         builds = sparse.edge_index.builds
-        status, fc, get_ms = get_json(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
+        status, fc, get_ms = get_route(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
         get_launches = read_counts(torch, counters)
         index_builds = sparse.edge_index.builds - builds
         zero_counts(counters)
-        status2, fc2, memo_ms = get_json(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
+        status2, fc2, memo_ms = get_route(api.port, "/api/v1/model/forecast?quantile=p99&horizon=3")
         memo_launches = read_counts(torch, counters)
     finally:
         api.stop()
@@ -2416,24 +2445,22 @@ def serve_scorers(torch, proc, feed, device, t_start: int, jobs) -> dict:
     http: dict = {"edges": ctx.processor.graph.n_edges}
     try:
         for route in GRAPH_ROUTES:
-            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            status, payload, ms = get_route(api.port, f"/api/v1/graph/{route}")
             check(status == 200, f"/graph/{route} answered {status}")
             http[f"{route}_ms"] = ms
             if route in SCORER_ROUTES:
                 check(len(payload) > 0, f"/graph/{route} is empty")
-                status, host, host_ms = get_json(api.port, f"/api/v1/graph/{route}?scorer=host")
+                status, host, host_ms = get_route(api.port, f"/api/v1/graph/{route}?scorer=host")
                 check(status == 200, f"/graph/{route}?scorer=host answered {status}")
                 if route == "cohesion":
                     payload, host = canon_cohesion(payload), canon_cohesion(host)
                 check(payload == host, f"/graph/{route}: device payload differs from the host oracle")
                 http[f"{route}_host_ms"] = host_ms
                 http[f"{route}_rows"] = len(payload)
+        # the chart routes read the store's historical data: none here
         for route in ("line", "statistics"):
-            try:
-                get_json(api.port, f"/api/v1/graph/{route}")
-                check(False, f"/graph/{route} answered")
-            except urllib.error.HTTPError as e:
-                check(e.code == 404, f"/graph/{route} answered {e.code}")
+            status, payload, _ms = get_route(api.port, f"/api/v1/graph/{route}")
+            check(status == 200, f"/graph/{route} answered {status}")
     finally:
         api.stop()
     out["http_fresh"] = http
@@ -2454,7 +2481,7 @@ def serve_scorers(torch, proc, feed, device, t_start: int, jobs) -> dict:
         active = graph.active_services()
         want_inst, want_coup = instability_rows(graph, cpu_now, active)
         for route, want in (("instability", want_inst), ("coupling", want_coup), ("cohesion", None)):
-            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            status, payload, ms = get_route(api.port, f"/api/v1/graph/{route}")
             check(status == 200, f"BASELINE /graph/{route} answered {status}")
             check(len(payload) == int(active.sum()) == 1000, f"BASELINE /graph/{route}: {len(payload)} rows")
             if want is not None:
@@ -2463,10 +2490,10 @@ def serve_scorers(torch, proc, feed, device, t_start: int, jobs) -> dict:
         feed.groups = synth_groups(TICK_TRACES, t_start + 5 * TICK_TRACES, "scorer-m-")
         proc.collect({"uniqueId": "scorer-m", "lookBack": 30_000})
         for route in SCORER_ROUTES:
-            status, payload, ms = get_json(api.port, f"/api/v1/graph/{route}")
+            status, payload, ms = get_route(api.port, f"/api/v1/graph/{route}")
             check(status == 200 and len(payload) == 1000, f"BASELINE /graph/{route} after a merge")
             served[f"{route}_first_ms"] = ms
-            status, again, memo_ms = get_json(api.port, f"/api/v1/graph/{route}")
+            status, again, memo_ms = get_route(api.port, f"/api/v1/graph/{route}")
             check(again == payload, f"BASELINE /graph/{route} memoized payload differs")
             served[f"{route}_memo_ms"] = memo_ms
     finally:
@@ -3103,6 +3130,451 @@ def stream_ingest(torch, device, counters, one_shot, raw) -> dict:
     return out
 
 
+# -- phase 17: the application -------------------------------------------------
+
+APP_TICKS = 5  # scheduled realtime ticks of boot 1
+APP_FOLD_AT = 2  # boot 1's ticks before this one run an hour back: one fold
+NEVER_CRON = "0 0 1 1 *"  # New Year's midnight: a schedule that does not fire in a run
+
+
+def app_settings(store_dir: str, **kw):
+    """The application's settings in phase 17: a FileStore in store_dir,
+    the forecast route on the model10k fixture, every schedule parked on
+    NEVER_CRON unless kw sets it."""
+    from kmamiz_tpu_torch.config import Settings
+
+    s = Settings()
+    s.storage_uri = "file://" + store_dir
+    s.external_data_processor = ""
+    s.static_dir = s.wasm_path = ""
+    s.model_dir = os.path.join(REPO, MODEL_DIR)
+    s.realtime_interval = s.aggregate_interval = s.dispatch_interval = NEVER_CRON
+    for k, v in kw.items():
+        setattr(s, k, v)
+    return s
+
+
+def history_json(docs) -> str:
+    """A history snapshot's part documents as compared across boots: in
+    part order, without the time the snapshot was taken (savedAt) and the
+    store's own fields."""
+    drop = ("savedAt", "_id", "_schemaVersion")
+    parts = sorted(docs, key=lambda d: d["part"])
+    return json.dumps([{k: v for k, v in d.items() if k not in drop} for d in parts], sort_keys=True)
+
+
+def timed_call(fn, sink: dict, key: str):
+    """fn, recording its wall ms under sink[key] at each call."""
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            sink[key] = (time.perf_counter() - t0) * 1e3
+
+    return call
+
+
+def app_urls(app) -> list:
+    """One concrete URL per GET route of the app (path parameters from
+    its own caches), and a few more for the optional namespace."""
+    dts = [d.to_json() for d in app.ctx.cache.get("EndpointDataType").get_data()]
+    label = app.ctx.cache.get("LabelMapping").get_label
+    first = min(dts, key=lambda d: d["uniqueEndpointName"])
+    label_name = "\t".join(first["uniqueEndpointName"].split("\t")[:4] + [label(first["uniqueEndpointName"])])
+    service = first["uniqueServiceName"]
+    namespace = service.split("\t")[1]
+    q = urllib.parse.quote
+    params = {
+        ":namespace?": "",
+        ":uniqueLabelName": q(label_name, safe=""),
+        ":uniqueName": q(service, safe=""),
+        ":uniqueServiceName": q(service, safe=""),
+    }
+    urls = []
+    for line in app.router.route_list:
+        method, path = line.split("] ", 1)
+        if method != "[GET":
+            continue
+        url = path
+        for key, value in params.items():
+            url = url.replace("/" + key if key == ":namespace?" else key, value)
+        if path.endswith("/interface"):
+            url += "?uniqueLabelName=" + params[":uniqueLabelName"]
+        urls.append(url)
+        if ":namespace?" in path:
+            urls.append(f"{url}/{namespace}")
+    return urls
+
+
+def compare_payload(got, want, rel: float, what: str) -> None:
+    """Integers, strings and booleans equal; floats within rel."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want), f"{what}: keys differ")
+        for k in want:
+            compare_payload(got[k], want[k], rel, f"{what}.{k}")
+    elif isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want), f"{what}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare_payload(g, w, rel, f"{what}[{i}]")
+    elif isinstance(want, float):
+        check(abs(got - want) <= rel * abs(want), f"{what}: {got} against {want}")
+    else:
+        check(got == want, f"{what}: {got!r} against {want!r}")
+
+
+def compare_forecast(got: dict, want: dict, what: str) -> None:
+    """Two forecast payloads per endpoint name, within one unit of the
+    route's rounding (probability 1e-4, latency 0.01 ms)."""
+    check(got["model"] == want["model"] and got["predictedHour"] == want["predictedHour"], what)
+    w_idx = {e["uniqueEndpointName"]: e for e in want["endpoints"]}
+    check(len(got["endpoints"]) == len(w_idx), f"{what}: endpoint counts differ")
+    for e in got["endpoints"]:
+        w = w_idx[e["uniqueEndpointName"]]
+        check(abs(e["anomalyProbability"] - w["anomalyProbability"]) <= 1e-4 + 1e-9, f"{what}: probability")
+        check(abs(e["predictedLatencyMs"] - w["predictedLatencyMs"]) <= 0.01 + 1e-9, f"{what}: latency")
+
+
+def serve_application(torch, device, counters, t_start: int) -> dict:
+    """Phase 17: the port's Application (api/app.py) on the card. (a) Boot
+    1 over a FileStore in a temporary directory, its processor preloaded
+    with phase 4's graph (load_state), the realtime job on a six-field
+    one-second cron firing APP_TICKS scheduled ticks of 2,500 fresh traces
+    (the first APP_FOLD_AT an hour back, so one hour folds), counters
+    zeroed just before the boot and read after tear_down; then the
+    realtime schedule parked, the aggregation job once and tear_down
+    (schedules stopped, every cache flushed). (b) Boot 2: a new card processor over the same directory,
+    the cache load and the graph warm start timed; its graph signature
+    equal to a CPU graph warm-started from the same records, its history
+    snapshot equal to the one boot 1 flushed. A read-only CPU app boots
+    over the same store: boot 2's graph signature equals its CPU graph's,
+    warm-started from the same records. (c) Every GET route of boot
+    2 over HTTP at 200, first walls (and memoized walls of the memoized
+    routes: the scorers and the forecast); their payloads equal to a
+    read-only CPU app's over the same store."""
+    from kmamiz_tpu_torch.api.app import Application
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.server.initializer import AppContext
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.server.storage import FileStore
+
+    out: dict = {}
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    store_dir = root.name
+    try:
+        # -- (a) boot 1 -----------------------------------------------------
+        t0 = time.perf_counter()
+        proc1, feed = load_state(device)
+        out["state_load_s"] = time.perf_counter() - t0
+        windows = [
+            synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"app{k}-") for k in range(APP_TICKS + 1)
+        ]
+        app = Application(
+            ctx=AppContext.build(
+                app_settings=app_settings(store_dir, realtime_interval="* * * * * *"), processor=proc1
+            )
+        )
+        op = app.ctx.operator
+        clock = {"shift_ms": HOUR_MS}
+        op._now_ms = lambda: time.time() * 1000 - clock["shift_ms"]
+        ticks: list = []
+        retrieve = op.retrieve_realtime_data
+
+        def realtime_job() -> None:
+            k = len(ticks)
+            feed.groups = windows[k] if k < len(windows) else []
+            clock["shift_ms"] = HOUR_MS if k < APP_FOLD_AT else 0
+            t0 = time.perf_counter()
+            retrieve()
+            wall = (time.perf_counter() - t0) * 1e3
+            stages = {s: round(v, 3) for s, v in proc1.last_stage_ms.items()}
+            ticks.append({"tick": k, "traces": len(feed.groups), "wall_ms": round(wall, 3), **stages})
+            log("   " + json.dumps(ticks[-1]))
+
+        op.retrieve_realtime_data = realtime_job  # what the schedule registers
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        app.start_up()
+        out["boot1_start_up_ms"] = (time.perf_counter() - t0) * 1e3
+        check(app.ctx.scheduler.jobs == ["aggregation", "realtime", "dispatch"], "boot 1 schedules")
+        deadline = time.monotonic() + 120
+        while len(ticks) < APP_TICKS and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(len(ticks) >= APP_TICKS, f"{len(ticks)} scheduled ticks in 120 s")
+        # park the realtime schedule (re-registering stops the job and waits
+        # for a fire in progress): a tick that overlaps the aggregation waits
+        # for its cache lock, and its wall is not a tick's own
+        app.ctx.scheduler.register("realtime", NEVER_CRON, op.retrieve_realtime_data)
+        t0 = time.perf_counter()
+        op.create_historical_and_aggregated_data()
+        out["aggregation_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        app.tear_down()
+        out["tear_down_ms"] = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(torch, counters)
+        fed = [t for t in ticks if t["traces"]]
+        out["ticks"] = ticks
+        out["boot1_launches"] = launches
+        out["max_tick_wall_ms"] = max(t["wall_ms"] for t in fed)
+        check(
+            launches[ss.segment_stats.__name__] == 2 * len(fed),
+            f"segment_stats launched {launches[ss.segment_stats.__name__]} times in {len(fed)} ticks",
+        )
+        check(out["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS, f"a scheduled tick took {out['max_tick_wall_ms']} ms")
+        check(proc1.forecast_snapshot is not None, "boot 1 folded no hour")
+        stored = FileStore(store_dir)
+        flushed = stored.find_all("ModelHistoryState")
+        check(bool(flushed), "boot 1 flushed no history snapshot")
+        check(len(stored.find_all("HistoricalData")) > 0, "the aggregation stored no historical data")
+        check(stored.get_aggregated_data() is not None, "the aggregation stored no aggregate")
+        out["store_bytes"] = sum(
+            os.path.getsize(os.path.join(store_dir, f)) for f in os.listdir(store_dir)
+        )
+        del app, proc1, op, retrieve, stored
+        torch.cuda.empty_cache()
+
+        # -- (b) boot 2 -----------------------------------------------------
+        boot: dict = {}
+        t0 = time.perf_counter()
+        store2 = FileStore(store_dir)
+        boot["store_open_ms"] = (time.perf_counter() - t0) * 1e3
+        proc2 = DataProcessor(trace_source=TickFeed(), device=device)
+        app2 = Application(ctx=AppContext.build(app_settings=app_settings(store_dir), store=store2, processor=proc2))
+        app2.ctx.cache.load_base_data = timed_call(app2.ctx.cache.load_base_data, boot, "cache_load_ms")
+        app2.initializer.warm_start = timed_call(app2.initializer.warm_start, boot, "warm_start_ms")
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        app2.start_up()
+        torch.cuda.synchronize()
+        boot["start_up_ms"] = (time.perf_counter() - t0) * 1e3
+        boot["cache_load_plus_warm_start_ms"] = boot["cache_load_ms"] + boot["warm_start_ms"]
+        # a read-only CPU app over the same store: its processor restores
+        # the same history (interning the same names first) and warm-starts
+        # its CPU graph from the same records
+        cpu_app = Application(
+            ctx=AppContext.build(
+                app_settings=app_settings(store_dir, read_only_mode=True),
+                store=FileStore(store_dir),
+                processor=DataProcessor(trace_source=TickFeed(), device="cpu"),
+            )
+        )
+        t0 = time.perf_counter()
+        cpu_app.start_up()
+        boot["cpu_start_up_ms"] = (time.perf_counter() - t0) * 1e3
+        records = app2.ctx.cache.get("EndpointDependencies").get_data().to_json()
+        boot["records"] = len(records)
+        boot["endpoints"] = len(proc2.graph.interner.endpoints)
+        boot["edges"] = proc2.graph.n_edges
+        check(boot["edges"] > 0, "boot 2 warm-started no edge")
+        check(
+            graph_signature(proc2.graph) == graph_signature(cpu_app.ctx.processor.graph),
+            "boot 2's graph differs from the CPU warm start",
+        )
+        check(history_json(proc2.snapshot_history()) == history_json(flushed), "boot 2's history snapshot differs")
+        check(proc2.forecast_snapshot is not None, "boot 2 restored no forecast snapshot")
+        out["boot2"] = boot
+        log("   boot 2 " + json.dumps(boot))
+
+        # -- (c) every GET route over HTTP ----------------------------------
+        label = {"labels": [{"label": "/smoke", "samples": [], "uniqueServiceName": "svc0\tns0\tlatest", "method": "GET", "block": False}]}
+        for a in (app2, cpu_app):
+            resp = a.router.dispatch("POST", "/api/v1/data/label/user", json.dumps(label).encode())
+            check(resp.status == 201, f"POST /data/label/user answered {resp.status}")
+        api = ApiServer(app2.router, host="127.0.0.1", port=0)
+        api.start()
+        routes: dict = {}
+        served: dict = {}  # the memoized routes' payloads, compared below
+        try:
+            for url in app_urls(app2):
+                status, payload, first_ms = get_route(api.port, url)
+                check(status == 200, f"GET {url} answered {status}")
+                routes[url] = {"first_ms": round(first_ms, 3)}
+                if not url.startswith(("/api/v1/graph/cohesion", "/api/v1/graph/instability",
+                                       "/api/v1/graph/coupling", "/api/v1/model/forecast")):
+                    continue  # host views: no memo, a second GET costs the first's
+                status, again, memo_ms = get_route(api.port, url)
+                check(status == 200 and again == payload, f"GET {url}: the memoized answer differs")
+                routes[url]["memo_ms"] = round(memo_ms, 3)
+                served[url] = payload
+            out["boot2_launches"] = read_counts(torch, counters)
+            # the device-backed payloads against the CPU app's (whose STLGT
+            # head, phase 12's process trainer, also serves from the card)
+            for url, payload in served.items():
+                want = cpu_app.router.dispatch("GET", url)
+                check(want.status == 200, f"CPU app: GET {url} answered {want.status}")
+                if url.startswith("/api/v1/model/forecast"):
+                    compare_forecast(payload, want.payload, f"{url} card against CPU")
+                else:
+                    rel = 1e-6 if "cohesion" in url else 1e-5
+                    compare_payload(payload, want.payload, rel, f"{url} card against CPU")
+                routes[url]["rows"] = len(payload) if isinstance(payload, list) else len(payload["endpoints"])
+                routes[url]["matches_cpu"] = True
+        finally:
+            api.stop()
+            app2.tear_down()
+            cpu_app.tear_down()
+        out["routes"] = routes
+        log("   routes " + json.dumps(routes))
+        log("   boot 2 launches " + json.dumps(out["boot2_launches"]))
+        # the forecast GET: GraphSAGE's two layers, and the STLGT head's
+        # gated launch while phase 12's process trainer serves
+        from kmamiz_tpu_torch.models import stlgt
+
+        want = 2 + (stlgt.serving_params() is not None)
+        check(
+            out["boot2_launches"][sparse.fused_sddmm_spmm.__name__] == want,
+            f"boot 2's GETs launched {out['boot2_launches']}, {want} fused launches expected",
+        )
+    finally:
+        root.cleanup()
+    return out
+
+
+# -- phase 18: GAT ------------------------------------------------------------
+
+GAT_EPOCHS = 4
+GAT_HIDDEN = 64
+
+
+def train_gat(torch, graph, device, counters, fproc, ckpt_dir: str) -> dict:
+    """Phase 18: the GAT head (models/gat.py, PyTorch ops: no hand-written
+    kernel) trained at hidden 64 on phase 11's dataset (24 seeded slots of
+    18 features over the BASELINE graph's live edges) through
+    trainer.train(model=gat) for GAT_EPOCHS fused epochs with a
+    checkpoint; no port kernel may launch. One epoch over 2 slots on the
+    card against the CPU (losses rtol 1e-3); the checkpoint served by GET
+    /api/v1/model/forecast on phase 9's snapshot, and its forward on the
+    card against the CPU (latency and probability rtol 1e-4 / atol 1e-5,
+    the served payload within the route's rounding); a warm forward's wall
+    and device time, a training step's wall, and the card's busy share in
+    each under the profiler."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.api.app import build_router
+    from kmamiz_tpu_torch.api.router import ApiServer
+    from kmamiz_tpu_torch.config import Settings
+    from kmamiz_tpu_torch.models import checkpoint, gat, serving, trainer
+    from kmamiz_tpu_torch.server.initializer import AppContext
+
+    ds = training_dataset(torch, graph, SAGE_SLOTS)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.train(
+        ds, epochs=GAT_EPOCHS, hidden=GAT_HIDDEN, lr=SAGE_LR, seed=SEED,
+        checkpoint_dir=ckpt_dir, checkpoint_every=0, model=gat, device=device,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    losses = result.losses
+    check(all(math.isfinite(x) for x in losses), f"GAT losses {losses}")
+    check(losses[-1] < losses[0], f"GAT losses did not fall: {losses}")
+    check(not any(launches.values()), f"GAT launched a port kernel: {launches}")
+
+    two = dataclasses.replace(
+        ds,
+        features=ds.features[:2],
+        target_latency=ds.target_latency[:2],
+        target_anomaly=ds.target_anomaly[:2],
+        node_mask=ds.node_mask[:2],
+        slot_keys=ds.slot_keys[:2],
+    )
+    epoch2 = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        r = trainer.train(two, epochs=1, hidden=GAT_HIDDEN, lr=SAGE_LR, seed=SEED, model=gat, device=dev)
+        epoch2[str(dev)] = (r.losses[0], time.perf_counter() - t0)
+    np.testing.assert_allclose(
+        epoch2[str(device)][0], epoch2["cpu"][0], rtol=1e-3, err_msg="GAT 2-slot epoch loss"
+    )
+
+    os.environ["KMAMIZ_MODEL_DIR"] = ckpt_dir
+    api = ApiServer(build_router(AppContext(settings=Settings(), processor=fproc)), host="127.0.0.1", port=0)
+    api.start()
+    try:
+        status, st, _ms = get_route(api.port, "/api/v1/model/status")
+        check(status == 200 and st["modelLoaded"] and st["checkpoint"]["model"] == "gat", f"GAT status {st}")
+        status, fc, get_ms = get_route(api.port, "/api/v1/model/forecast")
+    finally:
+        api.stop()
+    check(status == 200 and fc["model"] == "gat", f"GAT forecast answered {status}")
+    snap = fproc.forecast_snapshot
+    inputs = (snap["features"], snap["src"], snap["dst"], snap["mask"])
+    card_params, _ = checkpoint.restore_params(ckpt_dir, gat, device=device)
+    cpu_params, _ = checkpoint.restore_params(ckpt_dir, gat, device="cpu")
+    lat, prob = serving.forecast_forward(card_params, *inputs, gat)
+    cpu_lat, cpu_prob = serving.forecast_forward(cpu_params, *inputs, gat)
+    np.testing.assert_allclose(lat, cpu_lat, rtol=1e-4, atol=1e-5, err_msg="GAT forecast latency")
+    np.testing.assert_allclose(prob, cpu_prob, rtol=1e-4, atol=1e-5, err_msg="GAT forecast probability")
+    names = snap["names"]
+    served = {e["uniqueEndpointName"]: e for e in fc["endpoints"]}
+    check(len(served) == len(names), "the GAT forecast misses endpoints")
+    for i, name in enumerate(names):
+        e = served[name]
+        check(abs(e["anomalyProbability"] - round(float(cpu_prob[i]), 4)) <= 1e-4 + 1e-9, f"served probability of {name}")
+        want_ms = round(max(float(cpu_lat[i]), 0.0), 2)
+        check(abs(e["predictedLatencyMs"] - want_ms) <= 0.01 + 1e-9, f"served latency of {name}")
+
+    padded = serving.pad_snapshot(*inputs, device)
+
+    def forward():
+        with torch.no_grad():
+            gat.forward(card_params, padded.features, padded.src, padded.dst, padded.mask)
+
+    warm_ms = call_ms(torch, forward)
+
+    # one training step on slot 0 (unpadded), its wall and, last, its profile
+    slot = [
+        torch.from_numpy(np.asarray(a)).to(device)
+        for a in (ds.features[0], ds.src, ds.dst, ds.edge_mask, ds.target_latency[0],
+                  ds.target_anomaly[0], ds.node_mask[0])
+    ]
+    optimizer = gat.make_optimizer(SAGE_LR)
+    train_step = gat.make_train_step(optimizer)
+    opt_state = optimizer.init(result.params)
+
+    def step():
+        train_step(result.params, opt_state, *slot)[2].item()
+
+    step_ms = call_ms(torch, step, reps=5)
+    steps = SAGE_SLOTS * GAT_EPOCHS
+    out = {
+        "slots": SAGE_SLOTS,
+        "epochs": GAT_EPOCHS,
+        "hidden": GAT_HIDDEN,
+        "endpoints": ds.num_nodes,
+        "live_edges": int(ds.src.shape[0]),
+        "bucket": [int(padded.features.shape[0]), int(padded.src.shape[0])],
+        "losses": losses,
+        "train_wall_s": wall,
+        "train_slots_per_s": steps / wall,
+        "launches": launches,
+        "two_slot_epoch": {
+            "card_loss": epoch2[str(device)][0],
+            "cpu_loss": epoch2["cpu"][0],
+            "card_s": epoch2[str(device)][1],
+            "cpu_s": epoch2["cpu"][1],
+        },
+        "forecast_get_ms": get_ms,
+        "forecast_max_abs_diff": {
+            "latency_ms": float(np.abs(lat - cpu_lat).max()),
+            "probability": float(np.abs(prob - cpu_prob).max()),
+        },
+        "warm_forward_ms": warm_ms,
+        "train_step_ms": step_ms,
+    }
+    # profiler sessions last: they slow every later launch on the host
+    out["warm_forward_device_ms"], out["warm_forward_device_ms_by"], _lost, _ev = device_ms(torch, forward)
+    out["profile_forward"] = profile_device(torch, forward, [])
+    out["profile_step"] = profile_device(torch, step, [])
+    return out
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -3365,6 +3837,24 @@ def main(argv=None) -> int:
             torch, device, counters, report["raw_ingest"]["one_shot"], raw
         )
         del raw
+
+    # phases 17 and 18 too: the application, then the GAT head (whose own
+    # profiler session comes last in it)
+    with Phase("application", walls):
+        # boot 1 folds an hour: without the STLGT hook, as in phase 13
+        stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
+        try:
+            report["application"] = serve_application(
+                torch, device, counters, STATE_TRACES + (TICKS + 30) * TICK_TRACES
+            )
+        finally:
+            if stlgt_env is not None:
+                os.environ["KMAMIZ_STLGT"] = stlgt_env
+        log("   " + json.dumps({k: v for k, v in report["application"].items() if k not in ("ticks", "routes")}))
+
+    with Phase("gat", walls):
+        report["gat"] = train_gat(torch, proc.graph, device, counters, fproc, os.path.join(ckpt_dir, "gat"))
+        log("   " + json.dumps(report["gat"]))
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(

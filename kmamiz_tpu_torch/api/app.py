@@ -1,23 +1,120 @@
-"""Router assembly of the port's REST API.
+"""Application assembly: the KMamiz backend of the port.
 
-Counterpart of kmamiz_tpu/api/app.py:build_router, registering the
-handlers ported so far (the model and graph routes). Serve it with
-api.router.ApiServer:
+Counterpart of kmamiz_tpu/api/app.py (KMamiz index.ts): `build_router`
+registers every ported handler's routes, and `Application` picks the
+startup mode (production / serve-only / read-only), serves the REST API
+and tears down by stopping the schedules and flushing every cache to the
+store (index.ts:95-113). The caller builds the AppContext, with its
+processor on the card or, in tests, on the CPU:
 
-    ctx = AppContext(processor=DataProcessor(trace_source=...))
-    Initializer(ctx).register_data_caches()  # the caches /graph reads
-    ApiServer(build_router(ctx), port=3000).start()
+    ctx = AppContext.build(app_settings=settings, processor=DataProcessor(trace_source=...))
+    app = Application(ctx=ctx)
+    app.start_up()  # caches from the store, graph warm start, schedules
+    app.listen(port=3000)
+    ...
+    app.tear_down()  # stop the schedules, flush every cache
+
+Not ported yet: simulator mode and its SimulationHandler, the telemetry
+handler, and `build_production_context` / `main()`, which need the
+Kubernetes client.
 """
 from __future__ import annotations
 
-from kmamiz_tpu_torch.api.handlers import GraphHandler, ModelHandler
-from kmamiz_tpu_torch.api.router import Router
-from kmamiz_tpu_torch.server.initializer import AppContext
+import logging
+from typing import Optional
+
+from kmamiz_tpu_torch.api.handlers import (
+    AlertHandler,
+    ComparatorHandler,
+    ConfigurationHandler,
+    DataHandler,
+    GraphHandler,
+    HealthHandler,
+    ModelHandler,
+    SwaggerHandler,
+)
+from kmamiz_tpu_torch.api.router import ApiServer, Router
+from kmamiz_tpu_torch.config import Settings
+from kmamiz_tpu_torch.server.import_export import ImportExportHandler
+from kmamiz_tpu_torch.server.initializer import AppContext, Initializer
+
+logger = logging.getLogger("kmamiz_tpu_torch.app")
 
 
-def build_router(ctx: AppContext) -> Router:
-    """Register every ported handler's routes under /api/v{N}."""
-    router = Router(api_version=ctx.settings.api_version)
-    for handler in (GraphHandler(ctx), ModelHandler(ctx)):
+def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] = None) -> Router:
+    """Register every ported handler's routes under /api/v{N} (Routes.ts:20-30)."""
+    router = Router(
+        api_version=ctx.settings.api_version,
+        static_dir=ctx.settings.static_dir,
+        wasm_path=ctx.settings.wasm_path,
+    )
+    import_export = import_export or ImportExportHandler(ctx)
+    graph = GraphHandler(ctx)
+    data = DataHandler(ctx, import_export)
+    for handler in (
+        data,
+        graph,
+        SwaggerHandler(ctx),
+        AlertHandler(ctx),
+        ComparatorHandler(ctx, graph_handler=graph, data_handler=data),
+        ConfigurationHandler(ctx),
+        HealthHandler(ctx),
+        ModelHandler(ctx),
+    ):
         router.add_handler(handler)
+    for line in router.route_list:
+        logger.debug("route %s", line)
     return router
+
+
+class Application:
+    """One instance: context + router + HTTP server + teardown."""
+
+    def __init__(self, app_settings: Optional[Settings] = None, ctx: Optional[AppContext] = None) -> None:
+        self.settings = app_settings or (ctx.settings if ctx is not None else Settings())
+        self.ctx = ctx or AppContext.build(app_settings=self.settings)
+        self.initializer = Initializer(self.ctx)
+        self.import_export = ImportExportHandler(self.ctx)
+        self.router: Optional[Router] = None
+        self.server: Optional[ApiServer] = None
+
+    def start_up(self) -> None:
+        """Mode switch (index.ts:55-92)."""
+        s = self.settings
+        if s.simulator_mode:
+            raise NotImplementedError("simulator mode waits for the simulator's port")
+        if s.serve_only:
+            logger.info("Serve-only mode; registering caches without schedules.")
+            self.initializer.register_data_caches()
+        else:
+            aggregated = self.ctx.store.get_aggregated_data()
+            if s.reset_endpoint_dependencies:
+                self.initializer.force_recreate_endpoint_dependencies()
+            self.initializer.production_server_startup()
+            rl_data = self.ctx.cache.get("CombinedRealtimeData").get_data()
+            if aggregated is None and (rl_data is None or not rl_data.to_json()):
+                logger.info("Database is empty, running first-time setup.")
+                try:  # index.ts:78-84: a failed backfill must not block startup
+                    self.initializer.first_time_setup()
+                except Exception:  # noqa: BLE001 - logged; startup goes on
+                    logger.exception("Cannot run first time setup, skipping.")
+        self.router = build_router(self.ctx, self.import_export)
+
+    def listen(self, host: str = "0.0.0.0", port: Optional[int] = None) -> None:
+        if self.router is None:
+            raise RuntimeError("call start_up() first")
+        self.server = ApiServer(
+            self.router, host=host, port=port if port is not None else int(self.settings.port)
+        )
+        self.server.start()
+        logger.info("API server listening on port %s", self.server.port)
+
+    def tear_down(self) -> None:
+        """Graceful exit: stop the schedules (a fire in progress finishes
+        first), then flush every cache (index.ts:97-112)."""
+        logger.info("Flushing caches to store before exit.")
+        self.ctx.scheduler.stop()
+        if not self.settings.read_only_mode and not self.settings.serve_only:
+            self.ctx.dispatch.sync_all()
+        if self.server:
+            self.server.stop()

@@ -1,0 +1,112 @@
+"""Comparator REST handler: tagged diff snapshots of the whole system view.
+
+Equivalent of KMamiz src/handler/ComparatorService.ts: a diff
+snapshot captures the dependency graph, every scorer's output, and the
+per-endpoint datatype map, stored locally; a simulator instance pushes its
+snapshots to POST /diffData/simulator.
+
+A copy of kmamiz_tpu/api/handlers/comparator.py without the simulator
+side's push to production, which waits for the simulator's port.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from kmamiz_tpu_torch.api.handlers.data import DataHandler
+from kmamiz_tpu_torch.api.handlers.graph import GraphHandler
+from kmamiz_tpu_torch.api.router import IRequestHandler, Request, Response
+from kmamiz_tpu_torch.server.initializer import AppContext
+
+
+class ComparatorHandler(IRequestHandler):
+    def __init__(
+        self,
+        ctx: AppContext,
+        graph_handler: Optional[GraphHandler] = None,
+        data_handler: Optional[DataHandler] = None,
+    ) -> None:
+        super().__init__("comparator")
+        self._ctx = ctx
+        self._graph = graph_handler or GraphHandler(ctx)
+        self._data = data_handler or DataHandler(ctx)
+
+        self.add_route("get", "/tags", self._tags)
+        self.add_route("get", "/diffData", self._get_diff)
+        self.add_route("post", "/diffData", self._post_diff)
+        self.add_route("delete", "/diffData", self._delete_diff)
+        self.add_route("post", "/diffData/simulator", self._post_from_simulator)
+
+    def _tags(self, req: Request) -> Response:
+        return Response(
+            payload=self._ctx.cache.get("TaggedDiffDatas").get_tags_with_time()
+        )
+
+    def _get_diff(self, req: Request) -> Response:
+        return Response(payload=self.get_tagged_diff_data(req.query.get("tag")))
+
+    def _post_diff(self, req: Request) -> Response:
+        body = req.json() or {}
+        tag = body.get("tag")
+        if not tag:
+            return Response.status_only(400)
+
+        self._ctx.cache.get("TaggedDiffDatas").add(self._snapshot(tag))
+        return Response.status_only(200)
+
+    def _post_from_simulator(self, req: Request) -> Response:
+        tagged = req.json()
+        if not tagged:
+            return Response.status_only(400)
+        self._ctx.cache.get("TaggedDiffDatas").add(tagged)
+        return Response.status_only(200)
+
+    def _delete_diff(self, req: Request) -> Response:
+        body = req.json() or {}
+        tag = body.get("tag")
+        if not tag:
+            return Response.status_only(400)
+        self._ctx.cache.get("TaggedDiffDatas").delete(tag)
+        return Response.status_only(200)
+
+    # -- snapshot assembly (ComparatorService.ts:35-88,130-160) --------------
+
+    def _snapshot(self, tag: str) -> dict:
+        graph_data = self._graph.get_dependency_graph()
+        return {
+            "tag": tag,
+            "graphData": graph_data,
+            "cohesionData": self._graph.get_service_cohesion(),
+            "couplingData": self._graph.get_service_coupling(),
+            "instabilityData": self._graph.get_service_instability(),
+            "endpointDataTypesMap": self._data.get_endpoint_data_types_map(
+                [n["id"] for n in graph_data["nodes"]]
+            ),
+        }
+
+    def get_tagged_diff_data(self, tag: Optional[str] = None) -> dict:
+        if tag:
+            diff = self._ctx.cache.get("TaggedDiffDatas").get_data_by_tag(tag)
+            return {
+                "tag": tag,
+                "graphData": (diff or {}).get("graphData")
+                or self._graph.get_empty_graph_data(),
+                "cohesionData": (diff or {}).get("cohesionData") or [],
+                "couplingData": (diff or {}).get("couplingData") or [],
+                "instabilityData": (diff or {}).get("instabilityData") or [],
+                "endpointDataTypesMap": (diff or {}).get("endpointDataTypesMap")
+                or {},
+            }
+        graph_data = self._graph.get_dependency_graph()
+        node_ids = [
+            n["id"] for n in graph_data["nodes"] if n["id"] != n["group"]
+        ]
+        return {
+            "tag": tag,
+            "graphData": graph_data,
+            "cohesionData": self._graph.get_service_cohesion(),
+            "couplingData": self._graph.get_service_coupling(),
+            "instabilityData": self._graph.get_service_instability(),
+            "endpointDataTypesMap": self._data.get_endpoint_data_types_map(
+                node_ids
+            ),
+        }

@@ -1,4 +1,4 @@
-"""Graph REST handler: dependency graphs, chords and scorers.
+"""Graph REST handler: dependency graphs, chords, charts and scorers.
 
 Counterpart of kmamiz_tpu/api/handlers/graph.py (KMamiz
 src/handler/GraphService.ts). Graph views and chords are cache reads
@@ -9,14 +9,14 @@ handler assembles the exact ratios in float64, so payloads equal the host
 implementation's. The host path runs only when the caller asks for it
 (`?scorer=host`), when there is no processor, or when the graph is empty.
 Unlike the JAX handler, a device error is not answered with the host
-oracle: it propagates and the router answers 500.
-
-`/line`, `/statistics` and `/requests` read the historical store, which
-the port does not have yet; they answer 404 until it does.
+oracle: it propagates and the router answers 500. The charts (`/line`,
+`/statistics`, `/requests`) read the labeled historical data of the store
+through ServiceUtils.
 """
 from __future__ import annotations
 
 import threading
+import math
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -41,9 +41,12 @@ class GraphHandler(IRequestHandler):
         self.add_route("get", "/dependency/service/:namespace?", self._service_dependency)
         self.add_route("get", "/chord/direct/:namespace?", self._chord_direct)
         self.add_route("get", "/chord/indirect/:namespace?", self._chord_indirect)
+        self.add_route("get", "/line/:namespace?", self._line)
+        self.add_route("get", "/statistics/:namespace?", self._statistics)
         self.add_route("get", "/cohesion/:namespace?", self._cohesion)
         self.add_route("get", "/instability/:namespace?", self._instability)
         self.add_route("get", "/coupling/:namespace?", self._coupling)
+        self.add_route("get", "/requests/:uniqueName", self._requests)
 
     # -- routes --------------------------------------------------------------
 
@@ -60,6 +63,20 @@ class GraphHandler(IRequestHandler):
 
     def _chord_indirect(self, req: Request) -> Response:
         return Response(payload=self.get_indirect_service_chord(req.params.get("namespace")))
+
+    def _line(self, req: Request) -> Response:
+        return Response(
+            payload=self.get_line_chart_data(
+                req.params.get("namespace"), req.query_int("notBefore")
+            )
+        )
+
+    def _statistics(self, req: Request) -> Response:
+        return Response(
+            payload=self.get_service_historical_statistics(
+                req.params.get("namespace"), req.query_int("notBefore")
+            )
+        )
 
     def _cohesion(self, req: Request) -> Response:
         return Response(
@@ -82,6 +99,15 @@ class GraphHandler(IRequestHandler):
             )
         )
 
+    def _requests(self, req: Request) -> Response:
+        return Response(
+            payload=self.get_request_info_chart_data(
+                req.params["uniqueName"],
+                req.query.get("ignoreServiceVersion") == "true",
+                req.query_int("notBefore") or 86_400_000,
+            )
+        )
+
     # -- graph views (GraphService.ts:113-180) -------------------------------
 
     def _labeled_dependencies(self, namespace: Optional[str] = None) -> Optional[EndpointDependencies]:
@@ -90,8 +116,11 @@ class GraphHandler(IRequestHandler):
     def get_dependency_graph(self, namespace: Optional[str] = None) -> dict:
         dependencies = self._labeled_dependencies(namespace)
         if not dependencies:
-            return EndpointDependencies([]).to_graph_data()
+            return self.get_empty_graph_data()
         return dependencies.to_graph_data()
+
+    def get_empty_graph_data(self) -> dict:
+        return EndpointDependencies([]).to_graph_data()
 
     def get_service_dependency_graph(self, namespace: Optional[str] = None) -> dict:
         return self.to_service_dependency_graph(self.get_dependency_graph(namespace))
@@ -128,6 +157,97 @@ class GraphHandler(IRequestHandler):
         if not dependencies:
             return {"nodes": [], "links": []}
         return dependencies.to_chord_data()
+
+    # -- charts (GraphService.ts:182-292) ------------------------------------
+
+    def get_line_chart_data(
+        self,
+        namespace: Optional[str] = None,
+        not_before_ms: Optional[int] = None,
+    ) -> dict:
+        """not_before_ms is a look-back duration (the API's notBefore)."""
+        historical = self._ctx.service_utils.get_realtime_historical_data(
+            namespace, not_before_ms
+        )
+        if not historical:
+            return {"dates": [], "metrics": [], "services": []}
+
+        historical.sort(key=lambda h: h["date"])
+        first_services = sorted(
+            historical[0]["services"], key=lambda s: s["uniqueServiceName"]
+        )
+        services = [
+            f"{s['service']}.{s['namespace']} ({s['version']})"
+            for s in first_services
+        ]
+        dates: List[float] = []
+        metrics: List[List[List[float]]] = []
+        for h in historical:
+            dates.append(h["date"])
+            rows = sorted(h["services"], key=lambda s: s["uniqueServiceName"])
+            metrics.append(
+                [
+                    [
+                        s["requests"],
+                        s["requestErrors"],
+                        s["serverErrors"],
+                        s["latencyCV"],
+                        s.get("latencyMean", 0),
+                        s.get("risk") or 0,
+                    ]
+                    for s in rows
+                ]
+            )
+        return {"dates": dates, "services": services, "metrics": metrics}
+
+    def get_service_historical_statistics(
+        self,
+        namespace: Optional[str] = None,
+        not_before_ms: Optional[int] = None,
+    ) -> List[dict]:
+        historical = self._ctx.service_utils.get_realtime_historical_data(
+            namespace, not_before_ms
+        )
+        stats: dict = {}
+        for h in historical:
+            for si in h["services"]:
+                key = si["uniqueServiceName"]
+                if key not in stats:
+                    service, ns, version = key.split("\t")
+                    stats[key] = {
+                        "name": f"{service}.{ns} ({version})",
+                        "totalLatencyMean": 0.0,
+                        "totalRequests": 0,
+                        "totalServerError": 0,
+                        "totalRequestError": 0,
+                        "validCount": 0,
+                    }
+                mean = si.get("latencyMean")
+                if isinstance(mean, (int, float)) and math.isfinite(mean):
+                    stats[key]["totalLatencyMean"] += mean
+                    stats[key]["validCount"] += 1
+                stats[key]["totalRequests"] += si["requests"]
+                stats[key]["totalRequestError"] += si["requestErrors"]
+                stats[key]["totalServerError"] += si["serverErrors"]
+        return [
+            {
+                "uniqueServiceName": key,
+                "name": v["name"],
+                "latencyMean": v["totalLatencyMean"] / v["validCount"],
+                "serverErrorRate": (
+                    v["totalServerError"] / v["totalRequests"]
+                    if v["totalRequests"]
+                    else 0
+                ),
+                "requestErrorsRate": (
+                    v["totalRequestError"] / v["totalRequests"]
+                    if v["totalRequests"]
+                    else 0
+                ),
+            }
+            for key, v in stats.items()
+            if v["validCount"] != 0
+        ]
 
     # -- scorers (GraphService.ts:294-379) -----------------------------------
 
@@ -346,3 +466,80 @@ class GraphHandler(IRequestHandler):
                 }
             )
         return out
+
+    # -- per-endpoint request chart (GraphService.ts:381-448) ----------------
+
+    def get_request_info_chart_data(
+        self,
+        unique_name: str,
+        ignore_service_version: bool = False,
+        not_before_ms: int = 86_400_000,
+    ) -> dict:
+        parts = unique_name.split("\t")
+        # the reference's loose destructuring yields an empty chart for a
+        # malformed name (GraphService.ts:385-388), not an error
+        service = parts[0] if len(parts) > 0 else ""
+        namespace = parts[1] if len(parts) > 1 else ""
+        version = parts[2] if len(parts) > 2 else ""
+        method = parts[3] if len(parts) > 3 else None
+        label_name = parts[4] if len(parts) > 4 else None
+        is_endpoint = bool(method and label_name)
+        unique_service_name = f"{service}\t{namespace}\t{version}"
+
+        historical = self._ctx.service_utils.get_realtime_historical_data(
+            None, not_before_ms
+        )
+        filtered = [
+            s
+            for h in historical
+            for s in h["services"]
+            if (
+                s["service"] == service and s["namespace"] == namespace
+                if ignore_service_version
+                else s["uniqueServiceName"] == unique_service_name
+            )
+        ]
+        filtered.sort(key=lambda s: s["date"])
+
+        if is_endpoint:
+            source = []
+            for s in filtered:
+                endpoint = next(
+                    (
+                        e
+                        for e in s["endpoints"]
+                        if e.get("labelName") == label_name
+                        and e["method"] == method
+                    ),
+                    None,
+                )
+                source.append({"date": s["date"], "risk": None, **(endpoint or {})})
+        else:
+            source = filtered
+
+        chart = {
+            "time": [],
+            "requests": [],
+            "clientErrors": [],
+            "serverErrors": [],
+            "latencyCV": [],
+            "risks": None if is_endpoint else [],
+            "totalRequestCount": 0,
+            "totalClientErrors": 0,
+            "totalServerErrors": 0,
+        }
+        for s in source:
+            client_error = s.get("requestErrors") or 0
+            server_error = s.get("serverErrors") or 0
+            request = (s.get("requests") or 0) - server_error - client_error
+            chart["time"].append(s["date"])
+            chart["requests"].append(request)
+            chart["clientErrors"].append(client_error)
+            chart["serverErrors"].append(server_error)
+            chart["latencyCV"].append(s.get("latencyCV") or 0)
+            if not is_endpoint:
+                chart["risks"].append(s.get("risk") or 0)
+            chart["totalRequestCount"] += request
+            chart["totalClientErrors"] += client_error
+            chart["totalServerErrors"] += server_error
+        return chart

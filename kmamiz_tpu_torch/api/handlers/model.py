@@ -19,7 +19,7 @@ dependency graph, on the processor's device:
 Configuration: KMAMIZ_MODEL_DIR points at a checkpoint directory of the
 port (models/checkpoint.py). Only identity-free heads serve (num_nodes=0):
 node-identity embeddings cannot be aligned with a live, growing endpoint
-set. GraphSAGE serves; a GAT checkpoint is refused until GAT is ported.
+set. The sidecar's "model" picks the head: GAT or GraphSAGE.
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ class ModelHandler(IRequestHandler):
             self._error_transient = False
             try:
                 from kmamiz_tpu_torch.models import checkpoint as ckpt
-                from kmamiz_tpu_torch.models import graphsage
+                from kmamiz_tpu_torch.models import gat, graphsage
 
                 step = ckpt.latest_complete_step(directory)
                 if step is None:
@@ -114,20 +114,15 @@ class ModelHandler(IRequestHandler):
                         "set (retrain without --embeddings)"
                     )
                     return None
-                if meta.get("model") == "gat":
-                    self._load_error = (
-                        "checkpoint is a GAT head; GAT is not ported to "
-                        "kmamiz_tpu_torch yet (serve a GraphSAGE checkpoint)"
-                    )
-                    return None
+                model = gat if meta.get("model") == "gat" else graphsage
                 restored = ckpt.restore_params(
-                    directory, graphsage, step=step, device=self._device()
+                    directory, model, step=step, device=self._device()
                 )
                 if restored is None:
                     # the archive disappeared between listing and restore
                     return self._mark_transient(f"restore failed for {directory}")
                 params, meta = restored
-                self._loaded = (params, dict(meta), graphsage)
+                self._loaded = (params, dict(meta), model)
                 self._load_error = None
                 logger.info("forecast model loaded from %s step %s", directory, step)
             except OSError as err:

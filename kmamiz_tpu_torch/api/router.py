@@ -1,8 +1,8 @@
 """Minimal HTTP routing layer for the REST API.
 
 Counterpart of kmamiz_tpu/api/router.py (the reference's Express stack,
-src/routes/Routes.ts + src/entities/TRequestHandler.ts), copied without
-the static and wasm serving: handlers register (method, path) routes with
+src/routes/Routes.ts + src/entities/TRequestHandler.ts) with the entry
+point's static and wasm serving (index.ts:46-53): handlers register (method, path) routes with
 `:param` / optional `:param?` segments under /api/v{N}; responses are JSON
 by default with a 5-second cache-control, gzip-compressed when the client
 accepts it. Built on the stdlib ThreadingHTTPServer.
@@ -102,12 +102,36 @@ class Route:
     raw_path: str
 
 
-class Router:
-    """Route table with the reference's /api/v{N} prefix."""
+_STATIC_TYPES = {
+    ".html": "text/html",
+    ".js": "application/javascript",
+    ".css": "text/css",
+    ".json": "application/json",
+    ".svg": "image/svg+xml",
+    ".png": "image/png",
+    ".ico": "image/x-icon",
+    ".map": "application/json",
+    ".woff2": "font/woff2",
+    ".wasm": "application/wasm",
+}
 
-    def __init__(self, api_version: str = "1") -> None:
+
+class Router:
+    """Route table with the reference's /api/v{N} prefix, plus the entry
+    point's static serving: the SPA build from static_dir with index.html
+    fallback for client-side routes, and the Envoy filter binary at
+    /wasm."""
+
+    def __init__(
+        self,
+        api_version: str = "1",
+        static_dir: str = "",
+        wasm_path: str = "",
+    ) -> None:
         self.prefix = f"/api/v{api_version}"
         self._routes: List[Route] = []
+        self.static_dir = static_dir
+        self.wasm_path = wasm_path
 
     def add(self, method: str, path: str, handler: Handler) -> None:
         full = (self.prefix + path).rstrip("/") or "/"
@@ -149,7 +173,49 @@ class Router:
                 return Response.status_only(500)
         if matched_path:
             return Response.status_only(405)
+        if method.upper() == "GET" and not path.startswith(self.prefix):
+            static = self._serve_static(path)
+            if static is not None:
+                return static
         return Response.status_only(404)
+
+    def _serve_static(self, path: str) -> Optional[Response]:
+        import os
+
+        static_cache = {"Cache-Control": "max-age=3600"}  # index.ts:47
+        if path == "/wasm" and self.wasm_path and os.path.isfile(self.wasm_path):
+            with open(self.wasm_path, "rb") as f:
+                return Response(
+                    status=200,
+                    raw_body=f.read(),
+                    content_type="application/wasm",
+                    headers=static_cache,
+                )
+        if not self.static_dir:
+            return None
+        root = os.path.realpath(self.static_dir)
+        if not os.path.isdir(root):
+            return None
+        rel = unquote(path).lstrip("/") or "index.html"
+        candidate = os.path.realpath(os.path.join(root, rel))
+        # confine to the static root (no traversal via .. or symlinks out)
+        if not (candidate == root or candidate.startswith(root + os.sep)):
+            return None
+        if not os.path.isfile(candidate):
+            # SPA fallback: unknown extension-less paths load the app shell
+            if "." in os.path.basename(rel):
+                return None
+            candidate = os.path.join(root, "index.html")
+            if not os.path.isfile(candidate):
+                return None
+        ext = os.path.splitext(candidate)[1].lower()
+        with open(candidate, "rb") as f:
+            return Response(
+                status=200,
+                raw_body=f.read(),
+                content_type=_STATIC_TYPES.get(ext, "application/octet-stream"),
+                headers=static_cache,
+            )
 
 
 class IRequestHandler:

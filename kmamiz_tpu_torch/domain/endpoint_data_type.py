@@ -7,11 +7,28 @@ service cohesion via pairwise cosine similarity of schema-field sets.
 from __future__ import annotations
 
 import re
+from functools import lru_cache
 from typing import Dict, List, Optional, Set, Tuple
 
 from kmamiz_tpu_torch.core import schema as schema_utils
 from kmamiz_tpu_torch.core.urls import unique_params
 
+
+
+_FIELD_RE = re.compile(r"  ([^?:]*)[^ ]* ([^;]*)")
+
+
+@lru_cache(maxsize=16384)
+def _breakdown_interface(interface_str: str) -> Tuple[Tuple[str, str], ...]:
+    """(field, type) pairs of an interface string. Cached: the label
+    mapping compares every pair of a service's endpoints on each tick, and
+    a deployment has few distinct schemas."""
+    out = []
+    for line in interface_str.split("\n"):
+        m = _FIELD_RE.match(line)
+        if m and (m.group(1) or m.group(2)):
+            out.append((m.group(1), m.group(2)))
+    return tuple(out)
 
 class EndpointDataType:
     def __init__(self, endpoint_data_type: dict) -> None:
@@ -90,15 +107,6 @@ class EndpointDataType:
             )
         )
 
-    @staticmethod
-    def _breakdown_interface(interface_str: str) -> List[Tuple[str, str]]:
-        out = []
-        for line in interface_str.split("\n"):
-            m = re.match(r"  ([^?:]*)[^ ]* ([^;]*)", line)
-            if m and (m.group(1) or m.group(2)):
-                out.append((m.group(1), m.group(2)))
-        return out
-
     def _is_interface_matched(
         self, interface_a: Optional[str], interface_b: Optional[str]
     ) -> bool:
@@ -107,8 +115,8 @@ class EndpointDataType:
         if interface_b is None:
             interface_b = "interface Root {\n}"
         if interface_a and interface_b:
-            a_map = dict(self._breakdown_interface(interface_a))
-            for field, t in self._breakdown_interface(interface_b):
+            a_map = dict(_breakdown_interface(interface_a))
+            for field, t in _breakdown_interface(interface_b):
                 exist = a_map.get(field)
                 if not exist or (exist != t and exist != "any" and t != "any"):
                     return False

@@ -24,6 +24,9 @@ class EndpointDependencies:
     # raw (caller_uen, callee_uen, distance) triples for the window, captured
     # BEFORE deprecation filtering; only set by Traces.to_endpoint_dependencies
     window_edges = None
+    # set on trim()'s result: trimming is idempotent, and the realtime
+    # tick trims the same records again on their way into the labeled view
+    _trimmed = False
 
     def __init__(
         self,
@@ -98,6 +101,8 @@ class EndpointDependencies:
     # -- trim (EndpointDependencies.ts:91-112) -------------------------------
 
     def trim(self) -> "EndpointDependencies":
+        if self._trimmed:
+            return self
         trimmed = []
         for d in self._dependencies:
             d_on: Dict[str, dict] = {}
@@ -109,7 +114,9 @@ class EndpointDependencies:
             trimmed.append(
                 {**d, "dependingBy": list(d_by.values()), "dependingOn": list(d_on.values())}
             )
-        return EndpointDependencies(trimmed, now_ms=self._now_ms)
+        out = EndpointDependencies(trimmed, now_ms=self._now_ms)
+        out._trimmed = True
+        return out
 
     # -- labeling (EndpointDependencies.ts:114-153) --------------------------
 

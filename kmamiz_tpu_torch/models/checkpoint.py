@@ -30,18 +30,22 @@ import numpy as np
 import torch
 
 from kmamiz_tpu_torch.device import DeviceLike, resolve_device
-from kmamiz_tpu_torch.models import graphsage
+from kmamiz_tpu_torch.models import gat, graphsage
 from kmamiz_tpu_torch.models.common import AdamState
 from kmamiz_tpu_torch.models.stlgt import model as stlgt
 
 #: the params NamedTuple of each model module of the port
-_PARAMS_TYPES = {graphsage: graphsage.SageParams, stlgt: stlgt.StlgtParams}
+_PARAMS_TYPES = {
+    graphsage: graphsage.SageParams,
+    gat: gat.GatParams,
+    stlgt: stlgt.StlgtParams,
+}
 #: name prefix of the optimizer-state arrays in an archive
 _OPT = "opt_state."
 
 
 def params_from_numpy(model, arrays: Mapping[str, np.ndarray], device: DeviceLike = None):
-    """`model`'s params (graphsage or stlgt.model) from numpy arrays named
+    """`model`'s params (graphsage, gat or stlgt.model) from numpy arrays named
     after its params fields, as float32 tensors on `device` (the card when
     None). A field absent from `arrays`, or None there, stays None."""
     dev = resolve_device(device)

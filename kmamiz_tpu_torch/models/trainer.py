@@ -3,8 +3,8 @@
 Counterpart of kmamiz_tpu/models/trainer.py. Each hourly slot becomes one
 training example: per-endpoint features from that slot's combined
 realtime data, targets from the NEXT slot (log-latency regression and
-anomaly classification); the 2-layer GraphSAGE head trains full-graph
-with the family's AdamW. Anomaly ground truth is derived from the data
+anomaly classification); the 2-layer GraphSAGE head (or, with
+model=gat, the GAT head) trains full-graph with the family's AdamW. Anomaly ground truth is derived from the data
 (next-slot 5xx share above a threshold), so no manual labels are needed.
 
 The dataset lives on the host (numpy); `train` stacks it on its device

@@ -1,16 +1,17 @@
-"""The caches the graph routes and the realtime path read.
+"""The Cacheable subclasses (KMamiz src/classes/Cacheable/*).
 
-Counterpart of kmamiz_tpu/server/cacheables.py (KMamiz
-src/classes/Cacheable/*), reduced to six of its thirteen caches:
-combined realtime data, endpoint dependencies and their labeled view,
-endpoint datatypes, the label mapping and the user-defined labels. Each
-keeps its reference twin's merge/filter/label behavior for the realtime
-path; the store-backed init/sync hooks, the aggregation's reset, the
-label CRUD and the label reads of historical data wait for the slices
-that use them.
+Each cache mirrors its reference twin's merge/filter/label behavior; the
+store-backed ones get init (load) and sync (replace-all flush) hooks wired
+to the pluggable Store instead of Mongoose models.
+
+A copy of kmamiz_tpu/server/cacheables.py without the simulator's two
+caches (TaggedSimulationYAML, SimulatedHistoricalData), which wait for
+the simulator's port. CModelHistoryState persists the processor's online
+forecast state through snapshot_history / restore_history.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kmamiz_tpu_torch.analytics.endpoint_utils import guess_and_merge_endpoints
@@ -18,22 +19,88 @@ from kmamiz_tpu_torch.core.urls import explode_url
 from kmamiz_tpu_torch.domain.combined import CombinedRealtimeDataList
 from kmamiz_tpu_torch.domain.endpoint_data_type import EndpointDataType
 from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
+from kmamiz_tpu_torch.domain.historical import HistoricalData
 from kmamiz_tpu_torch.server.cache import Cacheable
+from kmamiz_tpu_torch.server.storage import Store
+
+RISK_LOOK_BACK_TIME_MS = 30 * 60 * 1000  # ServiceOperator.RISK_LOOK_BACK_TIME
+
+
+def _now_ms() -> float:
+    return time.time() * 1000
+
+
+def _snap(getter, to_docs):
+    """One-read snapshot closure for sync hooks: `getter() and then
+    getter().to_json()` reads the cache twice, and the aggregation
+    thread's reset() landing between the reads turns the flush into an
+    AttributeError that silently skips the collection."""
+    def fn():
+        data = getter()
+        return to_docs(data) if data else None
+
+    return fn
+
+
+def _replace_all_sync(store: Store, collection: str, docs_fn: Callable[[], list]):
+    def sync() -> None:
+        docs = docs_fn()
+        if docs is None:
+            return
+        # ids-only read: the rotation needs no document bodies, so it
+        # skips the boundary validation walk entirely — and it still
+        # purges documents the read path has quarantined
+        old_ids = store.find_ids(collection)
+        # strip _id so re-synced docs get fresh ids — otherwise docs loaded
+        # from this store would be upserted under their old ids and then
+        # deleted as "old", wiping the collection
+        store.insert_many(
+            collection,
+            [{k: v for k, v in d.items() if k != "_id"} for d in docs],
+        )
+        store.delete_many(collection, old_ids)
+
+    return sync
 
 
 class CCombinedRealtimeData(Cacheable):
     unique_name = "CombinedRealtimeData"
 
-    def __init__(self, init_data: Optional[List[dict]] = None) -> None:
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
         super().__init__(
             self.unique_name,
             CombinedRealtimeDataList(init_data) if init_data else None,
         )
+        if store:
+            self._set_init(
+                lambda: self.set_data(
+                    CombinedRealtimeDataList(store.find_all("CombinedRealtimeData"))
+                ),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(
+                    store,
+                    "CombinedRealtimeData",
+                    _snap(self.get_data, lambda d: d.to_json()),
+                ),
+                simulator_mode,
+            )
 
     def set_data(self, update: CombinedRealtimeDataList, *args: Any) -> None:
-        update = CombinedRealtimeDataList([r for r in update.to_json() if r.get("service")])
+        update = CombinedRealtimeDataList(
+            [r for r in update.to_json() if r.get("service")]
+        )
         data = Cacheable.get_data(self)
         Cacheable.set_data(self, data.combine_with(update) if data else update)
+
+    def reset(self) -> None:
+        self.clear()
 
     def get_data(self, namespace: Optional[str] = None):
         data = Cacheable.get_data(self)
@@ -44,20 +111,34 @@ class CCombinedRealtimeData(Cacheable):
         return data
 
 
-def _in_namespace(data: EndpointDependencies, namespace: str) -> EndpointDependencies:
-    return EndpointDependencies(
-        [d for d in data.to_json() if d["endpoint"]["namespace"] == namespace]
-    )
-
-
 class CEndpointDependencies(Cacheable):
     unique_name = "EndpointDependencies"
 
-    def __init__(self, init_data: Optional[List[dict]] = None) -> None:
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
         super().__init__(
             self.unique_name,
             EndpointDependencies(init_data) if init_data else None,
         )
+        if store:
+            self._set_init(
+                lambda: self.set_data(
+                    EndpointDependencies(store.find_all("EndpointDependencies"))
+                ),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(
+                    store,
+                    "EndpointDependencies",
+                    _snap(self.get_data, lambda d: d.to_json()),
+                ),
+                simulator_mode,
+            )
 
     def set_data(self, update: EndpointDependencies, *args: Any) -> None:
         Cacheable.set_data(self, update.trim())
@@ -65,7 +146,13 @@ class CEndpointDependencies(Cacheable):
     def get_data(self, namespace: Optional[str] = None):
         data = Cacheable.get_data(self)
         if namespace and data:
-            return _in_namespace(data, namespace)
+            return EndpointDependencies(
+                [
+                    d
+                    for d in data.to_json()
+                    if d["endpoint"]["namespace"] == namespace
+                ]
+            )
         return data
 
 
@@ -83,44 +170,83 @@ class CLabeledEndpointDependencies(Cacheable):
             EndpointDependencies(init_data) if init_data else None,
         )
         self._get_label = get_label or (lambda name: None)
-        # wired to the label mapping's change counter, relabel() is a no-op
-        # until this cache's data or the mapping changed; unwired, it
-        # relabels on every read
+        # when wired to the label mapping's change counter, relabel()
+        # becomes a no-op until either this cache's data or the mapping
+        # actually changed; unwired callers keep the relabel-every-read
+        # behavior (correct, just slower)
         self._label_version = label_version
         self._relabel_key: Optional[tuple] = None
 
     def set_data(self, update: EndpointDependencies, *args: Any) -> None:
-        Cacheable.set_data(self, EndpointDependencies(update.trim().label(self._get_label)))
+        # stored trimmed and labeled on the next read (relabel), with the
+        # mapping of that read, as the reference's relabel-on-read gives:
+        # the realtime tick writes this view and never reads it, so the
+        # labeling of every endpoint leaves the tick
+        Cacheable.set_data(self, update.trim())
 
     def relabel(self) -> None:
-        data = Cacheable.get_data(self)
-        if not data:
-            return
-        lv = self._label_version() if self._label_version else None
-        if lv is not None and (self.version, lv) == self._relabel_key:
-            return
-        self.set_data(EndpointDependencies(data.label(self._get_label)))
-        if lv is not None:
-            # keyed on the post-set version: the next read with the same
-            # data and mapping skips the relabel
-            self._relabel_key = (self.version, lv)
+        with self._update_lock:
+            data = Cacheable.get_data(self)
+            if not data:
+                return
+            lv = self._label_version() if self._label_version else None
+            if lv is not None and (self.version, lv) == self._relabel_key:
+                return
+            Cacheable.set_data(self, EndpointDependencies(data.label(self._get_label)))
+            if lv is not None:
+                # key on the post-set version: the NEXT read with the same
+                # data + mapping skips the relabel entirely
+                self._relabel_key = (self.version, lv)
+
+    def to_json(self) -> Any:
+        self.relabel()
+        return Cacheable.to_json(self)
 
     def get_data(self, namespace: Optional[str] = None):
         self.relabel()
         data = Cacheable.get_data(self)
         if namespace and data:
-            return _in_namespace(data, namespace)
+            return EndpointDependencies(
+                [
+                    d
+                    for d in data.to_json()
+                    if d["endpoint"]["namespace"] == namespace
+                ]
+            )
         return data
 
 
 class CEndpointDataType(Cacheable):
     unique_name = "EndpointDataType"
 
-    def __init__(self, init_data: Optional[List[dict]] = None) -> None:
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
         super().__init__(
             self.unique_name,
             [EndpointDataType(e) for e in init_data] if init_data else None,
         )
+        if store:
+            self._set_init(
+                lambda: self.set_data(
+                    [
+                        EndpointDataType(r)
+                        for r in store.find_all("EndpointDataType")
+                    ]
+                ),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(
+                    store,
+                    "EndpointDataType",
+                    lambda: [e.to_json() for e in self.get_data()],
+                ),
+                simulator_mode,
+            )
 
     def get_data(self, *args: Any) -> List[EndpointDataType]:
         return Cacheable.get_data(self) or []
@@ -136,11 +262,40 @@ class CEndpointDataType(Cacheable):
         Cacheable.set_data(self, [t.trim() for t in data_type_map.values()])
 
 
+class CReplicas(Cacheable):
+    unique_name = "ReplicaCounts"
+
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        fetch_replicas: Optional[Callable[[], List[dict]]] = None,
+        read_only: bool = False,
+    ) -> None:
+        super().__init__(self.unique_name, init_data)
+        if fetch_replicas:
+            def init() -> None:
+                if read_only:
+                    return
+                self.set_data(fetch_replicas())
+
+            self._set_init(init)
+
+    def set_data(self, update: List[dict], *args: Any) -> None:
+        Cacheable.set_data(self, [r for r in update if r.get("service")])
+
+
 class CLabelMapping(Cacheable):
     unique_name = "LabelMapping"
 
     def __init__(self, init_data: Optional[List[Tuple[str, str]]] = None) -> None:
-        super().__init__(self.unique_name, dict(init_data) if init_data else None)
+        super().__init__(
+            self.unique_name, dict(init_data) if init_data else None
+        )
+        # get_label's answers for the mapping of one version: a tick
+        # labels every endpoint of the dependency view (several hundred
+        # thousand lookups at 10,000 endpoints), most of them falling back
+        # to the URL's path
+        self._labels: Tuple[int, Dict[str, Optional[str]]] = (-1, {})
 
     def set_data(
         self,
@@ -169,13 +324,84 @@ class CLabelMapping(Cacheable):
         Cacheable.set_data(self, update)
 
     def get_label(self, unique_name: str) -> Optional[str]:
+        version, labels = self._labels
+        if version != self.version:
+            labels = {}
+            self._labels = (self.version, labels)
+        if unique_name in labels:
+            return labels[unique_name]
         label_map = Cacheable.get_data(self)
         label = (label_map or {}).get(unique_name)
-        if label:
-            return label
-        parts = unique_name.split("\t")
-        url = parts[4] if len(parts) > 4 else ""
-        return explode_url(url).path
+        if not label:
+            parts = unique_name.split("\t")
+            url = parts[4] if len(parts) > 4 else ""
+            label = explode_url(url).path
+        labels[unique_name] = label
+        return label
+
+    def get_endpoints_from_label(self, label: str) -> List[str]:
+        label_map = Cacheable.get_data(self)
+        if not label_map:
+            return []
+        out: Dict[str, List[str]] = {}
+        for name, l in label_map.items():
+            out.setdefault(l, []).append(name)
+        return out.get(label, [])
+
+    def label_historical_data(self, historical_data: List[dict]) -> List[dict]:
+        label_map = Cacheable.get_data(self)
+        if label_map is None:
+            return historical_data
+        unique_names = {
+            e["uniqueEndpointName"]: None
+            for h in historical_data
+            for s in h["services"]
+            for e in s["endpoints"]
+        }
+        # guess_and_merge_endpoints mutates the map it is given; work on
+        # a COPY and publish via set_data — other request threads iterate
+        # the live dict concurrently
+        self.set_data(
+            guess_and_merge_endpoints(list(unique_names), dict(label_map))
+        )
+        for h in historical_data:
+            for s in h["services"]:
+                for e in s["endpoints"]:
+                    e["labelName"] = self.get_label(e["uniqueEndpointName"])
+        return historical_data
+
+    def label_aggregated_data(self, aggregated_data: dict) -> dict:
+        label_map = Cacheable.get_data(self)
+        if label_map is None:
+            return aggregated_data
+        unique_names = {
+            e["uniqueEndpointName"]: None
+            for s in aggregated_data["services"]
+            for e in s["endpoints"]
+        }
+        # copy before the mutating guess-merge (see label_historical_data)
+        self.set_data(
+            guess_and_merge_endpoints(list(unique_names), dict(label_map))
+        )
+        for s in aggregated_data["services"]:
+            for e in s["endpoints"]:
+                e["labelName"] = self.get_label(e["uniqueEndpointName"])
+        return aggregated_data
+
+    def get_endpoint_data_types_by_label(
+        self,
+        label: str,
+        unique_service_name: str,
+        method: str,
+        endpoint_data_types: List[EndpointDataType],
+    ) -> List[EndpointDataType]:
+        return [
+            dt
+            for dt in endpoint_data_types
+            if dt.to_json()["uniqueServiceName"] == unique_service_name
+            and dt.to_json()["method"] == method
+            and self.get_label(dt.to_json()["uniqueEndpointName"]) == label
+        ]
 
     def to_json(self) -> List[List[str]]:
         data = Cacheable.get_data(self)
@@ -187,5 +413,294 @@ class CLabelMapping(Cacheable):
 class CUserDefinedLabel(Cacheable):
     unique_name = "UserDefinedLabel"
 
-    def __init__(self, init_data: Optional[dict] = None) -> None:
+    def __init__(
+        self,
+        init_data: Optional[dict] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
         super().__init__(self.unique_name, init_data)
+        if store:
+            self._set_init(
+                lambda: self.set_data(
+                    (store.find_all("UserDefinedLabel") or [None])[0]
+                ),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(
+                    store,
+                    "UserDefinedLabel",
+                    _snap(self.get_data, lambda d: [d]),
+                ),
+                simulator_mode,
+            )
+
+    def update(self, label: dict) -> None:
+        with self._update_lock:
+            for l in label.get("labels", []):
+                self.delete(l["label"], l["uniqueServiceName"], l["method"])
+            self.add(label)
+
+    def add(self, label: dict) -> None:
+        with self._update_lock:
+            data = self.get_data()
+            self.set_data(
+                {
+                    "labels": (data or {}).get("labels", [])
+                    + label.get("labels", [])
+                }
+            )
+
+    def delete(self, label_name: str, unique_service_name: str, method: str) -> None:
+        with self._update_lock:
+            data = self.get_data()
+            if not data:
+                return
+            self.set_data(
+                {
+                    "labels": [
+                        l
+                        for l in data.get("labels", [])
+                        if l["label"] != label_name
+                        or l["uniqueServiceName"] != unique_service_name
+                        or l["method"] != method
+                    ]
+                }
+            )
+
+
+class CTaggedInterfaces(Cacheable):
+    unique_name = "TaggedInterfaces"
+
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
+        super().__init__(self.unique_name, init_data)
+        if store:
+            self._set_init(
+                lambda: self.set_data(store.find_all("TaggedInterface")),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(
+                    store, "TaggedInterface", lambda: self.get_data()
+                ),
+                simulator_mode,
+            )
+
+    def get_data(self, unique_label_name: Optional[str] = None) -> List[dict]:
+        data = Cacheable.get_data(self) or []
+        if unique_label_name:
+            return [i for i in data if i.get("uniqueLabelName") == unique_label_name]
+        return data
+
+    def add(self, tagged: dict) -> None:
+        tagged = {**tagged, "timestamp": _now_ms()}
+        with self._update_lock:
+            self.set_data(self.get_data() + [tagged])
+
+    def delete(self, unique_label_name: str, user_label: str) -> None:
+        # mirror of the reference's AND-of-inequalities filter
+        with self._update_lock:
+            self.set_data(
+                [
+                    i
+                    for i in self.get_data()
+                    if i.get("uniqueLabelName") != unique_label_name
+                    and i.get("userLabel") != user_label
+                ]
+            )
+
+
+class CTaggedSwaggers(Cacheable):
+    unique_name = "TaggedSwaggers"
+
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
+        super().__init__(self.unique_name, init_data)
+        if store:
+            self._set_init(
+                lambda: self.set_data(store.find_all("TaggedSwagger")),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(store, "TaggedSwagger", lambda: self.get_data()),
+                simulator_mode,
+            )
+
+    def get_data(
+        self, unique_service_name: Optional[str] = None, tag: Optional[str] = None
+    ) -> List[dict]:
+        data = Cacheable.get_data(self) or []
+        if not unique_service_name:
+            return data
+        docs = [d for d in data if d.get("uniqueServiceName") == unique_service_name]
+        if not tag:
+            return docs
+        return [d for d in docs if d.get("tag") == tag]
+
+    def add(self, tagged: dict) -> None:
+        with self._update_lock:
+            if self.get_data(
+                tagged.get("uniqueServiceName"), tagged.get("tag")
+            ):
+                return
+            tagged = {**tagged, "time": _now_ms()}
+            self.set_data(self.get_data() + [tagged])
+
+    def delete(self, unique_service_name: str, tag: str) -> None:
+        with self._update_lock:
+            self.set_data(
+                [
+                    d
+                    for d in self.get_data()
+                    if d.get("tag") != tag
+                    or d.get("uniqueServiceName") != unique_service_name
+                ]
+            )
+
+
+class CTaggedDiffData(Cacheable):
+    unique_name = "TaggedDiffDatas"
+
+    def __init__(
+        self,
+        init_data: Optional[List[dict]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+    ) -> None:
+        super().__init__(self.unique_name, init_data)
+        if store:
+            self._set_init(
+                lambda: self.set_data(store.find_all("TaggedDiffData")),
+                simulator_mode,
+            )
+            self._set_sync(
+                _replace_all_sync(store, "TaggedDiffData", lambda: self.get_data()),
+                simulator_mode,
+            )
+
+    def get_data(self, *args: Any) -> List[dict]:
+        data = Cacheable.get_data(self) or []
+        return [d for d in data if d.get("time")]
+
+    def get_data_by_tag(self, tag: Optional[str] = None) -> Optional[dict]:
+        if tag:
+            existing = [d for d in self.get_data() if d.get("tag") == tag]
+            if existing:
+                return existing[0]
+        return None
+
+    def get_tags_with_time(self) -> List[dict]:
+        return [{"tag": d["tag"], "time": d["time"]} for d in self.get_data()]
+
+    def add(self, tagged: dict) -> None:
+        with self._update_lock:
+            if self.get_data_by_tag(tagged.get("tag")) is None:
+                tagged = {**tagged, "time": _now_ms()}
+                self.set_data((Cacheable.get_data(self) or []) + [tagged])
+
+    def delete(self, tag: str) -> None:
+        with self._update_lock:
+            self.set_data(
+                [d for d in self.get_data() if d.get("tag") != tag]
+            )
+
+
+class CLookBackRealtimeData(Cacheable):
+    unique_name = "LookBackRealtimeData"
+    can_export = False
+
+    def __init__(
+        self,
+        init_data: Optional[List[Tuple[int, List[dict]]]] = None,
+        store: Optional[Store] = None,
+        simulator_mode: bool = False,
+        now_ms: Callable[[], float] = _now_ms,
+    ) -> None:
+        data = (
+            {ts: CombinedRealtimeDataList(rows) for ts, rows in init_data}
+            if init_data
+            else None
+        )
+        super().__init__(self.unique_name, data)
+        self._now_ms = now_ms
+        if store:
+            def init() -> None:
+                historical = store.get_historical_data(
+                    time_offset_ms=RISK_LOOK_BACK_TIME_MS, now_ms=self._now_ms()
+                )
+                self.set_data(
+                    {
+                        h["date"]: HistoricalData(h).to_combined_realtime_data_list()
+                        for h in historical
+                    }
+                )
+
+            self._set_init(init, simulator_mode)
+
+    def set_data(self, update: Dict[int, CombinedRealtimeDataList], *args: Any) -> None:
+        existing = Cacheable.get_data(self) or {}
+        existing.update(update)
+        Cacheable.set_data(self, existing)
+
+    def get_data(self, *args: Any) -> Dict[int, CombinedRealtimeDataList]:
+        data = Cacheable.get_data(self)
+        if not data:
+            return {}
+        now = self._now_ms()
+        filtered = {
+            ts: rows
+            for ts, rows in data.items()
+            if now - ts < RISK_LOOK_BACK_TIME_MS
+        }
+        Cacheable.set_data(self, filtered)
+        return filtered
+
+
+class CModelHistoryState(Cacheable):
+    """Persistence vehicle for the online forecast-model state: hour-keyed per-endpoint profiles take days of traffic to
+    build, so they honor the same init/sync contract as every other live
+    cache (Cacheable.ts:42-55) — restored at boot keyed by endpoint
+    NAME, flushed on the dispatch rotation and at shutdown. The data
+    itself lives on the DataProcessor (models/history.HistoryState); this
+    cache holds no copy, it snapshots on sync and restores on init."""
+
+    unique_name = "ModelHistoryState"
+    can_export = False  # live serving state, like LookBackRealtimeData
+
+    def __init__(
+        self,
+        store: Optional[Store] = None,
+        processor: Optional[Any] = None,
+        simulator_mode: bool = False,
+    ) -> None:
+        super().__init__(self.unique_name, None)
+        if store is not None and processor is not None:
+
+            def init() -> None:
+                docs = store.find_all(self.unique_name)
+                if docs:
+                    # restore_history picks the newest COMPLETE part set
+                    processor.restore_history(docs)
+
+            def docs_fn() -> Optional[list]:
+                # a list of chunked part documents (each a few MB at
+                # most, under any backend's document-size cap); None
+                # before the first observed tick leaves the stored
+                # snapshot alone rather than wiping it
+                return processor.snapshot_history()
+
+            self._set_init(init, simulator_mode)
+            self._set_sync(
+                _replace_all_sync(store, self.unique_name, docs_fn),
+                simulator_mode,
+            )

@@ -33,16 +33,25 @@ worker thread while chunk k stages its merge on the device. The tick and
 raw ingest share one processed-trace dedup map, which the native parse
 reads through a persistent skip set.
 
+The online history state persists through `snapshot_history` /
+`restore_history` (server/cacheables.CModelHistoryState): chunked part
+documents keyed by endpoint name, field for field the JAX processor's, so
+a store written by either package restores into the other. The state is
+host numpy in both packages; a snapshot copies it under _history_lock and
+encodes after releasing it, so it never pairs two ticks' arrays and never
+holds a tick back for the encoding.
+
 Not ported yet: cluster state (a k8s source, so every replica count in
 the features is 1.0), the ingest WAL, the quarantine, telemetry spans,
-history persistence, and the fold hooks of the JAX processor (the
-control plane and the cost model; the STLGT continual trainer is
-ported).
+and the fold hooks of the JAX processor (the control plane and the cost
+model; the STLGT continual trainer is ported).
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
+import os
 import queue
 import threading
 import time
@@ -83,6 +92,25 @@ DEFAULT_STREAM_CHUNKS = 4
 #: default); each pins its batch's host arrays
 DEFAULT_STREAM_DEPTH = 2
 
+
+
+def _tune_gc() -> None:
+    """Raise the gen-0 collection threshold for the serving process, as
+    the JAX processor does. A 2,500-trace tick allocates ~10^5
+    short-lived dicts (span copies, dependency records, response JSON);
+    CPython's default gen-0 threshold of 700 triggers a young-generation
+    scan every few hundred of them, and with the application's caches of
+    10,000 endpoints alive the older generations' scans it sets off take
+    a share of every tick. KMAMIZ_GC_GEN0 overrides the threshold (default
+    50,000); 0 leaves the interpreter's defaults. Collection stays on: only
+    its cadence changes."""
+    try:
+        gen0 = int(os.environ.get("KMAMIZ_GC_GEN0", 50_000))
+    except ValueError:
+        gen0 = 50_000
+    if gen0 > 0:
+        _, gen1, gen2 = gc.get_threshold()
+        gc.set_threshold(gen0, gen1, gen2)
 
 def _pack_stats(count, mean, cv, ts_rel):
     """Pack the per-segment stats into ONE device buffer so the host pays a
@@ -154,6 +182,7 @@ class DataProcessor:
             raise NotImplementedError(
                 "cluster state (k8s_source) is not ported yet; pass None"
             )
+        _tune_gc()
         self.device = resolve_device(device)
         self._trace_source = trace_source
         self._now_ms = now_ms  # the dedup map's clock
@@ -181,6 +210,8 @@ class DataProcessor:
         # dedup-map transitions serialize here (the graph store carries its
         # own lock)
         self._dedup_lock = threading.Lock()
+        #: one tick at a time (collect)
+        self.tick_lock = threading.Lock()
         if graph is not None and graph.device != self.device:
             raise ValueError(
                 f"graph lies on {graph.device}, the processor runs on {self.device}"
@@ -515,15 +546,18 @@ class DataProcessor:
     # -- the tick ------------------------------------------------------------
 
     def collect(self, request: dict) -> dict:
-        """TExternalDataProcessorRequest -> TExternalDataProcessorResponse."""
+        """TExternalDataProcessorRequest -> TExternalDataProcessorResponse.
+        Ticks run one at a time under tick_lock, whoever calls: the DP
+        server's POST / and the application's scheduled realtime job."""
         stages: Dict[str, float] = {}
-        with _stage(stages, "prepare"):
-            p = self.prepare_tick(request)
-        with _stage(stages, "merge"):
-            self.merge_prepared(p)
-        with _stage(stages, "finish"):
-            out = self.finish_tick(p)
-        self.last_stage_ms = {**p.stages, **stages}
+        with self.tick_lock:
+            with _stage(stages, "prepare"):
+                p = self.prepare_tick(request)
+            with _stage(stages, "merge"):
+                self.merge_prepared(p)
+            with _stage(stages, "finish"):
+                out = self.finish_tick(p)
+            self.last_stage_ms = {**p.stages, **stages}
         return out
 
     def prepare_tick(self, request: dict) -> _PreparedTick:
@@ -751,6 +785,243 @@ class DataProcessor:
         except Exception:  # noqa: BLE001 - containment, counted
             self.fold_errors["stlgtFoldErrors"] += 1
             logger.exception("STLGT fold hook failed")
+
+    # -- history persistence (server/cacheables.CModelHistoryState) ---------
+
+    #: endpoints per snapshot part: bounds any single store document to a
+    #: few MB (Mongo caps BSON documents at 16 MB; one monolithic doc at
+    #: 10k+ endpoints would brush against it)
+    HISTORY_SNAPSHOT_CHUNK = 2048
+
+    def snapshot_history(self) -> "Optional[list]":
+        """Serializable snapshot of the whole online model state:
+        HistoryState accumulators, the in-progress hour bucket, and the
+        published forecast snapshot — everything keyed by endpoint NAME
+        (ids shift across restarts). Returns a LIST of part documents
+        (endpoint ranges of HISTORY_SNAPSHOT_CHUNK) so no single store
+        document outgrows a backend's size cap; None before the first
+        observed tick. Rides the dispatch cron + shutdown syncAll like
+        every other live cache (CModelHistoryState).
+
+        Lock discipline: only cheap array memcpys happen under
+        _history_lock; the base64 encoding of what can be tens of MB runs
+        after release, so a flush never stalls the realtime tick."""
+        from kmamiz_tpu_torch.models.history import HistoryState, encode_array
+
+        with self._history_lock:
+            if self.history is None:
+                return None
+            saved_at = self._now_ms()
+            state_arrays = {
+                f: np.array(getattr(self.history, f))
+                for f in HistoryState._ARRAY_FIELDS
+            }
+            window = [np.array(w) for w in self.history._window]
+            started = self.history._started
+            n_state = self.history.num_endpoints
+            bucket = (
+                None
+                if self._hour_bucket is None
+                else [self._hour_bucket[0]]
+                + [np.array(a) for a in self._hour_bucket[1:]]
+            )
+            hist_feats = (
+                None
+                if self.history_features is None
+                else np.array(self.history_features)
+            )
+            model_feats = (
+                None
+                if self.history_model_features is None
+                else np.array(self.history_model_features)
+            )
+            predicted_hour = self.history_predicted_hour
+            # the forecast snapshot dict is replaced wholesale on fold and
+            # its arrays never mutate: safe to reference outside the lock
+            snap = self.forecast_snapshot
+        interner = self.graph.interner
+        n_names = max(n_state, len(bucket[1]) if bucket else 0)
+        names = [interner.endpoints.lookup(i) for i in range(n_names)]
+        chunk = self.HISTORY_SNAPSHOT_CHUNK
+        parts = max(1, -(-max(n_names, 1) // chunk))
+        docs = []
+        for p in range(parts):
+            lo, hi = p * chunk, min((p + 1) * chunk, n_names)
+            doc = {
+                "savedAt": saved_at,
+                "part": p,
+                "parts": parts,
+                "names": names[lo:hi],
+                "state": {
+                    "n": max(0, min(n_state, hi) - lo),
+                    "started": started,
+                    "window": [
+                        encode_array(w[..., lo:hi]) for w in window
+                    ],
+                    **{
+                        f.lstrip("_"): encode_array(
+                            state_arrays[f][..., lo:hi]
+                        )
+                        for f in HistoryState._ARRAY_FIELDS
+                    },
+                },
+                "hourBucket": None,
+                "forecast": None,
+                "historyFeatures": None,
+                "modelFeatures": None,
+                "predictedHour": predicted_hour,
+            }
+            if bucket is not None:
+                doc["hourBucket"] = {
+                    "hour": int(bucket[0]),
+                    "arrays": [encode_array(a[lo:hi]) for a in bucket[1:]],
+                }
+            if hist_feats is not None:
+                doc["historyFeatures"] = encode_array(hist_feats[lo:hi])
+            if model_feats is not None:
+                doc["modelFeatures"] = encode_array(model_feats[lo:hi])
+            if p == 0 and snap is not None:
+                # edge arrays are not per-endpoint; they live on part 0
+                doc["forecast"] = {
+                    "features": encode_array(np.asarray(snap["features"])),
+                    "src": encode_array(np.asarray(snap["src"])),
+                    "dst": encode_array(np.asarray(snap["dst"])),
+                    "mask": encode_array(np.asarray(snap["mask"])),
+                    "names": list(snap["names"]),
+                    "predictedHour": snap["predicted_hour"],
+                }
+            docs.append(doc)
+        return docs
+
+    @staticmethod
+    def _assemble_snapshot_parts(docs) -> "Optional[dict]":
+        """Pick the newest COMPLETE part set from stored snapshot
+        documents and merge it back into one logical snapshot."""
+        from kmamiz_tpu_torch.models.history import decode_array
+
+        groups: Dict[float, list] = {}
+        for d in docs or []:
+            groups.setdefault(d.get("savedAt", 0), []).append(d)
+        for saved_at in sorted(groups, reverse=True):
+            parts = sorted(groups[saved_at], key=lambda d: d.get("part", 0))
+            want = parts[0].get("parts", len(parts))
+            if len(parts) != want or [
+                d.get("part", 0) for d in parts
+            ] != list(range(want)):
+                continue  # torn write: fall back to the next-newest set
+            if want == 1:
+                return parts[0]
+
+            def cat(getter, axis):
+                # returns the DECODED concatenation: downstream decode_array
+                # passes ndarrays through, so the boot restore never
+                # re-encodes the multi-MB snapshot just to re-decode it
+                arrs = [decode_array(getter(d)) for d in parts]
+                return np.concatenate(arrs, axis=axis)
+
+            first = parts[0]
+            merged = {
+                "savedAt": saved_at,
+                "names": [nm for d in parts for nm in d["names"]],
+                "state": {
+                    "n": sum(d["state"]["n"] for d in parts),
+                    "started": first["state"]["started"],
+                    "window": [
+                        cat(lambda d, i=i: d["state"]["window"][i], -1)
+                        for i in range(len(first["state"]["window"]))
+                    ],
+                    **{
+                        k: cat(lambda d, k=k: d["state"][k], -1)
+                        for k in first["state"]
+                        if k not in ("n", "started", "window")
+                    },
+                },
+                "hourBucket": None,
+                "forecast": first.get("forecast"),
+                "historyFeatures": None,
+                "modelFeatures": None,
+                "predictedHour": first.get("predictedHour"),
+            }
+            if first.get("hourBucket") is not None:
+                merged["hourBucket"] = {
+                    "hour": first["hourBucket"]["hour"],
+                    "arrays": [
+                        cat(lambda d, i=i: d["hourBucket"]["arrays"][i], 0)
+                        for i in range(len(first["hourBucket"]["arrays"]))
+                    ],
+                }
+            for key in ("historyFeatures", "modelFeatures"):
+                if first.get(key) is not None:
+                    merged[key] = cat(lambda d, k=key: d[k], 0)
+            return merged
+        return None
+
+    @staticmethod
+    def _scatter_rows(a: np.ndarray, ids: np.ndarray, n_new: int):
+        """Re-key a per-endpoint row array: saved row i lands at row
+        ids[i] of a fresh n_new-row layout (trailing dims preserved)."""
+        out = np.zeros((n_new,) + a.shape[1:], dtype=a.dtype)
+        k = min(len(a), len(ids))
+        out[ids[:k]] = a[:k]
+        return out
+
+    def restore_history(self, docs) -> None:
+        """Rebuild the online model state from stored snapshot_history
+        documents (boot path; live state always wins over a late
+        restore). Saved endpoint names re-intern in THIS process — ids
+        shift across restarts — and every per-endpoint column scatters
+        to its new id. The forecast snapshot restores verbatim (it is
+        self-contained: its edge ids index its own names list), so
+        /model/forecast serves immediately after a restart, bit-equal to
+        pre-restart. A downtime gap folds later as the existing
+        zero-activity catch-up when the first live tick arrives."""
+        from kmamiz_tpu_torch.models.history import HistoryState, decode_array
+
+        if isinstance(docs, dict):
+            docs = [docs]
+        doc = self._assemble_snapshot_parts(docs)
+        if doc is None:
+            return
+        with self._history_lock:
+            if self.history is not None:
+                return  # live state outranks a stored snapshot
+            names = doc.get("names") or []
+            interner = self.graph.interner
+            ids = np.asarray(
+                [interner.intern_endpoint(nm) for nm in names],
+                dtype=np.int64,
+            )
+            n_new = len(interner.endpoints)
+            state = HistoryState.from_doc(doc["state"])
+            state.remap(ids, n_new)
+            self.history = state
+            bucket = doc.get("hourBucket")
+            if bucket is not None:
+                self._hour_bucket = [int(bucket["hour"])] + [
+                    self._scatter_rows(decode_array(a), ids, n_new)
+                    for a in bucket["arrays"]
+                ]
+            if doc.get("historyFeatures") is not None:
+                self.history_features = self._scatter_rows(
+                    decode_array(doc["historyFeatures"]), ids, n_new
+                )
+            if doc.get("modelFeatures") is not None:
+                self.history_model_features = self._scatter_rows(
+                    decode_array(doc["modelFeatures"]), ids, n_new
+                )
+            self.history_predicted_hour = doc.get("predictedHour")
+            fc = doc.get("forecast")
+            if fc is not None:
+                self.forecast_snapshot = {
+                    "features": decode_array(fc["features"]),
+                    "src": decode_array(fc["src"]),
+                    "dst": decode_array(fc["dst"]),
+                    "mask": decode_array(fc["mask"]),
+                    "names": list(fc["names"]),
+                    "predicted_hour": fc["predictedHour"],
+                    # the forecast memo's key: no fold's (its hour is >= 0)
+                    "cache_key": (int(self.graph.version), int(self.graph.label_epoch), -1),
+                }
 
     # -- hybrid combine: device numeric stats + host body merge --------------
 

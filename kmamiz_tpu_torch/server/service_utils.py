@@ -1,24 +1,57 @@
-"""Label-map refresh.
+"""Label-map refresh and labeled historical/aggregated retrieval.
 
-Counterpart of kmamiz_tpu/server/service_utils.py (KMamiz
-src/services/ServiceUtils.ts), reduced to `update_label`: user label
-rules are applied first, unknown endpoints are guessed against them, the
-remaining endpoints get speculated labels, and the labeled dependency
-view is rebuilt. The labeled historical and aggregated reads wait for the
-port's store.
+Equivalent of KMamiz src/services/ServiceUtils.ts: user label rules
+are applied first, unknown endpoints are guessed against them, the remaining
+endpoints get speculated labels, and the resulting map labels historical /
+aggregated reads. Gap fill-in (ServiceUtils.ts:140-162) pads missing services
+forward and backward through time so line charts have continuous series.
+
+Unlike the reference's lazy singletons, everything here takes its
+collaborators explicitly (cache registry + store) so tests and the simulator
+can run many isolated instances.
+
+A copy of kmamiz_tpu/server/service_utils.py, importing the port's
+modules, whose label refresh reuses each service's label mapping while
+that service's datatypes are unchanged (`_label_mapping`).
 """
 from __future__ import annotations
+
+from typing import List, Optional
 
 from kmamiz_tpu_torch.analytics.endpoint_utils import (
     create_endpoint_label_mapping,
     guess_and_merge_endpoints,
 )
+from kmamiz_tpu_torch.domain.aggregated import AggregatedData
+from kmamiz_tpu_torch.domain.historical import HistoricalData
 from kmamiz_tpu_torch.server.cache import DataCache
+from kmamiz_tpu_torch.server.storage import Store
 
 
 class ServiceUtils:
-    def __init__(self, cache: DataCache) -> None:
+    def __init__(
+        self,
+        cache: DataCache,
+        store: Store,
+        now_ms: Optional[object] = None,
+        unbounded_reads: bool = False,
+        keep_upper_bound: bool = False,
+    ) -> None:
+        import time
+
         self._cache = cache
+        self._store = store
+        self._now_ms = now_ms or (lambda: time.time() * 1000)
+        # read-only / simulator modes read without the 30-day retention
+        # window (MongoOperator.ts: $gte new Date(0)); read-only ALSO
+        # keeps the $lte now upper bound — only SimulatorMode is
+        # unbounded upward
+        self._unbounded_reads = unbounded_reads
+        self._keep_upper_bound = keep_upper_bound
+        # the label mapping of each service: (its datatypes' key, mapping)
+        self._label_memo: dict = {}
+
+    # -- label mapping (ServiceUtils.ts:54-100) ------------------------------
 
     def update_label(self) -> None:
         label_mapping = self._cache.get("LabelMapping")
@@ -29,9 +62,11 @@ class ServiceUtils:
 
         user_defined = user_defined_label.get_data()
         data_types = data_type.get_data()
-        # the reference's `if (dataTypeData)` is always truthy (getData
-        # returns `|| []`): the rebuild runs even with zero datatypes, so
-        # user-defined rules alone can populate the mapping
+        # the reference's `if (dataTypeData)` is ALWAYS truthy (getData
+        # returns `|| []`, and an empty JS array is truthy): the rebuild
+        # must run even with zero datatypes so user-defined label rules
+        # alone can populate the mapping on a fresh or just-cleared
+        # system
         if data_types is not None:
             preprocessed: dict = {}
             if user_defined:
@@ -45,7 +80,7 @@ class ServiceUtils:
                 preprocessed,
             )
 
-            label_map = create_endpoint_label_mapping(
+            label_map = self._label_mapping(
                 [
                     d
                     for d in data_types
@@ -61,3 +96,140 @@ class ServiceUtils:
         dep = dependencies.get_data()
         if dep:
             labeled_dependencies.set_data(dep)
+
+    def _label_mapping(self, data_types: list) -> dict:
+        """create_endpoint_label_mapping over data_types, one service at a
+        time, reusing a service's mapping while its datatypes (names,
+        methods, schemas) are unchanged: the mapping compares every pair of
+        a service's endpoints and never groups across services, and a
+        realtime tick changes few services' datatypes. The services come in
+        the order of their first datatype, as in one call over all, so the
+        result (its order included) is that call's."""
+        by_service: dict = {}
+        for d in data_types:
+            by_service.setdefault(d.to_json()["uniqueServiceName"], []).append(d)
+        memo, label_map = {}, {}
+        for service, dts in by_service.items():
+            key = tuple(
+                (
+                    j["uniqueEndpointName"],
+                    j["method"],
+                    tuple(
+                        (
+                            s["status"],
+                            s.get("requestContentType"),
+                            s.get("responseContentType"),
+                            s.get("requestSchema"),
+                            s.get("responseSchema"),
+                        )
+                        for s in j["schemas"]
+                    ),
+                )
+                for j in (d.to_json() for d in dts)
+            )
+            cached = self._label_memo.get(service)
+            mapping = cached[1] if cached is not None and cached[0] == key else None
+            if mapping is None:
+                mapping = create_endpoint_label_mapping(dts)
+            memo[service] = (key, mapping)
+            label_map.update(mapping)
+        self._label_memo = memo
+        return label_map
+
+    # -- labeled reads with gap fill (ServiceUtils.ts:102-139) ---------------
+
+    def get_realtime_historical_data(
+        self,
+        namespace: Optional[str] = None,
+        time_offset_ms: Optional[float] = None,
+    ) -> List[dict]:
+        """time_offset_ms is the API's notBefore: a look-back DURATION in
+        ms (reference ServiceUtils.ts:102 passes it straight to
+        MongoOperator's timeOffset, default 30 days)."""
+        if self._unbounded_reads:
+            # read-only: look back over the whole epoch but keep the
+            # upper bound at now; simulator: fully unbounded
+            window = self._now_ms() if self._keep_upper_bound else None
+        else:
+            window = (
+                time_offset_ms if time_offset_ms is not None else 30 * 86_400_000
+            )
+        label_mapping = self._cache.get("LabelMapping")
+        historical = label_mapping.label_historical_data(
+            self._store.get_historical_data(
+                namespace=namespace,
+                time_offset_ms=window,
+                now_ms=self._now_ms(),
+            )
+        )
+        return self._fill_in_historical_data(historical)
+
+    def get_realtime_aggregated_data(
+        self,
+        namespace: Optional[str] = None,
+        time_offset_ms: Optional[float] = None,
+    ) -> Optional[dict]:
+        label_mapping = self._cache.get("LabelMapping")
+
+        aggregated = self._store.get_aggregated_data(namespace)
+        if not time_offset_ms:
+            return (
+                label_mapping.label_aggregated_data(aggregated)
+                if aggregated
+                else None
+            )
+
+        historical = self.get_realtime_historical_data(namespace, time_offset_ms)
+        if not historical:
+            return AggregatedData(aggregated).to_plain() if aggregated else None
+
+        label_map = label_mapping.get_data()
+        agg_list = [
+            AggregatedData(HistoricalData(h).to_aggregated_data(label_map))
+            for h in historical
+        ]
+        merged = agg_list[0]
+        for nxt in agg_list[1:]:
+            merged = merged.combine(nxt.to_json())
+        return label_mapping.label_aggregated_data(merged.to_json())
+
+    # -- gap fill-in (ServiceUtils.ts:140-188) -------------------------------
+
+    @staticmethod
+    def _fill_in_historical_data(historical: List[dict]) -> List[dict]:
+        def fill_in(to: dict, from_: dict) -> None:
+            have = {s["uniqueServiceName"] for s in to["services"]}
+            to["services"] = to["services"] + [
+                ServiceUtils._clean_historical_service_info(to["date"], s)
+                for s in from_["services"]
+                if s["uniqueServiceName"] not in have
+            ]
+
+        historical.sort(key=lambda h: h["date"])
+        for i in range(1, len(historical)):
+            fill_in(historical[i], historical[i - 1])
+        for i in range(len(historical) - 2, -1, -1):
+            fill_in(historical[i], historical[i + 1])
+        return historical
+
+    @staticmethod
+    def _clean_historical_service_info(date: float, service_info: dict) -> dict:
+        return {
+            **service_info,
+            "date": date,
+            "endpoints": [
+                {
+                    **e,
+                    "latencyCV": 0,
+                    "requests": 0,
+                    "requestErrors": 0,
+                    "serverErrors": 0,
+                }
+                for e in service_info["endpoints"]
+            ],
+            "latencyCV": 0,
+            "requestErrors": 0,
+            "serverErrors": 0,
+            "requests": 0,
+            "risk": 0,
+        }

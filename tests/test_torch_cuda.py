@@ -730,3 +730,70 @@ def test_staging_makes_no_host_sync(card):
         assert g._preunion is not None
         graphs[str(dev)] = (g.n_edges, graph_signature(g))
     assert graphs[str(card)] == graphs["cpu"]
+
+
+@pytest.mark.cuda
+def test_gat_forward_and_grads_on_card_match_cpu(card):
+    """GAT (PyTorch ops, no hand-written kernel) on the card against its
+    CPU run: the forward at rtol 1e-4 / atol 1e-5 and one step's grads at
+    rtol 1e-3 / atol 1e-5 (index_add_ of float32 on the card sums in a
+    run-dependent order); it launches no port kernel."""
+    from kmamiz_tpu_torch.models import common, gat
+
+    rng = np.random.default_rng(5)
+    n, e = 2048, 40_000
+    feats = rng.normal(size=(n, 18)).astype(np.float32)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(e) < 0.9
+    src[-100:] = np.iinfo(np.int32).max  # masked padding, clamped to n-1
+    mask[-100:] = False
+    t_lat = rng.normal(size=n).astype(np.float32)
+    t_ano = (rng.random(n) < 0.25).astype(np.float32)
+    n_mask = np.ones(n, dtype=bool)
+    batch = (feats, src, dst, mask, t_lat, t_ano, n_mask)
+    params = gat.init_params(torch.Generator().manual_seed(3), hidden=64, num_features=18, device="cpu")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        p = type(params)(*(t.to(dev) for t in params[:-1]), None)
+        tensors = [torch.from_numpy(a).to(dev) for a in batch]
+        before = (sparse.fused_sddmm_spmm.launches, sparse.fused_backward.launches)
+        with torch.no_grad():
+            fwd = gat.forward(p, *tensors[:4])
+        loss, _aux, grads = common.value_and_grad(gat.loss_fn, p, *tensors)
+        if dev == card:
+            assert (sparse.fused_sddmm_spmm.launches, sparse.fused_backward.launches) == before
+        out[dev.type] = ([t.cpu() for t in fwd], float(loss), [g.cpu() for g in grads if g is not None])
+    (c_fwd, c_loss, c_grads), (h_fwd, h_loss, h_grads) = out["cuda"], out["cpu"]
+    for a, b in zip(c_fwd, h_fwd):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert math.isclose(c_loss, h_loss, rel_tol=1e-4)
+    for a, b in zip(c_grads, h_grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_history_restore_onto_the_card_gives_the_snapshot_back(card):
+    """A history snapshot taken by a CPU processor restores into a card
+    processor, whose snapshot is the same bytes (the state is host numpy:
+    the restore re-interns the names on the card processor's graph)."""
+    groups = json.loads((FIXTURES / "bookinfo_traces.json").read_text())
+    hour = 3_600_000
+
+    def fresh(prefix):
+        out = []
+        for g in groups:
+            out.append([{**s, "traceId": prefix + s["traceId"], "id": prefix + s["id"],
+                         **({"parentId": prefix + s["parentId"]} if s.get("parentId") else {})} for s in g])
+        return out
+
+    windows = iter([fresh("a"), fresh("b"), fresh("c")])
+    cpu = DataProcessor(trace_source=lambda lb, t, lim: next(windows), device="cpu", now_ms=lambda: 920 * hour)
+    for k, h in enumerate((910, 911, 912)):
+        cpu.collect({"uniqueId": f"h{k}", "lookBack": 30_000, "time": h * hour})
+    docs = cpu.snapshot_history()
+    assert docs and docs[0]["forecast"] is not None
+    on_card = DataProcessor(trace_source=lambda lb, t, lim: [], device=card, now_ms=lambda: 920 * hour)
+    on_card.restore_history(json.loads(json.dumps(docs)))
+    assert json.dumps(on_card.snapshot_history(), sort_keys=True) == json.dumps(docs, sort_keys=True)
+    assert on_card.graph.device.type == "cuda"
