@@ -130,7 +130,7 @@ Phases, each timed:
    signature, endpoints and edges must equal phase 4's; (c) bench.py's
    raw e2e window (150,000 traces x 7 spans, BASELINE mesh) through
    ingest_raw_window into a fresh card processor, a warm-up and then the
-   median of 5 reps each on a fresh processor (counters zeroed just
+   median of 3 reps each on a fresh processor (counters zeroed just
    before, read just after): spans/s, bytes per span, parse and merge ms,
    the native parse's worker count, peak device memory; the same bytes
    again must ingest 0 spans and 0 traces; (d) that window's parse split
@@ -151,7 +151,7 @@ Phases, each timed:
    traces through DataProcessor.ingest_raw_stream into a persistent card
    processor on a virtual clock: the graph signature, endpoints and edges
    of 15 (c); beside it a twin that takes the same windows one shot; (b)
-   one uncounted steady window each; (c) 3 counted windows under fresh
+   one uncounted steady window each; (c) 2 counted windows under fresh
    trace prefixes, the clock stepped 301,000 ms (past the dedup TTL)
    before each, the two paths in turns (counters zeroed just before each,
    read just after, peak device memory over base): the streamed wall,
@@ -166,12 +166,16 @@ Phases, each timed:
 17. the application (run after phase 16, before phase 14's profiler
    sessions): (a) boot 1, `Application` in production mode over a
    FileStore in a temporary directory, its card processor preloaded as in
-   phase 4; the realtime schedule on a six-field one-second cron fires 5
-   ticks of 2,500 fresh traces through the operator (the first 2 an hour
-   back, so one hour folds), each under 5,000 ms, 2 segment-stats launches
-   each (counters zeroed just before the boot, read after tear_down); the
-   realtime schedule parked, the aggregation job once, tear_down (every
-   cache flushed, the history snapshot among them), each timed; (b) boot
+   phase 4 and its store seeded with the dependency records of the same
+   150,000 traces (a deployment's cache); the realtime schedule on a
+   six-field one-second cron fires 5 ticks of 2,500 fresh traces through
+   the operator (the first 2 an hour back, so one hour folds), each under
+   5,000 ms, 2 segment-stats launches each (counters zeroed just before
+   the boot, read after tear_down); the aggregation job once while the
+   realtime job goes on firing (the ticks that overlap it wait for the
+   operator's cache lock: their walls are recorded beside the limit, not
+   held to it), the realtime schedule parked, tear_down (every cache
+   flushed, the history snapshot among them), each timed; (b) boot
    2, a new card processor over the same store: the cache load and the
    graph warm start timed, its graph signature equal to a read-only CPU
    app's over the same store and its history snapshot equal to the one
@@ -255,7 +259,7 @@ SAGE_FEATURES = 18  # 10 base + 8 history columns
 SAGE_LR = 1e-2
 STLGT_HOURS = (920, 921, 922, 923, 924)  # 5 ticks: 4 folds, 3 refreshes
 RAW_TRACES = 150_000  # bench.py's raw e2e window: 1.05M spans
-RAW_REPS = 5
+RAW_REPS = 3
 TICK_WALL_LIMIT_MS = 5_000  # the DP's realtime cadence (PERF.md section 2)
 
 
@@ -1005,16 +1009,34 @@ def forecast_card_against_cpu(torch, proc, served, card_stlgt) -> dict:
     }
 
 
-def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK):
-    """Phase 4: a processor whose graph holds the BASELINE edge set."""
+def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK, records: bool = False):
+    """Phase 4: a processor whose graph holds the BASELINE edge set. With
+    records, also the dependency records those traces leave in the cache
+    of a deployment that saw them: each endpoint with every entry its
+    spans' records carry. A tick keeps the last record of an endpoint in
+    its window, so a cache takes many windows to hold them all (phase 17
+    seeds its store with them). They stop growing at the first chunk that
+    adds no entry, and are not built further (the mesh repeats every
+    28,000 traces)."""
     from kmamiz_tpu_torch.core.spans import spans_to_batch
+    from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
+    from kmamiz_tpu_torch.domain.traces import Traces
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
     feed = TickFeed()
     proc = DataProcessor(trace_source=feed, device=device)
+    deps, entries, grown = None, 0, records
     for start in range(0, n_traces, chunk):
         groups = synth_groups(min(chunk, n_traces - start), start, "state")
         proc.graph.merge_window(spans_to_batch(groups, interner=proc.graph.interner))
+        if grown:
+            # combine_with merges the records its other side repeats
+            spans = EndpointDependencies([]).combine_with(Traces(groups).to_endpoint_dependencies())
+            deps = spans if deps is None else spans.combine_with(deps)
+            n = sum(len(d["dependingBy"]) + len(d["dependingOn"]) for d in deps.dependencies)
+            grown, entries = n > entries, n
+    if records:
+        return proc, feed, deps.trim().to_json()
     return proc, feed
 
 
@@ -2806,7 +2828,7 @@ def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
 # -- phase 16: streaming ingest -----------------------------------------------
 
 STREAM_CHUNKS = 4  # bench.py's streaming split: 4 chunks of 37,500 traces
-STREAM_WINDOWS = 3  # counted steady windows
+STREAM_WINDOWS = 2  # counted steady windows, one in each order
 STREAM_CLOCK_STEP_MS = 301_000  # past the processed map's 5-minute TTL
 STREAM_HTTP_TRACES = 10_000  # ~41 MB of JSON: over /ingest's 32 MiB threshold
 
@@ -3132,7 +3154,8 @@ def stream_ingest(torch, device, counters, one_shot, raw) -> dict:
 
 # -- phase 17: the application -------------------------------------------------
 
-APP_TICKS = 5  # scheduled realtime ticks of boot 1
+APP_TICKS = 5  # scheduled realtime ticks of boot 1 before its aggregation
+APP_WINDOWS = APP_TICKS + 4  # and windows for the ticks that overlap the aggregation
 APP_FOLD_AT = 2  # boot 1's ticks before this one run an hour back: one fold
 NEVER_CRON = "0 0 1 1 *"  # New Year's midnight: a schedule that does not fire in a run
 
@@ -3239,12 +3262,17 @@ def compare_forecast(got: dict, want: dict, what: str) -> None:
 def serve_application(torch, device, counters, t_start: int) -> dict:
     """Phase 17: the port's Application (api/app.py) on the card. (a) Boot
     1 over a FileStore in a temporary directory, its processor preloaded
-    with phase 4's graph (load_state), the realtime job on a six-field
+    with phase 4's graph (load_state) and its store seeded with the
+    dependency records of the same 150,000 traces, so that its dependency
+    cache starts at a deployment's size; the realtime job on a six-field
     one-second cron firing APP_TICKS scheduled ticks of 2,500 fresh traces
     (the first APP_FOLD_AT an hour back, so one hour folds), counters
     zeroed just before the boot and read after tear_down; then the
-    realtime schedule parked, the aggregation job once and tear_down
-    (schedules stopped, every cache flushed). (b) Boot 2: a new card processor over the same directory,
+    aggregation job once while the realtime job goes on firing (the
+    ticks that overlap it wait for the operator's cache lock: their walls
+    are recorded apart, beside the limit, not held to it), the realtime
+    schedule parked, and tear_down (schedules stopped, every cache
+    flushed). (b) Boot 2: a new card processor over the same directory,
     the cache load and the graph warm start timed; its graph signature
     equal to a CPU graph warm-started from the same records, its history
     snapshot equal to the one boot 1 flushed. A read-only CPU app boots
@@ -3268,10 +3296,16 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
     try:
         # -- (a) boot 1 -----------------------------------------------------
         t0 = time.perf_counter()
-        proc1, feed = load_state(device)
+        proc1, feed, seed = load_state(device, records=True)
         out["state_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        FileStore(store_dir).insert_many("EndpointDependencies", seed)
+        out["seed_write_s"] = time.perf_counter() - t0
+        out["seed_records"] = len(seed)
+        out["seed_entries"] = sum(len(d["dependingOn"]) + len(d["dependingBy"]) for d in seed)
+        del seed
         windows = [
-            synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"app{k}-") for k in range(APP_TICKS + 1)
+            synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"app{k}-") for k in range(APP_WINDOWS)
         ]
         app = Application(
             ctx=AppContext.build(
@@ -3290,10 +3324,11 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
             clock["shift_ms"] = HOUR_MS if k < APP_FOLD_AT else 0
             t0 = time.perf_counter()
             retrieve()
-            wall = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
             stages = {s: round(v, 3) for s, v in proc1.last_stage_ms.items()}
-            ticks.append({"tick": k, "traces": len(feed.groups), "wall_ms": round(wall, 3), **stages})
-            log("   " + json.dumps(ticks[-1]))
+            tick = {"tick": k, "traces": len(feed.groups), "wall_ms": round((t1 - t0) * 1e3, 3), **stages}
+            ticks.append({**tick, "span": (t0, t1)})
+            log("   " + json.dumps(tick))
 
         op.retrieve_realtime_data = realtime_job  # what the schedule registers
         zero_counts(counters)
@@ -3305,21 +3340,31 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
         while len(ticks) < APP_TICKS and time.monotonic() < deadline:
             time.sleep(0.05)
         check(len(ticks) >= APP_TICKS, f"{len(ticks)} scheduled ticks in 120 s")
-        # park the realtime schedule (re-registering stops the job and waits
-        # for a fire in progress): a tick that overlaps the aggregation waits
-        # for its cache lock, and its wall is not a tick's own
-        app.ctx.scheduler.register("realtime", NEVER_CRON, op.retrieve_realtime_data)
-        t0 = time.perf_counter()
+        # the aggregation with the realtime job firing, as in a deployment,
+        # whose realtime and aggregation schedules meet at every
+        # aggregation; then the realtime schedule parked (re-registering
+        # stops the job and waits for a fire in progress)
+        agg0 = time.perf_counter()
         op.create_historical_and_aggregated_data()
-        out["aggregation_ms"] = (time.perf_counter() - t0) * 1e3
+        agg1 = time.perf_counter()
+        out["aggregation_ms"] = (agg1 - agg0) * 1e3
+        app.ctx.scheduler.register("realtime", NEVER_CRON, op.retrieve_realtime_data)
+        for t in ticks:
+            t0, t1 = t.pop("span")
+            t["overlaps_aggregation"] = t0 < agg1 and t1 > agg0
         t0 = time.perf_counter()
         app.tear_down()
         out["tear_down_ms"] = (time.perf_counter() - t0) * 1e3
         launches = read_counts(torch, counters)
         fed = [t for t in ticks if t["traces"]]
+        alone = [t for t in fed if not t["overlaps_aggregation"]]
+        overlapping = [t for t in fed if t["overlaps_aggregation"]]
         out["ticks"] = ticks
         out["boot1_launches"] = launches
-        out["max_tick_wall_ms"] = max(t["wall_ms"] for t in fed)
+        out["max_tick_wall_ms"] = max(t["wall_ms"] for t in alone)
+        check(len(alone) >= APP_TICKS, f"{len(alone)} ticks apart from the aggregation")
+        check(bool(overlapping), "no fed tick overlapped the aggregation")
+        out["overlap_tick_walls_ms"] = [t["wall_ms"] for t in overlapping]
         check(
             launches[ss.segment_stats.__name__] == 2 * len(fed),
             f"segment_stats launched {launches[ss.segment_stats.__name__]} times in {len(fed)} ticks",

@@ -207,8 +207,27 @@ def _primitive_interface(obj: Any) -> Optional[str]:
     return "[\n" + ",\n".join(f"  {t}" for t in uniq) + "\n]"
 
 
+#: object_to_interface_string's answers by (name, repr of the object)
+_INTERFACES: Dict[Tuple[str, str], str] = {}
+_INTERFACES_MAX = 65_536
+
+
 def object_to_interface_string(obj: Any, name: str = "Root") -> str:
-    """Craft a TypeScript interface string from an object (Utils.ts:14-36)."""
+    """Craft a TypeScript interface string from an object (Utils.ts:14-36).
+
+    Memoized by the object's repr, of which the string is a function for
+    the JSON values it is given: the realtime tick renders the same bodies
+    for every datatype and combined record it merges."""
+    key = (name, repr(obj))
+    out = _INTERFACES.get(key)
+    if out is None:
+        if len(_INTERFACES) >= _INTERFACES_MAX:
+            _INTERFACES.clear()
+        out = _INTERFACES[key] = _object_to_interface_string(obj, name)
+    return out
+
+
+def _object_to_interface_string(obj: Any, name: str) -> str:
     if is_primitive(obj):
         return js_typeof(obj)
     sorted_obj = sort_object(obj)

@@ -10,6 +10,7 @@ kmamiz_tpu_torch.ops.scorers and are parity-checked against this implementation.
 from __future__ import annotations
 
 import time as _time
+from itertools import compress
 from typing import Callable, Dict, List, Optional, Set
 
 from kmamiz_tpu_torch.config import parse_threshold_ms, settings
@@ -20,6 +21,26 @@ def _now_ms() -> float:
     return _time.time() * 1000
 
 
+def keeps_every_record() -> bool:
+    """Whether the constructor's deprecation filter is the identity (no
+    DEPRECATED_ENDPOINT_THRESHOLD set)."""
+    return parse_threshold_ms(settings.deprecated_endpoint_threshold) == 0
+
+
+def _dedup(entries: List[dict]) -> List[dict]:
+    """trim's rule for one list: one entry per (distance, endpoint), at
+    the place of its first and with the value of its last."""
+    kept: Dict[str, dict] = {}
+    for dep in entries:
+        kept[f"{dep['distance']}\t{dep['endpoint']['uniqueEndpointName']}"] = dep
+    return list(kept.values())
+
+
+def _key(dep: dict) -> str:
+    """combine_with's identity of an entry: its endpoint and distance."""
+    return f"{dep['endpoint']['uniqueEndpointName']}\t{dep['distance']}"
+
+
 class EndpointDependencies:
     # raw (caller_uen, callee_uen, distance) triples for the window, captured
     # BEFORE deprecation filtering; only set by Traces.to_endpoint_dependencies
@@ -27,6 +48,18 @@ class EndpointDependencies:
     # set on trim()'s result: trimming is idempotent, and the realtime
     # tick trims the same records again on their way into the labeled view
     _trimmed = False
+    # set where no record and no entry carries a store "_id", so that
+    # to_json has nothing to strip: Traces' records, and what combine_with,
+    # trim and handed_over make of such
+    _clean = False
+    # combine_with's output, per record: how many entries of each list
+    # precede the ones it appended, and whether those are unique already.
+    # The appended ones are unique and share no key with them, so trim
+    # need only dedup what precedes them.
+    _trim_hint: Optional[List[tuple]] = None
+    # combine_with's and its trim's output, per record: the _key of each
+    # entry of its two lists, for the next combine_with to merge by
+    _keys: Optional[List[list]] = None
 
     def __init__(
         self,
@@ -77,6 +110,8 @@ class EndpointDependencies:
         # host costs of the DataProcessor tick. Downstream code never
         # mutates entry dicts in place (label/trim/combine_with all build
         # {**d, ...} copies), so sharing them is safe.
+        if self._clean:
+            return [dict(d) for d in self._dependencies]
         out = []
         for dep in self._dependencies:
             d = dict(dep)
@@ -103,19 +138,48 @@ class EndpointDependencies:
     def trim(self) -> "EndpointDependencies":
         if self._trimmed:
             return self
-        trimmed = []
-        for d in self._dependencies:
-            d_on: Dict[str, dict] = {}
-            for dep in d["dependingOn"]:
-                d_on[f"{dep['distance']}\t{dep['endpoint']['uniqueEndpointName']}"] = dep
-            d_by: Dict[str, dict] = {}
-            for dep in d["dependingBy"]:
-                d_by[f"{dep['distance']}\t{dep['endpoint']['uniqueEndpointName']}"] = dep
-            trimmed.append(
-                {**d, "dependingBy": list(d_by.values()), "dependingOn": list(d_on.values())}
-            )
+        hint, keys = self._trim_hint, self._keys
+        trimmed, trimmed_keys = [], []
+        for i, d in enumerate(self._dependencies):
+            by, on = d["dependingBy"], d["dependingOn"]
+            if hint is None:
+                by, on = _dedup(by), _dedup(on)
+            else:
+                n_by, n_on, unique = hint[i]
+                if unique:
+                    by, on = list(by), list(on)
+                    trimmed_keys.append(keys[i])
+                else:
+                    base_by, base_on = _dedup(by[:n_by]), _dedup(on[:n_on])
+                    by, on = base_by + by[n_by:], base_on + on[n_on:]
+                    trimmed_keys.append(
+                        [
+                            [_key(x) for x in base_by] + keys[i][0][n_by:],
+                            [_key(x) for x in base_on] + keys[i][1][n_on:],
+                        ]
+                    )
+            trimmed.append({**d, "dependingBy": by, "dependingOn": on})
         out = EndpointDependencies(trimmed, now_ms=self._now_ms)
         out._trimmed = True
+        out._clean = self._clean
+        if hint is not None and keeps_every_record():
+            out._keys = trimmed_keys
+        return out
+
+    def handed_over(self, now_ms: Optional[float] = None) -> "EndpointDependencies":
+        """What EndpointDependencies(self.to_json(), now_ms) holds: the
+        reference rebuilds the records from their JSON where the DP
+        protocol hands them over. With no deprecation filter those are
+        these records under the new clock (stripped of store ids, if any),
+        and the flags and the trim hint carry over."""
+        if not keeps_every_record():
+            return EndpointDependencies(self.to_json(), now_ms=now_ms)
+        out = EndpointDependencies([], now_ms=now_ms)
+        out._dependencies = self._dependencies if self._clean else self.to_json()
+        out._trimmed = self._trimmed
+        out._clean = True
+        out._trim_hint = self._trim_hint if self._clean else None
+        out._keys = self._keys
         return out
 
     # -- labeling (EndpointDependencies.ts:114-153) --------------------------
@@ -475,48 +539,73 @@ class EndpointDependencies:
     # -- set-union merge (EndpointDependencies.ts:499-563) -------------------
 
     def combine_with(self, other: "EndpointDependencies") -> "EndpointDependencies":
-        dependency_map: Dict[str, dict] = {}
-
-        def map_entry(d: dict) -> dict:
-            return {
-                "endpoint": d,
-                "bySet": {
-                    f"{dep['endpoint']['uniqueEndpointName']}\t{dep['distance']}"
-                    for dep in d["dependingBy"]
-                },
-                "onSet": {
-                    f"{dep['endpoint']['uniqueEndpointName']}\t{dep['distance']}"
-                    for dep in d["dependingOn"]
-                },
-            }
-
+        # name -> [record, its [by keys, on keys], their sets or None,
+        # whether the record is this call's copy, the trim hint]. A record's
+        # key sets are built when an entry is first merged into it, and
+        # other's records and key lists are copied only then; other's key
+        # lists are the ones the instance that made it kept, if it did.
+        dependency_map: Dict[str, list] = {}
         for d in self._dependencies:
-            dependency_map[d["endpoint"]["uniqueEndpointName"]] = map_entry(
-                {**d, "dependingBy": list(d["dependingBy"]), "dependingOn": list(d["dependingOn"])}
+            by, on = list(d["dependingBy"]), list(d["dependingOn"])
+            dependency_map[d["endpoint"]["uniqueEndpointName"]] = [
+                {**d, "dependingBy": by, "dependingOn": on},
+                [[_key(x) for x in by], [_key(x) for x in on]],
+                None,
+                True,
+                (len(by), len(on), False),
+            ]
+        other_keys = other._keys
+        for i, d in enumerate(other._dependencies):
+            incoming = (d["dependingBy"], d["dependingOn"])
+            incoming_keys = (
+                other_keys[i]
+                if other_keys is not None
+                else [[_key(x) for x in incoming[0]], [_key(x) for x in incoming[1]]]
             )
-        for d in other._dependencies:
-            existing = dependency_map.get(d["endpoint"]["uniqueEndpointName"])
-            if existing:
-                # The reference assigns the max timestamp to the incoming
-                # entry `d` and then discards it (EndpointDependencies.ts:517),
-                # so the kept entry retains its original lastUsageTimestamp;
-                # mirrored here for parity.
-                for dep in d["dependingBy"]:
-                    key = f"{dep['endpoint']['uniqueEndpointName']}\t{dep['distance']}"
-                    if key not in existing["bySet"]:
-                        existing["endpoint"]["dependingBy"].append(dep)
-                        existing["bySet"].add(key)
-                for dep in d["dependingOn"]:
-                    key = f"{dep['endpoint']['uniqueEndpointName']}\t{dep['distance']}"
-                    if key not in existing["onSet"]:
-                        existing["endpoint"]["dependingOn"].append(dep)
-                        existing["onSet"].add(key)
-            else:
-                dependency_map[d["endpoint"]["uniqueEndpointName"]] = map_entry(d)
-        return EndpointDependencies(
-            [entry["endpoint"] for entry in dependency_map.values()],
+            name = d["endpoint"]["uniqueEndpointName"]
+            entry = dependency_map.get(name)
+            if entry is None:
+                hint = (len(incoming[0]), len(incoming[1]), other._trimmed)
+                dependency_map[name] = [d, incoming_keys, None, False, hint]
+                continue
+            # The reference assigns the max timestamp to the incoming
+            # entry `d` and then discards it (EndpointDependencies.ts:517),
+            # so the kept entry retains its original lastUsageTimestamp;
+            # mirrored here for parity.
+            if not entry[3]:
+                kept = entry[0]
+                entry[0] = {**kept, "dependingBy": list(kept["dependingBy"]), "dependingOn": list(kept["dependingOn"])}
+                entry[1] = [list(entry[1][0]), list(entry[1][1])]
+                entry[3] = True
+            if entry[2] is None:
+                entry[2] = (set(entry[1][0]), set(entry[1][1]))
+            record = entry[0]
+            for side, keys, seen, deps, dep_keys in zip(
+                ("dependingBy", "dependingOn"), entry[1], entry[2], incoming, incoming_keys
+            ):
+                merged = record[side]
+                if other._trimmed:
+                    # d's keys are unique: append those the record lacks
+                    fresh = [key not in seen for key in dep_keys]
+                    merged.extend(compress(deps, fresh))
+                    keys.extend(compress(dep_keys, fresh))
+                    continue
+                for dep, key in zip(deps, dep_keys):
+                    if key not in seen:
+                        merged.append(dep)
+                        keys.append(key)
+                        seen.add(key)
+            if other._trimmed:
+                entry[2] = None  # rebuilt from the keys if d's name comes again
+        out = EndpointDependencies(
+            [entry[0] for entry in dependency_map.values()],
             now_ms=self._now_ms,
         )
+        out._clean = self._clean and other._clean
+        if keeps_every_record():  # else the constructor may drop records
+            out._trim_hint = [entry[4] for entry in dependency_map.values()]
+            out._keys = [entry[1] for entry in dependency_map.values()]
+        return out
 
     # -- scorers -------------------------------------------------------------
 

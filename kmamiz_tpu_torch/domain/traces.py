@@ -288,6 +288,7 @@ class Traces:
                 dep["endpoint"]["uniqueEndpointName"], 0
             )
         out = EndpointDependencies(dependencies)
+        out._clean = True
         # raw pre-deprecation-filter edge set: the graph merge must see the
         # same rows the window-walk kernel would, filtered or not
         out.window_edges = window_edges
@@ -380,6 +381,7 @@ class Traces:
             )
 
         out = EndpointDependencies(dependencies)
+        out._clean = True
         out.window_edges = window_edges
         return out
 

@@ -9,7 +9,6 @@ the slices that port them.
 from kmamiz_tpu_torch.resilience.breaker import (  # noqa: F401
     BreakerOpenError,
     CircuitBreaker,
-    breaker_states,
     get_breaker,
 )
 from kmamiz_tpu_torch.resilience.retry import Retrier  # noqa: F401

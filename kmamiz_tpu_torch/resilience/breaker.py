@@ -7,24 +7,23 @@ timeout wait — until `cooldown_s` elapses. The breaker then admits a
 bounded number of HALF-OPEN probes; one success closes it, one failure
 re-opens (and restarts the cooldown).
 
-Env knobs (docs/ENVIRONMENT.md), overridable per breaker:
+Defaults (overridable per breaker): THRESHOLD consecutive failures to
+open, COOLDOWN_S open -> half-open delay, HALF_OPEN_MAX concurrent
+half-open probes.
 
-- ``KMAMIZ_BREAKER_THRESHOLD``    (default 5) consecutive failures to open;
-- ``KMAMIZ_BREAKER_COOLDOWN_S``   (default 30) open -> half-open delay;
-- ``KMAMIZ_BREAKER_HALFOPEN_MAX`` (default 1) concurrent half-open probes.
-
-The clock is injectable (chaos harness / tests advance a fake clock);
-state transitions serialize on a per-breaker lock. Breakers register in
-a process-wide registry so `breaker_states()` can surface every
-breaker's state in the /health `resilience` section.
+The clock is injectable (tests advance a fake clock); state transitions
+serialize on a per-breaker lock. Breakers register in a process-wide
+registry, so every call site of one upstream shares one failure budget.
 
 A copy of kmamiz_tpu/resilience/breaker.py without what the port has no
-caller for: the profiler's flight-recorder hook, the control plane's
-warm-up (`warm_up`/`revert_warm_up`) and the per-tenant registry keys.
+caller for: the environment knobs (the JAX package's
+KMAMIZ_BREAKER_*; here module constants at their defaults),
+`breaker_states()` (it feeds /health's `resilience` field, not ported),
+the profiler's flight-recorder hook, the control plane's warm-up
+(`warm_up`/`revert_warm_up`) and the per-tenant registry keys.
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 from typing import Callable, Dict, Optional
@@ -33,12 +32,9 @@ CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half-open"
 
-
-def _env_num(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
+THRESHOLD = 5
+COOLDOWN_S = 30.0
+HALF_OPEN_MAX = 1
 
 
 class BreakerOpenError(RuntimeError):
@@ -62,26 +58,10 @@ class CircuitBreaker:
         now: Callable[[], float] = time.monotonic,
     ) -> None:
         self.name = name
-        self.threshold = max(
-            1,
-            int(
-                threshold
-                if threshold is not None
-                else _env_num("KMAMIZ_BREAKER_THRESHOLD", 5)
-            ),
-        )
-        self.cooldown_s = (
-            cooldown_s
-            if cooldown_s is not None
-            else _env_num("KMAMIZ_BREAKER_COOLDOWN_S", 30.0)
-        )
+        self.threshold = max(1, int(THRESHOLD if threshold is None else threshold))
+        self.cooldown_s = COOLDOWN_S if cooldown_s is None else cooldown_s
         self.half_open_max = max(
-            1,
-            int(
-                half_open_max
-                if half_open_max is not None
-                else _env_num("KMAMIZ_BREAKER_HALFOPEN_MAX", 1)
-            ),
+            1, int(HALF_OPEN_MAX if half_open_max is None else half_open_max)
         )
         self._now = now
         self._lock = threading.Lock()
@@ -203,13 +183,6 @@ def get_breaker(name: str, **kwargs) -> CircuitBreaker:
             breaker = CircuitBreaker(name, **kwargs)
             _REGISTRY[name] = breaker
         return breaker
-
-
-def breaker_states() -> Dict[str, dict]:
-    """Every breaker's snapshot, by upstream name."""
-    with _REGISTRY_LOCK:
-        breakers = dict(_REGISTRY)
-    return {name: b.snapshot() for name, b in breakers.items()}
 
 
 def reset_for_tests() -> None:

@@ -7,38 +7,33 @@ while a genuinely down upstream still fails fast enough for the caller's
 fallback (and trips its CircuitBreaker, which then short-circuits the
 retries entirely).
 
-Env knobs (docs/ENVIRONMENT.md), overridable per call site via
-constructor args:
-
-- ``KMAMIZ_RETRY_ATTEMPTS`` (default 2): total attempts (1 = no retry);
-- ``KMAMIZ_RETRY_BASE_MS`` (default 100): first backoff ceiling;
-- ``KMAMIZ_RETRY_MAX_MS``  (default 2000): per-sleep ceiling;
-- ``KMAMIZ_RETRY_DEADLINE_MS`` (default 0 = off): wall-clock budget for
-  the whole call chain — no retry starts past it.
+Defaults (overridable per call site via constructor args): ATTEMPTS
+total attempts (1 = no retry), BASE_MS the first backoff ceiling, MAX_MS
+the per-sleep ceiling, DEADLINE_MS a wall-clock budget for the whole
+call chain past which no retry starts (0 = off).
 
 Jitter is "full jitter" (sleep ~ U[0, min(max, base * 2^k)]); the rng
 and sleep are injectable so the chaos harness replays deterministic
 schedules and tests never actually sleep.
 
 A copy of kmamiz_tpu/resilience/retry.py without the retry counter of
-resilience/metrics.py, which the port does not keep yet.
+resilience/metrics.py, which the port does not keep yet, and without the
+environment knobs (the JAX package's KMAMIZ_RETRY_*; here module
+constants at their defaults).
 """
 from __future__ import annotations
 
 import logging
-import os
 import random
 import time
 from typing import Callable, Optional, Tuple, Type
 
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.retry")
 
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
+ATTEMPTS = 2
+BASE_MS = 100.0
+MAX_MS = 2000.0
+DEADLINE_MS = 0.0
 
 
 class Retrier:
@@ -59,27 +54,10 @@ class Retrier:
         now: Callable[[], float] = time.monotonic,
     ) -> None:
         self.name = name
-        self.attempts = max(
-            1,
-            attempts
-            if attempts is not None
-            else _env_int("KMAMIZ_RETRY_ATTEMPTS", 2),
-        )
-        self.base_ms = (
-            base_ms
-            if base_ms is not None
-            else float(_env_int("KMAMIZ_RETRY_BASE_MS", 100))
-        )
-        self.max_ms = (
-            max_ms
-            if max_ms is not None
-            else float(_env_int("KMAMIZ_RETRY_MAX_MS", 2000))
-        )
-        self.deadline_ms = (
-            deadline_ms
-            if deadline_ms is not None
-            else float(_env_int("KMAMIZ_RETRY_DEADLINE_MS", 0))
-        )
+        self.attempts = max(1, ATTEMPTS if attempts is None else attempts)
+        self.base_ms = BASE_MS if base_ms is None else base_ms
+        self.max_ms = MAX_MS if max_ms is None else max_ms
+        self.deadline_ms = DEADLINE_MS if deadline_ms is None else deadline_ms
         self.retry_on = retry_on
         self._rng = rng if rng is not None else random.Random()
         self._sleep = sleep

@@ -11,6 +11,7 @@ forecast state through snapshot_history / restore_history.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -176,35 +177,49 @@ class CLabeledEndpointDependencies(Cacheable):
         # behavior (correct, just slower)
         self._label_version = label_version
         self._relabel_key: Optional[tuple] = None
+        # one labeling at a time: a second reader waits and then finds
+        # the view already labeled. set_data never takes it.
+        self._relabel_lock = threading.Lock()
 
     def set_data(self, update: EndpointDependencies, *args: Any) -> None:
-        # stored trimmed and labeled on the next read (relabel), with the
+        # stored trimmed and labeled on the next read (_labeled), with the
         # mapping of that read, as the reference's relabel-on-read gives:
         # the realtime tick writes this view and never reads it, so the
         # labeling of every endpoint leaves the tick
-        Cacheable.set_data(self, update.trim())
-
-    def relabel(self) -> None:
+        trimmed = update.trim()
         with self._update_lock:
-            data = Cacheable.get_data(self)
+            Cacheable.set_data(self, trimmed)
+
+    def _labeled(self) -> Optional[EndpointDependencies]:
+        """The data labeled with the current mapping. The labeling runs
+        outside the update lock, so a tick's set_data never waits for it,
+        and its result is stored only if no set_data landed meanwhile: a
+        view of older data never overwrites a newer tick's. The reader
+        gets the view of the data it read either way."""
+        with self._relabel_lock:
+            with self._update_lock:
+                data, version = Cacheable.get_data(self), self.version
             if not data:
-                return
+                return data
             lv = self._label_version() if self._label_version else None
-            if lv is not None and (self.version, lv) == self._relabel_key:
-                return
-            Cacheable.set_data(self, EndpointDependencies(data.label(self._get_label)))
-            if lv is not None:
-                # key on the post-set version: the NEXT read with the same
-                # data + mapping skips the relabel entirely
-                self._relabel_key = (self.version, lv)
+            if lv is not None and (version, lv) == self._relabel_key:
+                return data
+            labeled = EndpointDependencies(data.label(self._get_label))
+            with self._update_lock:
+                if self.version == version:
+                    Cacheable.set_data(self, labeled)
+                    if lv is not None:
+                        # key on the post-set version: the NEXT read with
+                        # the same data + mapping skips the relabel
+                        self._relabel_key = (self.version, lv)
+            return labeled
 
     def to_json(self) -> Any:
-        self.relabel()
-        return Cacheable.to_json(self)
+        data = self._labeled()
+        return data.to_json() if data else data
 
     def get_data(self, namespace: Optional[str] = None):
-        self.relabel()
-        data = Cacheable.get_data(self)
+        data = self._labeled()
         if namespace and data:
             return EndpointDependencies(
                 [
@@ -316,9 +331,12 @@ class CLabelMapping(Cacheable):
                         unique_names[e] = None
                         update.pop(e, None)
         if endpoint_dependencies:
-            for d in endpoint_dependencies.to_json():
-                for dep in d["dependingBy"] + d["dependingOn"] + [d]:
+            for d in endpoint_dependencies.dependencies:
+                for dep in d["dependingBy"]:
                     unique_names[dep["endpoint"]["uniqueEndpointName"]] = None
+                for dep in d["dependingOn"]:
+                    unique_names[dep["endpoint"]["uniqueEndpointName"]] = None
+                unique_names[d["endpoint"]["uniqueEndpointName"]] = None
         if unique_names:
             update = guess_and_merge_endpoints(list(unique_names), update)
         Cacheable.set_data(self, update)

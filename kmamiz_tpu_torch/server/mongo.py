@@ -540,9 +540,8 @@ class MongoStore(Store):
     def insert_many(self, collection: str, docs: List[dict]) -> List[dict]:
         import uuid
 
-        if schemas.enabled():
-            for doc in docs:
-                schemas.validate_doc(collection, doc)
+        for doc in docs:
+            schemas.validate_doc(collection, doc)
         out = []
         for doc in docs:
             d = schemas.stamp(dict(doc))
@@ -554,8 +553,7 @@ class MongoStore(Store):
     def save(self, collection: str, doc: dict) -> dict:
         import uuid
 
-        if schemas.enabled():
-            schemas.validate_doc(collection, doc)
+        schemas.validate_doc(collection, doc)
         d = schemas.stamp(dict(doc))
         d.setdefault("_id", uuid.uuid4().hex)
         self._retrier().call(self._client.upsert_by_id, self._db, collection, d)

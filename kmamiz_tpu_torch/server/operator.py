@@ -23,7 +23,6 @@ from __future__ import annotations
 import gzip
 import json
 import logging
-import os
 import random
 import threading
 import time
@@ -46,16 +45,7 @@ logger = logging.getLogger("kmamiz_tpu_torch.operator")
 
 RISK_LOOK_BACK_TIME_MS = 1_800_000  # ServiceOperator.ts:37
 REALTIME_LOOK_BACK_MS = 30_000  # ServiceOperator.ts:295
-
-
-def _dp_timeout_s() -> float:
-    """External-DP request timeout (KMAMIZ_DP_TIMEOUT_S, default the
-    reference's fixed 30 s). Tune it down when the in-process fallback
-    is cheap and a slow external DP should lose its slot quickly."""
-    try:
-        return float(os.environ.get("KMAMIZ_DP_TIMEOUT_S", 30))
-    except ValueError:
-        return 30.0
+DP_TIMEOUT_S = 30.0  # the reference's fixed external-DP timeout
 
 
 class ServiceOperator:
@@ -114,11 +104,13 @@ class ServiceOperator:
             "lookBack": REALTIME_LOOK_BACK_MS,
             "uniqueId": unique_id,
             "time": int(t),
-            "existingDep": existing_dep.to_json() if existing_dep else None,
+            "existingDep": existing_dep,
         }
         if self._external_dp_url:
             try:
-                self.external_retrieve(request)
+                self.external_retrieve(
+                    {**request, "existingDep": existing_dep.to_json() if existing_dep else None}
+                )
                 return
             except Exception:  # noqa: BLE001 - any DP failure falls back
                 # the reference's worker fallback (ServiceOperator.ts:300-306),
@@ -131,11 +123,12 @@ class ServiceOperator:
         self.retrieve(request)
 
     def retrieve(self, request: dict) -> None:
-        """The in-process Data Processor: the reference's worker thread."""
+        """The in-process Data Processor: the reference's worker thread,
+        with the dependencies handed over as objects (collect)."""
         if self._processor is None:
             logger.warning("no in-process DataProcessor configured, tick dropped")
             return
-        self.post_retrieve(self._processor.collect(request))
+        self.post_retrieve(self._processor.collect(request, objects=True))
 
     def external_retrieve(self, request: dict) -> None:
         """HTTP POST to an external DP service (ServiceOperator.ts:253-280).
@@ -148,7 +141,8 @@ class ServiceOperator:
         fallback without waiting out the timeout; retrying a POST is
         safe because the DP server's encode memo is keyed on the
         request's uniqueId and the graph edge store merges by set union.
-        The timeout itself is KMAMIZ_DP_TIMEOUT_S (was a fixed 30)."""
+        The timeout is the reference's DP_TIMEOUT_S (the JAX package's
+        KMAMIZ_DP_TIMEOUT_S knob is not ported)."""
         from kmamiz_tpu_torch.resilience import Retrier, get_breaker
 
         body = json.dumps(request).encode()
@@ -161,10 +155,9 @@ class ServiceOperator:
                 "Accept-Encoding": "gzip",
             },
         )
-        timeout_s = _dp_timeout_s()
 
         def _post() -> dict:
-            with urllib.request.urlopen(req, timeout=timeout_s) as res:
+            with urllib.request.urlopen(req, timeout=DP_TIMEOUT_S) as res:
                 if res.status != 200:
                     raise urllib.error.HTTPError(
                         self._external_dp_url,
@@ -208,9 +201,12 @@ class ServiceOperator:
             if d.get("schemas"):
                 d["schemas"][0]["requestParams"] = get_params_from_url(url)
 
+        dependencies = response.get("dependencies", [])
         self.realtime_update_cache(
             CombinedRealtimeDataList(response.get("combined", [])),
-            EndpointDependencies(response.get("dependencies", [])),
+            dependencies.handed_over()
+            if isinstance(dependencies, EndpointDependencies)
+            else EndpointDependencies(dependencies),
             [EndpointDataType(d) for d in datatypes],
         )
 

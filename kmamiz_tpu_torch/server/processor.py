@@ -51,7 +51,6 @@ from __future__ import annotations
 import gc
 import itertools
 import logging
-import os
 import queue
 import threading
 import time
@@ -91,7 +90,9 @@ DEFAULT_STREAM_CHUNKS = 4
 #: parsed chunks the streaming ingest's ring holds (KMAMIZ_INGEST_DEPTH's
 #: default); each pins its batch's host arrays
 DEFAULT_STREAM_DEPTH = 2
-
+#: the gen-0 collection threshold the serving process runs with (the JAX
+#: processor's KMAMIZ_GC_GEN0 default; the knob is not ported)
+GC_GEN0 = 50_000
 
 
 def _tune_gc() -> None:
@@ -101,16 +102,10 @@ def _tune_gc() -> None:
     CPython's default gen-0 threshold of 700 triggers a young-generation
     scan every few hundred of them, and with the application's caches of
     10,000 endpoints alive the older generations' scans it sets off take
-    a share of every tick. KMAMIZ_GC_GEN0 overrides the threshold (default
-    50,000); 0 leaves the interpreter's defaults. Collection stays on: only
-    its cadence changes."""
-    try:
-        gen0 = int(os.environ.get("KMAMIZ_GC_GEN0", 50_000))
-    except ValueError:
-        gen0 = 50_000
-    if gen0 > 0:
-        _, gen1, gen2 = gc.get_threshold()
-        gc.set_threshold(gen0, gen1, gen2)
+    a share of every tick. Collection stays on: only its cadence changes."""
+    _, gen1, gen2 = gc.get_threshold()
+    gc.set_threshold(GC_GEN0, gen1, gen2)
+
 
 def _pack_stats(count, mean, cv, ts_rel):
     """Pack the per-segment stats into ONE device buffer so the host pays a
@@ -134,6 +129,7 @@ class _PreparedTick:
         "window_edges",
         "batch",
         "stages",
+        "objects",
     )
 
     def __init__(self, request: dict) -> None:
@@ -147,6 +143,8 @@ class _PreparedTick:
         self.window_edges = None
         self.batch = None
         self.stages: Dict[str, float] = {}
+        # the response's dependencies as the object (collect's objects)
+        self.objects = False
 
 
 class _stage:
@@ -545,14 +543,20 @@ class DataProcessor:
 
     # -- the tick ------------------------------------------------------------
 
-    def collect(self, request: dict) -> dict:
+    def collect(self, request: dict, objects: bool = False) -> dict:
         """TExternalDataProcessorRequest -> TExternalDataProcessorResponse.
         Ticks run one at a time under tick_lock, whoever calls: the DP
-        server's POST / and the application's scheduled realtime job."""
+        server's POST / and the application's scheduled realtime job.
+
+        With objects, the in-process operator's form: existingDep may be
+        its cache's EndpointDependencies and the response's dependencies
+        is one, where the reference's worker thread clones both as JSON
+        (EndpointDependencies.handed_over holds the two forms equal)."""
         stages: Dict[str, float] = {}
         with self.tick_lock:
             with _stage(stages, "prepare"):
                 p = self.prepare_tick(request)
+            p.objects = objects
             with _stage(stages, "merge"):
                 self.merge_prepared(p)
             with _stage(stages, "finish"):
@@ -592,7 +596,12 @@ class DataProcessor:
             # the raw pre-filter window edges; combine_with returns a new
             # instance without them, so capture before combining
             p.window_edges = getattr(dependencies, "window_edges", None)
-            if existing_dep:
+            if isinstance(existing_dep, EndpointDependencies):
+                if existing_dep.dependencies:
+                    dependencies = dependencies.combine_with(
+                        existing_dep.handed_over()
+                    )
+            elif existing_dep:
                 dependencies = dependencies.combine_with(
                     EndpointDependencies(existing_dep)
                 )
@@ -620,7 +629,8 @@ class DataProcessor:
 
     def finish_tick(self, p: _PreparedTick) -> dict:
         """The tick's response assembly: device-stats drain + host body
-        merge + datatypes, response dict."""
+        merge + datatypes, response dict (its dependencies as the object
+        with p.objects, see collect)."""
         with _stage(p.stages, "combine_assemble"):
             combined = self._combine(p.realtime, p.stats_job)
             datatypes = [d.to_json() for d in combined_list_datatypes(combined)]
@@ -628,7 +638,7 @@ class DataProcessor:
         return {
             "uniqueId": p.request.get("uniqueId", ""),
             "combined": combined.to_json(),
-            "dependencies": p.dependencies.to_json(),
+            "dependencies": p.dependencies if p.objects else p.dependencies.to_json(),
             "datatype": datatypes,
             "log": (
                 f"processed {sum(len(g) for g in p.trace_groups)} spans / "

@@ -22,11 +22,11 @@ Spec mini-language:
   [spec]                            homogeneous list
   Opt(spec)                         optional (absent or None allowed)
 
-A copy of kmamiz_tpu/server/schemas.py, importing the port's modules.
+A copy of kmamiz_tpu/server/schemas.py, importing the port's modules,
+without its KMAMIZ_SCHEMA_VALIDATION switch: the port always validates.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Callable, Dict
 
 CURRENT_VERSION = 1
@@ -409,11 +409,6 @@ def _endpoint_data_type_v1(doc: dict) -> dict:
 for _name in SCHEMAS:
     MIGRATIONS[_name] = {0: _stamp_v1}
 MIGRATIONS["EndpointDataType"] = {0: _endpoint_data_type_v1}
-
-
-def enabled() -> bool:
-    """Boundary validation is on unless KMAMIZ_SCHEMA_VALIDATION=0."""
-    return os.environ.get("KMAMIZ_SCHEMA_VALIDATION", "1") != "0"
 
 
 def validate_doc(collection: str, doc: Any) -> None:

@@ -99,34 +99,17 @@ class ServiceUtils:
 
     def _label_mapping(self, data_types: list) -> dict:
         """create_endpoint_label_mapping over data_types, one service at a
-        time, reusing a service's mapping while its datatypes (names,
-        methods, schemas) are unchanged: the mapping compares every pair of
-        a service's endpoints and never groups across services, and a
-        realtime tick changes few services' datatypes. The services come in
-        the order of their first datatype, as in one call over all, so the
-        result (its order included) is that call's."""
+        time, reusing a service's mapping while what the mapping reads of
+        its datatypes is unchanged (_label_key): the mapping compares every
+        pair of a service's endpoints and never groups across services. The
+        services come in the order of their first datatype, as in one call
+        over all, so the result (its order included) is that call's."""
         by_service: dict = {}
         for d in data_types:
             by_service.setdefault(d.to_json()["uniqueServiceName"], []).append(d)
         memo, label_map = {}, {}
         for service, dts in by_service.items():
-            key = tuple(
-                (
-                    j["uniqueEndpointName"],
-                    j["method"],
-                    tuple(
-                        (
-                            s["status"],
-                            s.get("requestContentType"),
-                            s.get("responseContentType"),
-                            s.get("requestSchema"),
-                            s.get("responseSchema"),
-                        )
-                        for s in j["schemas"]
-                    ),
-                )
-                for j in (d.to_json() for d in dts)
-            )
+            key = _label_key(dts)
             cached = self._label_memo.get(service)
             mapping = cached[1] if cached is not None and cached[0] == key else None
             if mapping is None:
@@ -233,3 +216,41 @@ class ServiceUtils:
             "requests": 0,
             "risk": 0,
         }
+
+
+_ROOT_INTERFACE = "interface Root {\n}"
+
+
+def _label_key(data_types: list) -> tuple:
+    """What create_endpoint_label_mapping reads of one service's
+    datatypes: each endpoint's name and method in order, and per status
+    the schema that has_matched_schema compares (the last of its status,
+    as its status map keeps), its content types, and its interfaces with
+    a missing one as the empty interface that _is_interface_matched takes
+    it for. The order of the statuses does not enter the match, nor do a
+    schema's time and samples: a realtime tick re-stamps every schema it
+    merges and reorders the statuses by time, and leaves the mapping as
+    it was."""
+    key = []
+    for d in data_types:
+        j = d.to_json()
+        by_status = {s["status"]: s for s in j["schemas"]}
+        key.append(
+            (
+                j["uniqueEndpointName"],
+                j["method"],
+                tuple(
+                    sorted(
+                        (
+                            status,
+                            s.get("requestContentType"),
+                            s.get("responseContentType"),
+                            _ROOT_INTERFACE if s.get("requestSchema") is None else s["requestSchema"],
+                            _ROOT_INTERFACE if s.get("responseSchema") is None else s["responseSchema"],
+                        )
+                        for status, s in by_status.items()
+                    )
+                ),
+            )
+        )
+    return tuple(key)

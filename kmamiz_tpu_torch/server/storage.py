@@ -30,8 +30,6 @@ def _boundary_check_reads(collection: str, docs: List[dict]) -> List[dict]:
     periodic replace-all sync (which reads ids only) rewrites the
     collection and purges the quarantined doc on its next rotation;
     writes remain fail-closed (insert_many/save raise)."""
-    if not schemas.enabled():
-        return docs
     out = []
     for d in docs:
         try:
@@ -166,9 +164,8 @@ class MemoryStore(Store):
             return list(self._data[collection].keys())
 
     def insert_many(self, collection: str, docs: List[dict]) -> List[dict]:
-        if schemas.enabled():
-            for doc in docs:
-                schemas.validate_doc(collection, doc)
+        for doc in docs:
+            schemas.validate_doc(collection, doc)
         out = []
         with self._lock:
             for doc in docs:
@@ -179,8 +176,7 @@ class MemoryStore(Store):
         return out
 
     def save(self, collection: str, doc: dict) -> dict:
-        if schemas.enabled():
-            schemas.validate_doc(collection, doc)
+        schemas.validate_doc(collection, doc)
         with self._lock:
             d = schemas.stamp(copy.deepcopy(doc))
             d.setdefault("_id", uuid.uuid4().hex)

@@ -444,7 +444,97 @@ def test_label_refresh_reuses_unchanged_services_with_the_same_result(apps):
     assert list(got.items()) == list(create_endpoint_label_mapping(dts).items())
 
 
-def test_external_data_processor_and_its_fallback(monkeypatch):
+def test_label_refresh_reuses_a_mapping_across_a_ticks_restamp(apps, monkeypatch):
+    """A realtime tick re-stamps the schemas it merges (new times, the
+    statuses reordered by time, a missing interface where the empty one
+    was): what the mapping reads is unchanged, so every service's mapping
+    is reused, and it equals create_endpoint_label_mapping's."""
+    from kmamiz_tpu_torch.analytics.endpoint_utils import create_endpoint_label_mapping
+    from kmamiz_tpu_torch.domain.endpoint_data_type import EndpointDataType
+    from kmamiz_tpu_torch.server import service_utils
+
+    root = "interface Root {\n}"
+    swap = {None: root, root: None}
+    _jax, port, _now = apps
+    utils = port.ctx.service_utils
+    dts = []
+    for i, d in enumerate(port.ctx.cache.get("EndpointDataType").get_data()):
+        j = d.to_json()
+        extra = [{**j["schemas"][0], "status": "500", "time": 1}] if i % 2 else []
+        dts.append(EndpointDataType({**j, "schemas": j["schemas"] + extra}))
+    utils._label_mapping(dts)
+    restamped = []
+    for d in dts:
+        j = d.to_json()
+        schemas = [
+            {
+                **sc,
+                "time": (sc.get("time") or 0) + 5_000,
+                "requestSchema": swap.get(sc.get("requestSchema"), sc.get("requestSchema")),
+                "responseSchema": swap.get(sc.get("responseSchema"), sc.get("responseSchema")),
+            }
+            for sc in reversed(j["schemas"])
+        ]
+        restamped.append(EndpointDataType({**j, "schemas": schemas}))
+    assert any(len(d.to_json()["schemas"]) > 1 for d in dts)
+    calls = []
+    monkeypatch.setattr(
+        service_utils, "create_endpoint_label_mapping", lambda x: calls.append(x) or create_endpoint_label_mapping(x)
+    )
+    got = utils._label_mapping(restamped)
+    assert calls == []
+    assert list(got.items()) == list(create_endpoint_label_mapping(restamped).items())
+
+
+def test_a_tick_during_a_slow_relabel_keeps_its_newer_data():
+    """A realtime tick's set_data that lands while a GET labels the
+    dependency view neither waits for the labeling nor is overwritten by
+    its result: the reader gets the labeled view of the data it read,
+    the cache keeps the tick's data, and the next read labels that."""
+    import copy
+
+    from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
+    from kmamiz_tpu_torch.server.cache import Cacheable
+    from kmamiz_tpu_torch.server.cacheables import CLabeledEndpointDependencies
+
+    records = load_fixture("pdas_endpoint_dependencies")
+    half = len(records) // 2
+    old, new = copy.deepcopy(records[:half]), copy.deepcopy(records[half:])
+    assert old and new
+
+    def names(deps):
+        return [d["endpoint"]["uniqueEndpointName"] for d in deps.to_json()]
+
+    tick_done = threading.Event()
+
+    def slow_label(name):
+        if not tick_done.is_set():
+            # the tick runs on its own thread, as the scheduler's does
+            tick = threading.Thread(target=cache.set_data, args=(EndpointDependencies(copy.deepcopy(new)),))
+            tick.start()
+            tick.join(timeout=10)
+            assert not tick.is_alive(), "set_data waited for the labeling"
+            tick_done.set()
+        return "label:" + name
+
+    cache = CLabeledEndpointDependencies(old, get_label=slow_label, label_version=lambda: 0)
+    seen = cache.get_data()
+    assert tick_done.is_set()
+    assert names(seen) == [d["endpoint"]["uniqueEndpointName"] for d in old]
+    assert all(d["endpoint"]["labelName"] == "label:" + d["endpoint"]["uniqueEndpointName"] for d in seen.to_json())
+    # the tick's data won: stored as set, not the reader's older view
+    assert names(Cacheable.get_data(cache)) == [d["endpoint"]["uniqueEndpointName"] for d in new]
+    assert "labelName" not in Cacheable.get_data(cache).to_json()[0]["endpoint"]
+    after = cache.to_json()
+    assert [d["endpoint"]["uniqueEndpointName"] for d in after] == names(Cacheable.get_data(cache))
+    assert all(d["endpoint"]["labelName"] == "label:" + d["endpoint"]["uniqueEndpointName"] for d in after)
+    # labeled once for this version and mapping: the next read reuses it
+    version = cache.version
+    cache.get_data()
+    assert cache.version == version
+
+
+def test_external_data_processor_and_its_fallback():
     """With EXTERNAL_DATA_PROCESSOR set, the realtime tick posts the DP
     request there (here the port's own DP server) through the breaker and
     the retrier, and merges the answer as the in-process path would; an
@@ -454,7 +544,6 @@ def test_external_data_processor_and_its_fallback(monkeypatch):
     from kmamiz_tpu_torch.resilience import breaker
     from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
 
-    monkeypatch.setenv("KMAMIZ_RETRY_ATTEMPTS", "1")
     breaker.reset_for_tests()
     external = DataProcessorServer(DataProcessor(trace_source=Feed(2, 2), device="cpu"), host="127.0.0.1", port=0)
     external.start()
