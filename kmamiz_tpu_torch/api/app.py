@@ -1,26 +1,32 @@
 """Application assembly: the KMamiz backend of the port.
 
-Counterpart of kmamiz_tpu/api/app.py (KMamiz index.ts): `build_router`
-registers every ported handler's routes, and `Application` picks the
-startup mode (production / serve-only / read-only), serves the REST API
-and tears down by stopping the schedules and flushing every cache to the
-store (index.ts:95-113). The caller builds the AppContext, with its
+Counterpart of kmamiz_tpu/api/app.py (KMamiz index.ts):
+`build_production_context` wires the Zipkin and Kubernetes clients and
+the card's processor from the settings, `build_router` registers every
+ported handler's routes, and `Application` picks the startup mode
+(production / serve-only / read-only), serves the REST API and tears
+down by stopping the schedules and flushing every cache to the store
+(index.ts:95-113). Run with
+
+    python -m kmamiz_tpu_torch.api.app
+
+(main(): the environment's settings, the processor on the card,
+SIGTERM/SIGINT tear down and exit), or assemble it in process, with the
 processor on the card or, in tests, on the CPU:
 
-    ctx = AppContext.build(app_settings=settings, processor=DataProcessor(trace_source=...))
-    app = Application(ctx=ctx)
+    app = Application(ctx=build_production_context(settings, device="cpu"))
     app.start_up()  # caches from the store, graph warm start, schedules
     app.listen(port=3000)
     ...
     app.tear_down()  # stop the schedules, flush every cache
 
 Not ported yet: simulator mode and its SimulationHandler, the telemetry
-handler, and `build_production_context` / `main()`, which need the
-Kubernetes client.
+handler.
 """
 from __future__ import annotations
 
 import logging
+import signal
 from typing import Optional
 
 from kmamiz_tpu_torch.api.handlers import (
@@ -35,10 +41,45 @@ from kmamiz_tpu_torch.api.handlers import (
 )
 from kmamiz_tpu_torch.api.router import ApiServer, Router
 from kmamiz_tpu_torch.config import Settings
+from kmamiz_tpu_torch.device import DeviceLike
 from kmamiz_tpu_torch.server.import_export import ImportExportHandler
 from kmamiz_tpu_torch.server.initializer import AppContext, Initializer
 
 logger = logging.getLogger("kmamiz_tpu_torch.app")
+
+
+def build_production_context(
+    app_settings: Optional[Settings] = None, device: DeviceLike = None
+) -> AppContext:
+    """A context with the live ingestion clients and the in-process Data
+    Processor on `device` (None: the card, raising without one), as
+    index.ts wires ZipkinService and KubernetesService into the realtime
+    worker. Serve-only and simulator modes touch no mesh and get none;
+    read-only mode keeps the clients for the startup sync handshake
+    (index.ts:57-60) and skips the native library's build, since it
+    ingests nothing."""
+    s = app_settings or Settings()
+    zipkin = k8s = processor = None
+    if not (s.simulator_mode or s.serve_only):
+        from kmamiz_tpu_torch import native
+        from kmamiz_tpu_torch.ingestion import KubernetesClient, ZipkinClient
+        from kmamiz_tpu_torch.server.processor import DataProcessor
+
+        if not s.read_only_mode:
+            native.available()  # the one-time build, off the request path
+        zipkin = ZipkinClient(s.zipkin_url)
+        if s.is_running_in_kubernetes:
+            k8s = KubernetesClient.from_service_account(s.kube_api_host)
+        else:
+            k8s = KubernetesClient(s.kube_api_host)
+        processor = DataProcessor(
+            trace_source=zipkin.get_trace_list, k8s_source=k8s, device=device
+        )
+        if not s.read_only_mode:
+            k8s.warm_up()  # the tick's fan-out processes, off the request path
+    return AppContext.build(
+        app_settings=s, processor=processor, zipkin_client=zipkin, k8s_client=k8s
+    )
 
 
 def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] = None) -> Router:
@@ -81,6 +122,11 @@ class Application:
     def start_up(self) -> None:
         """Mode switch (index.ts:55-92)."""
         s = self.settings
+        if s.is_running_in_kubernetes and self.ctx.k8s_client is not None:
+            # ask the instance being replaced to flush first (index.ts:57-60)
+            self.ctx.k8s_client.force_kmamiz_sync(
+                s.service_port, s.api_version, simulator_mode=s.simulator_mode
+            )
         if s.simulator_mode:
             raise NotImplementedError("simulator mode waits for the simulator's port")
         if s.serve_only:
@@ -118,3 +164,28 @@ class Application:
             self.ctx.dispatch.sync_all()
         if self.server:
             self.server.stop()
+
+
+def main() -> None:
+    """The application on the card, configured from the environment
+    (config.Settings); SIGTERM or SIGINT tears it down (the schedules
+    stopped, every cache flushed) and exits 0."""
+    from kmamiz_tpu_torch.core import logger as klog
+
+    logging.basicConfig(level=logging.INFO)
+    klog.configure()  # LOG_LEVEL (Logger.ts:22-30)
+    app = Application(ctx=build_production_context())
+    app.start_up()
+    app.listen()
+
+    def _exit(signum, frame):
+        app.tear_down()
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _exit)
+    signal.signal(signal.SIGINT, _exit)
+    signal.pause()
+
+
+if __name__ == "__main__":
+    main()

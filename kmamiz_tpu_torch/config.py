@@ -2,12 +2,19 @@
 
 The part of kmamiz_tpu/config.py (KMamiz src/GlobalSettings.ts:54-89)
 that the port's modules read, with the same environment names and
-defaults: the application's port, timezone, store URI, schedules and
-startup modes, the external Data Processor, the static and wasm paths,
-the endpoint-lifetime thresholds of the dependency model, the REST API's
-version prefix, and the forecast route's checkpoint directory. The JAX
-package's device, ingest-wire and resilience knobs belong to subsystems
-not ported yet and join this file with them.
+defaults: the application's port, timezone, log level, store URI,
+schedules and startup modes, the cluster's addresses (the Kubernetes API
+and Zipkin), the external Data Processor, the static and wasm paths, the
+endpoint-lifetime thresholds of the dependency model, the REST API's
+version prefix, the forecast route's checkpoint directory, and the
+switches of the resilience layer and the stream engine.
+
+The resilience and stream modules read their environment variables
+themselves (the quarantine, the WAL and the watchdog work without a
+Settings instance, as in the DP server's process); their fields here
+mirror them, so one `Settings()` shows the deployed surface. The JAX
+package's device, sparse-kernel, tenancy, fleet, profiler, control and
+cost knobs belong to subsystems not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +32,15 @@ class Settings:
     port: str = field(default_factory=lambda: os.environ.get("PORT", "3000"))
     timezone: str = field(default_factory=lambda: os.environ.get("TZ", "Asia/Taipei"))
     api_version: str = field(default_factory=lambda: os.environ.get("API_VERSION", "1"))
+    log_level: str = field(default_factory=lambda: os.environ.get("LOG_LEVEL", "info"))
+    kube_api_host: str = field(
+        default_factory=lambda: os.environ.get("KUBEAPI_HOST", "http://127.0.0.1:8080")
+    )
     is_running_in_kubernetes: bool = field(
         default_factory=lambda: _env_bool("IS_RUNNING_IN_K8S")
+    )
+    zipkin_url: str = field(
+        default_factory=lambda: os.environ.get("ZIPKIN_URL", "http://localhost:9411")
     )
     storage_uri: str = field(
         default_factory=lambda: os.environ.get(
@@ -49,12 +63,21 @@ class Settings:
     dispatch_interval: str = field(
         default_factory=lambda: os.environ.get("DISPATCH_INTERVAL", "0/30 * * * *")
     )
+    # informational: which EnvoyFilter variant the mesh runs (info |
+    # warning); the log pull parses telemetry lines at any level
+    envoy_log_level: str = field(
+        default_factory=lambda: os.environ.get("ENVOY_LOG_LEVEL", "info")
+    )
     reset_endpoint_dependencies: bool = field(
         default_factory=lambda: _env_bool("RESET_ENDPOINT_DEPENDENCIES")
     )
     read_only_mode: bool = field(default_factory=lambda: _env_bool("READ_ONLY_MODE"))
     enable_testing_endpoints: bool = field(
         default_factory=lambda: _env_bool("ENABLE_TESTING_ENDPOINTS")
+    )
+    # the port of the kmamiz service the startup sync handshake calls
+    service_port: str = field(
+        default_factory=lambda: os.environ.get("SERVICE_PORT", os.environ.get("PORT", "3000"))
     )
     serve_only: bool = field(default_factory=lambda: _env_bool("SERVE_ONLY"))
     inactive_endpoint_threshold: str = field(
@@ -73,6 +96,49 @@ class Settings:
             "KMAMIZ_WASM_PATH", "./envoy/filter/kmamiz_filter.wasm"
         )
     )
+
+    # resilience layer (resilience/): read by the modules themselves
+    quarantine_enabled: bool = field(
+        default_factory=lambda: os.environ.get("KMAMIZ_QUARANTINE", "1") != "0"
+    )  # 0 = a malformed ingest payload raises (400) instead of diverting
+    quarantine_dir: str = field(
+        default_factory=lambda: os.environ.get(
+            "KMAMIZ_QUARANTINE_DIR", "./kmamiz-data/quarantine"
+        )
+    )
+    ingest_max_bytes: int = field(
+        default_factory=lambda: int(
+            os.environ.get("KMAMIZ_INGEST_MAX_BYTES", str(256 * 1024 * 1024))
+        )
+    )  # trace-bomb size cap of one raw ingest payload
+    tick_deadline_ms: float = field(
+        default_factory=lambda: float(os.environ.get("KMAMIZ_TICK_DEADLINE_MS", "0"))
+    )  # 0 = watchdog off; > 0 = serve the last good tick, stale, past this
+    wal_enabled: bool = field(
+        default_factory=lambda: os.environ.get("KMAMIZ_WAL", "0") == "1"
+    )
+    wal_dir: str = field(
+        default_factory=lambda: os.environ.get("KMAMIZ_WAL_DIR", "./kmamiz-data/wal")
+    )
+
+    # the stream engine (server/stream.py): read by the module itself
+    stream_enabled: bool = field(
+        default_factory=lambda: os.environ.get("KMAMIZ_STREAM", "0")
+        not in ("0", "false", "")
+    )  # overlapped micro-ticks (default off: the serial tick)
+    stream_depth: int = field(
+        default_factory=lambda: int(os.environ.get("KMAMIZ_STREAM_DEPTH", "2"))
+    )  # prepared ticks the hand-off queue holds (clamped 1..8)
+    stream_epoch_ticks: int = field(
+        default_factory=lambda: int(os.environ.get("KMAMIZ_STREAM_EPOCH_TICKS", "32"))
+    )  # micro-ticks per watchdog deadline read (floor 1)
+
+    def __post_init__(self) -> None:
+        # in a cluster, the API server's own address (KubernetesService.ts)
+        k8s_host = os.environ.get("KUBERNETES_SERVICE_HOST")
+        k8s_port = os.environ.get("KUBERNETES_SERVICE_PORT")
+        if self.is_running_in_kubernetes and k8s_host and k8s_port:
+            self.kube_api_host = f"https://{k8s_host}:{k8s_port}"
 
 
 _THRESHOLD_RE = re.compile(r"(?:(\d+)d)?(?:(\d+)h)?(?:(\d+)m)?")

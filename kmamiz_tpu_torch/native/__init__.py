@@ -15,8 +15,8 @@ payload, never a missing library.
 
 Bound here: the span parse with its blob, skip-set and session variants,
 the skip-set and session handles, the group splitter of the streaming
-path, the body fold, and the profiling counters. The envoy-log parser is
-in the library and not bound yet.
+path, the body fold, the envoy-log line parser and istio-proxy prefix
+strip (core.envoy), and the profiling counters.
 """
 from __future__ import annotations
 
@@ -92,6 +92,8 @@ _SIGNATURES = {
         ],
         ctypes.c_void_p,
     ),
+    "km_parse_envoy_lines": ([ctypes.c_char_p, ctypes.c_size_t, _size_p], ctypes.c_void_p),
+    "km_strip_istio_prefix": ([ctypes.c_char_p, ctypes.c_size_t, _size_p], ctypes.c_void_p),
     "km_prof_snapshot": ([_size_p], ctypes.c_void_p),
     "km_prof_reset": ([], None),
     "km_wire_caps": ([], ctypes.c_uint),
@@ -180,6 +182,88 @@ def prof_counters() -> dict:
 def prof_reset() -> None:
     """Zero the native profiling counters."""
     _load().km_prof_reset()
+
+
+# ---------------------------------------------------------------------------
+# envoy log lines (csrc/kmamiz_native.cpp)
+# ---------------------------------------------------------------------------
+
+# the envoy parser's output separators (kmamiz_native.cpp kFieldSep /
+# kRecordSep)
+_FIELD_SEP = "\x1f"
+_RECORD_SEP = "\x1e"
+
+
+def _call_lines_fn(fn, lines: List[str]) -> str:
+    """One line-buffer entry over `lines` joined by newlines; its answer
+    decoded as UTF-8 (bad bytes replaced). Raises MemoryError when the
+    library cannot allocate its answer."""
+    lib = _load()
+    payload = "\n".join(lines).encode()
+    out_len = ctypes.c_size_t(0)
+    ptr = fn(payload, len(payload), ctypes.byref(out_len))
+    if not ptr:
+        raise MemoryError(f"{fn.__name__} could not allocate its answer")
+    try:
+        return ctypes.string_at(ptr, out_len.value).decode("utf-8", "replace")
+    finally:
+        lib.km_free(ptr)
+
+
+def strip_istio_proxy_prefix(lines: List[str]) -> List[str]:
+    """Istio-proxy container log lines -> 'time\\tpayload' lines: the lines
+    carrying a script or wasm log, with the proxy's prefix cut (core.envoy's
+    served path)."""
+    out = _call_lines_fn(_load().km_strip_istio_prefix, lines)
+    return out.split("\n")[:-1] if out else []
+
+
+def parse_envoy_lines(lines: List[str]) -> List[dict]:
+    """The per-line parse of core.envoy.parse_envoy_logs: one raw field
+    dict per line with a [Request|Response ...] header (no namespace, pod
+    or trace-id decoration)."""
+    out = _call_lines_fn(_load().km_parse_envoy_lines, lines)
+    records = []
+    for record in out.split(_RECORD_SEP):
+        if not record:
+            continue
+        fields = record.split(_FIELD_SEP)
+        if len(fields) != 12:
+            # a line whose text holds the separator bytes: dropped, as the
+            # JAX binding drops it
+            continue
+        (
+            time_str,
+            log_type,
+            request_id,
+            trace_id,
+            span_id,
+            parent_span_id,
+            method,
+            path,
+            status,
+            content_type,
+            body,
+            body_present,
+        ) = fields
+        if not path:  # the method/path pattern needs a non-empty path
+            method = ""
+        records.append(
+            {
+                "time": time_str,
+                "type": log_type,
+                "requestId": request_id,
+                "traceId": trace_id,
+                "spanId": span_id,
+                "parentSpanId": parent_span_id,
+                "method": method or None,
+                "path": path or None,
+                "status": status or None,
+                "contentType": content_type or None,
+                "body": body if body_present == "1" else None,
+            }
+        )
+    return records
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,8 @@ registry, so every call site of one upstream shares one failure budget.
 
 A copy of kmamiz_tpu/resilience/breaker.py without what the port has no
 caller for: the environment knobs (the JAX package's
-KMAMIZ_BREAKER_*; here module constants at their defaults),
-`breaker_states()` (it feeds /health's `resilience` field, not ported),
-the profiler's flight-recorder hook, the control plane's warm-up
+KMAMIZ_BREAKER_*; here module constants at their defaults), the
+profiler's flight-recorder hook, the control plane's warm-up
 (`warm_up`/`revert_warm_up`) and the per-tenant registry keys.
 """
 from __future__ import annotations
@@ -183,6 +182,13 @@ def get_breaker(name: str, **kwargs) -> CircuitBreaker:
             breaker = CircuitBreaker(name, **kwargs)
             _REGISTRY[name] = breaker
         return breaker
+
+
+def breaker_states() -> Dict[str, dict]:
+    """Every breaker's snapshot by name (/health's `resilience` field)."""
+    with _REGISTRY_LOCK:
+        breakers = dict(_REGISTRY)
+    return {name: b.snapshot() for name, b in breakers.items()}
 
 
 def reset_for_tests() -> None:

@@ -16,10 +16,9 @@ Jitter is "full jitter" (sleep ~ U[0, min(max, base * 2^k)]); the rng
 and sleep are injectable so the chaos harness replays deterministic
 schedules and tests never actually sleep.
 
-A copy of kmamiz_tpu/resilience/retry.py without the retry counter of
-resilience/metrics.py, which the port does not keep yet, and without the
-environment knobs (the JAX package's KMAMIZ_RETRY_*; here module
-constants at their defaults).
+A copy of kmamiz_tpu/resilience/retry.py without the environment knobs
+(the JAX package's KMAMIZ_RETRY_*; here module constants at their
+defaults). Each retry counts as `retry.<name>` in resilience/metrics.py.
 """
 from __future__ import annotations
 
@@ -27,6 +26,8 @@ import logging
 import random
 import time
 from typing import Callable, Optional, Tuple, Type
+
+from kmamiz_tpu_torch.resilience import metrics
 
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.retry")
 
@@ -102,4 +103,5 @@ class Retrier:
                     err,
                     delay_ms,
                 )
+                metrics.incr(f"retry.{self.name}")
                 self._sleep(delay_ms / 1000.0)

@@ -1,30 +1,58 @@
 """HTTP server speaking the external Data Processor protocol.
 
-Counterpart of kmamiz_tpu/server/dp_server.py for the DP protocol alone,
-the sibling of the reference's Rust service
-(KMamiz kmamiz_data_processor/src/main.rs:28-79): GET / answers
-health, POST / takes a TExternalDataProcessorRequest ({uniqueId,
-lookBack, time, existingDep}) and returns a
+Counterpart of kmamiz_tpu/server/dp_server.py, the sibling of the
+reference's Rust service (KMamiz kmamiz_data_processor/src/main.rs:28-79):
+GET / answers health, POST / takes a TExternalDataProcessorRequest
+({uniqueId, lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
 datatype, log}). POST /ingest takes a raw Zipkin response body (trace
 groups, or a KMZC columnar frame) into the processor's graph, uncapped,
 and answers the ingest summary; a large JSON body streams through
 ingest_raw_stream in chunks of whole trace groups. GET /model/stlgt
 answers the STLGT continual trainer's health (ring, stale slots,
-refreshes, params version). Gzip request bodies (Content-Encoding: gzip) are accepted;
-responses are gzip-compressed when the client sends Accept-Encoding: gzip.
+refreshes, params version). Gzip request bodies (Content-Encoding: gzip)
+are accepted; responses are gzip-compressed when the client sends
+Accept-Encoding: gzip.
+
+A tick runs under the tick watchdog (resilience/watchdog.py,
+KMAMIZ_TICK_DEADLINE_MS) and, with KMAMIZ_STREAM=1, as a micro-tick of
+the stream engine (server/stream.py). A tick that overruns its deadline
+or faults is answered with the last good tick's payload, marked `stale`
+with `staleAgeMs` and `staleReason` (and the X-KMamiz-Stale-Age-Ms
+header); only before the first good tick does it answer 503 (deadline)
+or 500 (fault). A malformed /ingest payload is quarantined and answered
+200 with the zero-span summary (400 with KMAMIZ_QUARANTINE=0).
+
+Run standalone, configured from the environment like the Rust service
+(kmamiz_data_processor/src/env.rs):
+
+    python -m kmamiz_tpu_torch.server.dp_server
+
+Left out of the JAX server: tenant routing, the control plane's
+admission and defer, /timings, /metrics, /debug/*, and the /fleet/*
+routes.
 """
 from __future__ import annotations
 
 import gzip
 import json
 import logging
+import os
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Tuple
 
 from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.core import wire
+from kmamiz_tpu_torch.device import DeviceLike
+from kmamiz_tpu_torch.resilience import metrics as res_metrics
+from kmamiz_tpu_torch.resilience.watchdog import (
+    REASON_FAULT,
+    TickDeadlineExceeded,
+    TickWatchdog,
+)
+from kmamiz_tpu_torch.server import stream as stream_mod
 from kmamiz_tpu_torch.server.processor import DEFAULT_STREAM_CHUNKS, DataProcessor
 
 logger = logging.getLogger("kmamiz_tpu_torch.dp_server")
@@ -32,6 +60,77 @@ logger = logging.getLogger("kmamiz_tpu_torch.dp_server")
 #: decompressed /ingest bodies from this size on stream
 #: (KMAMIZ_INGEST_STREAM_BYTES's default): 32 MiB
 DEFAULT_STREAM_BYTES = 32 << 20
+#: the gzip level of responses: a tick's answer carries the window's whole
+#: dependency records (~20 MB of JSON at 10,000 endpoints), which level 9
+#: (gzip.compress's default, the JAX server's) takes ~0.7 s to compress on
+#: a host core and level 1 ~0.1 s, for ~1.7x the bytes; the client reads
+#: the same JSON either way
+GZIP_LEVEL = 1
+
+
+def _wall_ms() -> float:
+    return time.time() * 1000.0
+
+
+class _LastGoodTick:
+    """The newest successful tick response and when it was made. When a
+    tick overruns its deadline or faults, the server answers with it,
+    marked stale, instead of a 5xx that would send the host app's poller
+    to its in-process fallback. Serving it is host work on a dict: no
+    device call."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._payload: Optional[dict] = None
+        self._at_ms: Optional[float] = None
+
+    def update(self, payload: dict, version: int, label_epoch: int) -> None:
+        now_ms = _wall_ms()
+        with self._lock:
+            self._payload = payload
+            self._at_ms = now_ms
+        res_metrics.note_last_good(version, label_epoch, now_ms)
+
+    def serve_stale(self, unique_id: str, reason: str) -> Optional[dict]:
+        """A copy of the last good payload addressed to this request, with
+        the staleness spelled out; None before the first good tick."""
+        with self._lock:
+            if self._payload is None:
+                return None
+            payload = dict(self._payload)
+            at_ms = self._at_ms
+        payload["uniqueId"] = unique_id
+        payload["stale"] = True
+        payload["staleAgeMs"] = round(max(0.0, _wall_ms() - at_ms), 1)
+        payload["staleReason"] = reason
+        res_metrics.note_stale_serve()
+        return payload
+
+
+class _EncodedPayloadCache:
+    """Encoded response bytes by (uniqueId, graph version, label epoch):
+    a retried request against an unchanged graph is answered with the
+    bytes already encoded, not a second json.dumps + gzip."""
+
+    def __init__(self, max_entries: int = 4) -> None:
+        self._lock = threading.Lock()
+        self._max = max_entries
+        self._entries: "dict[tuple, bytes]" = {}
+
+    def get_or_encode(self, key: tuple, payload: dict, use_gzip: bool) -> bytes:
+        full_key = key + (use_gzip,)
+        with self._lock:
+            body = self._entries.get(full_key)
+        if body is not None:
+            return body
+        body = json.dumps(payload).encode()
+        if use_gzip:
+            body = gzip.compress(body, compresslevel=GZIP_LEVEL)
+        with self._lock:
+            while len(self._entries) >= self._max:
+                self._entries.pop(next(iter(self._entries)))
+            self._entries[full_key] = body
+        return body
 
 
 def make_handler(
@@ -39,21 +138,44 @@ def make_handler(
     stream_bytes: int = DEFAULT_STREAM_BYTES,
     stream_chunks: int = DEFAULT_STREAM_CHUNKS,
 ):
+    last_good = _LastGoodTick()
+    # the deadline follows KMAMIZ_TICK_DEADLINE_MS (0 = off); a straggler
+    # that finishes after its trip still refreshes last_good
+    watchdog = TickWatchdog(
+        on_late_result=lambda result: last_good.update(
+            result, processor.graph.version, processor.graph.label_epoch
+        )
+        if isinstance(result, dict)
+        else None
+    )
+    encoded_cache = _EncodedPayloadCache()
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt: str, *args) -> None:  # quiet default logs
             logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send_json(self, status: int, payload: dict) -> None:
+        def _send_json(
+            self,
+            status: int,
+            payload: dict,
+            cache_key: Optional[tuple] = None,
+            extra_headers: Optional[dict] = None,
+        ) -> None:
             encoded = "gzip" in self.headers.get("Accept-Encoding", "")
-            body = json.dumps(payload).encode()
-            if encoded:
-                body = gzip.compress(body)
+            if cache_key is not None:
+                body = encoded_cache.get_or_encode(cache_key, payload, encoded)
+            else:
+                body = json.dumps(payload).encode()
+                if encoded:
+                    body = gzip.compress(body, compresslevel=GZIP_LEVEL)
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             if encoded:
                 self.send_header("Content-Encoding", "gzip")
+            for name, value in (extra_headers or {}).items():
+                self.send_header(name, str(value))
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -99,13 +221,53 @@ def make_handler(
             except ValueError as e:
                 self._send_json(400, {"error": f"bad request: {e}"})
                 return
+            self._tick(request)
+
+        def _tick(self, request: dict) -> None:
+            """POST /: one tick under the watchdog, serial or, with
+            KMAMIZ_STREAM=1, a micro-tick of the stream engine."""
+            unique_id = request.get("uniqueId", "")
+            streaming = stream_mod.stream_enabled()
+            if streaming:
+                engine = stream_mod.engine_for(processor, watchdog)
+                # the epoch accounting comes before the watchdog reads its
+                # deadline: a boundary reads the env again
+                engine.note_micro_tick()
+                tick = lambda: engine.collect(request)  # noqa: E731
+            else:
+                # leaving stream mode must not strand an epoch's deadline
+                watchdog.end_stream_epoch()
+                tick = lambda: processor.collect(request)  # noqa: E731
             try:
-                response = processor.collect(request)
-            except Exception as e:  # noqa: BLE001 - answer 500, keep serving
-                logger.exception("collect failed")
-                self._send_json(500, {"error": str(e)})
+                response = watchdog.run(
+                    tick, overrun_reason=stream_mod.REASON_STREAM_OVERRUN if streaming else None
+                )
+            except TickDeadlineExceeded as e:
+                logger.warning("collect tick degraded: %s", e)
+                stale = last_good.serve_stale(unique_id, e.reason)
+                if stale is None:
+                    self._send_json(503, {"error": str(e), "reason": e.reason})
+                else:
+                    self._send_stale(stale)
                 return
-            self._send_json(200, response)
+            except Exception as e:  # noqa: BLE001 - degrade, else 500
+                logger.exception("collect failed")
+                stale = last_good.serve_stale(unique_id, REASON_FAULT)
+                if stale is None:
+                    self._send_json(500, {"error": str(e)})
+                else:
+                    res_metrics.watchdog_tripped(REASON_FAULT)
+                    self._send_stale(stale)
+                return
+            graph = processor.graph
+            version, label_epoch = graph.version, graph.label_epoch
+            last_good.update(response, version, label_epoch)
+            self._send_json(200, response, cache_key=(unique_id, version, label_epoch))
+
+        def _send_stale(self, stale: dict) -> None:
+            """The degraded answer: 200 and the last good payload, its
+            staleness in the payload and in a header."""
+            self._send_json(200, stale, extra_headers={"X-KMamiz-Stale-Age-Ms": stale["staleAgeMs"]})
 
         def _ingest(self, raw: bytes) -> None:
             """POST /ingest: the body IS the Zipkin response (or a KMZC
@@ -115,9 +277,10 @@ def make_handler(
             k+1 overlaps the merge of chunk k; span-id maps are scoped per
             chunk); any other body, or one that splits into a single chunk,
             is one window through processor.ingest_raw_window. A malformed
-            payload answers 400, any other failure 500. Unlike the JAX
-            server, this route has no tenant routing: the tenancy layer is
-            not ported."""
+            payload is quarantined and answered 200 with the zero-span
+            summary (400 with KMAMIZ_QUARANTINE=0); any other failure
+            answers 500. Unlike the JAX server, this route has no tenant
+            routing: the tenancy layer is not ported."""
             try:
                 summary = None
                 # a KMZC frame is indivisible: the splitter reads JSON only
@@ -141,8 +304,9 @@ def make_handler(
 
 class DataProcessorServer:
     """The DP protocol on `host:port` (port 0 picks a free one), served
-    from a background thread between start() and stop(). `stream_bytes`
-    and `stream_chunks` set when and how POST /ingest streams a body."""
+    from a background thread between start() and stop(), or on the
+    caller's thread by serve_forever(). `stream_bytes` and
+    `stream_chunks` set when and how POST /ingest streams a body."""
 
     def __init__(
         self,
@@ -152,6 +316,7 @@ class DataProcessorServer:
         stream_bytes: int = DEFAULT_STREAM_BYTES,
         stream_chunks: int = DEFAULT_STREAM_CHUNKS,
     ) -> None:
+        self.processor = processor
         self._server = ThreadingHTTPServer(
             (host, port), make_handler(processor, stream_bytes, stream_chunks)
         )
@@ -167,8 +332,66 @@ class DataProcessorServer:
         )
         self._thread.start()
 
+    def serve_forever(self) -> None:
+        self._server.serve_forever()
+
     def stop(self) -> None:
-        self._server.shutdown()
-        self._server.server_close()
+        """Stop serving (if start() served) and close the socket."""
         if self._thread is not None:
+            self._server.shutdown()
             self._thread.join(timeout=10)
+        self._server.server_close()
+
+
+def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
+    """The standalone DP as main() assembles it, from the environment of
+    the Rust service (kmamiz_data_processor/src/env.rs): ZIPKIN_URL,
+    KUBEAPI_HOST (unset: no cluster source), IS_RUNNING_IN_K8S ("true":
+    the mounted service account's token and CA), BIND_IP and DP_PORT,
+    with the processor on `device` (None: the card, raising without
+    one). The native library builds and the cluster client's fan-out
+    processes start first, off the request path, and
+    with KMAMIZ_WAL=1 the WAL replays before the server exists, so the
+    first tick answers from the recovered graph. Returns (server, the
+    replay's totals)."""
+    from kmamiz_tpu_torch.ingestion.kubernetes import KubernetesClient
+    from kmamiz_tpu_torch.ingestion.zipkin import ZipkinClient
+
+    zipkin = ZipkinClient(os.environ.get("ZIPKIN_URL", ""))
+    k8s = None
+    kube_host = os.environ.get("KUBEAPI_HOST", "")
+    if kube_host:
+        if os.environ.get("IS_RUNNING_IN_K8S", "").lower() == "true":
+            k8s = KubernetesClient.from_service_account(kube_host)
+        else:
+            k8s = KubernetesClient(kube_host)
+    processor = DataProcessor(trace_source=zipkin.get_trace_list, k8s_source=k8s, device=device)
+    native.available()
+    if k8s is not None:
+        k8s.warm_up()
+    recovered = processor.replay_wal()
+    if recovered["replayed"]:
+        logger.info("wal replay: %s", recovered)
+    server = DataProcessorServer(
+        processor,
+        host=os.environ.get("BIND_IP", "0.0.0.0"),
+        port=int(os.environ.get("DP_PORT", "8600")),
+    )
+    return server, recovered
+
+
+def main() -> None:
+    """The standalone external DP on the card: point a KMamiz install's
+    EXTERNAL_DATA_PROCESSOR here. LOG_LEVEL (verbose|info|warn|error)
+    sets the log level."""
+    from kmamiz_tpu_torch.core import logger as klog
+
+    logging.basicConfig(level=logging.INFO)
+    klog.configure(os.environ.get("LOG_LEVEL", "info"))
+    server, _ = build_server()
+    logger.info("external DP listening on %d", server.port)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -15,8 +15,8 @@ into minute-bucketed historical data, risk is re-scored over a merged
 saved; the realtime cache is then reset.
 
 A copy of kmamiz_tpu/server/operator.py without the simulator's variants,
-which wait for the simulator's port; the external-DP fallback is counted
-on the operator (`dp_fallbacks`), not in resilience/metrics.py.
+which wait for the simulator's port. The external-DP fallback counts as
+`dpFallback` in resilience/metrics.py.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ from kmamiz_tpu_torch.domain.combined import CombinedRealtimeDataList
 from kmamiz_tpu_torch.domain.endpoint_data_type import EndpointDataType
 from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
 from kmamiz_tpu_torch.domain.historical import HistoricalData
+from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.server.cache import DataCache
 from kmamiz_tpu_torch.server.service_utils import ServiceUtils
 from kmamiz_tpu_torch.server.storage import Store
@@ -74,9 +75,6 @@ class ServiceOperator:
         # aggregation's snapshot and its reset, where it would be wiped
         # and — the trace ids already being marked processed — lost for good.
         self._cache_update_lock = threading.Lock()
-        #: realtime ticks that fell back from the external DP to the
-        #: in-process processor
-        self.dp_fallbacks = 0
 
     # -- realtime schedule (ServiceOperator.ts:282-307) ----------------------
 
@@ -113,9 +111,8 @@ class ServiceOperator:
                 )
                 return
             except Exception:  # noqa: BLE001 - any DP failure falls back
-                # the reference's worker fallback (ServiceOperator.ts:300-306),
-                # counted on the operator
-                self.dp_fallbacks += 1
+                # the reference's worker fallback (ServiceOperator.ts:300-306)
+                res_metrics.incr("dpFallback")
                 logger.debug(
                     "External data processor failed, fallback to in-process.",
                     exc_info=True,

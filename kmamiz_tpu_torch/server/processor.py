@@ -1,12 +1,17 @@
 """The Data Processor pipeline: one realtime tick end to end.
 
-Counterpart of kmamiz_tpu/server/processor.py for the tick itself — the
-Rust service's collect_data
-(KMamiz kmamiz_data_processor/src/data_processor.rs:75-126):
+Counterpart of kmamiz_tpu/server/processor.py — the Rust service's
+collect_data (KMamiz kmamiz_data_processor/src/data_processor.rs:75-126):
 
-  fetch traces -> dedup vs processed-trace map -> realtime + combined
-  data -> endpoint dependencies (+merge with existing) -> datatypes ->
-  response
+  fetch traces -> dedup vs processed-trace map -> namespaces -> replicas
+  and envoy logs per pod -> realtime + combined data -> endpoint
+  dependencies (+merge with existing) -> datatypes -> response
+
+With a cluster source (`k8s_source`, ingestion.kubernetes.KubernetesClient)
+each tick lists the pods of the window's namespaces and reads each pod's
+istio-proxy log (stage `fetch_cluster_state`): the logs carry the request
+and response bodies behind the datatypes, and the replica counts feed the
+records and the hourly fold. A fault of that source fails the tick.
 
 The numeric window statistics (counts, latency mean/CV, latest
 timestamps) run on the processor's device through ops.window.window_stats
@@ -41,15 +46,22 @@ host numpy in both packages; a snapshot copies it under _history_lock and
 encodes after releasing it, so it never pairs two ticks' arrays and never
 holds a tick back for the encoding.
 
-Not ported yet: cluster state (a k8s source, so every replica count in
-the features is 1.0), the ingest WAL, the quarantine, telemetry spans,
-and the fold hooks of the JAX processor (the control plane and the cost
-model; the STLGT continual trainer is ported).
+The resilience layer: with the quarantine on (the default,
+resilience/quarantine.py) a raw payload that fails to parse is diverted
+to disk and answered with a zero-span summary; with the WAL on
+(KMAMIZ_WAL=1, resilience/wal.py) every parsed payload, and every tick's
+kept trace groups, is appended before its merge, and `replay_wal`
+rebuilds the graph after a crash.
+
+Not ported yet: telemetry spans, and the fold hooks of the JAX processor
+(the control plane and the cost model; the STLGT continual trainer is
+ported).
 """
 from __future__ import annotations
 
 import gc
 import itertools
+import json
 import logging
 import queue
 import threading
@@ -79,6 +91,9 @@ from kmamiz_tpu_torch.graph.store import EndpointGraph
 from kmamiz_tpu_torch.models import graphsage
 from kmamiz_tpu_torch.models.history import SLOT_SECONDS, HistoryState
 from kmamiz_tpu_torch.ops import window as window_ops
+from kmamiz_tpu_torch.resilience import metrics as res_metrics
+from kmamiz_tpu_torch.resilience import quarantine as res_quarantine
+from kmamiz_tpu_torch.resilience.wal import IngestWAL
 
 logger = logging.getLogger("kmamiz_tpu_torch.processor")
 
@@ -147,6 +162,37 @@ class _PreparedTick:
         self.objects = False
 
 
+class _ClusterFetch:
+    """A tick's cluster fetch, the source's
+    get_replicas_and_joinable_logs(namespaces), on a thread of its own.
+    result() waits and returns (replicas, structured logs) or raises the
+    fetch's error; `ms` is the fetch's own wall."""
+
+    def __init__(self, source, namespaces) -> None:
+        self.ms = 0.0
+        self._out = None
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, args=(source, namespaces), name="cluster-fetch", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self, source, namespaces) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._out = source.get_replicas_and_joinable_logs(namespaces)
+        except BaseException as err:  # noqa: BLE001 - re-raised by result()
+            self._err = err
+        finally:
+            self.ms = (time.perf_counter() - t0) * 1e3
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 class _stage:
     """Records the wall ms of a with-block into a tick's stage dict."""
 
@@ -166,7 +212,16 @@ class DataProcessor:
     the persistent device graph. `device=None` runs on the card (and
     raises without one); pass device="cpu" to run on the CPU. `graph`
     starts the processor from a carried graph on the same device; `now_ms`
-    is the clock of the dedup map's time-to-live."""
+    is the clock of the dedup map's time-to-live.
+
+    `k8s_source` is the cluster source: an object with
+    get_replicas_and_joinable_logs(namespaces) -> (replicas, structured
+    envoy logs), as ingestion.kubernetes.KubernetesClient has (the JAX
+    processor's source answers get_replicas_and_envoy_logs; the port's
+    hands the tick the logs its worker processes structured). With use_device_stats
+    off, the window statistics run on the host (the JAX processor's
+    flag: the stream's bit-exact contract runs so). `wal` is the ingest
+    WAL: "from_env" (KMAMIZ_WAL), an IngestWAL, or None."""
 
     def __init__(
         self,
@@ -175,14 +230,28 @@ class DataProcessor:
         device: DeviceLike = None,
         graph: Optional[EndpointGraph] = None,
         now_ms: Callable[[], float] = lambda: time.time() * 1000.0,
+        use_device_stats: bool = True,
+        wal: object = "from_env",
     ) -> None:
-        if k8s_source is not None:
-            raise NotImplementedError(
-                "cluster state (k8s_source) is not ported yet; pass None"
+        if k8s_source is not None and not callable(
+            getattr(k8s_source, "get_replicas_and_joinable_logs", None)
+        ):
+            raise TypeError(
+                "k8s_source has no get_replicas_and_joinable_logs(namespaces)"
             )
         _tune_gc()
         self.device = resolve_device(device)
         self._trace_source = trace_source
+        self._k8s = k8s_source
+        self._use_device_stats = use_device_stats
+        #: the newest replica count of each uniqueServiceName, folded into
+        #: the hourly features
+        self._last_replicas: Dict[str, float] = {}
+        # crash-safe ingest WAL (resilience/wal.py), None unless
+        # KMAMIZ_WAL=1: every parsed ingest payload appends before its
+        # graph merge; _wal_replaying stops re-appends during replay_wal
+        self._wal = IngestWAL.from_env() if wal == "from_env" else wal
+        self._wal_replaying = False
         self._now_ms = now_ms  # the dedup map's clock
         self._processed: Dict[str, float] = {}
         # the processed map's keys as native skip entries
@@ -239,6 +308,11 @@ class DataProcessor:
         self.fold_errors: Dict[str, int] = {"stlgtFoldErrors": 0}
         #: parsed stream chunks that never merged (the consumer bailed out)
         self.ingest_dropped = 0
+
+    @property
+    def wal(self) -> Optional[IngestWAL]:
+        """This processor's ingest WAL (None when durability is off)."""
+        return self._wal
 
     # -- trace dedup (data_processor.rs:30-73) -------------------------------
 
@@ -304,6 +378,61 @@ class DataProcessor:
 
     # -- raw ingest: the uncapped window path --------------------------------
 
+    def _wal_append(self, raw: bytes) -> None:
+        """Durably log one parsed ingest payload before its graph merge.
+        No-op with the WAL off or during replay_wal. An append failure
+        counts (`walAppendErrors`) and the ingest goes on: availability
+        over durability, as the store fails open."""
+        if self._wal is None or self._wal_replaying:
+            return
+        try:
+            self._wal.append(raw)
+        except OSError:
+            res_metrics.incr("walAppendErrors")
+
+    def _divert_poison(self, raw: bytes, source: str) -> str:
+        """Classify a payload the native parser rejected and move it to the
+        quarantine; returns the reason code. The port's library is always
+        there (a failed build raises at the parse), so a payload the
+        classifier finds sound is a parser rejection: parse-error."""
+        reason = res_quarantine.classify_payload(raw) or res_quarantine.REASON_PARSE_ERROR
+        res_quarantine.default_quarantine().put(raw, reason, source=source)
+        return reason
+
+    def _quarantined_summary(self, reason: str, wall_t0: float) -> dict:
+        """ingest_raw_window's answer for a diverted payload: no new span,
+        the graph untouched."""
+        return {
+            "spans": 0,
+            "traces": 0,
+            "endpoints": len(self.graph.interner.endpoints),
+            "edges": int(self.graph.n_edges),
+            "quarantined": 1,
+            "reason": reason,
+            "ms": round((time.perf_counter() - wall_t0) * 1e3, 1),
+        }
+
+    def replay_wal(self) -> dict:
+        """Rebuild ingest state from the WAL (the boot path after a crash):
+        each durable payload re-ingests through ingest_raw_window, in
+        order, on the fresh dedup map, so the graph is the one the
+        payloads built before the crash. A payload that fails to re-parse
+        is quarantined, never aborting the boot."""
+        totals = {"replayed": 0, "spans": 0, "quarantined": 0}
+        if self._wal is None:
+            return totals
+        self._wal_replaying = True
+        try:
+            for payload in self._wal.replay():
+                out = self.ingest_raw_window(payload)
+                totals["replayed"] += 1
+                totals["spans"] += out.get("spans", 0)
+                totals["quarantined"] += out.get("quarantined", 0)
+        finally:
+            self._wal_replaying = False
+        res_metrics.incr("walReplays")
+        return totals
+
     def ingest_raw_window(self, raw: bytes) -> dict:
         """Raw Zipkin response bytes (or a KMZC columnar frame) -> the
         device graph, uncapped.
@@ -315,18 +444,25 @@ class DataProcessor:
         merges the window into the graph on the processor's device.
         Returns {spans, traces, endpoints, edges, ms}.
 
-        A payload that fails to parse raises ValueError with the interner
-        and the dedup map untouched, as the JAX processor does with its
-        quarantine off (KMAMIZ_QUARANTINE=0). A fault on this side (a
-        library answer that does not decode, a desynced session) raises
+        A malformed payload, or one over the KMAMIZ_INGEST_MAX_BYTES cap,
+        diverts to the quarantine with its reason code and answers a
+        zero-span summary carrying `quarantined` and `reason`, the
+        interner and the dedup map untouched. With KMAMIZ_QUARANTINE=0 it
+        raises ValueError instead. A parsed payload appends to the WAL
+        (when on) before its merge. A fault on this side (a library
+        answer that does not decode, a desynced session) raises
         RuntimeError, where the JAX processor reports it as a malformed
-        payload. Absent here, with the
-        modules they need: the quarantine and its size gate (a malformed
-        payload diverted to disk, answered with a zero-span summary), the
-        write-ahead log append before the merge, and the telemetry spans
-        and step timers around the parse and the merge."""
+        payload. Not ported: the telemetry spans and step timers."""
         t_start = self._now_ms()  # domain time for the dedup registration
         wall_t0 = time.perf_counter()
+        quarantine_on = res_quarantine.enabled()
+        if quarantine_on and len(raw) > res_quarantine.max_payload_bytes():
+            # the size gate comes before the parse: a trace bomb never
+            # reaches the scanner, the interner or the device
+            res_quarantine.default_quarantine().put(
+                raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_window"
+            )
+            return self._quarantined_summary(res_quarantine.REASON_TRACE_BOMB, wall_t0)
         with self._dedup_lock:
             skipset = self._skipset_locked()
             session = self._raw_session_locked()
@@ -334,9 +470,13 @@ class DataProcessor:
             raw, interner=self.graph.interner, skipset=skipset, session=session
         )
         if out is None:
-            raise ValueError("malformed span payload")
+            if not quarantine_on:
+                raise ValueError("malformed span payload")
+            reason = self._divert_poison(raw, "ingest_raw_window")
+            return self._quarantined_summary(reason, wall_t0)
         batch, kept = out
         t_parsed = time.perf_counter()
+        self._wal_append(raw)
         # the dedup snapshot is the skip set as the parse saw it: a trace a
         # concurrent collect() registers mid-parse may merge twice, which
         # the set-union edge store absorbs
@@ -404,15 +544,19 @@ class DataProcessor:
         paginated response; groups never split across chunks, so the
         graph equals the one-shot path's.
 
-        Failure: there is no quarantine (the JAX processor's behaviour
-        under KMAMIZ_QUARANTINE=0): every chunk parsed before a malformed
-        one merges and registers, then ValueError is raised. An error of
-        the source iterator, or a RuntimeError of the parse, propagates
-        the same way. A parsed chunk dropped when the consumer bails out
-        counts in `ingest_dropped`.
+        Failure: per-chunk quarantine. A malformed chunk (or one over the
+        size cap) diverts to the quarantine with its reason code and the
+        stream goes on; the graph of the surviving chunks is the one
+        ingesting only those gives. With KMAMIZ_QUARANTINE=0, every chunk
+        parsed before a malformed one merges and registers, then
+        ValueError is raised. An error of the source iterator, or a
+        RuntimeError of the parse, propagates that way. Each parsed chunk
+        appends to the WAL (when on) on the parse thread, in chunk order.
+        A parsed chunk dropped when the consumer bails out counts in
+        `ingest_dropped` (and as `ingestDropped` in resilience/metrics).
 
-        Returns the totals (spans, traces, chunks; quarantined is always
-        0), endpoints, edges, the overlap accounting (parse_ms, merge_ms,
+        Returns the totals (spans, traces, chunks, quarantined),
+        endpoints, edges, the overlap accounting (parse_ms, merge_ms,
         saved_ms = parse + merge - wall), the per-chunk breakdown
         (`chunk_detail`: spans, parse_ms, merge_ms, transfer_ms), the final
         read's `drain_ms`, `ms`, `pipeline_depth` and the ring's peak
@@ -421,6 +565,7 @@ class DataProcessor:
         wall_t0 = time.perf_counter()
         parse_ms = merge_ms = 0.0
         totals = {"spans": 0, "traces": 0, "chunks": 0}
+        quarantined = [0]  # written by the parse thread, read after join
         chunk_detail = []
         ring: "queue.Queue" = queue.Queue(maxsize=depth)
         ring_peak = 0
@@ -437,11 +582,14 @@ class DataProcessor:
                 # parsed and registered, but never merged
                 with self._dedup_lock:
                     self.ingest_dropped += 1
+                res_metrics.incr("ingestDropped")
             return False
 
         def produce() -> None:
-            """Fetch, parse and register, strictly in chunk order (a
+            """Fetch, parse, log and register, strictly in chunk order (a
             chunk's parse_ms leaves its fetch out)."""
+            quarantine_on = res_quarantine.enabled()
+            size_cap = res_quarantine.max_payload_bytes()
             try:
                 it = iter(chunks)
                 while not stop.is_set():
@@ -449,6 +597,12 @@ class DataProcessor:
                         raw = next(it)
                     except StopIteration:
                         break
+                    if quarantine_on and len(raw) > size_cap:
+                        res_quarantine.default_quarantine().put(
+                            raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_stream"
+                        )
+                        quarantined[0] += 1
+                        continue
                     with self._dedup_lock:
                         skipset = self._skipset_locked()
                         session = self._raw_session_locked()
@@ -458,9 +612,17 @@ class DataProcessor:
                     )
                     dt = (time.perf_counter() - t0) * 1e3
                     if out is None:
+                        if quarantine_on:
+                            # divert the poison chunk and go on
+                            self._divert_poison(raw, "ingest_raw_stream")
+                            quarantined[0] += 1
+                            continue
                         put(("error", ValueError("malformed span payload"), dt))
                         return
                     batch, kept = out
+                    # the WAL's order is the chunks' order: this thread
+                    # appends each before it registers or hands it on
+                    self._wal_append(raw)
                     # registration precedes the next parse, whatever the depth
                     self._register_processed(kept, self._now_ms())
                     if not put(("chunk", (batch, kept), dt)):
@@ -512,7 +674,7 @@ class DataProcessor:
         wall_ms = (time.perf_counter() - wall_t0) * 1e3
         return {
             **totals,
-            "quarantined": 0,
+            "quarantined": quarantined[0],
             "endpoints": len(self.graph.interner.endpoints),
             "edges": n_edges,
             "chunk_detail": chunk_detail,
@@ -565,9 +727,12 @@ class DataProcessor:
         return out
 
     def prepare_tick(self, request: dict) -> _PreparedTick:
-        """The tick's host stages: fetch/dedup, the device-stats dispatch,
-        the dependency walk, and the span-batch build — everything up to
-        (but NOT including) the graph merge."""
+        """The tick's host stages: fetch/dedup, the cluster fetch (on its
+        own thread) beside the WAL append and the dependency walk, the
+        device-stats dispatch, and the span-batch build — everything up to
+        (but NOT including) the graph merge. `fetch_cluster_state` in the
+        stage walls is the fetch's own wall, which overlaps
+        `wal_append` and `dependencies`."""
         p = _PreparedTick(request)
         t_start = self._now_ms()  # dedup stamps, default request time
         p.req_time = request.get("time", int(t_start))
@@ -582,14 +747,21 @@ class DataProcessor:
             trace_groups = self._filter_traces(trace_groups, t_start)
             traces = Traces(trace_groups)
 
-        # dispatch the device stats FIRST: the kernel runs and its packed
-        # result streams back while the host walks dependencies and merges
-        # bodies
-        with _stage(p.stages, "combine_window"):
-            realtime = traces.combine_logs_to_realtime_data([], [])
-            records = realtime.to_json()
-            if trace_groups and records:
-                p.stats_job = DeviceStatsJob(records, self.device)
+        # the cluster fetch runs on a thread of its own (its fan-out on the
+        # cluster client's worker processes) while this thread logs the
+        # window and walks its dependencies, neither of which touches the
+        # graph; its failure fails the tick before the graph changes
+        cluster = None
+        if self._k8s is not None:
+            namespaces = {ns for ns in traces.extract_containing_namespaces() if ns}
+            cluster = _ClusterFetch(self._k8s, namespaces)
+
+        if trace_groups and self._wal is not None:
+            with _stage(p.stages, "wal_append"):
+                # the tick's kept groups as raw Zipkin JSON, before any
+                # graph mutation; replay re-ingests them through
+                # ingest_raw_window, which merges the same edges
+                self._wal_append(json.dumps(trace_groups).encode("utf-8"))
 
         with _stage(p.stages, "dependencies"):
             dependencies = traces.to_endpoint_dependencies()
@@ -605,6 +777,29 @@ class DataProcessor:
                 dependencies = dependencies.combine_with(
                     EndpointDependencies(existing_dep)
                 )
+
+        replicas: List[dict] = []
+        structured_logs: List[dict] = []
+        if cluster is not None:
+            replicas, structured_logs = cluster.result()
+            p.stages["fetch_cluster_state"] = cluster.ms
+            for part, ms in getattr(self._k8s, "last_fetch_ms", {}).items():
+                p.stages[f"cluster_{part}"] = ms
+            self._last_replicas.update(
+                {
+                    r["uniqueServiceName"]: float(r.get("replicas", 1))
+                    for r in replicas
+                    if r.get("uniqueServiceName")
+                }
+            )
+
+        # dispatch the device stats before the host builds the span batch:
+        # the kernel runs and its packed result streams back meanwhile
+        with _stage(p.stages, "combine_window"):
+            realtime = traces.combine_logs_to_realtime_data(structured_logs, replicas)
+            records = realtime.to_json()
+            if self._use_device_stats and trace_groups and records:
+                p.stats_job = DeviceStatsJob(records, self.device)
 
         p.trace_groups = trace_groups
         p.realtime = realtime
@@ -756,13 +951,19 @@ class DataProcessor:
         cls_cv = np.sqrt(cls_var) / np.maximum(cls_mean, 1e-9)
         cv = (cls_count * cls_cv).sum(axis=1) / safe
         n = len(count)
+        replicas = np.ones(n, dtype=np.float32)
+        if self._last_replicas:
+            interner = self.graph.interner
+            for eid in range(n):
+                svc_name = interner.services.lookup(interner.service_of(eid))
+                replicas[eid] = self._last_replicas.get(svc_name, 1.0)
         base = graphsage.assemble_features(
             count / SLOT_SECONDS,
             err4_sum / safe,
             err5_sum / safe,
             np.log1p(lat_mean),
             cv,
-            np.ones(n, dtype=np.float32),  # replicas: no cluster source yet
+            replicas,
             np.log1p(count),
             count > 0,
             hour_of_day=float(self.history_predicted_hour),
@@ -794,6 +995,7 @@ class DataProcessor:
             _stlgt.on_fold(self.forecast_snapshot, device=self.device)
         except Exception:  # noqa: BLE001 - containment, counted
             self.fold_errors["stlgtFoldErrors"] += 1
+            res_metrics.incr("stlgtFoldErrors")
             logger.exception("STLGT fold hook failed")
 
     # -- history persistence (server/cacheables.CModelHistoryState) ---------

@@ -11,10 +11,11 @@ configured timezone (GlobalSettings.ts TIMEZONE). Three kinds of schedules:
 - any other cron expression, parsed by kmamiz_tpu_torch.server.cron (full 5/6
   field syntax, names, steps, tz-aware DST-safe next-fire).
 
-Jobs run on daemon threads; exceptions are logged, not fatal.
+Jobs run on daemon threads; exceptions are logged, not fatal, and each
+job's failure streak counts in resilience/metrics.py.
 
-A copy of kmamiz_tpu/server/scheduler.py without the job failure-streak
-counters of resilience/metrics.py, the per-tenant job names and the
+A copy of kmamiz_tpu/server/scheduler.py without the per-tenant job
+names and the
 `interval_from_cron` estimate, which the port has no caller for. `stop`
 also waits for a job that is running to finish its fire, so a caller
 that stops the scheduler before a final flush (Application.tear_down)
@@ -26,6 +27,7 @@ import logging
 import threading
 from typing import Callable, Dict, List, Optional, Union
 
+from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.server.cron import CronExpr
 
 logger = logging.getLogger("kmamiz_tpu_torch.scheduler")
@@ -56,17 +58,23 @@ class Job:
             while True:
                 try:
                     delay = self._next_delay()
-                except Exception:  # noqa: BLE001 - delay errors must not kill the loop
+                except Exception as err:  # noqa: BLE001 - delay errors must not kill the loop
                     logger.exception(
                         "scheduled job %s cannot compute its next fire", self.name
                     )
+                    res_metrics.job_failed(self.name, err)
                     delay = 60.0
                 if self._stop.wait(delay):
                     return
                 try:
                     self.fn()
-                except Exception:  # noqa: BLE001 - job errors must not kill the loop
+                except Exception as err:  # noqa: BLE001 - job errors must not kill the loop
+                    # the loop survives; the streak and the last error
+                    # surface in /health's resilience section
                     logger.exception("scheduled job %s failed", self.name)
+                    res_metrics.job_failed(self.name, err)
+                else:
+                    res_metrics.job_succeeded(self.name)
 
         self._thread = threading.Thread(target=run, name=f"job-{self.name}", daemon=True)
         self._thread.start()
@@ -145,6 +153,9 @@ class Scheduler:
             self._jobs[name].start()
 
     def start(self) -> None:
+        # a (re)started scheduler begins its jobs with clean failure
+        # streaks
+        res_metrics.reset_job_streaks(list(self._jobs))
         self._started = True
         for job in self._jobs.values():
             job.start()

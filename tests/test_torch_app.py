@@ -542,9 +542,11 @@ def test_external_data_processor_and_its_fallback():
     import socket
 
     from kmamiz_tpu_torch.resilience import breaker
+    from kmamiz_tpu_torch.resilience import metrics as res_metrics
     from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
 
     breaker.reset_for_tests()
+    res_metrics.reset_for_tests()
     external = DataProcessorServer(DataProcessor(trace_source=Feed(2, 2), device="cpu"), host="127.0.0.1", port=0)
     external.start()
     try:
@@ -555,7 +557,7 @@ def test_external_data_processor_and_its_fallback():
         in_process.initializer.register_data_caches()
         for app in (via_http, in_process):
             app.ctx.operator.retrieve_realtime_data()
-        assert via_http.ctx.operator.dp_fallbacks == 0
+        assert res_metrics.get("dpFallback") == 0
         for name in ("EndpointDependencies", "EndpointDataType"):
             got = via_http.ctx.cache.get(name).to_json()
             want = in_process.ctx.cache.get(name).to_json()
@@ -569,6 +571,7 @@ def test_external_data_processor_and_its_fallback():
     fallback = port_app(Feed(2, 2), external_data_processor=f"http://127.0.0.1:{dead}/")
     fallback.initializer.register_data_caches()
     fallback.ctx.operator.retrieve_realtime_data()
-    assert fallback.ctx.operator.dp_fallbacks == 1
+    assert res_metrics.get("dpFallback") == 1
     assert fallback.ctx.cache.get("EndpointDependencies").get_data()
     breaker.reset_for_tests()
+    res_metrics.reset_for_tests()

@@ -95,10 +95,15 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_processor_refuses_a_cluster_source():
+    """A cluster source is accepted when it can answer the tick's cluster
+    fetch, and refused when it cannot."""
+    from kmamiz_tpu_torch.ingestion import KubernetesClient
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="get_replicas_and_joinable_logs"):
         DataProcessor(lambda lb, t, lim: [], k8s_source=object(), device="cpu")
+    client = KubernetesClient("http://127.0.0.1:9")
+    assert DataProcessor(lambda lb, t, lim: [], k8s_source=client, device="cpu")._k8s is client
 
 
 def test_training_entry_points_raise_without_a_card(no_card):
