@@ -206,16 +206,21 @@ Phases, each timed:
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
    1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the pods
-   read, the log lines, the bodies and the datatypes; (b) an in-process
-   twin on the card gives the stage walls and 2 segment-stats launches a
-   tick; (f) the same ticks as micro-ticks of a DP server with
-   KMAMIZ_STREAM=1, equal to the serial answers within (a)'s tolerances,
-   and an equal graph signature; (c) phase 4's 150,000 traces POSTed to
-   /ingest as 10 raw windows (1.05M spans), kill -9, a second boot
+   read, the log lines, the bodies and the datatypes, and 2 segment-stats
+   launches a tick by the DP's own count (its GET / answer); (b) an
+   in-process twin on the card gives the stage walls and 2 launches a
+   tick, and at the last tick the cluster fetch on the client's worker
+   processes and on threads of this process as the JAX client runs it,
+   one after the other (their walls, and the same logs); (f) the same ticks as micro-ticks of a DP
+   server with KMAMIZ_STREAM=1, 2 launches each, equal to the serial
+   answers within (a)'s tolerances, and an equal graph signature; (c)
+   phase 4's 150,000 traces POSTed to /ingest as 10 raw windows (1.05M
+   spans) in the KMZC wire format, kill -9, a second boot
    through main() that replays the WAL: its next tick equals the CPU
    processor's after the same windows, and an in-process replay_wal of
    the WAL gives the CPU graph's signature (WAL bytes, replay and boot
-   walls printed); (d) every chaos.mutate_payload kind POSTed to
+   walls printed; the whole run within the WAL's default retention);
+   (d) every chaos.mutate_payload kind POSTed to
    /ingest: 200, the JAX reason code, a file in the quarantine
    directory, the graph unchanged; (e) a tick past its deadline and one
    whose kube API answers 500, served stale (deadline, tick-fault);
@@ -269,6 +274,9 @@ STATE_TRACES = 150_000
 STATE_CHUNK = 15_000
 TICKS = 4
 TICK_TRACES = 2_500  # the reference's per-tick cap (ZIPKIN_LIMIT)
+#: the trace-bomb cap of phases 15-16's processors: bench.py's one-shot
+#: window is one 609 MB body, past the quarantine's 256 MiB default
+RAW_CAP = 1 << 30
 PROD_SPANS = 1 << 20
 PROD_ENDPOINTS = 10_000
 PROD_STATUSES = 8
@@ -2577,7 +2585,7 @@ def raw_state_load(torch, device, state) -> dict:
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
-    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     spans = 0
     wall_s = 0.0
     parse_ms = merge_ms = 0.0
@@ -2624,7 +2632,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
     raw = synth.make_raw_window(RAW_TRACES, SPANS_PER_TRACE, **BASELINE)
-    DataProcessor(trace_source=TickFeed(), device=device).ingest_raw_window(raw)  # warm-up
+    DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP).ingest_raw_window(raw)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base_mib = torch.cuda.memory_allocated() / 2**20
@@ -2632,7 +2640,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
     reps = []
     zero_counts(counters)
     for _ in range(RAW_REPS):
-        proc = DataProcessor(trace_source=TickFeed(), device=device)
+        proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
         t0 = time.perf_counter()
         summary = proc.ingest_raw_window(raw)
         torch.cuda.synchronize()
@@ -2734,9 +2742,9 @@ def raw_http_ingest(torch, device, t_start: int) -> dict:
     raw = synth.make_raw_window(
         TICK_TRACES, SPANS_PER_TRACE, t_start=t_start, trace_prefix="ingest", **BASELINE
     )
-    twin = DataProcessor(trace_source=TickFeed(), device=device)
+    twin = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     direct = twin.ingest_raw_window(raw)
-    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     server = DataProcessorServer(proc, host="127.0.0.1", port=0)
     server.start()
     try:
@@ -2975,8 +2983,8 @@ def stream_windows(torch, device, counters, one_shot, raw) -> dict:
     check(join_chunks(base) == raw, "the stream's chunks are not phase 15 (c)'s window")
     spans = RAW_TRACES * SPANS_PER_TRACE
     clock = {"ms": 1_700_000_000_000.0}
-    stream_proc = DataProcessor(trace_source=TickFeed(), device=device, now_ms=lambda: clock["ms"])
-    window_proc = DataProcessor(trace_source=TickFeed(), device=device, now_ms=lambda: clock["ms"])
+    stream_proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP, now_ms=lambda: clock["ms"])
+    window_proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP, now_ms=lambda: clock["ms"])
     # the dedup work around each parse: registration, skip-set sync
     host_names = ("_register_processed", "_skipset_locked")
     host_timers = {"stream": HostTimer(stream_proc, host_names), "window": HostTimer(window_proc, host_names)}
@@ -3107,9 +3115,9 @@ def stream_http(torch, device, t_start: int) -> dict:
     )
     check(len(raw) >= DEFAULT_STREAM_BYTES, f"/ingest body of {len(raw)} bytes is under the threshold")
     body = gzip.compress(raw, compresslevel=1)
-    twin = DataProcessor(trace_source=TickFeed(), device=device)
+    twin = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     direct = twin.ingest_raw_stream(native.split_groups(raw, STREAM_CHUNKS))
-    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     server = DataProcessorServer(proc, host="127.0.0.1", port=0)
     server.start()
     try:
@@ -3148,9 +3156,9 @@ def stream_zipkin(torch, device, chunks) -> dict:
     from kmamiz_tpu_torch.ingestion import ZipkinClient
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
-    one = DataProcessor(trace_source=TickFeed(), device=device)
+    one = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     want = one.ingest_raw_window(join_chunks(chunks))
-    proc = DataProcessor(trace_source=TickFeed(), device=device)
+    proc = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
     with PageStub(chunks) as base_url:
         t0 = time.perf_counter()
         got = proc.ingest_from_zipkin(
@@ -4068,6 +4076,45 @@ class Served:
         self.stop(signal.SIGKILL)
 
 
+def dp_launches(port: int) -> int:
+    """The segment-stats launches a DP server process has made so far (its
+    GET / answer)."""
+    status, health = http_json(port, "/", timeout=30)
+    check(status == 200, f"GET / answered {status}")
+    return health["launches"]["segment_stats"]
+
+
+def threaded_fetch(client, namespaces) -> tuple:
+    """The tick's cluster fetch as the JAX client runs it: the pod listings,
+    then each pod's log fetched, parsed (natively) and structured on
+    DEFAULT_FANOUT_WORKERS threads of this process; (replicas, the
+    joinable combined logs), as get_replicas_and_joinable_logs gives."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmamiz_tpu_torch.core.envoy import EnvoyLogs
+    from kmamiz_tpu_torch.ingestion.kubernetes import DEFAULT_FANOUT_WORKERS, joinable
+
+    replicas, targets = client._replicas_and_targets(list(namespaces))
+    with ThreadPoolExecutor(DEFAULT_FANOUT_WORKERS) as pool:
+        per_pod = list(pool.map(lambda t: joinable(client.get_envoy_logs(*t).to_structured()), targets))
+    return replicas, EnvoyLogs.combine_structured(per_pod)
+
+
+def kmzc_window(i: int) -> bytes:
+    """Phase 19 (c)'s raw window i: phase 4's traces from i * STATE_CHUNK on,
+    in the KMZC wire format."""
+    from kmamiz_tpu_torch import synth
+    from kmamiz_tpu_torch.core import wire
+
+    return wire.encode_groups(
+        json.loads(
+            synth.make_raw_window(
+                STATE_CHUNK, SPANS_PER_TRACE, t_start=i * STATE_CHUNK, trace_prefix="state", **BASELINE
+            )
+        )
+    )
+
+
 def count_bodies(combined) -> int:
     return sum((c["requestBody"] is not None) + (c["responseBody"] is not None) for c in combined)
 
@@ -4094,14 +4141,16 @@ def serve_in_cluster(torch, device, counters) -> dict:
     main() (python -m kmamiz_tpu_torch.api.app): /api/v1/health with its
     resilience field, a scheduled realtime tick with envoy logs, SIGTERM
     flushes and exits 0."""
+    import multiprocessing
     import random
     import signal
+    from concurrent.futures import ProcessPoolExecutor
 
-    from kmamiz_tpu_torch import synth
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.ingestion import KubernetesClient, ZipkinClient
     from kmamiz_tpu_torch.ops import segment_stats as ss
     from kmamiz_tpu_torch.resilience import chaos, quarantine
+    from kmamiz_tpu_torch.resilience import wal as wal_mod
     from kmamiz_tpu_torch.resilience.wal import IngestWAL
     from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
     from kmamiz_tpu_torch.server.processor import DataProcessor
@@ -4144,9 +4193,6 @@ def serve_in_cluster(torch, device, counters) -> dict:
         "BIND_IP": "127.0.0.1",
         "KMAMIZ_WAL": "1",
         "KMAMIZ_WAL_DIR": wal_dir,
-        # the whole run in the WAL: its default retention, 4 segments of 64
-        # MB, keeps the newest 256 MB, a third of (c)'s 650 MB backfill
-        "KMAMIZ_WAL_KEEP_SEGMENTS": "32",
         "KMAMIZ_QUARANTINE_DIR": q_dir,
         "LOG_LEVEL": "warn",
     }
@@ -4169,6 +4215,7 @@ def serve_in_cluster(torch, device, counters) -> dict:
             bodies = queue(k)
             request = {"uniqueId": f"cluster{k}", "lookBack": 30_000, "time": int(time.time() * 1000)}
             gets, lines = kube.reads()
+            launched = dp_launches(port)
             t = time.perf_counter()
             resp = post_tick(port, request)
             wall = (time.perf_counter() - t) * 1e3
@@ -4181,7 +4228,9 @@ def serve_in_cluster(torch, device, counters) -> dict:
                 "bodies_logged": bodies,
                 "bodies_folded": count_bodies(resp["combined"]),
                 "datatypes": len(resp["datatype"]),
+                "dp_launches": dp_launches(port) - launched,
             }
+            check(tick["dp_launches"] == 2, f"tick {k}: the DP launched segment_stats {tick['dp_launches']} times")
             check_response(resp, request["uniqueId"])
             want = cpu.collect(dict(request))
             compare_ticks(resp, want)
@@ -4195,15 +4244,34 @@ def serve_in_cluster(torch, device, counters) -> dict:
             check(tick["launches"] == 2, f"tick {k}: segment_stats launched {tick['launches']} times")
             tick["stages"] = {s: round(v, 3) for s, v in twin.last_stage_ms.items()}
             compare_ticks(twin_resp, want)
+            if k == CLUSTER_TICKS - 1:
+                # the fan-out's design against the JAX client's threads
+                namespaces = sorted({ns for _svc, ns in kube.pods})
+                client, fetch_ms = twin._k8s, {}
+                t = time.perf_counter()
+                pooled = client.get_replicas_and_joinable_logs(namespaces)
+                fetch_ms["workers"] = round((time.perf_counter() - t) * 1e3, 3)
+                fetch_ms["workers_parts"] = {p: round(v, 3) for p, v in client.last_fetch_ms.items()}
+                t = time.perf_counter()
+                threaded = threaded_fetch(client, namespaces)
+                fetch_ms["threads"] = round((time.perf_counter() - t) * 1e3, 3)
+                check(threaded == pooled, "the threaded fetch differs from the workers'")
+                tick["fetch_ms"] = fetch_ms
+                del pooled, threaded
             # (f) the same tick as a micro-tick of the stream engine
+            zero_counts(counters)
             with env_set(KMAMIZ_STREAM="1"):
                 stream_resp = post_tick(stream_server.port, request)
+            tick["stream_launches"] = read_counts(torch, counters)[ss.segment_stats.__name__]
+            check(tick["stream_launches"] == 2, f"micro-tick {k}: segment_stats launched {tick['stream_launches']} times")
             compare_ticks(stream_resp, resp)
             check(tick["bodies_folded"] > 0, f"tick {k} folded no body")
             check(tick["pods_read"] > 0 and tick["log_lines"] > 0, f"tick {k} read no pod log")
             ticks.append(tick)
-            log("   (a) " + json.dumps({key: v for key, v in tick.items() if key != "stages"}))
+            log("   (a) " + json.dumps({key: v for key, v in tick.items() if key not in ("stages", "fetch_ms")}))
             log("   (b) " + json.dumps(tick["stages"]))
+            if "fetch_ms" in tick:
+                log("   (b) fetch " + json.dumps(tick["fetch_ms"]))
         check(cpu._last_replicas == twin._last_replicas, "replica counts differ from the CPU's")
         check(
             graph_signature(streamed.graph) == graph_signature(twin.graph) == graph_signature(cpu.graph),
@@ -4216,19 +4284,30 @@ def serve_in_cluster(torch, device, counters) -> dict:
         out["stream_micro_ticks"] = CLUSTER_TICKS
 
         # -- (c) crash recovery ----------------------------------------------
+        # the windows in the KMZC wire format: with the ticks' JSON records
+        # about 170 MB of WAL, within its default retention (4 segments of
+        # 64 MiB); as JSON they are 610 MB, whose oldest records the
+        # retention drops before a replay, as the JAX package's does
         rec: dict = {"windows": WAL_WINDOWS, "spans": 0}
         t = time.perf_counter()
-        for i in range(WAL_WINDOWS):
-            raw = synth.make_raw_window(
-                STATE_CHUNK, SPANS_PER_TRACE, t_start=i * STATE_CHUNK, trace_prefix="state", **BASELINE
-            )
+        with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            raws = list(pool.map(kmzc_window, range(WAL_WINDOWS)))
+        rec["encode_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        for raw in raws:
             status, summary = http_json(port, "/ingest", raw)
             check(status == 200 and summary["spans"] == STATE_CHUNK * SPANS_PER_TRACE, f"/ingest: {summary}")
             rec["spans"] += summary["spans"]
             cpu.ingest_raw_window(raw)
-            del raw
+        del raws
         rec["ingest_and_cpu_twin_ms"] = (time.perf_counter() - t) * 1e3
         rec["wal_bytes"] = IngestWAL(wal_dir).bytes_on_disk()
+        check(
+            rec["wal_bytes"] < wal_mod.KEEP_SEGMENTS * wal_mod.SEGMENT_BYTES,
+            f"{rec['wal_bytes']} bytes of WAL: past its retention",
+        )
         dp.kill()
         served.remove(dp)
         # an in-process replay of the same WAL on the card
@@ -4239,7 +4318,6 @@ def serve_in_cluster(torch, device, counters) -> dict:
         rec["replay_ms"] = (time.perf_counter() - t) * 1e3
         rec["replayed"] = replayed
         # every tick's window and every raw window's span, none quarantined
-        # (/ingest streams a 61 MB window in 4 chunks: a record each)
         want_spans = CLUSTER_TICKS * TICK_TRACES * SPANS_PER_TRACE + rec["spans"]
         check(replayed["spans"] == want_spans and replayed["quarantined"] == 0, f"replay {replayed}")
         check(graph_signature(replica.graph) == graph_signature(cpu.graph), "the replayed graph differs")
@@ -4253,9 +4331,12 @@ def serve_in_cluster(torch, device, counters) -> dict:
         rec["boot_ms"] = dp.boot_ms
         queue(CLUSTER_TICKS)
         request = {"uniqueId": "after-crash", "lookBack": 30_000, "time": int(time.time() * 1000)}
+        launched = dp_launches(port)
         t = time.perf_counter()
         resp = post_tick(port, request)
         rec["next_tick_ms"] = (time.perf_counter() - t) * 1e3
+        rec["next_tick_launches"] = dp_launches(port) - launched
+        check(rec["next_tick_launches"] == 2, f"the tick after the crash launched {rec['next_tick_launches']} times")
         compare_ticks(resp, cpu.collect(dict(request)))
         out["recovery"] = rec
         log("   (c) " + json.dumps(rec))
@@ -4268,7 +4349,8 @@ def serve_in_cluster(torch, device, counters) -> dict:
         clean = json.dumps([windows[0][0][:3]]).encode()  # ~1.9 KB: under the 4,096-byte cap
         poison: dict = {}
         q_here = str(quarantine.default_quarantine().directory)
-        with env_set(KMAMIZ_INGEST_MAX_BYTES="4096", KMAMIZ_QUARANTINE=None):
+        twin.max_payload_bytes = 4096  # the JAX tests' trace-bomb cap
+        with env_set(KMAMIZ_QUARANTINE=None):
             for kind, reason in POISON_REASONS.items():
                 files = set(os.listdir(q_here)) if os.path.isdir(q_here) else set()
                 raw = chaos.mutate_payload(clean, kind, random.Random(SEED))
@@ -4278,6 +4360,7 @@ def serve_in_cluster(torch, device, counters) -> dict:
                 new = set(os.listdir(q_here)) - files
                 check(any(n.endswith(f"-{reason}.bin") for n in new), f"{kind}: no {reason} file")
                 poison[kind] = reason
+        twin.max_payload_bytes = quarantine.MAX_PAYLOAD_BYTES
         check(graph_signature(twin.graph) == before, "a quarantined payload changed the graph")
         out["quarantine"] = poison
         log("   (d) " + json.dumps(poison))
@@ -4631,21 +4714,18 @@ def main(argv=None) -> int:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
 
     # phase 15 runs here, before phase 14's profiler sessions (which slow
-    # every later launch on the host) and the device times. bench.py's
-    # one-shot window is one 609 MB body, past the quarantine's 256 MiB
-    # trace-bomb cap (KMAMIZ_INGEST_MAX_BYTES), which phases 15-16 raise
-    with env_set(KMAMIZ_INGEST_MAX_BYTES=str(1 << 30)):
-        with Phase("raw ingest", walls):
-            report["raw_ingest"], raw_cases, raw = raw_ingest(
-                torch, device, counters, report["state"], report["ticks"], build, jobs
-            )
+    # every later launch on the host) and the device times
+    with Phase("raw ingest", walls):
+        report["raw_ingest"], raw_cases, raw = raw_ingest(
+            torch, device, counters, report["state"], report["ticks"], build, jobs
+        )
 
-        # phase 16 too: the same window, streamed
-        with Phase("streaming ingest", walls):
-            report["stream_ingest"] = stream_ingest(
-                torch, device, counters, report["raw_ingest"]["one_shot"], raw
-            )
-            del raw
+    # phase 16 too: the same window, streamed
+    with Phase("streaming ingest", walls):
+        report["stream_ingest"] = stream_ingest(
+            torch, device, counters, report["raw_ingest"]["one_shot"], raw
+        )
+        del raw
 
     # phases 17 and 18 too: the application, then the GAT head (whose own
     # profiler session comes last in it)

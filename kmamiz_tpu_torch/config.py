@@ -9,12 +9,16 @@ endpoint-lifetime thresholds of the dependency model, the REST API's
 version prefix, the forecast route's checkpoint directory, and the
 switches of the resilience layer and the stream engine.
 
-The resilience and stream modules read their environment variables
-themselves (the quarantine, the WAL and the watchdog work without a
-Settings instance, as in the DP server's process); their fields here
-mirror them, so one `Settings()` shows the deployed surface. The JAX
-package's device, sparse-kernel, tenancy, fleet, profiler, control and
-cost knobs belong to subsystems not ported yet.
+The switches of the resilience layer and the stream engine, and their
+directories, are read by the functions below, which the modules call at
+the moment they need the value (a test or an operator may set them after
+import) and which the fields here take as their defaults: one reader per
+variable. Their sizes (the trace-bomb cap, the quarantine's and the WAL's
+bounds, the stream's depth and epoch) are the modules' constants at the
+JAX package's defaults, given as constructor arguments where a caller
+needs another value. The JAX package's device, sparse-kernel, tenancy,
+fleet, profiler, control and cost knobs belong to subsystems not ported
+yet.
 """
 from __future__ import annotations
 
@@ -25,6 +29,40 @@ from dataclasses import dataclass, field
 
 def _env_bool(name: str) -> bool:
     return os.environ.get(name) == "true"
+
+
+def quarantine_enabled() -> bool:
+    """KMAMIZ_QUARANTINE: on unless "0" (then a malformed ingest payload
+    raises, 400, instead of diverting)."""
+    return os.environ.get("KMAMIZ_QUARANTINE", "1") != "0"
+
+
+def quarantine_dir() -> str:
+    return os.environ.get("KMAMIZ_QUARANTINE_DIR", "./kmamiz-data/quarantine")
+
+
+def tick_deadline_ms() -> float:
+    """KMAMIZ_TICK_DEADLINE_MS: 0 (the default, or unparseable) = the
+    watchdog off; > 0 = serve the last good tick, stale, past this."""
+    try:
+        return float(os.environ.get("KMAMIZ_TICK_DEADLINE_MS", 0))
+    except ValueError:
+        return 0.0
+
+
+def wal_enabled() -> bool:
+    """KMAMIZ_WAL=1 turns the ingest WAL on (off by default)."""
+    return os.environ.get("KMAMIZ_WAL", "0") == "1"
+
+
+def wal_dir() -> str:
+    return os.environ.get("KMAMIZ_WAL_DIR", "./kmamiz-data/wal")
+
+
+def stream_enabled(default: str = "0") -> bool:
+    """KMAMIZ_STREAM: overlapped micro-ticks unless unset, "0", "false"
+    or empty (the serial tick)."""
+    return os.environ.get("KMAMIZ_STREAM", default) not in ("0", "false", "")
 
 
 @dataclass
@@ -97,41 +135,14 @@ class Settings:
         )
     )
 
-    # resilience layer (resilience/): read by the modules themselves
-    quarantine_enabled: bool = field(
-        default_factory=lambda: os.environ.get("KMAMIZ_QUARANTINE", "1") != "0"
-    )  # 0 = a malformed ingest payload raises (400) instead of diverting
-    quarantine_dir: str = field(
-        default_factory=lambda: os.environ.get(
-            "KMAMIZ_QUARANTINE_DIR", "./kmamiz-data/quarantine"
-        )
-    )
-    ingest_max_bytes: int = field(
-        default_factory=lambda: int(
-            os.environ.get("KMAMIZ_INGEST_MAX_BYTES", str(256 * 1024 * 1024))
-        )
-    )  # trace-bomb size cap of one raw ingest payload
-    tick_deadline_ms: float = field(
-        default_factory=lambda: float(os.environ.get("KMAMIZ_TICK_DEADLINE_MS", "0"))
-    )  # 0 = watchdog off; > 0 = serve the last good tick, stale, past this
-    wal_enabled: bool = field(
-        default_factory=lambda: os.environ.get("KMAMIZ_WAL", "0") == "1"
-    )
-    wal_dir: str = field(
-        default_factory=lambda: os.environ.get("KMAMIZ_WAL_DIR", "./kmamiz-data/wal")
-    )
-
-    # the stream engine (server/stream.py): read by the module itself
-    stream_enabled: bool = field(
-        default_factory=lambda: os.environ.get("KMAMIZ_STREAM", "0")
-        not in ("0", "false", "")
-    )  # overlapped micro-ticks (default off: the serial tick)
-    stream_depth: int = field(
-        default_factory=lambda: int(os.environ.get("KMAMIZ_STREAM_DEPTH", "2"))
-    )  # prepared ticks the hand-off queue holds (clamped 1..8)
-    stream_epoch_ticks: int = field(
-        default_factory=lambda: int(os.environ.get("KMAMIZ_STREAM_EPOCH_TICKS", "32"))
-    )  # micro-ticks per watchdog deadline read (floor 1)
+    # the resilience layer and the stream engine: their switches and
+    # directories, read by the functions above
+    quarantine_enabled: bool = field(default_factory=quarantine_enabled)
+    quarantine_dir: str = field(default_factory=quarantine_dir)
+    tick_deadline_ms: float = field(default_factory=tick_deadline_ms)
+    wal_enabled: bool = field(default_factory=wal_enabled)
+    wal_dir: str = field(default_factory=wal_dir)
+    stream_enabled: bool = field(default_factory=stream_enabled)
 
     def __post_init__(self) -> None:
         # in a cluster, the API server's own address (KubernetesService.ts)

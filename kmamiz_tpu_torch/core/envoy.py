@@ -82,50 +82,6 @@ def parse_envoy_logs(
     return EnvoyLogs(envoy_logs)
 
 
-class PodLogParser:
-    """One pod's istio-proxy log, parsed with a memo by line.
-    parse(raw_lines, namespace, pod_name) gives
-    parse_envoy_logs(strip_istio_proxy_prefix(raw_lines), namespace,
-    pod_name), but a raw line that the previous call saw is not parsed
-    again: a pod's log grows by appending, and a tick reads it whole, so
-    most of what a tick reads the ticks before it parsed. Both steps are
-    line by line (the native strip and parse keep no state across lines);
-    only the trace-id backfill reads the whole log, and it runs on each
-    call. The memo holds the lines of the last call. A new line's record
-    finds its line through its time field, the text before the line's
-    first tab, which the parse hands back as it was: the line goes to the
-    parser with its index and a "|" in front."""
-
-    def __init__(self) -> None:
-        self._memo: Dict[str, object] = {}
-        self._pod = None
-
-    def parse(self, raw_lines: List[str], namespace: str, pod_name: str) -> "EnvoyLogs":
-        if self._pod != (namespace, pod_name):
-            self._pod, self._memo = (namespace, pod_name), {}
-        memo = self._memo
-        parsed = dict.fromkeys(line for line in raw_lines if line not in memo)
-        kept = [line for line in parsed if "script log: " in line or "wasm log " in line]
-        if kept:
-            # the strip keeps each of these lines (one output line each)
-            stripped = native.strip_istio_proxy_prefix(kept)
-            for r in native.parse_envoy_lines([f"{i}|{line}" for i, line in enumerate(stripped)]):
-                index, _, time_str = r.pop("time").partition("|")
-                r["timestamp"] = parse_timestamp_ms(time_str)
-                r["namespace"] = namespace
-                r["podName"] = pod_name
-                parsed[kept[int(index)]] = r
-        memo = self._memo = {line: memo[line] if line in memo else parsed[line] for line in raw_lines}
-        envoy_logs = [dict(memo[line]) for line in raw_lines if memo[line] is not None]
-        id_map: Dict[str, str] = {}
-        for e in envoy_logs:
-            if e["requestId"] not in id_map and e["traceId"] != "NO_ID":
-                id_map[e["requestId"]] = e["traceId"]
-        for e in envoy_logs:
-            e["traceId"] = id_map.get(e["requestId"], "NO_ID")
-        return EnvoyLogs(envoy_logs)
-
-
 def _parse_envoy_lines_py(logs: List[str]) -> List[dict]:
     """Plain twin of native.parse_envoy_lines: raw undecorated field
     records, one per parseable line."""

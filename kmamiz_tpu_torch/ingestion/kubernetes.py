@@ -7,41 +7,43 @@ bundle), pod, service and namespace listings, replica counts from the
 Istio canonical-name labels, the istio-proxy envoy-log fetch and parse,
 and the handshake that asks the instance being replaced to flush.
 
-Transient API-server failures are retried with exponential backoff, and
-the DP tick's cluster fetch (`get_replicas_and_envoy_logs`) runs in two
-concurrent waves, the pod listings and then the pod logs, so a tick
-costs about one pod's fetch, not the sum (the Rust DP's join_all,
-data_processor.rs:58-73).
+Transient API-server failures are retried with exponential backoff. The
+DP tick's cluster fetch, `get_replicas_and_joinable_logs` (the JAX
+client's get_replicas_and_envoy_logs), runs in two concurrent waves, the
+pod listings and then the pod logs, so a tick costs about one pod's fetch,
+not the sum (the Rust DP's join_all, data_processor.rs:58-73). Its logs
+come back structured and combined as EnvoyLogs.combine_structured does,
+each trace reduced to the fields the realtime join reads (`joinable`).
 
-The port's processor takes the tick's fetch through
-`get_replicas_and_joinable_logs`: the replicas of
-get_replicas_and_envoy_logs and its logs structured and combined as
-EnvoyLogs.combine_structured does, each trace reduced to the fields the
-realtime join reads (`JOIN_FIELDS`), with the per-pod fetch, parse and
-structuring spread over `fanout_processes` worker processes. A tick reads
-every pod of its namespaces, thousands at a mesh's size, and that work is
-Python under one interpreter lock in threads; the workers (spawned once,
-kept by the client) take it in parallel. As with any spawned process, a
-program that drives the fan-out guards its main module with
-`if __name__ == "__main__"`.
+The second wave runs in contiguous shards on FANOUT_PROCESSES worker
+processes, each with fanout_workers / FANOUT_PROCESSES fetch threads: a
+tick reads every pod of its namespaces, thousands at a mesh's size, and
+the per-pod HTTP, parse decoration and structuring are Python, which
+threads of one interpreter run one at a time. The workers are plain
+`python -c` processes that import this module and not the caller's main
+module (nor torch); they start at the first fetch or at warm_up() and end
+with close(), with the client, or when the parent's end closes their
+pipe.
 """
 from __future__ import annotations
 
 import json
 import logging
-import multiprocessing
 import os
+import pickle
 import ssl
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
 import urllib.request
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from kmamiz_tpu_torch.core.envoy import (
     EnvoyLogs,
-    PodLogParser,
     parse_envoy_logs,
     strip_istio_proxy_prefix,
 )
@@ -54,14 +56,11 @@ CANONICAL_NAME_LABEL = "service.istio.io/canonical-name"
 CANONICAL_REVISION_LABEL = "service.istio.io/canonical-revision"
 DEFAULT_FANOUT_WORKERS = 16
 #: worker processes of the tick's log fan-out: one a core, up to 8
-DEFAULT_FANOUT_PROCESSES = min(8, os.cpu_count() or 1)
+FANOUT_PROCESSES = min(8, os.cpu_count() or 1)
 
-#: a worker process's clients, by their constructor arguments, and its
-#: pods' log parsers (core.envoy.PodLogParser), by (client, namespace,
-#: pod); past WORKER_PODS_MAX pods the parsers start over
-_WORKER_CLIENTS: dict = {}
-_WORKER_PARSERS: dict = {}
-WORKER_PODS_MAX = 65_536
+#: the package's root directory, on a worker's import path
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_WORKER = "from kmamiz_tpu_torch.ingestion.kubernetes import serve_fanout; serve_fanout()"
 
 
 def joinable(structured: List[dict]) -> List[dict]:
@@ -94,24 +93,81 @@ def joinable(structured: List[dict]) -> List[dict]:
     ]
 
 
-def _joinable_logs_of(init: tuple, targets, limit: int) -> List[List[dict]]:
-    """A fan-out worker's part of the tick: fetch, parse (each pod's
-    PodLogParser: what the tick before parsed is not parsed again) and
-    structure the log of each (namespace, pod) in `targets`; each pod's
-    joinable structured logs, in target order."""
-    client = _WORKER_CLIENTS.get(init)
-    if client is None:
-        client = _WORKER_CLIENTS[init] = KubernetesClient(*init)
-    raws = client._fetch_raw_logs_concurrent(targets, limit, client._fanout_workers)
-    if len(_WORKER_PARSERS) > WORKER_PODS_MAX:
-        _WORKER_PARSERS.clear()
-    out = []
-    for (ns, pod), raw in zip(targets, raws):
-        parser = _WORKER_PARSERS.get((init, ns, pod))
-        if parser is None:
-            parser = _WORKER_PARSERS[(init, ns, pod)] = PodLogParser()
-        out.append(joinable(parser.parse(raw.split("\n"), ns, pod).to_structured()))
-    return out
+def joinable_logs(
+    client: "KubernetesClient", targets: Sequence[Tuple[str, str]], limit: int
+) -> List[List[dict]]:
+    """A fan-out worker's part of a tick: the log of each (namespace, pod)
+    in `targets` fetched, parsed and structured on the client's threads;
+    each pod's joinable structured logs, in target order."""
+    if not targets:
+        return []
+    with ThreadPoolExecutor(max_workers=min(client._fanout_workers, len(targets))) as pool:
+        return list(
+            pool.map(lambda t: joinable(client.get_envoy_logs(t[0], t[1], limit).to_structured()), targets)
+        )
+
+
+def serve_fanout() -> None:
+    """A fan-out worker process's loop. Its standard input carries pickled
+    messages: first the client's constructor arguments, then one
+    (targets, limit) a call; each call's reply, ("ok", joinable_logs) or
+    ("err", the exception), goes out on the standard output, which nothing
+    else writes (stray prints go to the standard error). It ends when its
+    input closes."""
+    out = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    source = sys.stdin.buffer
+    client = KubernetesClient(*pickle.load(source))
+    while True:
+        try:
+            targets, limit = pickle.load(source)
+        except EOFError:
+            return
+        try:
+            reply = pickle.dumps(("ok", joinable_logs(client, targets, limit)), pickle.HIGHEST_PROTOCOL)
+        except Exception as err:  # noqa: BLE001 - the parent raises it
+            try:
+                reply = pickle.dumps(("err", err), pickle.HIGHEST_PROTOCOL)
+            except Exception:  # noqa: BLE001 - an exception that does not pickle
+                reply = pickle.dumps(("err", RuntimeError(repr(err))), pickle.HIGHEST_PROTOCOL)
+        out.write(reply)
+        out.flush()
+
+
+class _FanoutWorker:
+    """The parent's end of one serve_fanout process."""
+
+    def __init__(self, init: tuple) -> None:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _WORKER], stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env
+        )
+        self.send(init)
+
+    def send(self, message) -> None:
+        pickle.dump(message, self.proc.stdin, pickle.HIGHEST_PROTOCOL)
+        self.proc.stdin.flush()
+
+    def receive(self):
+        return pickle.load(self.proc.stdout)
+
+    def stop(self) -> None:
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _stop_workers(workers: List[_FanoutWorker]) -> None:
+    while workers:
+        workers.pop().stop()
 
 
 class KubernetesServiceError(Exception):
@@ -130,7 +186,6 @@ class KubernetesClient:
         retries: int = 2,
         backoff_s: float = 0.25,
         fanout_workers: int = DEFAULT_FANOUT_WORKERS,
-        fanout_processes: int = DEFAULT_FANOUT_PROCESSES,
     ) -> None:
         if not kube_api_host:
             raise ValueError("Variable [KUBEAPI_HOST] not set")
@@ -144,15 +199,14 @@ class KubernetesClient:
             timeout,
             retries,
             backoff_s,
-            max(1, fanout_workers // max(1, fanout_processes)),
-            1,
+            max(1, fanout_workers // FANOUT_PROCESSES),
         )
-        self._fanout_processes = max(1, fanout_processes)
         #: the last get_replicas_and_joinable_logs' walls: the pod listings,
         #: the workers' log fan-out, the combine
         self.last_fetch_ms: Dict[str, float] = {}
-        self._pool: Optional[ProcessPoolExecutor] = None
-        self._pool_lock = threading.Lock()
+        self._workers: List[_FanoutWorker] = []
+        self._workers_lock = threading.Lock()
+        weakref.finalize(self, _stop_workers, self._workers)
         self._base = f"{kube_api_host.rstrip('/')}/api/v1"
         self._token = token
         self._timeout = timeout
@@ -308,33 +362,13 @@ class KubernetesClient:
         lines = strip_istio_proxy_prefix(raw.split("\n"))
         return parse_envoy_logs(lines, namespace, pod_name)
 
-    def _fetch_raw_logs_concurrent(
-        self, targets: Sequence[Tuple[str, str]], limit: int, workers: int
-    ) -> List[str]:
-        if not targets:
-            return []
-        with ThreadPoolExecutor(max_workers=min(workers, len(targets))) as pool:
-            return list(pool.map(lambda t: self._raw_log(t[0], t[1], limit), targets))
-
-    def _fetch_logs_concurrent(
-        self, targets: Sequence[Tuple[str, str]], limit: int, workers: int
-    ) -> List[EnvoyLogs]:
-        if not targets:
-            return []
-        with ThreadPoolExecutor(
-            max_workers=min(workers, len(targets))
-        ) as pool:
-            return list(
-                pool.map(lambda t: self.get_envoy_logs(t[0], t[1], limit), targets)
-            )
-
     def _replicas_and_targets(
-        self, namespaces: List[str], workers: int
+        self, namespaces: List[str]
     ) -> Tuple[List[dict], List[Tuple[str, str]]]:
         """The first wave: one pod listing per namespace, in parallel, read
         for both the replica counts and the log targets."""
         with ThreadPoolExecutor(
-            max_workers=min(workers, len(namespaces))
+            max_workers=min(self._fanout_workers, len(namespaces))
         ) as pool:
             pod_lists = list(pool.map(self.get_pod_list, namespaces))
         replicas: List[dict] = []
@@ -347,49 +381,39 @@ class KubernetesClient:
             )
         return replicas, targets
 
-    def get_replicas_and_envoy_logs(
-        self,
-        namespaces: Iterable[str],
-        limit: int = DEFAULT_LOG_LIMIT,
-        max_workers: Optional[int] = None,
-    ) -> Tuple[List[dict], List[EnvoyLogs]]:
-        """The DP tick's whole cluster-state fetch in two concurrent waves:
-        one pod listing per namespace (in parallel, reused for BOTH replica
-        counting and log targets — the serial path lists pods twice), then
-        the per-pod log fan-out."""
-        namespaces = list(namespaces)
-        if not namespaces:
-            return [], []
-        workers = max_workers or self._fanout_workers
-        replicas, targets = self._replicas_and_targets(namespaces, workers)
-        return replicas, self._fetch_logs_concurrent(targets, limit, workers)
-
     def get_replicas_and_joinable_logs(
         self, namespaces: Iterable[str], limit: int = DEFAULT_LOG_LIMIT
     ) -> Tuple[List[dict], List[dict]]:
-        """The tick's cluster fetch as the processor takes it: the replicas
-        of get_replicas_and_envoy_logs, and its logs structured, reduced to
-        `joinable` traces and combined (EnvoyLogs.combine_structured; the
-        parent-id fill of combine_to_structured_envoy_logs is left out: the
-        realtime join reads no parent id). The second wave's fetch, parse
-        and per-pod structuring run in contiguous shards on the client's
-        worker processes."""
+        """The DP tick's whole cluster-state fetch in two concurrent waves:
+        one pod listing per namespace (in parallel, read for both the
+        replica counts and the log targets), then the per-pod log fetch,
+        parse and structuring on the worker processes. The replicas, and
+        the logs as combine_to_structured_envoy_logs gives them, each trace
+        reduced to its `joinable` fields (the parent-id fill is left out:
+        the realtime join reads no parent id)."""
         namespaces = list(namespaces)
         if not namespaces:
             return [], []
         t0 = time.perf_counter()
-        replicas, targets = self._replicas_and_targets(namespaces, self._fanout_workers)
+        replicas, targets = self._replicas_and_targets(namespaces)
         if not targets:
             return replicas, []
         t1 = time.perf_counter()
-        n = min(self._fanout_processes, len(targets))
-        step = -(-len(targets) // n)
-        pool = self._process_pool()
-        futures = [
-            pool.submit(_joinable_logs_of, self._init_args, targets[i : i + step], limit)
-            for i in range(0, len(targets), step)
-        ]
-        per_pod = [structured for f in futures for structured in f.result()]
+        step = -(-len(targets) // FANOUT_PROCESSES)
+        with self._workers_lock:
+            busy = list(zip(self._started_locked(), range(0, len(targets), step)))
+            try:
+                for worker, i in busy:
+                    worker.send((targets[i : i + step], limit))
+                replies = [worker.receive() for worker, _ in busy]
+            except (OSError, EOFError, pickle.UnpicklingError) as err:
+                _stop_workers(self._workers)
+                raise RuntimeError(f"a log fan-out worker process failed: {err!r}") from err
+        per_pod: List[List[dict]] = []
+        for status, value in replies:
+            if status == "err":
+                raise value
+            per_pod.extend(value)
         t2 = time.perf_counter()
         combined = EnvoyLogs.combine_structured(per_pod)
         self.last_fetch_ms = {
@@ -399,30 +423,27 @@ class KubernetesClient:
         }
         return replicas, combined
 
-    def _process_pool(self) -> ProcessPoolExecutor:
-        """The fan-out's worker processes, spawned at the first use (or by
-        warm_up) and kept; they end with the client."""
-        with self._pool_lock:
-            if self._pool is None:
-                self._pool = ProcessPoolExecutor(
-                    max_workers=self._fanout_processes,
-                    mp_context=multiprocessing.get_context("spawn"),
-                )
-            return self._pool
+    def _started_locked(self) -> List[_FanoutWorker]:
+        if not self._workers:
+            self._workers.extend(
+                _FanoutWorker(self._init_args) for _ in range(FANOUT_PROCESSES)
+            )
+        return self._workers
 
     def warm_up(self) -> None:
         """Start every fan-out worker process now (a server's boot), so
         the first tick does not pay for their start."""
-        pool = self._process_pool()
-        for f in [pool.submit(time.sleep, 0.2) for _ in range(self._fanout_processes)]:
-            f.result()
+        with self._workers_lock:
+            workers = self._started_locked()
+            for worker in workers:
+                worker.send(([], DEFAULT_LOG_LIMIT))
+            for worker in workers:
+                worker.receive()
 
     def close(self) -> None:
         """Stop the fan-out's worker processes."""
-        with self._pool_lock:
-            pool, self._pool = self._pool, None
-        if pool is not None:
-            pool.shutdown(wait=True, cancel_futures=True)
+        with self._workers_lock:
+            _stop_workers(self._workers)
 
     # -- peer-instance handshake (KubernetesService.ts:96-116,164-176) -------
 

@@ -8,7 +8,7 @@ parse: the window answers a zero-span summary, a stream skips the chunk.
 
 Reason codes, the JAX package's:
 
-- ``trace-bomb``     payload over the ``KMAMIZ_INGEST_MAX_BYTES`` cap;
+- ``trace-bomb``     payload over the size cap (MAX_PAYLOAD_BYTES);
 - ``garbage-utf8``   bytes that do not decode as UTF-8;
 - ``truncated-json`` UTF-8 but not valid JSON (truncation, corruption);
 - ``schema-drift``   valid JSON that is not a Zipkin trace-group list;
@@ -16,11 +16,10 @@ Reason codes, the JAX package's:
 
 Each payload lands as ``<millis>-<seq>-<reason>.bin`` plus a
 ``.meta.json`` sidecar ({reason, source, bytes, sha256, at}); the
-directory is bounded by ``KMAMIZ_QUARANTINE_MAX_BYTES`` /
-``KMAMIZ_QUARANTINE_MAX_FILES`` with oldest-first eviction. Totals
-surface in /health's `resilience` section. The directory is
-``KMAMIZ_QUARANTINE_DIR`` (``./kmamiz-data/quarantine``), read when the
-process first diverts a payload.
+directory is bounded by MAX_BYTES and MAX_FILES (the JAX defaults) with
+oldest-first eviction. Totals surface in /health's `resilience` section.
+The directory is ``KMAMIZ_QUARANTINE_DIR`` (``./kmamiz-data/quarantine``),
+read when the process first diverts a payload.
 
 Left out: the per-tenant quarantines, which come with the tenancy layer.
 """
@@ -29,12 +28,12 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
-import os
 import threading
 import time
 from pathlib import Path
 from typing import Optional
 
+from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.core import wire
 
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.quarantine")
@@ -45,37 +44,24 @@ REASON_TRUNCATED_JSON = "truncated-json"
 REASON_SCHEMA_DRIFT = "schema-drift"
 REASON_PARSE_ERROR = "parse-error"
 
-#: default per-payload size cap: 256 MiB of raw Zipkin bytes (the JAX
-#: default). A tick's window is ~10 MB of JSON; bench.py's one-shot window
-#: of 1.05M spans, a 609 MB body, is past it
-DEFAULT_MAX_PAYLOAD_BYTES = 256 * 1024 * 1024
-DEFAULT_DIR = "./kmamiz-data/quarantine"
-DEFAULT_MAX_BYTES = 64 * 1024 * 1024
-DEFAULT_MAX_FILES = 256
+#: per-payload size cap: 256 MiB of raw Zipkin bytes (the JAX default). A
+#: tick's window is ~10 MB of JSON; bench.py's one-shot window of 1.05M
+#: spans, a 609 MB body, is past it
+MAX_PAYLOAD_BYTES = 256 * 1024 * 1024
+#: the directory's bounds
+MAX_BYTES = 64 * 1024 * 1024
+MAX_FILES = 256
+
+#: KMAMIZ_QUARANTINE=0 restores the abort-the-call behaviour (ValueError)
+enabled = config.quarantine_enabled
 
 
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
-def max_payload_bytes() -> int:
-    return _env_int("KMAMIZ_INGEST_MAX_BYTES", DEFAULT_MAX_PAYLOAD_BYTES)
-
-
-def enabled() -> bool:
-    """KMAMIZ_QUARANTINE=0 restores the abort-the-call behaviour
-    (ValueError)."""
-    return os.environ.get("KMAMIZ_QUARANTINE", "1") != "0"
-
-
-def classify_payload(raw: bytes, size_cap: Optional[int] = None) -> Optional[str]:
+def classify_payload(raw: bytes, size_cap: int = MAX_PAYLOAD_BYTES) -> Optional[str]:
     """Reason code for a malformed raw Zipkin payload, or None when it is
     structurally sound (a list of trace groups of span dicts with trace
-    and span ids). Runs on the failure path only, and as the size gate."""
-    cap = size_cap if size_cap is not None else max_payload_bytes()
+    and span ids). Runs on the failure path only, and as the size gate
+    (`size_cap` bytes; 0 = no cap)."""
+    cap = size_cap
     if cap > 0 and len(raw) > cap:
         return REASON_TRACE_BOMB
     if wire.is_columnar(raw):
@@ -108,24 +94,12 @@ class Quarantine:
     def __init__(
         self,
         directory: Optional[str] = None,
-        max_bytes: Optional[int] = None,
-        max_files: Optional[int] = None,
+        max_bytes: int = MAX_BYTES,
+        max_files: int = MAX_FILES,
     ) -> None:
-        self._dir = Path(
-            directory
-            if directory is not None
-            else os.environ.get("KMAMIZ_QUARANTINE_DIR", DEFAULT_DIR)
-        )
-        self._max_bytes = (
-            max_bytes
-            if max_bytes is not None
-            else _env_int("KMAMIZ_QUARANTINE_MAX_BYTES", DEFAULT_MAX_BYTES)
-        )
-        self._max_files = (
-            max_files
-            if max_files is not None
-            else _env_int("KMAMIZ_QUARANTINE_MAX_FILES", DEFAULT_MAX_FILES)
-        )
+        self._dir = Path(directory if directory is not None else config.quarantine_dir())
+        self._max_bytes = max_bytes
+        self._max_files = max_files
         self._lock = threading.Lock()
         self._seq = 0
         # byReason counts every diversion of this process; files and

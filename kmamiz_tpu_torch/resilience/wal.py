@@ -20,8 +20,8 @@ Segments without the magic (the JAX package's v1 framing: [u32 len]
 writes into one, it opens a new segment. Append is O_APPEND + flush +
 fsync, so a record is either durable or detectably torn; replay stops
 cleanly at the first short or corrupt record. Segments rotate at
-``KMAMIZ_WAL_SEGMENT_MB`` (64) and the newest ``KMAMIZ_WAL_KEEP_SEGMENTS``
-(4) are kept.
+SEGMENT_BYTES (64 MiB) and the newest KEEP_SEGMENTS (4) are kept, the JAX
+defaults: a replay rebuilds at most the newest 192-256 MiB of payloads.
 
 On with ``KMAMIZ_WAL=1`` (directory ``KMAMIZ_WAL_DIR``,
 ``./kmamiz-data/wal``); off by default, so the fsync per ingest is
@@ -39,6 +39,8 @@ import zlib
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
+from kmamiz_tpu_torch import config
+
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.wal")
 
 _HEADER = struct.Struct("<II")  # v1: payload_len, crc32
@@ -49,16 +51,8 @@ _SEGMENT_MAGIC = b"KMWL\x02\x00\x00\x00"
 KIND_JSON = 0
 KIND_COLUMNAR = 1
 
-DEFAULT_DIR = "./kmamiz-data/wal"
-DEFAULT_SEGMENT_MB = 64
-DEFAULT_KEEP_SEGMENTS = 4
-
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
+SEGMENT_BYTES = 64 * 1024 * 1024
+KEEP_SEGMENTS = 4
 
 
 def _is_columnar(payload: bytes) -> bool:
@@ -71,22 +65,13 @@ class IngestWAL:
     def __init__(
         self,
         directory: str,
-        segment_bytes: Optional[int] = None,
-        keep_segments: Optional[int] = None,
+        segment_bytes: int = SEGMENT_BYTES,
+        keep_segments: int = KEEP_SEGMENTS,
         fsync: bool = True,
     ) -> None:
         self._dir = Path(directory)
-        self._segment_bytes = (
-            segment_bytes
-            if segment_bytes is not None
-            else _env_int("KMAMIZ_WAL_SEGMENT_MB", DEFAULT_SEGMENT_MB) * 1024 * 1024
-        )
-        self._keep_segments = max(
-            1,
-            keep_segments
-            if keep_segments is not None
-            else _env_int("KMAMIZ_WAL_KEEP_SEGMENTS", DEFAULT_KEEP_SEGMENTS),
-        )
+        self._segment_bytes = segment_bytes
+        self._keep_segments = max(1, keep_segments)
         self._fsync = fsync
         self._lock = threading.Lock()
         self._fh = None
@@ -95,9 +80,9 @@ class IngestWAL:
     @classmethod
     def from_env(cls) -> Optional["IngestWAL"]:
         """The env-configured WAL, or None unless KMAMIZ_WAL=1."""
-        if os.environ.get("KMAMIZ_WAL", "0") != "1":
+        if not config.wal_enabled():
             return None
-        return cls(os.environ.get("KMAMIZ_WAL_DIR", DEFAULT_DIR))
+        return cls(config.wal_dir())
 
     @property
     def directory(self) -> Path:

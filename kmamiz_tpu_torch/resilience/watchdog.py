@@ -25,10 +25,10 @@ per reason in resilience/metrics.py and surface in /health.
 from __future__ import annotations
 
 import logging
-import os
 import threading
 from typing import Callable, Optional
 
+from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.resilience import metrics
 
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.watchdog")
@@ -36,13 +36,6 @@ logger = logging.getLogger("kmamiz_tpu_torch.resilience.watchdog")
 REASON_DEADLINE = "deadline"
 REASON_IN_FLIGHT = "tick-in-flight"
 REASON_FAULT = "tick-fault"
-
-
-def deadline_ms_from_env() -> float:
-    try:
-        return float(os.environ.get("KMAMIZ_TICK_DEADLINE_MS", 0))
-    except ValueError:
-        return 0.0
 
 
 class TickDeadlineExceeded(RuntimeError):
@@ -81,14 +74,14 @@ class TickWatchdog:
         epoch = self._epoch_deadline_ms
         if epoch is not None:  # inside a stream epoch: the cached read
             return epoch
-        return deadline_ms_from_env()
+        return config.tick_deadline_ms()
 
     def begin_stream_epoch(self) -> float:
         """Cache the KMAMIZ_TICK_DEADLINE_MS read for one stream epoch;
         returns it. Each call reads the env again: calling it is the next
         epoch."""
         with self._lock:
-            self._epoch_deadline_ms = deadline_ms_from_env()
+            self._epoch_deadline_ms = config.tick_deadline_ms()
             return self._epoch_deadline_ms
 
     def end_stream_epoch(self) -> None:

@@ -2,7 +2,8 @@
 
 Counterpart of kmamiz_tpu/server/dp_server.py, the sibling of the
 reference's Rust service (KMamiz kmamiz_data_processor/src/main.rs:28-79):
-GET / answers health, POST / takes a TExternalDataProcessorRequest
+GET / answers health (with the process's segment-stats kernel
+launches), POST / takes a TExternalDataProcessorRequest
 ({uniqueId, lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
 datatype, log}). POST /ingest takes a raw Zipkin response body (trace
@@ -46,6 +47,7 @@ from typing import Optional, Tuple
 from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.core import wire
 from kmamiz_tpu_torch.device import DeviceLike
+from kmamiz_tpu_torch.ops.segment_stats import segment_stats
 from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.resilience.watchdog import (
     REASON_FAULT,
@@ -196,6 +198,8 @@ def make_handler(
                     "status": "UP",
                     "service": "kmamiz-tpu-torch-data-processor",
                     "device": str(processor.device),
+                    # the tick's CUDA kernel launches in this process
+                    "launches": {"segment_stats": segment_stats.launches},
                 },
             )
 

@@ -221,7 +221,9 @@ class DataProcessor:
     hands the tick the logs its worker processes structured). With use_device_stats
     off, the window statistics run on the host (the JAX processor's
     flag: the stream's bit-exact contract runs so). `wal` is the ingest
-    WAL: "from_env" (KMAMIZ_WAL), an IngestWAL, or None."""
+    WAL: "from_env" (KMAMIZ_WAL), an IngestWAL, or None.
+    `max_payload_bytes` is the quarantine's trace-bomb cap of one raw
+    ingest payload (0: none)."""
 
     def __init__(
         self,
@@ -232,6 +234,7 @@ class DataProcessor:
         now_ms: Callable[[], float] = lambda: time.time() * 1000.0,
         use_device_stats: bool = True,
         wal: object = "from_env",
+        max_payload_bytes: int = res_quarantine.MAX_PAYLOAD_BYTES,
     ) -> None:
         if k8s_source is not None and not callable(
             getattr(k8s_source, "get_replicas_and_joinable_logs", None)
@@ -244,6 +247,7 @@ class DataProcessor:
         self._trace_source = trace_source
         self._k8s = k8s_source
         self._use_device_stats = use_device_stats
+        self.max_payload_bytes = max_payload_bytes
         #: the newest replica count of each uniqueServiceName, folded into
         #: the hourly features
         self._last_replicas: Dict[str, float] = {}
@@ -395,7 +399,7 @@ class DataProcessor:
         quarantine; returns the reason code. The port's library is always
         there (a failed build raises at the parse), so a payload the
         classifier finds sound is a parser rejection: parse-error."""
-        reason = res_quarantine.classify_payload(raw) or res_quarantine.REASON_PARSE_ERROR
+        reason = res_quarantine.classify_payload(raw, self.max_payload_bytes) or res_quarantine.REASON_PARSE_ERROR
         res_quarantine.default_quarantine().put(raw, reason, source=source)
         return reason
 
@@ -444,7 +448,7 @@ class DataProcessor:
         merges the window into the graph on the processor's device.
         Returns {spans, traces, endpoints, edges, ms}.
 
-        A malformed payload, or one over the KMAMIZ_INGEST_MAX_BYTES cap,
+        A malformed payload, or one over the max_payload_bytes cap,
         diverts to the quarantine with its reason code and answers a
         zero-span summary carrying `quarantined` and `reason`, the
         interner and the dedup map untouched. With KMAMIZ_QUARANTINE=0 it
@@ -456,7 +460,7 @@ class DataProcessor:
         t_start = self._now_ms()  # domain time for the dedup registration
         wall_t0 = time.perf_counter()
         quarantine_on = res_quarantine.enabled()
-        if quarantine_on and len(raw) > res_quarantine.max_payload_bytes():
+        if quarantine_on and 0 < self.max_payload_bytes < len(raw):
             # the size gate comes before the parse: a trace bomb never
             # reaches the scanner, the interner or the device
             res_quarantine.default_quarantine().put(
@@ -589,7 +593,7 @@ class DataProcessor:
             """Fetch, parse, log and register, strictly in chunk order (a
             chunk's parse_ms leaves its fetch out)."""
             quarantine_on = res_quarantine.enabled()
-            size_cap = res_quarantine.max_payload_bytes()
+            size_cap = self.max_payload_bytes
             try:
                 it = iter(chunks)
                 while not stop.is_set():
@@ -597,7 +601,7 @@ class DataProcessor:
                         raw = next(it)
                     except StopIteration:
                         break
-                    if quarantine_on and len(raw) > size_cap:
+                    if quarantine_on and 0 < size_cap < len(raw):
                         res_quarantine.default_quarantine().put(
                             raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_stream"
                         )

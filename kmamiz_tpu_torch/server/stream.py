@@ -26,49 +26,30 @@ it to the JAX package's contract, with device stats off):
 
 The watchdog is not weakened: an overrunning micro-tick trips with the
 reason ``stream-overrun``, and the deadline's env read is cached per
-stream epoch (KMAMIZ_STREAM_EPOCH_TICKS micro-ticks). ``KMAMIZ_STREAM=0``
-(the default) keeps the serial tick.
+stream epoch (EPOCH_TICKS micro-ticks). ``KMAMIZ_STREAM=0`` (the
+default) keeps the serial tick. The hand-off queue holds DEPTH prepared
+ticks. Both are the JAX defaults; an engine takes others as arguments.
 
 Both paths hold the processor's tick_lock, as collect() does, so a
 scheduled tick and a stream never interleave.
 """
 from __future__ import annotations
 
-import os
 import queue
 import threading
 from typing import List, Sequence
 
+from kmamiz_tpu_torch.config import stream_enabled  # noqa: F401 - the DP server's switch
+
 #: the watchdog's trip reason for an overrunning micro-tick
 REASON_STREAM_OVERRUN = "stream-overrun"
 
-DEFAULT_DEPTH = 2
+#: prepared ticks the hand-off queue holds (clamped to [1, MAX_DEPTH])
+DEPTH = 2
 MAX_DEPTH = 8
-DEFAULT_EPOCH_TICKS = 32
-
-
-def stream_enabled(default: str = "0") -> bool:
-    """KMAMIZ_STREAM (default off: the serial tick)."""
-    return os.environ.get("KMAMIZ_STREAM", default) not in ("0", "false", "")
-
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
-def stream_depth() -> int:
-    """Prepared ticks the hand-off queue holds (KMAMIZ_STREAM_DEPTH,
-    default 2, clamped to [1, 8])."""
-    return max(1, min(MAX_DEPTH, _env_int("KMAMIZ_STREAM_DEPTH", DEFAULT_DEPTH)))
-
-
-def stream_epoch_ticks() -> int:
-    """Micro-ticks per stream epoch (KMAMIZ_STREAM_EPOCH_TICKS, default
-    32, floor 1): how often the watchdog reads KMAMIZ_TICK_DEADLINE_MS."""
-    return max(1, _env_int("KMAMIZ_STREAM_EPOCH_TICKS", DEFAULT_EPOCH_TICKS))
+#: micro-ticks per stream epoch: how often the watchdog reads
+#: KMAMIZ_TICK_DEADLINE_MS (floor 1)
+EPOCH_TICKS = 32
 
 
 _stats_lock = threading.Lock()
@@ -98,9 +79,11 @@ class StreamEngine:
     with the explicit stage fence. `run_stream(requests)` drives a known
     request sequence with the producer/consumer overlap."""
 
-    def __init__(self, processor, watchdog=None) -> None:
+    def __init__(self, processor, watchdog=None, depth: int = DEPTH, epoch_ticks: int = EPOCH_TICKS) -> None:
         self.processor = processor
         self.watchdog = watchdog
+        self.depth = max(1, min(MAX_DEPTH, depth))
+        self.epoch_ticks = max(1, epoch_ticks)
         self._tick_no = 0
         self._epoch_lock = threading.Lock()
 
@@ -108,7 +91,7 @@ class StreamEngine:
         """Count one micro-tick; at every epoch boundary (the first tick
         included) refresh the watchdog's cached deadline."""
         with self._epoch_lock:
-            boundary = self._tick_no % stream_epoch_ticks() == 0
+            boundary = self._tick_no % self.epoch_ticks == 0
             self._tick_no += 1
             n = self._tick_no
         _note("micro_ticks")
@@ -134,7 +117,7 @@ class StreamEngine:
         back in request order; the graph and the WAL are those of the same
         sequence through the serial tick."""
         proc = self.processor
-        q: "queue.Queue" = queue.Queue(maxsize=stream_depth())
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
 
         def put(item) -> bool:

@@ -259,37 +259,3 @@ class TestEmitter:
         assert "[Body]" not in envoy_filter.format_request_log(
             "POST", "h", "/p", content_type="text/plain", body="raw text"
         )
-
-
-def test_the_memoized_pod_parse_equals_the_plain_one(pdas_lines):
-    """PodLogParser (the tick's per-pod parse that skips the lines its
-    last call saw) gives parse_envoy_logs of the stripped lines, the JAX
-    package's too, over a log that grows, repeats lines, drops its head
-    as a tail would, and holds lines without a marker or a header."""
-    import random
-
-    wrapped = [
-        ln.split("\t")[0] + "\tdebug\tenvoy wasm\twasm log kmamiz-filter ns: " + ln.split("\t", 1)[1]
-        for ln in pdas_lines
-    ]
-    pool = wrapped + [
-        "t\twasm log f: [Request r1/NO_ID/s/p] [GET h/p]",
-        "x\twasm log y: [Response r1/T9/s2/s] [Status] 200",
-        "2022\tscript log: [Request r2/T1/a/b] [GET h/q]",
-        "no marker at all",
-        "",
-    ]
-    rng = random.Random(0)
-    parser = envoy.PodLogParser()
-    log = []
-    for _ in range(120):
-        log = log + [rng.choice(pool) for _ in range(rng.randint(0, 6))]
-        if rng.random() < 0.2:
-            log = log[rng.randint(0, len(log)) :]
-        got = _normalize(parser.parse(list(log), "ns", "pod").to_json())
-        assert got == _normalize(
-            envoy.parse_envoy_logs(envoy.strip_istio_proxy_prefix(list(log)), "ns", "pod").to_json()
-        )
-        assert got == _normalize(
-            jax_envoy.parse_envoy_logs(jax_envoy.strip_istio_proxy_prefix(list(log)), "ns", "pod").to_json()
-        )

@@ -37,7 +37,7 @@ from kmamiz_tpu_torch import synth
 from kmamiz_tpu_torch.core import envoy_filter
 from kmamiz_tpu_torch.graph.store import graph_signature
 from kmamiz_tpu_torch.ingestion import KubernetesClient
-from kmamiz_tpu_torch.ingestion.kubernetes import KubernetesServiceError
+from kmamiz_tpu_torch.ingestion.kubernetes import KubernetesServiceError, joinable
 from kmamiz_tpu_torch.server.processor import DataProcessor
 from test_torch_processor import _assert_same_tick
 
@@ -241,10 +241,16 @@ class TestKubernetesClient:
 
         for i in range(8):
             api.routes[("GET", f"/api/v1/namespaces/pdas/pods/svc-{i}/log")] = slow_log
-        start = time.monotonic()
-        replicas, logs = KubernetesClient(_base(server)).get_replicas_and_envoy_logs(["pdas"])
-        elapsed = time.monotonic() - start
-        assert len(logs) == 8
+        client = KubernetesClient(_base(server))
+        try:
+            client.warm_up()  # the worker processes start at a server's boot
+            start = time.monotonic()
+            replicas, logs = client.get_replicas_and_joinable_logs(["pdas"])
+            elapsed = time.monotonic() - start
+        finally:
+            client.close()
+        assert logs == []
+        assert len([p for _, p in api.seen if p.endswith("/log?container=istio-proxy&tailLines=10000")]) == 8
         assert replicas == [
             {
                 "uniqueServiceName": "svc\tpdas\tlatest",
@@ -263,11 +269,17 @@ class TestKubernetesClient:
         raw = _istio_log(pdas_envoy_log_lines)
         for pod in ["user-service-0", "user-service-1", "user-service-2", "db-service-0"]:
             api.routes[("GET", f"/api/v1/namespaces/pdas/pods/{pod}/log")] = lambda q: (200, raw, False)
-        replicas, logs = KubernetesClient(_base(server)).get_replicas_and_envoy_logs(["pdas"])
+        from kmamiz_tpu.core.envoy import EnvoyLogs as JaxEnvoyLogs
+
+        client = KubernetesClient(_base(server))
+        try:
+            replicas, logs = client.get_replicas_and_joinable_logs(["pdas"])
+        finally:
+            client.close()
         want_replicas, want_logs = JaxKubernetesClient(_base(server)).get_replicas_and_envoy_logs(["pdas"])
         assert replicas == want_replicas
-        assert [log.to_json() for log in logs] == [log.to_json() for log in want_logs]
-        assert {r["podName"] for log in logs for r in log.to_json()} == {
+        assert logs and logs == joinable(JaxEnvoyLogs.combine_structured([log.to_structured() for log in want_logs]))
+        assert {p.split("/")[6] for _, p in api.seen if "/log?" in p} == {
             "user-service-0",
             "user-service-1",
             "user-service-2",
@@ -585,35 +597,91 @@ def test_a_cluster_fault_fails_the_tick(mock_api):
 
 def test_the_pooled_fetch_joins_as_the_structured_logs(mock_api):
     """get_replicas_and_joinable_logs (the worker processes' fetch, each
-    trace reduced to the join's fields, no parent-id fill) gives the
-    realtime records that combine_to_structured_envoy_logs over
-    get_replicas_and_envoy_logs gives, in the port and in JAX."""
+    trace reduced to the join's fields, no parent-id fill) gives, tick
+    after tick as the pods' logs grow, the realtime records that JAX's
+    combine_to_structured_envoy_logs over its get_replicas_and_envoy_logs
+    gives."""
     from kmamiz_tpu.core.envoy import EnvoyLogs as JaxEnvoyLogs
     from kmamiz_tpu.domain.traces import Traces as JaxTraces
-    from kmamiz_tpu_torch.core.envoy import EnvoyLogs
     from kmamiz_tpu_torch.domain.traces import Traces
 
     server, api = mock_api
     cluster = MockCluster(seed=4)
     cluster.mount(api)
-    windows = _windows(3)
-    for groups in windows:
-        cluster.add_window(groups)
-    client = KubernetesClient(_base(server), fanout_processes=2)
+    client = KubernetesClient(_base(server))
     try:
-        namespaces = {s["tags"]["istio.namespace"] for g in windows[-1] for s in g}
-        replicas, joinable = client.get_replicas_and_joinable_logs(namespaces)
-        want_replicas, logs = client.get_replicas_and_envoy_logs(namespaces)
-        jax_replicas, jax_logs = JaxKubernetesClient(_base(server)).get_replicas_and_envoy_logs(namespaces)
+        for groups in _windows(3):
+            cluster.add_window(groups)
+            namespaces = {s["tags"]["istio.namespace"] for g in groups for s in g}
+            jax_replicas, jax_logs = JaxKubernetesClient(_base(server)).get_replicas_and_envoy_logs(namespaces)
+            want = JaxTraces(groups).combine_logs_to_realtime_data(
+                JaxEnvoyLogs.combine_to_structured_envoy_logs(jax_logs), jax_replicas
+            ).to_json()
+            replicas, joined = client.get_replicas_and_joinable_logs(namespaces)
+            assert replicas == jax_replicas
+            got = Traces(groups).combine_logs_to_realtime_data(joined, replicas).to_json()
+            assert got == want
+            assert sum(1 for r in got if r["responseBody"]) > 0
     finally:
         client.close()
-    assert replicas == want_replicas == jax_replicas
-    got = Traces(windows[-1]).combine_logs_to_realtime_data(joinable, replicas).to_json()
-    full = Traces(windows[-1]).combine_logs_to_realtime_data(
-        EnvoyLogs.combine_to_structured_envoy_logs(logs), replicas
-    ).to_json()
-    jax = JaxTraces(windows[-1]).combine_logs_to_realtime_data(
-        JaxEnvoyLogs.combine_to_structured_envoy_logs(jax_logs), replicas
-    ).to_json()
-    assert got == full == jax
-    assert sum(1 for r in got if r["responseBody"]) > 0
+
+
+def test_a_pod_log_fault_in_a_worker_fails_the_fetch(mock_api):
+    """A pod's log answering 500 past the retries raises the worker's
+    KubernetesServiceError in the caller, as the JAX client's fetch does;
+    the workers stay up and the next fetch answers."""
+    server, api = mock_api
+    api.routes[("GET", "/api/v1/namespaces/pdas/pods")] = lambda q: (200, POD_LIST, False)
+    for pod in ["user-service-0", "user-service-1", "user-service-2", "db-service-0"]:
+        api.routes[("GET", f"/api/v1/namespaces/pdas/pods/{pod}/log")] = lambda q: (200, b"", False)
+    api.routes[("GET", "/api/v1/namespaces/pdas/pods/db-service-0/log")] = lambda q: (500, {}, False)
+    client = KubernetesClient(_base(server), retries=1, backoff_s=0.01)
+    try:
+        for _ in range(2):
+            with pytest.raises(KubernetesServiceError, match="Kubernetes API server"):
+                client.get_replicas_and_joinable_logs(["pdas"])
+        from kmamiz_tpu.ingestion.kubernetes import KubernetesServiceError as JaxKubernetesServiceError
+
+        with pytest.raises(JaxKubernetesServiceError, match="Kubernetes API server"):
+            JaxKubernetesClient(_base(server), retries=1, backoff_s=0.01).get_replicas_and_envoy_logs(["pdas"])
+        api.routes[("GET", "/api/v1/namespaces/pdas/pods/db-service-0/log")] = lambda q: (200, b"", False)
+        assert client.get_replicas_and_joinable_logs(["pdas"])[1] == []
+    finally:
+        client.close()
+
+
+def test_a_lost_worker_fails_the_fetch_and_the_next_starts_anew(mock_api):
+    """A fan-out worker process that dies fails that fetch with a
+    RuntimeError (the tick fails, and is served stale); the next fetch
+    starts the workers again."""
+    from kmamiz_tpu_torch.ingestion import kubernetes
+
+    server, api = mock_api
+    api.routes[("GET", "/api/v1/namespaces/pdas/pods")] = lambda q: (200, POD_LIST, False)
+    raw = b"2022-01-01T00:00:00.000000Z\tdebug\tenvoy wasm\twasm log kmamiz-filter pdas: [Request r1/T1/S1/NO_ID] [GET h/p]"
+    for pod in ["user-service-0", "user-service-1", "user-service-2", "db-service-0"]:
+        api.routes[("GET", f"/api/v1/namespaces/pdas/pods/{pod}/log")] = lambda q: (200, raw, False)
+    client = KubernetesClient(_base(server))
+    try:
+        client.warm_up()
+        assert len(client._workers) == kubernetes.FANOUT_PROCESSES
+        client._workers[0].proc.kill()
+        client._workers[0].proc.wait()
+        with pytest.raises(RuntimeError, match="fan-out worker"):
+            client.get_replicas_and_joinable_logs(["pdas"])
+        assert client._workers == []
+        replicas, logs = client.get_replicas_and_joinable_logs(["pdas"])
+        assert len(replicas) == 2 and [entry["requestId"] for entry in logs] == ["r1"]
+    finally:
+        client.close()
+
+
+def test_the_fan_out_workers_import_no_torch():
+    """The module a fan-out worker process imports pulls in neither torch
+    nor the caller's main module."""
+    import subprocess
+    import sys
+
+    probe = "import sys, kmamiz_tpu_torch.ingestion.kubernetes; print('torch' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "False"

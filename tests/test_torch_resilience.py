@@ -113,9 +113,14 @@ def dirs(tmp_path, monkeypatch):
     return out
 
 
-def _processors():
+def _processors(size_cap: int = quarantine.MAX_PAYLOAD_BYTES):
+    """A port and a JAX processor; the port's trace-bomb cap is its
+    argument, the JAX one's KMAMIZ_INGEST_MAX_BYTES, which the tests that
+    pass a cap set to the same value."""
     return (
-        DataProcessor(trace_source=lambda *a: [], device="cpu", use_device_stats=False),
+        DataProcessor(
+            trace_source=lambda *a: [], device="cpu", use_device_stats=False, max_payload_bytes=size_cap
+        ),
         JaxProcessor(trace_source=lambda *a: [], use_device_stats=False),
     )
 
@@ -136,7 +141,7 @@ def test_fixture_corpus_classification_matches_jax(name, monkeypatch):
     monkeypatch.setenv("KMAMIZ_INGEST_MAX_BYTES", "4096")
     raw = (CHAOS_FIXTURES / f"{name}.bin").read_bytes()
     want = jax_quarantine.classify_payload(raw)
-    assert quarantine.classify_payload(raw) == want
+    assert quarantine.classify_payload(raw, 4096) == want
     assert want == (None if name == "parse-error" else name)
 
 
@@ -147,7 +152,7 @@ def test_fixture_corpus_quarantined_as_jax(name, monkeypatch, dirs):
     monkeypatch.delenv("KMAMIZ_QUARANTINE", raising=False)
     monkeypatch.setenv("KMAMIZ_INGEST_MAX_BYTES", "4096")
     raw = (CHAOS_FIXTURES / f"{name}.bin").read_bytes()
-    port, ref = _processors()
+    port, ref = _processors(4096)
     before = graph_signature(port.graph)
     dirs["use"]("port")
     got = port.ingest_raw_window(raw)
@@ -195,7 +200,7 @@ def test_each_mutation_kind_quarantines_as_jax(kind, monkeypatch, dirs):
     clean = clean_chunks(n_traces=2, per_chunk=2)[0]
     raw = chaos.mutate_payload(clean, kind, random.Random(7))
     assert raw == jax_chaos.mutate_payload(clean, kind, random.Random(7))
-    port, ref = _processors()
+    port, ref = _processors(4096)
     port.ingest_raw_window(clean)
     ref.ingest_raw_window(clean)
     before = graph_signature(port.graph)
@@ -233,11 +238,11 @@ def test_chaos_run_equals_the_clean_chunks(monkeypatch, dirs):
     poisoned = len(delivered) - len(clean_indices)
     assert 0 < len(clean_indices) < len(chunks)
     dirs["use"]("port")
-    window, ref = _processors()
+    window, ref = _processors(4000)
     quarantined = sum(window.ingest_raw_window(raw).get("quarantined", 0) for raw in delivered)
-    streamed = DataProcessor(trace_source=lambda *a: [], device="cpu")
+    streamed = DataProcessor(trace_source=lambda *a: [], device="cpu", max_payload_bytes=4000)
     summary = streamed.ingest_raw_stream(iter(delivered))
-    clean = DataProcessor(trace_source=lambda *a: [], device="cpu")
+    clean = DataProcessor(trace_source=lambda *a: [], device="cpu", max_payload_bytes=4000)
     for i in clean_indices:
         assert clean.ingest_raw_window(chunks[i]).get("quarantined", 0) == 0
     dirs["use"]("jax")

@@ -88,22 +88,28 @@ class TestKnobs:
 
     @pytest.mark.parametrize("raw", [None, "0", "99", "not-a-number", "5"])
     def test_depth_and_epoch_ticks(self, monkeypatch, raw):
+        """The port's engine takes as arguments (defaults DEPTH and
+        EPOCH_TICKS) what the JAX engine reads from KMAMIZ_STREAM_DEPTH and
+        KMAMIZ_STREAM_EPOCH_TICKS, and clamps them alike."""
         for name in ("KMAMIZ_STREAM_DEPTH", "KMAMIZ_STREAM_EPOCH_TICKS"):
             if raw is None:
                 monkeypatch.delenv(name, raising=False)
             else:
                 monkeypatch.setenv(name, raw)
-        assert stream.stream_depth() == jax_stream.stream_depth()
-        assert stream.stream_epoch_ticks() == jax_stream.stream_epoch_ticks()
+        given = {"depth": int(raw), "epoch_ticks": int(raw)} if raw and raw.isdigit() else {}
+        engine = stream.StreamEngine(None, **given)
+        assert engine.depth == jax_stream.stream_depth()
+        assert engine.epoch_ticks == jax_stream.stream_epoch_ticks()
 
     def test_config_mirrors_stream_knobs(self, monkeypatch):
+        """Settings carries the stream's switch, read by the same function
+        as the DP server's; the depth and epoch are constants."""
         from kmamiz_tpu_torch.config import Settings
 
-        monkeypatch.setenv("KMAMIZ_STREAM", "1")
-        monkeypatch.setenv("KMAMIZ_STREAM_DEPTH", "4")
-        monkeypatch.setenv("KMAMIZ_STREAM_EPOCH_TICKS", "7")
-        s = Settings()
-        assert (s.stream_enabled, s.stream_depth, s.stream_epoch_ticks) == (True, 4, 7)
+        for raw, want in (("1", True), ("0", False)):
+            monkeypatch.setenv("KMAMIZ_STREAM", raw)
+            assert Settings().stream_enabled is stream.stream_enabled() is want
+        assert not hasattr(Settings(), "stream_depth") and not hasattr(Settings(), "stream_epoch_ticks")
 
 
 # -- bit-exact parity with the serial tick ------------------------------------------
@@ -135,16 +141,15 @@ class TestBitExactParity:
             assert _canon(got) == _canon(want)
         assert graph_signature(stream_dp.graph) == graph_signature(serial_dp.graph)
 
-    @pytest.mark.parametrize("depth", ["1", "8"])
-    def test_parity_holds_at_every_depth(self, monkeypatch, depth):
-        monkeypatch.setenv("KMAMIZ_STREAM_DEPTH", depth)
+    @pytest.mark.parametrize("depth", [1, 8])
+    def test_parity_holds_at_every_depth(self, depth):
         n = 4
         requests = _requests(n, f"dep{depth}-")
         serial_dp = _port(_feed(n, f"dep{depth}-"))
         for r in requests:
             serial_dp.collect(dict(r))
         stream_dp = _port(_feed(n, f"dep{depth}-"))
-        stream.StreamEngine(stream_dp).run_stream([dict(r) for r in requests])
+        stream.StreamEngine(stream_dp, depth=depth).run_stream([dict(r) for r in requests])
         assert graph_signature(stream_dp.graph) == graph_signature(serial_dp.graph)
 
     def test_the_wal_keeps_the_serial_order(self, monkeypatch, tmp_path):
@@ -191,10 +196,9 @@ class TestWatchdogStreamEpoch:
         assert watchdog.deadline_ms == 10
 
     def test_engine_epoch_accounting_drives_the_cache(self, monkeypatch):
-        monkeypatch.setenv("KMAMIZ_STREAM_EPOCH_TICKS", "2")
         monkeypatch.setenv("KMAMIZ_TICK_DEADLINE_MS", "40")
         watchdog = TickWatchdog()
-        engine = stream.StreamEngine(processor=None, watchdog=watchdog)
+        engine = stream.StreamEngine(processor=None, watchdog=watchdog, epoch_ticks=2)
         engine.note_micro_tick()  # tick 0: a boundary, caches 40
         monkeypatch.setenv("KMAMIZ_TICK_DEADLINE_MS", "90")
         engine.note_micro_tick()  # tick 1: mid-epoch
@@ -222,7 +226,6 @@ class TestWatchdogStreamEpoch:
         from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
 
         monkeypatch.setenv("KMAMIZ_STREAM", "1")
-        monkeypatch.setenv("KMAMIZ_STREAM_EPOCH_TICKS", "1")
         monkeypatch.delenv("KMAMIZ_TICK_DEADLINE_MS", raising=False)
         gate = {"stall_s": 0.0, "n": 0}
 
@@ -233,6 +236,9 @@ class TestWatchdogStreamEpoch:
             return json.loads(synth.make_raw_window(24, 3, t_start=gate["n"] * 10_000, trace_prefix=f"so{gate['n']}"))
 
         dp = DataProcessor(trace_source=source, device="cpu")
+        # an epoch of one micro-tick: the deadline set below is read at
+        # the next tick (the server's engine_for keeps this engine)
+        stream.engine_for(dp).epoch_ticks = 1
         server = DataProcessorServer(dp, host="127.0.0.1", port=0)
         server.start()
 
