@@ -197,21 +197,24 @@ Phases, each timed:
    busy share in each under the profiler.
 19. the in-cluster deployment (after phase 18, before phase 14's
    profiler sessions), at the BASELINE mesh against a Zipkin stub and a
-   kube API stub (four asyncio worker processes on one port, listen
-   backlog 64: the namespaces, 1-3 pods per service, seeded, and each
+   kube API stub (four worker processes on one port, kept-alive
+   connections, listen backlog 64: the namespaces, 1-3 pods per service, seeded, and each
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
    main(), the WAL on) serves 5 ticks of 2,500 traces, each under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
-   1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the pods
-   read, the log lines, the bodies and the datatypes, and 2 segment-stats
-   launches a tick by the DP's own count (its GET / answer); (b) an
+   1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the
+   client's decode of the answer, the pods read, the log lines, the
+   bodies and the datatypes, and, by the DP's own GET / answer, 2
+   segment-stats launches a tick and the tick's stage walls; (b) an
    in-process twin on the card gives the stage walls and 2 launches a
    tick, and at the last tick the cluster fetch on the client's worker
-   processes and on threads of this process as the JAX client runs it,
-   one after the other (their walls, and the same logs); (f) the same ticks as micro-ticks of a DP
+   processes (of every request, and of the window's as the tick asks)
+   and on threads of this process as the JAX client runs it, one after
+   the other (their walls, and the same logs); (f) the same ticks as
+   micro-ticks of a DP
    server with KMAMIZ_STREAM=1, 2 launches each, equal to the serial
    answers within (a)'s tolerances, and an equal graph signature; (c)
    phase 4's 150,000 traces POSTed to /ingest as 10 raw windows (1.05M
@@ -1089,7 +1092,10 @@ class TickFeed:
         return self.groups[:limit]
 
 
-def post_tick(port: int, request: dict) -> dict:
+def post_tick(port: int, request: dict, timing: dict = None) -> dict:
+    """A DP tick as the host app posts it (gzip both ways), its answer
+    decoded; with `timing`, the client's gunzip + JSON decode wall goes
+    into timing["decode_ms"]."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/",
         data=gzip.compress(json.dumps(request).encode()),
@@ -1103,9 +1109,13 @@ def post_tick(port: int, request: dict) -> dict:
     with urllib.request.urlopen(req, timeout=600) as resp:
         check(resp.status == 200, f"tick answered {resp.status}")
         body = resp.read()
+        t = time.perf_counter()
         if resp.headers.get("Content-Encoding") == "gzip":
             body = gzip.decompress(body)
-    return json.loads(body)
+        out = json.loads(body)
+    if timing is not None:
+        timing["decode_ms"] = round((time.perf_counter() - t) * 1e3, 3)
+    return out
 
 
 def check_response(resp: dict, unique_id: str) -> None:
@@ -3746,19 +3756,20 @@ class ZipkinStub:
         self.thread.join(timeout=10)
 
 
-#: a kube API stub worker: an asyncio HTTP/1.1 server (one request per
-#: connection, a listen backlog of STUB_BACKLOG) of the state that
+#: a kube API stub worker: an HTTP/1.1 server with kept-alive connections,
+#: a thread each (a listen backlog of STUB_BACKLOG), of the state that
 #: KubeStub writes under argv[1] (namespaces.json, pods/<ns>.json,
 #: logs/<ns>/<pod>; FAIL answers every call 500), on the port argv[2],
 #: which the workers share through SO_REUSEPORT; each log GET appends its
 #: line count to access.<pid>
 KUBE_WORKER = r"""
-import asyncio, ctypes, os, signal, socket, sys
+import ctypes, os, signal, socket, sys, threading
 from urllib.parse import parse_qs, urlsplit
 
 ctypes.CDLL(None).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG: end with the parent
 root, port = sys.argv[1], int(sys.argv[2])
 access = open(os.path.join(root, "access.%d" % os.getpid()), "a", buffering=1)
+REASONS = {200: b"OK", 404: b"Not Found", 500: b"Internal Server Error"}
 
 
 def read(*parts):
@@ -3781,43 +3792,41 @@ def route(target):
         elif len(parts) == 5 and parts[4] == "pods":
             body = read("pods", parts[3] + ".json")
         elif len(parts) == 7 and parts[6] == "log":
-            text = read("logs", parts[3], parts[5])
-            if text is not None:
-                lines = text.split(b"\n") if text else []
-                lines = lines[-int(parse_qs(split.query).get("tailLines", ["10000"])[0]):]
-                body = b"\n".join(lines)
-                access.write("%d\n" % len(lines))
+            body = read("logs", parts[3], parts[5])
+            if body is not None:
+                tail = int(parse_qs(split.query).get("tailLines", ["10000"])[0])
+                lines = body.count(b"\n") + 1 if body else 0
+                if lines > tail:
+                    body, lines = b"\n".join(body.split(b"\n")[-tail:]), tail
+                access.write("%d\n" % lines)
     return (200, body) if body is not None else (404, b"{}")
 
 
-async def serve(reader, writer):
+def serve(conn):
     try:
-        request = await reader.readline()
-        if not request:
-            return  # a readiness probe's bare connect
-        while (await reader.readline()) not in (b"\r\n", b"\n", b""):
-            pass
-        status, body = route(request.split(b" ")[1].decode())
-        reason = {200: b"OK", 404: b"Not Found", 500: b"Internal Server Error"}[status]
-        writer.write(
-            b"HTTP/1.1 %d %s\r\nContent-Type: application/json\r\nContent-Length: %d\r\n"
-            b"Connection: close\r\n\r\n" % (status, reason, len(body)) + body
-        )
-        await writer.drain()
-    finally:
-        writer.close()
+        with conn, conn.makefile("rb") as rfile:
+            while True:
+                request = rfile.readline()
+                if not request:
+                    return  # the client closed, or a readiness probe's bare connect
+                while rfile.readline() not in (b"\r\n", b"\n", b""):
+                    pass
+                status, body = route(request.split(b" ")[1].decode())
+                conn.sendall(
+                    b"HTTP/1.1 %d %s\r\nContent-Type: application/json\r\nContent-Length: %d\r\n\r\n"
+                    % (status, REASONS[status], len(body)) + body
+                )
+    except OSError:
+        pass  # a client that went away
 
 
-async def main():
-    sock = socket.socket()
-    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
-    sock.bind(("127.0.0.1", port))
-    server = await asyncio.start_server(serve, sock=sock, backlog=64)
-    await server.serve_forever()
-
-
-asyncio.run(main())
+sock = socket.socket()
+sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+sock.bind(("127.0.0.1", port))
+sock.listen(64)
+while True:
+    threading.Thread(target=serve, args=(sock.accept()[0],), daemon=True).start()
 """
 
 
@@ -4076,12 +4085,17 @@ class Served:
         self.stop(signal.SIGKILL)
 
 
-def dp_launches(port: int) -> int:
-    """The segment-stats launches a DP server process has made so far (its
-    GET / answer)."""
+def dp_health(port: int) -> dict:
+    """A DP server process's GET / answer: its segment-stats launches so
+    far and its last tick's stage walls."""
     status, health = http_json(port, "/", timeout=30)
     check(status == 200, f"GET / answered {status}")
-    return health["launches"]["segment_stats"]
+    return health
+
+
+def dp_launches(port: int) -> int:
+    """The segment-stats launches a DP server process has made so far."""
+    return dp_health(port)["launches"]["segment_stats"]
 
 
 def threaded_fetch(client, namespaces) -> tuple:
@@ -4217,19 +4231,23 @@ def serve_in_cluster(torch, device, counters) -> dict:
             gets, lines = kube.reads()
             launched = dp_launches(port)
             t = time.perf_counter()
-            resp = post_tick(port, request)
+            timing: dict = {}
+            resp = post_tick(port, request, timing)
             wall = (time.perf_counter() - t) * 1e3
             gets_after, lines_after = kube.reads()
             tick = {
                 "tick": k,
                 "wall_ms": round(wall, 3),
+                "client_decode_ms": timing["decode_ms"],
                 "pods_read": gets_after - gets,
                 "log_lines": lines_after - lines,
                 "bodies_logged": bodies,
                 "bodies_folded": count_bodies(resp["combined"]),
                 "datatypes": len(resp["datatype"]),
-                "dp_launches": dp_launches(port) - launched,
             }
+            health = dp_health(port)
+            tick["dp_launches"] = health["launches"]["segment_stats"] - launched
+            tick["dp_stages"] = {s: round(v, 3) for s, v in health["lastTickStagesMs"].items()}
             check(tick["dp_launches"] == 2, f"tick {k}: the DP launched segment_stats {tick['dp_launches']} times")
             check_response(resp, request["uniqueId"])
             want = cpu.collect(dict(request))
@@ -4256,6 +4274,13 @@ def serve_in_cluster(torch, device, counters) -> dict:
                 threaded = threaded_fetch(client, namespaces)
                 fetch_ms["threads"] = round((time.perf_counter() - t) * 1e3, 3)
                 check(threaded == pooled, "the threaded fetch differs from the workers'")
+                # the tick's own call: the window's requests only
+                t = time.perf_counter()
+                client.get_replicas_and_joinable_logs(
+                    namespaces, trace_ids={s["traceId"] for g in windows[k] for s in g}
+                )
+                fetch_ms["workers_window"] = round((time.perf_counter() - t) * 1e3, 3)
+                fetch_ms["workers_window_parts"] = {p: round(v, 3) for p, v in client.last_fetch_ms.items()}
                 tick["fetch_ms"] = fetch_ms
                 del pooled, threaded
             # (f) the same tick as a micro-tick of the stream engine
@@ -4268,7 +4293,8 @@ def serve_in_cluster(torch, device, counters) -> dict:
             check(tick["bodies_folded"] > 0, f"tick {k} folded no body")
             check(tick["pods_read"] > 0 and tick["log_lines"] > 0, f"tick {k} read no pod log")
             ticks.append(tick)
-            log("   (a) " + json.dumps({key: v for key, v in tick.items() if key not in ("stages", "fetch_ms")}))
+            log("   (a) " + json.dumps({key: v for key, v in tick.items() if key not in ("stages", "dp_stages", "fetch_ms")}))
+            log("   (a) DP stages " + json.dumps(tick["dp_stages"]))
             log("   (b) " + json.dumps(tick["stages"]))
             if "fetch_ms" in tick:
                 log("   (b) fetch " + json.dumps(tick["fetch_ms"]))

@@ -77,6 +77,7 @@ def build_production_context(
         )
         if not s.read_only_mode:
             k8s.warm_up()  # the tick's fan-out processes, off the request path
+            processor.warm_up()  # and its device code
     return AppContext.build(
         app_settings=s, processor=processor, zipkin_client=zipkin, k8s_client=k8s
     )

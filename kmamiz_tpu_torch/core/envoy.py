@@ -64,21 +64,36 @@ def parse_envoy_logs(
     """Parse 'time\\t[Request|Response ...]' lines into TEnvoyLog dicts
     (KubernetesService.ParseEnvoyLogs), natively."""
     records = native.parse_envoy_lines(logs)
+    return decorate_envoy_records(
+        records, backfill_trace_ids(records), namespace, pod_name
+    )
 
-    # shared decoration: timestamp parse, pod identity, and the
-    # "first non-NO_ID traceId wins per requestId" backfill
+
+def backfill_trace_ids(records: List[dict]) -> Dict[str, str]:
+    """One pod's parsed records -> each requestId's first non-NO_ID
+    traceId, which every record of that request takes (a requestId
+    missing here takes NO_ID)."""
     id_map: Dict[str, str] = {}
-    envoy_logs: List[dict] = []
     for r in records:
         if r["requestId"] not in id_map and r["traceId"] != "NO_ID":
             id_map[r["requestId"]] = r["traceId"]
+    return id_map
+
+
+def decorate_envoy_records(
+    records: List[dict], id_map: Dict[str, str], namespace: str, pod_name: str
+) -> "EnvoyLogs":
+    """Parsed records -> TEnvoyLog dicts: the timestamp parsed, the pod's
+    identity, the traceId from `id_map` (backfill_trace_ids of the pod's
+    records)."""
+    envoy_logs: List[dict] = []
+    for r in records:
         entry = dict(r)
         entry["timestamp"] = parse_timestamp_ms(entry.pop("time"))
         entry["namespace"] = namespace
         entry["podName"] = pod_name
+        entry["traceId"] = id_map.get(entry["requestId"], "NO_ID")
         envoy_logs.append(entry)
-    for e in envoy_logs:
-        e["traceId"] = id_map.get(e["requestId"], "NO_ID")
     return EnvoyLogs(envoy_logs)
 
 

@@ -15,18 +15,24 @@ not the sum (the Rust DP's join_all, data_processor.rs:58-73). Its logs
 come back structured and combined as EnvoyLogs.combine_structured does,
 each trace reduced to the fields the realtime join reads (`joinable`).
 
-The second wave runs in contiguous shards on FANOUT_PROCESSES worker
-processes, each with fanout_workers / FANOUT_PROCESSES fetch threads: a
-tick reads every pod of its namespaces, thousands at a mesh's size, and
-the per-pod HTTP, parse decoration and structuring are Python, which
-threads of one interpreter run one at a time. The workers are plain
-`python -c` processes that import this module and not the caller's main
-module (nor torch); they start at the first fetch or at warm_up() and end
-with close(), with the client, or when the parent's end closes their
-pipe.
+The fetch runs on FANOUT_PROCESSES worker processes: the listings on
+the first, then the logs in contiguous shards, each worker with
+fanout_workers / FANOUT_PROCESSES fetch threads. A tick reads every pod
+of its namespaces, thousands at a mesh's size, and the per-pod HTTP,
+parse decoration and structuring are Python, which threads of one
+interpreter run one at a time; the caller's process, whose tick walks
+its dependencies meanwhile, only waits on the workers' pipes. Given the
+window's trace ids, the workers structure and hand back only the
+requests that the window's realtime join can read, so the tick's
+structuring, transfer and combine follow the window and not the pods'
+whole log tails. The workers are plain `python -c` processes that import
+this module and not the caller's main module (nor torch); they start at
+the first fetch or at warm_up() and end with close(), with the client,
+or when the parent's end closes their pipe.
 """
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import os
@@ -40,10 +46,14 @@ import urllib.error
 import urllib.request
 import weakref
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+from urllib.parse import urlsplit
 
+from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.core.envoy import (
     EnvoyLogs,
+    backfill_trace_ids,
+    decorate_envoy_records,
     parse_envoy_logs,
     strip_istio_proxy_prefix,
 )
@@ -55,8 +65,10 @@ DEFAULT_LOG_LIMIT = 10_000  # KubernetesService.ts:18
 CANONICAL_NAME_LABEL = "service.istio.io/canonical-name"
 CANONICAL_REVISION_LABEL = "service.istio.io/canonical-revision"
 DEFAULT_FANOUT_WORKERS = 16
-#: worker processes of the tick's log fan-out: one a core, up to 8
-FANOUT_PROCESSES = min(8, os.cpu_count() or 1)
+#: worker processes of the tick's log fan-out, up to 4: the wave's HTTP and
+#: parse are bound by the host's cores, which the serving process's own
+#: dependency walk (beside the fetch) and the API server's answers share
+FANOUT_PROCESSES = min(4, os.cpu_count() or 1)
 
 #: the package's root directory, on a worker's import path
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -93,38 +105,72 @@ def joinable(structured: List[dict]) -> List[dict]:
     ]
 
 
-def joinable_logs(
-    client: "KubernetesClient", targets: Sequence[Tuple[str, str]], limit: int
-) -> List[List[dict]]:
-    """A fan-out worker's part of a tick: the log of each (namespace, pod)
-    in `targets` fetched, parsed and structured on the client's threads;
-    each pod's joinable structured logs, in target order."""
-    if not targets:
-        return []
-    with ThreadPoolExecutor(max_workers=min(client._fanout_workers, len(targets))) as pool:
-        return list(
-            pool.map(lambda t: joinable(client.get_envoy_logs(t[0], t[1], limit).to_structured()), targets)
-        )
+class _ParsedPod:
+    """One pod's istio-proxy log, fetched and parsed, held by a fan-out
+    worker between a call's two steps: its records, each request's
+    backfilled traceId, and whether the pod structures in fallback mode
+    (a spanId of NO_ID anywhere in its log, as EnvoyLogs.to_structured
+    decides)."""
+
+    def __init__(self, client: "KubernetesClient", namespace: str, pod: str, limit: int) -> None:
+        raw = client._raw_log(namespace, pod, limit)
+        self.namespace, self.pod = namespace, pod
+        self.records = native.parse_envoy_lines(strip_istio_proxy_prefix(raw.split("\n")))
+        self.id_map = backfill_trace_ids(self.records)
+        self.fallback = any(r["spanId"] == "NO_ID" for r in self.records)
+
+    def requests_of(self, trace_ids) -> set:
+        """The requestIds whose backfilled traceId is in `trace_ids`."""
+        return {request for request, trace in self.id_map.items() if trace in trace_ids}
+
+    def joinable(self, keep: Optional[set]) -> List[dict]:
+        """The pod's joinable structured logs, of the requests in `keep`
+        only (None: all), structured in the mode of the whole pod."""
+        records = self.records
+        if keep is not None:
+            records = [r for r in records if r["requestId"] in keep]
+        logs = decorate_envoy_records(records, self.id_map, self.namespace, self.pod)
+        return joinable(logs.to_structured_fallback() if self.fallback else logs.to_structured())
 
 
 def serve_fanout() -> None:
     """A fan-out worker process's loop. Its standard input carries pickled
-    messages: first the client's constructor arguments, then one
-    (targets, limit) a call; each call's reply, ("ok", joinable_logs) or
-    ("err", the exception), goes out on the standard output, which nothing
-    else writes (stray prints go to the standard error). It ends when its
-    input closes."""
+    messages: first the client's constructor arguments, then the calls;
+    each call's reply, ("ok", value) or ("err", the exception), goes out
+    on the standard output, which nothing else writes (stray prints go to
+    the standard error). It ends when its input closes. The calls:
+
+    - ("list", namespaces): (replicas, log targets), the pod listings;
+    - ("logs", targets, limit, trace_ids): each (namespace, pod) in
+      `targets` fetched and parsed on the client's threads and held; the
+      requestIds whose traceId is in `trace_ids` (an empty set for None);
+    - ("keep", request_ids): the held pods' joinable structured logs, in
+      target order, of the requests in `request_ids` only (None: all)."""
     out = os.fdopen(os.dup(1), "wb")
     os.dup2(2, 1)
     source = sys.stdin.buffer
     client = KubernetesClient(*pickle.load(source))
+    # the fetch threads live as long as the worker, and so do their
+    # kept-alive connections
+    pool = ThreadPoolExecutor(max_workers=client._fanout_workers)
+    held: List[_ParsedPod] = []
     while True:
         try:
-            targets, limit = pickle.load(source)
+            message = pickle.load(source)
         except EOFError:
             return
         try:
-            reply = pickle.dumps(("ok", joinable_logs(client, targets, limit)), pickle.HIGHEST_PROTOCOL)
+            kind = message[0]
+            if kind == "list":
+                value = client._replicas_and_targets(message[1])
+            elif kind == "logs":
+                _kind, targets, limit, trace_ids = message
+                held = list(pool.map(lambda t: _ParsedPod(client, t[0], t[1], limit), targets))
+                value = set() if trace_ids is None else set().union(*(p.requests_of(trace_ids) for p in held))
+            else:
+                value = [p.joinable(message[1]) for p in held]
+                held = []
+            reply = pickle.dumps(("ok", value), pickle.HIGHEST_PROTOCOL)
         except Exception as err:  # noqa: BLE001 - the parent raises it
             try:
                 reply = pickle.dumps(("err", err), pickle.HIGHEST_PROTOCOL)
@@ -168,6 +214,32 @@ class _FanoutWorker:
 def _stop_workers(workers: List[_FanoutWorker]) -> None:
     while workers:
         workers.pop().stop()
+
+
+def _ask(workers: List[_FanoutWorker], messages: list) -> list:
+    """One message to each worker, then each worker's reply value, in
+    order; every reply is read before the first error is raised, so the
+    pipes stay in step."""
+    for worker, message in zip(workers, messages):
+        worker.send(message)
+    replies = [worker.receive() for worker in workers]
+    for status, value in replies:
+        if status == "err":
+            raise value
+    return [value for _status, value in replies]
+
+
+def _exchange(conn: http.client.HTTPConnection, target: str, headers: dict) -> tuple:
+    """GET `target` on `conn`: (status, reason, headers, body). The
+    connection is closed on any failure, so the next request opens it
+    anew."""
+    try:
+        conn.request("GET", target, headers=headers)
+        response = conn.getresponse()
+        return response.status, response.reason, response.headers, response.read()
+    except BaseException:
+        conn.close()
+        raise
 
 
 class KubernetesServiceError(Exception):
@@ -219,6 +291,9 @@ class KubernetesClient:
             if ca_cert_path
             else None
         )
+        self._split = urlsplit(self._base)
+        # each thread's kept-alive connection to the API server
+        self._local = threading.local()
 
     @classmethod
     def from_service_account(
@@ -243,15 +318,41 @@ class KubernetesClient:
 
     # -- transport -----------------------------------------------------------
 
+    def _connection(self) -> http.client.HTTPConnection:
+        """This thread's connection to the API server, kept alive across
+        calls (a TLS handshake a call would cost an in-cluster fetch more
+        than the call), opened at its first request."""
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            split = self._split
+            if split.scheme == "https":
+                conn = http.client.HTTPSConnection(
+                    split.hostname, split.port, timeout=self._timeout, context=self._ssl_context
+                )
+            else:
+                conn = http.client.HTTPConnection(split.hostname, split.port, timeout=self._timeout)
+            self._local.conn = conn
+        return conn
+
     def _request_once(self, path: str, as_json: bool = True):
+        """One GET over this thread's connection. A status of 400 or more
+        raises urllib.error.HTTPError, as urllib's transport did; a
+        kept-alive connection that the server had closed is opened anew
+        and the request sent once more at once."""
         headers = {"Accept": "application/json" if as_json else "text/plain"}
         if self._token:
             headers["Authorization"] = f"Bearer {self._token}"
-        request = urllib.request.Request(self._base + path, headers=headers)
-        with urllib.request.urlopen(
-            request, timeout=self._timeout, context=self._ssl_context
-        ) as response:
-            raw = response.read()
+        conn = self._connection()
+        target = self._split.path + path
+        reused = conn.sock is not None
+        try:
+            status, reason, response_headers, raw = _exchange(conn, target, headers)
+        except ConnectionError:
+            if not reused:
+                raise
+            status, reason, response_headers, raw = _exchange(conn, target, headers)
+        if status >= 400:
+            raise urllib.error.HTTPError(self._base + path, status, reason, response_headers, None)
         return json.loads(raw) if as_json else raw.decode("utf-8", "replace")
 
     def _request(self, path: str, as_json: bool = True):
@@ -382,44 +483,52 @@ class KubernetesClient:
         return replicas, targets
 
     def get_replicas_and_joinable_logs(
-        self, namespaces: Iterable[str], limit: int = DEFAULT_LOG_LIMIT
+        self,
+        namespaces: Iterable[str],
+        limit: int = DEFAULT_LOG_LIMIT,
+        trace_ids: Optional[Iterable[str]] = None,
     ) -> Tuple[List[dict], List[dict]]:
-        """The DP tick's whole cluster-state fetch in two concurrent waves:
+        """The DP tick's whole cluster-state fetch on the worker processes:
         one pod listing per namespace (in parallel, read for both the
-        replica counts and the log targets), then the per-pod log fetch,
-        parse and structuring on the worker processes. The replicas, and
-        the logs as combine_to_structured_envoy_logs gives them, each trace
-        reduced to its `joinable` fields (the parent-id fill is left out:
-        the realtime join reads no parent id)."""
+        replica counts and the log targets), then the per-pod log fetch and
+        parse, then the structuring. The replicas, and the logs as
+        combine_to_structured_envoy_logs gives them, each trace reduced to
+        its `joinable` fields (the parent-id fill is left out: the realtime
+        join reads no parent id). Given the window's `trace_ids`, only the
+        requests with a trace of the window in some pod, each with all its
+        pods' traces: the join keys a combined request by its first
+        trace's traceId, so it reads no other, and the window's realtime
+        records are the same."""
         namespaces = list(namespaces)
         if not namespaces:
             return [], []
+        if trace_ids is not None:
+            trace_ids = set(trace_ids)
         t0 = time.perf_counter()
-        replicas, targets = self._replicas_and_targets(namespaces)
-        if not targets:
-            return replicas, []
-        t1 = time.perf_counter()
-        step = -(-len(targets) // FANOUT_PROCESSES)
         with self._workers_lock:
-            busy = list(zip(self._started_locked(), range(0, len(targets), step)))
+            workers = self._started_locked()
             try:
-                for worker, i in busy:
-                    worker.send((targets[i : i + step], limit))
-                replies = [worker.receive() for worker, _ in busy]
+                ((replicas, targets),) = _ask(workers[:1], [("list", namespaces)])
+                if not targets:
+                    return replicas, []
+                t1 = time.perf_counter()
+                step = -(-len(targets) // len(workers))
+                shards = [targets[i : i + step] for i in range(0, len(targets), step)]
+                busy = workers[: len(shards)]
+                matched = _ask(busy, [("logs", shard, limit, trace_ids) for shard in shards])
+                keep = None if trace_ids is None else set().union(*matched)
+                t2 = time.perf_counter()
+                replies = _ask(busy, [("keep", keep)] * len(busy))
             except (OSError, EOFError, pickle.UnpicklingError) as err:
                 _stop_workers(self._workers)
                 raise RuntimeError(f"a log fan-out worker process failed: {err!r}") from err
-        per_pod: List[List[dict]] = []
-        for status, value in replies:
-            if status == "err":
-                raise value
-            per_pod.extend(value)
-        t2 = time.perf_counter()
-        combined = EnvoyLogs.combine_structured(per_pod)
+        t3 = time.perf_counter()
+        combined = EnvoyLogs.combine_structured([pod for reply in replies for pod in reply])
         self.last_fetch_ms = {
             "listing": (t1 - t0) * 1e3,
             "logs": (t2 - t1) * 1e3,
-            "combine": (time.perf_counter() - t2) * 1e3,
+            "structure": (t3 - t2) * 1e3,
+            "combine": (time.perf_counter() - t3) * 1e3,
         }
         return replicas, combined
 
@@ -435,10 +544,7 @@ class KubernetesClient:
         the first tick does not pay for their start."""
         with self._workers_lock:
             workers = self._started_locked()
-            for worker in workers:
-                worker.send(([], DEFAULT_LOG_LIMIT))
-            for worker in workers:
-                worker.receive()
+            _ask(workers, [("logs", [], DEFAULT_LOG_LIMIT, None)] * len(workers))
 
     def close(self) -> None:
         """Stop the fan-out's worker processes."""

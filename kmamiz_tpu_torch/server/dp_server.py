@@ -109,6 +109,22 @@ class _LastGoodTick:
         return payload
 
 
+def encode_payload(payload: dict, encoded: Optional[dict] = None) -> bytes:
+    """json.dumps(payload), encoded; the values of the keys in `encoded`
+    are given as their JSON text already, which goes in as it is (the
+    same bytes json.dumps would write)."""
+    if not encoded:
+        return json.dumps(payload).encode()
+    return (
+        "{"
+        + ", ".join(
+            f"{json.dumps(key)}: {encoded[key] if key in encoded else json.dumps(value)}"
+            for key, value in payload.items()
+        )
+        + "}"
+    ).encode()
+
+
 class _EncodedPayloadCache:
     """Encoded response bytes by (uniqueId, graph version, label epoch):
     a retried request against an unchanged graph is answered with the
@@ -119,13 +135,15 @@ class _EncodedPayloadCache:
         self._max = max_entries
         self._entries: "dict[tuple, bytes]" = {}
 
-    def get_or_encode(self, key: tuple, payload: dict, use_gzip: bool) -> bytes:
+    def get_or_encode(
+        self, key: tuple, payload: dict, use_gzip: bool, encoded: Optional[dict] = None
+    ) -> bytes:
         full_key = key + (use_gzip,)
         with self._lock:
             body = self._entries.get(full_key)
         if body is not None:
             return body
-        body = json.dumps(payload).encode()
+        body = encode_payload(payload, encoded)
         if use_gzip:
             body = gzip.compress(body, compresslevel=GZIP_LEVEL)
         with self._lock:
@@ -164,10 +182,11 @@ def make_handler(
             payload: dict,
             cache_key: Optional[tuple] = None,
             extra_headers: Optional[dict] = None,
+            encoded_parts: Optional[dict] = None,
         ) -> None:
             encoded = "gzip" in self.headers.get("Accept-Encoding", "")
             if cache_key is not None:
-                body = encoded_cache.get_or_encode(cache_key, payload, encoded)
+                body = encoded_cache.get_or_encode(cache_key, payload, encoded, encoded_parts)
             else:
                 body = json.dumps(payload).encode()
                 if encoded:
@@ -200,6 +219,8 @@ def make_handler(
                     "device": str(processor.device),
                     # the tick's CUDA kernel launches in this process
                     "launches": {"segment_stats": segment_stats.launches},
+                    # the last serial tick's stage walls (processor.collect)
+                    "lastTickStagesMs": dict(processor.last_stage_ms),
                 },
             )
 
@@ -266,7 +287,14 @@ def make_handler(
             graph = processor.graph
             version, label_epoch = graph.version, graph.label_epoch
             last_good.update(response, version, label_epoch)
-            self._send_json(200, response, cache_key=(unique_id, version, label_epoch))
+            # the dependency records the tick encoded in its fetch's shadow
+            text = processor.take_encoded_dependencies(response.get("dependencies"))
+            self._send_json(
+                200,
+                response,
+                cache_key=(unique_id, version, label_epoch),
+                encoded_parts=None if text is None else {"dependencies": text},
+            )
 
         def _send_stale(self, stale: dict) -> None:
             """The degraded answer: 200 and the last good payload, its
@@ -321,6 +349,9 @@ class DataProcessorServer:
         stream_chunks: int = DEFAULT_STREAM_CHUNKS,
     ) -> None:
         self.processor = processor
+        # the server answers in JSON: a tick may encode its dependency
+        # records while its cluster fetch runs
+        processor.encode_dependencies_early = True
         self._server = ThreadingHTTPServer(
             (host, port), make_handler(processor, stream_bytes, stream_chunks)
         )
@@ -353,8 +384,9 @@ def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
     KUBEAPI_HOST (unset: no cluster source), IS_RUNNING_IN_K8S ("true":
     the mounted service account's token and CA), BIND_IP and DP_PORT,
     with the processor on `device` (None: the card, raising without
-    one). The native library builds and the cluster client's fan-out
-    processes start first, off the request path, and
+    one). The native library builds, the cluster client's fan-out
+    processes start and the tick's device code loads (warm_up) first,
+    off the request path, and
     with KMAMIZ_WAL=1 the WAL replays before the server exists, so the
     first tick answers from the recovered graph. Returns (server, the
     replay's totals)."""
@@ -373,6 +405,7 @@ def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
     native.available()
     if k8s is not None:
         k8s.warm_up()
+    processor.warm_up()
     recovered = processor.replay_wal()
     if recovered["replayed"]:
         logger.info("wal replay: %s", recovered)

@@ -71,7 +71,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from kmamiz_tpu_torch import native
+from kmamiz_tpu_torch import native, synth
 from kmamiz_tpu_torch.core import schema
 from kmamiz_tpu_torch.core.interning import StringInterner
 from kmamiz_tpu_torch.core.spans import (
@@ -105,6 +105,10 @@ DEFAULT_STREAM_CHUNKS = 4
 #: parsed chunks the streaming ingest's ring holds (KMAMIZ_INGEST_DEPTH's
 #: default); each pins its batch's host arrays
 DEFAULT_STREAM_DEPTH = 2
+#: the scratch windows that warm_up ticks over: a tick's trace count, on a
+#: small mesh (services x urls), 7-span chains
+WARM_UP_TRACES = 2_500
+WARM_UP_MESH = dict(n_services=50, urls_per_service=4)
 #: the gen-0 collection threshold the serving process runs with (the JAX
 #: processor's KMAMIZ_GC_GEN0 default; the knob is not ported)
 GC_GEN0 = 50_000
@@ -145,6 +149,7 @@ class _PreparedTick:
         "batch",
         "stages",
         "objects",
+        "dependency_records",
     )
 
     def __init__(self, request: dict) -> None:
@@ -160,27 +165,29 @@ class _PreparedTick:
         self.stages: Dict[str, float] = {}
         # the response's dependencies as the object (collect's objects)
         self.objects = False
+        # the response's dependency records, when they were encoded early
+        self.dependency_records = None
 
 
 class _ClusterFetch:
     """A tick's cluster fetch, the source's
-    get_replicas_and_joinable_logs(namespaces), on a thread of its own.
-    result() waits and returns (replicas, structured logs) or raises the
-    fetch's error; `ms` is the fetch's own wall."""
+    get_replicas_and_joinable_logs(namespaces, trace_ids=...), on a thread
+    of its own. result() waits and returns (replicas, structured logs) or
+    raises the fetch's error; `ms` is the fetch's own wall."""
 
-    def __init__(self, source, namespaces) -> None:
+    def __init__(self, source, namespaces, trace_ids) -> None:
         self.ms = 0.0
         self._out = None
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(
-            target=self._run, args=(source, namespaces), name="cluster-fetch", daemon=True
+            target=self._run, args=(source, namespaces, trace_ids), name="cluster-fetch", daemon=True
         )
         self._thread.start()
 
-    def _run(self, source, namespaces) -> None:
+    def _run(self, source, namespaces, trace_ids) -> None:
         t0 = time.perf_counter()
         try:
-            self._out = source.get_replicas_and_joinable_logs(namespaces)
+            self._out = source.get_replicas_and_joinable_logs(namespaces, trace_ids=trace_ids)
         except BaseException as err:  # noqa: BLE001 - re-raised by result()
             self._err = err
         finally:
@@ -215,10 +222,11 @@ class DataProcessor:
     is the clock of the dedup map's time-to-live.
 
     `k8s_source` is the cluster source: an object with
-    get_replicas_and_joinable_logs(namespaces) -> (replicas, structured
-    envoy logs), as ingestion.kubernetes.KubernetesClient has (the JAX
-    processor's source answers get_replicas_and_envoy_logs; the port's
-    hands the tick the logs its worker processes structured). With use_device_stats
+    get_replicas_and_joinable_logs(namespaces, trace_ids=) -> (replicas,
+    structured envoy logs), as ingestion.kubernetes.KubernetesClient has
+    (the JAX processor's source answers get_replicas_and_envoy_logs; the
+    port's hands the tick the logs of the window's requests, which its
+    worker processes structured). With use_device_stats
     off, the window statistics run on the host (the JAX processor's
     flag: the stream's bit-exact contract runs so). `wal` is the ingest
     WAL: "from_env" (KMAMIZ_WAL), an IngestWAL, or None.
@@ -291,6 +299,12 @@ class DataProcessor:
         self.graph = graph if graph is not None else EndpointGraph(device=self.device)
         #: wall ms of the last finished tick's stages
         self.last_stage_ms: Dict[str, float] = {}
+        #: whether a tick with a cluster fetch JSON-encodes its dependency
+        #: records while the fetch runs (the DP server sets it: it answers
+        #: in JSON; take_encoded_dependencies hands the text over)
+        self.encode_dependencies_early = False
+        # (the records, their JSON text) of the last tick that encoded early
+        self._encoded_dependencies: Tuple[Optional[list], str] = (None, "")
         #: wall ms of the last raw ingest's parse and merge
         self.last_ingest_ms: Dict[str, float] = {}
         # online history-feature state, created on the first observed
@@ -709,6 +723,43 @@ class DataProcessor:
 
     # -- the tick ------------------------------------------------------------
 
+    def take_encoded_dependencies(self, records) -> Optional[str]:
+        """The JSON text (json.dumps's) of a response's dependency records
+        when the tick that made them encoded them early, handed over once:
+        `records` must be that response's list itself; else None."""
+        encoded, text = self._encoded_dependencies
+        if records is None or records is not encoded:
+            return None
+        self._encoded_dependencies = (None, "")
+        return text
+
+    def warm_up(self) -> None:
+        """Load the tick's device code before the first tick is served.
+        CUDA loads a kernel's module at its first launch (the segment-stats
+        kernel's, and torch's sorts and scatters of the merge), and the
+        caching allocator and pinned staging take their first blocks then:
+        the first served tick would pay for all of it. Two ticks of a
+        scratch processor on this device, over synthetic windows of
+        WARM_UP_TRACES traces (the second merges through the interned-edge
+        path), run it instead. This processor's graph, dedup map, history
+        and WAL are not touched. Nothing loads lazily on the CPU, where it
+        returns at once."""
+        if self.device.type != "cuda":
+            return
+        windows = iter(
+            json.loads(
+                synth.make_raw_window(
+                    WARM_UP_TRACES, 7, t_start=k * WARM_UP_TRACES, trace_prefix=f"warm-up{k}-", **WARM_UP_MESH
+                )
+            )
+            for k in range(2)
+        )
+        scratch = DataProcessor(
+            trace_source=lambda look_back, t, limit: next(windows), device=self.device, wal=None
+        )
+        for k in range(2):
+            scratch.collect({"uniqueId": f"warm-up{k}", "lookBack": 30_000})
+
     def collect(self, request: dict, objects: bool = False) -> dict:
         """TExternalDataProcessorRequest -> TExternalDataProcessorResponse.
         Ticks run one at a time under tick_lock, whoever calls: the DP
@@ -754,11 +805,14 @@ class DataProcessor:
         # the cluster fetch runs on a thread of its own (its fan-out on the
         # cluster client's worker processes) while this thread logs the
         # window and walks its dependencies, neither of which touches the
-        # graph; its failure fails the tick before the graph changes
+        # graph; its failure fails the tick before the graph changes. It
+        # hands back the logs of the window's traces only: the realtime
+        # join reads no other
         cluster = None
         if self._k8s is not None:
             namespaces = {ns for ns in traces.extract_containing_namespaces() if ns}
-            cluster = _ClusterFetch(self._k8s, namespaces)
+            trace_ids = {span["traceId"] for group in trace_groups for span in group}
+            cluster = _ClusterFetch(self._k8s, namespaces, trace_ids)
 
         if trace_groups and self._wal is not None:
             with _stage(p.stages, "wal_append"):
@@ -781,6 +835,15 @@ class DataProcessor:
                 dependencies = dependencies.combine_with(
                     EndpointDependencies(existing_dep)
                 )
+
+        if cluster is not None and self.encode_dependencies_early:
+            with _stage(p.stages, "dependencies_json"):
+                # the response's largest part, encoded in the fetch's
+                # shadow, one record a call so the fetch's thread gets the
+                # interpreter between records
+                p.dependency_records = dependencies.to_json()
+                text = "[" + ", ".join(json.dumps(r) for r in p.dependency_records) + "]"
+                self._encoded_dependencies = (p.dependency_records, text)
 
         replicas: List[dict] = []
         structured_logs: List[dict] = []
@@ -834,10 +897,16 @@ class DataProcessor:
             combined = self._combine(p.realtime, p.stats_job)
             datatypes = [d.to_json() for d in combined_list_datatypes(combined)]
         elapsed = (time.perf_counter() - p.wall_t0) * 1e3
+        if p.objects:
+            dependencies = p.dependencies
+        elif p.dependency_records is not None:
+            dependencies = p.dependency_records
+        else:
+            dependencies = p.dependencies.to_json()
         return {
             "uniqueId": p.request.get("uniqueId", ""),
             "combined": combined.to_json(),
-            "dependencies": p.dependencies if p.objects else p.dependencies.to_json(),
+            "dependencies": dependencies,
             "datatype": datatypes,
             "log": (
                 f"processed {sum(len(g) for g in p.trace_groups)} spans / "

@@ -797,3 +797,18 @@ def test_history_restore_onto_the_card_gives_the_snapshot_back(card):
     on_card.restore_history(json.loads(json.dumps(docs)))
     assert json.dumps(on_card.snapshot_history(), sort_keys=True) == json.dumps(docs, sort_keys=True)
     assert on_card.graph.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_warm_up_leaves_the_processor_as_it_was(card):
+    """warm_up runs two scratch ticks on the card (2 segment-stats launches
+    each) and leaves the processor's graph, interner, dedup map and
+    history as they were."""
+    groups = json.loads((FIXTURES / "bookinfo_traces.json").read_text())
+    dp = DataProcessor(trace_source=lambda lb, t, lim: groups, device=card, wal=None)
+    dp.collect({"uniqueId": "before", "lookBack": 30_000})
+    state = (graph_signature(dp.graph), len(dp.graph.interner.endpoints), dict(dp._processed), dp.history)
+    before = ss.segment_stats.launches
+    dp.warm_up()
+    assert ss.segment_stats.launches == before + 4
+    assert (graph_signature(dp.graph), len(dp.graph.interner.endpoints), dict(dp._processed), dp.history) == state

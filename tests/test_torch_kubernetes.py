@@ -364,6 +364,52 @@ class TestKubernetesClient:
             KubernetesClient("")
 
 
+class _KeepAliveApi(BaseHTTPRequestHandler):
+    """An HTTP/1.1 API that keeps its connections alive, or with `drop`
+    closes each one after its answer without saying so; counts the
+    connections it accepted."""
+
+    protocol_version = "HTTP/1.1"
+    connections = 0
+    drop = False
+
+    def setup(self):
+        type(self).connections += 1
+        super().setup()
+
+    def log_message(self, *args):
+        pass
+
+    def do_GET(self):
+        body = json.dumps({"items": [{"metadata": {"name": "pdas"}}]}).encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+        self.close_connection = type(self).drop
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["kept", "dropped"])
+def test_a_thread_keeps_its_api_connection_alive(drop):
+    """The client's calls on one thread share one connection to an API
+    server that keeps it alive; a kept-alive connection that the server
+    closed is opened anew at once, not through the retry's backoff."""
+    _KeepAliveApi.connections, _KeepAliveApi.drop = 0, drop
+    server = _Server(("127.0.0.1", 0), _KeepAliveApi)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = KubernetesClient(_base(server), retries=0, backoff_s=5.0)
+        start = time.monotonic()
+        for _ in range(3):
+            assert client.get_namespaces() == ["pdas"]
+        assert time.monotonic() - start < 2.0
+        assert _KeepAliveApi.connections == (3 if drop else 1)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
 class TestProductionContext:
     def test_build_production_context_wires_clients(self):
         from kmamiz_tpu_torch.api.app import build_production_context
@@ -624,6 +670,86 @@ def test_the_pooled_fetch_joins_as_the_structured_logs(mock_api):
             assert sum(1 for r in got if r["responseBody"]) > 0
     finally:
         client.close()
+
+
+def _jax_realtime(server, groups, namespaces):
+    """JAX's realtime records of a window over the whole of the cluster's
+    logs: its get_replicas_and_envoy_logs, combine_to_structured_envoy_logs."""
+    from kmamiz_tpu.core.envoy import EnvoyLogs as JaxEnvoyLogs
+    from kmamiz_tpu.domain.traces import Traces as JaxTraces
+
+    jax_replicas, jax_logs = JaxKubernetesClient(_base(server)).get_replicas_and_envoy_logs(namespaces)
+    return JaxTraces(groups).combine_logs_to_realtime_data(
+        JaxEnvoyLogs.combine_to_structured_envoy_logs(jax_logs), jax_replicas
+    ).to_json()
+
+
+def test_the_window_fetch_joins_as_the_structured_logs(mock_api):
+    """get_replicas_and_joinable_logs given the window's trace ids (as the
+    tick calls it) hands back the requests of the window only, however
+    many windows the pods' logs hold, and the window's realtime records
+    equal those that JAX's join gives over every log line."""
+    from kmamiz_tpu_torch.domain.traces import Traces
+
+    server, api = mock_api
+    cluster = MockCluster(seed=5)
+    cluster.mount(api)
+    client = KubernetesClient(_base(server))
+    try:
+        for groups in _windows(3):
+            cluster.add_window(groups)
+            namespaces = {s["tags"]["istio.namespace"] for g in groups for s in g}
+            trace_ids = {s["traceId"] for g in groups for s in g}
+            replicas, joined = client.get_replicas_and_joinable_logs(namespaces, trace_ids=trace_ids)
+            assert {entry["requestId"] for entry in joined} == {f"req-{t}" for t in trace_ids}
+            got = Traces(groups).combine_logs_to_realtime_data(joined, replicas).to_json()
+            assert got == _jax_realtime(server, groups, namespaces)
+            assert sum(1 for r in got if r["responseBody"]) > 0
+    finally:
+        client.close()
+
+
+def test_the_window_fetch_keeps_every_pod_of_a_window_request(mock_api):
+    """A request of the window keeps the traces that other pods logged
+    under it, also where those carry no traceId of the window: here a pod
+    that logged the request earlier without a trace header, whose NO_ID
+    trace then comes first in the combined request and takes the join's
+    key. A pod whose log holds a NO_ID span id anywhere structures the
+    kept request in fallback mode. The realtime records equal JAX's over
+    every log line; a request with no trace in the window is left out."""
+    from kmamiz_tpu_torch.domain.traces import Traces
+
+    server, api = mock_api
+    cluster = MockCluster(seed=6)
+    cluster.mount(api)
+    (groups,) = _windows(1, traces=6)
+    cluster.add_window(groups)
+    spans = [s for g in groups for s in g if s.get("kind") == "SERVER"]
+    first, other = spans[0], spans[-1]
+    ns = first["tags"]["istio.namespace"]
+    cluster.pods[("ghost", ns)] = ["ghost-0"]
+    early = min(s["timestamp"] for s in spans) / 1000 - 1_000
+    common = dict(method="GET", host="ghost", path="/", status="200", response_content_type="application/json")
+    request, response = envoy_filter.emit_stream_logs(
+        early, request_id=f"req-{first['traceId']}", span_id=first["id"], response_body='{"ghost":1}', **common
+    )
+    stray = envoy_filter.emit_stream_logs(early, request_id="req-elsewhere", trace_id="e1", **common)
+    cluster.logs[(ns, "ghost-0")] = [request, response, *stray]
+    namespaces = {s["tags"]["istio.namespace"] for g in groups for s in g}
+    client = KubernetesClient(_base(server))
+    try:
+        replicas, joined = client.get_replicas_and_joinable_logs(
+            namespaces, trace_ids={s["traceId"] for g in groups for s in g}
+        )
+    finally:
+        client.close()
+    by_request = {entry["requestId"]: entry["traces"] for entry in joined}
+    assert "req-elsewhere" not in by_request
+    assert by_request[f"req-{first['traceId']}"][0]["traceId"] == "NO_ID"
+    assert by_request[f"req-{first['traceId']}"][0]["isFallback"] is True
+    assert f"req-{other['traceId']}" in by_request
+    got = Traces(groups).combine_logs_to_realtime_data(joined, replicas).to_json()
+    assert got == _jax_realtime(server, groups, namespaces)
 
 
 def test_a_pod_log_fault_in_a_worker_fails_the_fetch(mock_api):

@@ -87,6 +87,67 @@ def _post(port: int, body: dict) -> dict:
         return json.loads(resp.read())
 
 
+def test_encode_payload_splices_the_given_text_as_json_dumps_would():
+    """encode_payload with a value's JSON text given writes the bytes of
+    json.dumps(payload)."""
+    from kmamiz_tpu_torch.server.dp_server import encode_payload
+
+    records = [{"endpoint": {"url": "http://a/ü", "t": 1.5e12}, "distance": 1}, {"x": [None, True, 0.1]}]
+    payload = {"uniqueId": "u", "combined": [{"k": "v"}], "dependencies": records, "datatype": [], "log": "é"}
+    text = "[" + ", ".join(json.dumps(r) for r in records) + "]"
+    assert encode_payload(payload, {"dependencies": text}) == json.dumps(payload).encode()
+    assert encode_payload(payload) == json.dumps(payload).encode()
+    empty = {**payload, "dependencies": []}
+    assert encode_payload(empty, {"dependencies": "[]"}) == json.dumps(empty).encode()
+
+
+def test_dp_tick_with_a_cluster_answers_with_its_early_encoded_dependencies(mesh, monkeypatch):
+    """A DP server's tick with a cluster source encodes its dependency
+    records while the fetch runs; the answer's bytes are json.dumps's of
+    the payload, and a second tick's records are its own."""
+    from kmamiz_tpu_torch.domain.traces import Traces
+    from kmamiz_tpu_torch.server import dp_server
+
+    monkeypatch.setenv("ZIPKIN_URL", mesh["base"])
+    monkeypatch.setenv("KUBEAPI_HOST", mesh["base"])
+    monkeypatch.setenv("IS_RUNNING_IN_K8S", "false")
+    monkeypatch.setenv("BIND_IP", "127.0.0.1")
+    monkeypatch.setenv("DP_PORT", "0")
+    monkeypatch.setenv("KMAMIZ_WAL", "0")
+    server, _ = dp_server.build_server(device="cpu")
+    proc = server.processor
+    server.start()
+    try:
+        for k, groups in enumerate(_windows(2)):
+            _queue(mesh, groups)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/", data=json.dumps({"uniqueId": f"e{k}", "lookBack": 30_000}).encode()
+            )
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                body = resp.read()
+            answer = json.loads(body)
+            assert "dependencies_json" in proc.last_stage_ms
+            assert answer["dependencies"] and body == json.dumps(answer).encode()
+            want = Traces(groups).to_endpoint_dependencies().to_json()
+            assert answer["dependencies"] == json.loads(json.dumps(want))
+    finally:
+        server.stop()
+
+
+def test_warm_up_on_the_cpu_touches_nothing():
+    """A CPU processor's warm_up returns at once: nothing loads lazily on
+    the CPU (the card's case is tests/test_torch_cuda.py's)."""
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+
+    dp = DataProcessor(trace_source=lambda lb, t, lim: [], device="cpu", wal=None)
+    before = ss.segment_stats.launches
+    start = time.monotonic()
+    dp.warm_up()
+    assert time.monotonic() - start < 0.5
+    assert ss.segment_stats.launches == before and dp.graph.n_edges == 0 and not dp._processed
+
+
 # -- the DP server -----------------------------------------------------------------
 
 
@@ -116,6 +177,8 @@ def test_dp_builder_serves_ticks_with_the_cluster_and_replays_its_wal(wal, mesh,
             assert resp["uniqueId"] == f"m{k}" and resp["combined"]
             assert any(d["schemas"][0]["responseSchema"] for d in resp["datatype"] if d["schemas"])
             assert "fetch_cluster_state" in proc.last_stage_ms
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/", timeout=30) as r:
+                assert json.loads(r.read())["lastTickStagesMs"] == proc.last_stage_ms
         want = graph_signature(proc.graph)
     finally:
         server.stop()
