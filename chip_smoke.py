@@ -202,7 +202,7 @@ Phases, each timed:
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
-   main(), the WAL on) serves 5 ticks of 2,500 traces, each under 5,000
+   main(), the WAL on) serves 3 ticks of 2,500 traces, each under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
    1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the
@@ -231,6 +231,26 @@ Phases, each timed:
    /api/v1/health with its resilience field, a scheduled realtime tick
    that reads every pod's log, SIGTERM flushes (datatypes with body
    schemas in the store) and exits 0.
+20. telemetry (after phase 19, before phase 14's profiler sessions): two
+   `python -m kmamiz_tpu_torch.server.dp_server` processes (main(), no
+   cluster source, KMAMIZ_STLGT=1), one with KMAMIZ_TELEMETRY=0
+   KMAMIZ_PROF=0, serve the same 8 windows of 2,500 traces in alternating
+   turns: (a) the tick walls' medians and spreads of each; (b) the
+   telemetry DP's GET /metrics (0.0.4 text, kmamiz_ticks_total up by the
+   ticks, a span histogram of every tick phase, the device memory and
+   graph-arena gauges, kmamiz_program_calls_total{program="segment_stats"}
+   up by 2 a tick, equal to GET /'s count); (c) its /debug/traces POSTed
+   back to /ingest; (e) /debug/graftprof's attribution ratio (>= 0.90)
+   and per-phase p95s; (f) two ticks in the next hours, the second folding
+   with an STLGT refresh (its span, kmamiz_model_train_ticks_total and the
+   fused kernel's calls up); (d) POST /debug/profile around a tick another
+   thread serves, inside the session's window: the capture's kernel join
+   credits segment_stats with device time, a second capture meanwhile
+   answers 409; every telemetry-on tick under 5,000 ms; (g) the sync
+   guard around one warm tick of phase 7's card processor: its
+   synchronising calls; (h) a scratch DP in this process with
+   KMAMIZ_TICK_DEADLINE_MS=1: the trip's kmamiz-flight artifact,
+   condensed by report.from_any.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -245,7 +265,9 @@ run once per checkout, in turns, for an A/B of their host work. With
 --backward-variants it stops after phase 4 and times the backward
 kernels as shipped against builds with other tuning values (KMZ_* in
 csrc/fused_sddmm_spmm.cu) on the BASELINE graph. With --cluster-only it
-runs phases 1-2 and then phase 19 alone.
+runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
+1-2 and then phase 20 alone ((g) on a fresh card processor after one
+warm tick).
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -3674,7 +3696,7 @@ def train_gat(torch, graph, device, counters, fproc, ckpt_dir: str) -> dict:
 
 # -- phase 19: the in-cluster deployment -------------------------------------
 
-CLUSTER_TICKS = 5  # DP ticks through main() with cluster state
+CLUSTER_TICKS = 3  # DP ticks through main() with cluster state
 WAL_WINDOWS = 10  # phase 4's 150,000 traces as raw /ingest windows
 DAY_MS = 86_400_000  # a Zipkin query looking back this far is a backfill
 STUB_BACKLOG = 64  # listen backlog of the stubs: over the 16-worker fan-out
@@ -4471,6 +4493,312 @@ def serve_in_cluster(torch, device, counters) -> dict:
     return out
 
 
+# -- phase 20: telemetry ------------------------------------------------------
+
+TEL_TICKS = 8  # ticks of each gate state, alternating between the two DPs
+TEL_HOUR = 930  # the hour of phase 20's ticks; its fold ticks run in the next two
+CAPTURE_MS = 4_000  # the capture's window, around one tick
+CAPTURE_LEAD_S = 1.0  # the tick starts this long after the capture is asked for
+#: the phases of a tick without a cluster source or a WAL, each of which
+#: /metrics must hold a histogram of
+TICK_PHASES = ("parse", "walk_sparse", "pack", "merge", "scorers", "assemble", "host-transfer", "encode-serve")
+GUARD_TRACES = 200  # the scratch DP's window in (h)
+
+
+def get_text(port: int, path: str) -> tuple:
+    """(content type, body text) of a GET."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return resp.headers.get("Content-Type"), resp.read().decode()
+
+
+def scrape(port: int) -> dict:
+    """A DP's /metrics as {(name, ((label, value), ...)): value}, after
+    checking the 0.0.4 text: every histogram's buckets cumulative and
+    ending at le="+Inf" equal to its _count."""
+    import re
+
+    ctype, text = get_text(port, "/metrics")
+    check(ctype == "text/plain; version=0.0.4; charset=utf-8", f"/metrics content type {ctype}")
+    samples, kinds, buckets = {}, {}, {}
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE"):
+            _, _, name, kind = line.split(maxsplit=3)
+            kinds[name] = kind
+            continue
+        if line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{([^}]*)\})? (\S+)$", line)
+        check(m is not None, f"/metrics line {line!r}")
+        labels = tuple(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or ""))
+        samples[(m.group(1), labels)] = float(m.group(3))
+        if m.group(1).endswith("_bucket"):
+            key = (m.group(1)[: -len("_bucket")], tuple(kv for kv in labels if kv[0] != "le"))
+            buckets.setdefault(key, []).append((dict(labels)["le"], float(m.group(3))))
+    for (name, labels), series in buckets.items():
+        check(kinds.get(name) == "histogram", f"{name} has buckets but is no histogram")
+        values = [v for _le, v in series]
+        check(series[-1][0] == "+Inf" and values == sorted(values), f"{name}{labels} buckets {series}")
+        check(values[-1] == samples[(f"{name}_count", labels)], f"{name}{labels}: +Inf != _count")
+    return samples
+
+
+def post_raw_tick(port: int, request: dict) -> tuple:
+    """A DP tick as the host app posts it (gzip both ways): (its wall ms
+    until the answer's bytes are read, the answer's size)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/",
+        data=gzip.compress(json.dumps(request).encode()),
+        headers={"Content-Type": "application/json", "Content-Encoding": "gzip", "Accept-Encoding": "gzip"},
+        method="POST",
+    )
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"tick answered {resp.status}")
+        body = resp.read()
+    return (time.perf_counter() - t) * 1e3, len(body)
+
+
+def spread(walls) -> dict:
+    return {
+        "median_ms": round(statistics.median(walls), 3),
+        "min_ms": round(min(walls), 3),
+        "max_ms": round(max(walls), 3),
+        "walls_ms": [round(w, 3) for w in walls],
+    }
+
+
+def serve_telemetry(torch, device, proc, feed) -> dict:
+    """Phase 20: the telemetry of a DP started through its main() at the
+    BASELINE mesh's 2,500-trace ticks. (a) Two DPs, telemetry on and off
+    (KMAMIZ_TELEMETRY=0 KMAMIZ_PROF=0), serve the same TEL_TICKS windows in
+    alternating turns: their tick walls' medians and spreads. (b) The on
+    DP's /metrics: 0.0.4 text, kmamiz_ticks_total up by its ticks, a span
+    histogram of every tick phase, the device memory and arena gauges,
+    kmamiz_program_calls_total{program="segment_stats"} up by 2 a tick and
+    equal to GET /'s count. (c) Its /debug/traces POSTed back to /ingest.
+    (e) /debug/graftprof: the attribution ratio (>= 0.90) and the
+    per-phase p95s. (f) Two ticks in the next two hours (KMAMIZ_STLGT=1):
+    the second folds with an STLGT refresh (its span in the trace, the
+    train-ticks counter and the fused kernel's launches up). (d) POST
+    /debug/profile around one tick another thread serves: a Chrome trace
+    whose kernel join credits segment_stats with device time, a second
+    capture meanwhile answered 409. (g) The sync guard around one warm
+    tick of this process's card processor `proc` (fed by `feed`): its
+    synchronising calls. (h) A scratch DP in this process with
+    KMAMIZ_TICK_DEADLINE_MS=1: the trip writes one kmamiz-flight artifact,
+    which report.from_any condenses."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kmamiz_tpu_torch.analysis import guards
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.telemetry.profiling import device_attr, report
+
+    out: dict = {}
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_")
+    capture_dir = os.path.join(root.name, "profiles")
+    zipkin = ZipkinStub()
+    served = []
+    base_env = {
+        "ZIPKIN_URL": zipkin.base,
+        "BIND_IP": "127.0.0.1",
+        "KMAMIZ_STLGT": "1",
+        "KMAMIZ_PROF_FLIGHT_DIR": os.path.join(root.name, "flight"),
+        "KMAMIZ_QUARANTINE_DIR": os.path.join(root.name, "quarantine"),
+        "LOG_LEVEL": "warn",
+    }
+    gates = {"on": {}, "off": {"KMAMIZ_TELEMETRY": "0", "KMAMIZ_PROF": "0"}}
+    try:
+        ports = {gate: free_port() for gate in gates}
+
+        def boot(gate):
+            return Served(
+                "kmamiz_tpu_torch.server.dp_server", {**base_env, **gates[gate], "DP_PORT": str(ports[gate])},
+                ports[gate], "/", os.path.join(root.name, f"dp-{gate}.log"),
+            )
+
+        # the windows are made while the two DPs boot
+        with ThreadPoolExecutor(2) as pool:
+            booting = [pool.submit(boot, gate) for gate in gates]
+            t0 = time.perf_counter()
+            windows = [
+                synth_groups(TICK_TRACES, STATE_TRACES + (80 + k) * TICK_TRACES, f"tel{k}-") for k in range(TEL_TICKS + 3)
+            ]
+            out["windows_s"] = round(time.perf_counter() - t0, 3)
+            # every DP that booted is stopped at the end, even when the
+            # other's boot failed
+            served.extend(job.result() for job in booting if job.exception() is None)
+            dps = {gate: job.result() for gate, job in zip(gates, booting)}
+        out["boot_ms"] = {gate: round(dp.boot_ms, 3) for gate, dp in dps.items()}
+        on = ports["on"]
+        for dp in dps.values():
+            check(dp.health["device"].startswith("cuda"), f"a DP runs on {dp.health['device']}")
+
+        # -- (a) telemetry on against off, alternating -------------------------------
+        before = scrape(on)
+        launched = dp_launches(on)
+        walls = {gate: [] for gate in gates}
+        for k in range(TEL_TICKS):
+            zipkin.queue(windows[k])
+            for gate in (("on", "off") if k % 2 == 0 else ("off", "on")):
+                request = {"uniqueId": f"tel{k}-{gate}", "lookBack": 30_000, "time": TEL_HOUR * HOUR_MS + k}
+                wall, size = post_raw_tick(ports[gate], request)
+                check(size > 0, "an empty answer")
+                walls[gate].append(wall)
+        out["ticks"] = {gate: spread(w) for gate, w in walls.items()}
+        out["on_over_off_median"] = round(out["ticks"]["on"]["median_ms"] / out["ticks"]["off"]["median_ms"], 4)
+        log("   (a) " + json.dumps({g: {k: v for k, v in t.items() if k != "walls_ms"} for g, t in out["ticks"].items()}))
+        log(f"   (a) on {out['ticks']['on']['walls_ms']}, off {out['ticks']['off']['walls_ms']}")
+        on_walls = list(walls["on"])
+
+        # -- (b) /metrics ---------------------------------------------------------------
+        after = scrape(on)
+        ticks = after[("kmamiz_ticks_total", ())] - before[("kmamiz_ticks_total", ())]
+        calls_key = ("kmamiz_program_calls_total", (("program", "segment_stats"),))
+        calls = after[calls_key] - before[calls_key]
+        launches = dp_launches(on) - launched
+        metrics_check = {"ticks_total": ticks, "segment_stats_calls": calls, "get_launches": launches}
+        check(ticks == TEL_TICKS, f"kmamiz_ticks_total rose by {ticks} in {TEL_TICKS} ticks")
+        check(calls == launches == 2 * TEL_TICKS, f"segment_stats: {calls} in /metrics, {launches} by GET /")
+        for phase in TICK_PHASES:
+            n = after.get(("kmamiz_tick_span_ms_bucket", (("phase", phase), ("le", "+Inf"))), 0)
+            check(n >= TEL_TICKS, f"kmamiz_tick_span_ms{{phase={phase}}} holds {n} spans")
+        in_use = after.get(("kmamiz_device_bytes_in_use", ()), 0)
+        limit = after.get(("kmamiz_device_bytes_limit", ()), 0)
+        edges = after.get(("kmamiz_arena_bytes", (("arena", "graph.edges"),)), 0)
+        check(0 < in_use <= limit, f"device bytes in use {in_use}, limit {limit}")
+        check(edges > 0, "no graph.edges arena bytes")
+        metrics_check.update(device_bytes_in_use=in_use, device_bytes_limit=limit, arena_graph_edges=edges)
+        out["metrics"] = metrics_check
+        log("   (b) " + json.dumps(metrics_check))
+
+        # -- (c) the self-trace -----------------------------------------------------------
+        status, export = http_json(on, "/debug/traces")
+        check(status == 200 and len(export) > 0, "no traces at /debug/traces")
+        status, summary = http_json(on, "/ingest", json.dumps(export).encode())
+        check(status == 200 and summary["traces"] > 0 and summary["spans"] > 0, f"self-trace ingest {summary}")
+        out["self_trace"] = {"traces": summary["traces"], "spans": summary["spans"], "edges": summary["edges"]}
+        log("   (c) " + json.dumps(out["self_trace"]))
+
+        # -- (e) the live profile -----------------------------------------------------------
+        status, prof = http_json(on, "/debug/graftprof")
+        check(status == 200 and prof["kind"] == "kmamiz-graftprof", "/debug/graftprof")
+        out["graftprof"] = {
+            "ticks": prof["ticks"],
+            "attribution_ratio": prof["attribution_ratio"],
+            "p95_ms": {name: st["p95_ms"] for name, st in prof["phases"].items()},
+            "max_ms": {name: st["max_ms"] for name, st in prof["phases"].items()},
+        }
+        check(prof["attribution_ratio"] >= 0.90, f"attribution ratio {prof['attribution_ratio']}")
+        log("   (e) " + json.dumps(out["graftprof"]))
+
+        # -- (f) an STLGT fold tick -------------------------------------------------------------
+        before = scrape(on)
+        fold_walls = []
+        for k, hour in enumerate((TEL_HOUR + 1, TEL_HOUR + 2)):
+            zipkin.queue(windows[TEL_TICKS + k])
+            wall, _size = post_raw_tick(on, {"uniqueId": f"fold{hour}", "lookBack": 30_000, "time": hour * HOUR_MS})
+            fold_walls.append(wall)
+        on_walls += fold_walls
+        after = scrape(on)
+        status, export = http_json(on, "/debug/traces")
+        names = {s["localEndpoint"]["serviceName"] for s in export[-1]}
+        fused_key = ("kmamiz_program_calls_total", (("program", "fused_sddmm_spmm"),))
+        train_key = ("kmamiz_model_train_ticks_total", (("model", "stlgt"),))
+        fold = {
+            "walls_ms": [round(w, 3) for w in fold_walls],
+            "train_ticks": after.get(train_key, 0) - before.get(train_key, 0),
+            "fused_calls": after[fused_key] - before[fused_key],
+        }
+        check("stlgt-refresh" in names, f"the fold tick's trace has no stlgt-refresh span: {sorted(names)}")
+        check(fold["train_ticks"] >= 1 and fold["fused_calls"] > 0, f"fold tick {fold}")
+        out["fold"] = fold
+        log("   (f) " + json.dumps(fold))
+
+        # -- (d) a capture around one tick ---------------------------------------------------------
+        zipkin.queue(windows[TEL_TICKS + 2])
+        # a first short session pays the profiler's one-time start-up in the
+        # DP process, so that the measured one opens within its lead
+        status, first = http_json(on, "/debug/profile", json.dumps({"durationMs": 50, "dir": capture_dir}).encode())
+        check(status == 200 and first["ok"], f"the first capture {status} {first}")
+        os.remove(first["trace"])
+        with ThreadPoolExecutor(1) as pool:
+            # the capture's directory in the request: KMAMIZ_PROFILE_DIR would
+            # also have every tick capture itself (core/profiling.trace)
+            job = pool.submit(
+                http_json, on, "/debug/profile", json.dumps({"durationMs": CAPTURE_MS, "dir": capture_dir}).encode()
+            )
+            time.sleep(CAPTURE_LEAD_S)
+            status, busy = http_json(on, "/debug/profile", json.dumps({"durationMs": 10}).encode())
+            check(status == 409 and busy.get("busy") is True, f"a second capture answered {status} {busy}")
+            t_tick = time.time() * 1e3
+            wall, _size = post_raw_tick(on, {"uniqueId": "captured", "lookBack": 30_000, "time": (TEL_HOUR + 2) * HOUR_MS + 1})
+            t_done = time.time() * 1e3
+            status, answer = job.result()
+        check(status == 200 and answer["ok"], f"capture {status} {answer}")
+        # the tick sits strictly inside the session's window (a session can
+        # lose the device records at its edges); one host, one epoch clock
+        opened, closed = answer["window_ms"]
+        check(opened < t_tick and t_done < closed, f"the captured tick [{t_tick}, {t_done}] is not inside {answer['window_ms']}")
+        joined = device_attr.parse_profile_dir(capture_dir)
+        credited = joined["programs"].get("segment_stats", 0.0)
+        check(credited > 0, f"the capture credits segment_stats with {credited} ms: {joined}")
+        out["capture"] = {
+            "tick_wall_ms": round(wall, 3),
+            "uncaptured_on_median_ms": out["ticks"]["on"]["median_ms"],
+            "busy_status": 409,
+            "segment_stats_device_ms": credited,
+            "total_device_ms": joined["total_device_ms"],
+            "unattributed_ms": joined["unattributed_ms"],
+            "events": joined["events"],
+        }
+        on_walls.append(wall)
+        log("   (d) " + json.dumps(out["capture"]))
+        out["max_on_tick_wall_ms"] = round(max(on_walls), 3)
+        check(out["max_on_tick_wall_ms"] < TICK_WALL_LIMIT_MS, f"a telemetry-on tick took {out['max_on_tick_wall_ms']} ms")
+
+        # -- (g) the sync guard around one warm tick of this process ------------------------------
+        feed.groups = windows[TEL_TICKS + 2]
+        with guards.hot_path_guard("allow", device=device) as guard:
+            proc.collect({"uniqueId": "guarded", "lookBack": 30_000})
+        torch.cuda.synchronize()
+        out["guard"] = {"level": guard.level, "syncs": guard.syncs}
+        check(guard.syncs > 0, "the guard counted no synchronising call")
+        log("   (g) " + json.dumps(out["guard"]))
+
+        # -- (h) a watchdog trip freezes a flight artifact ----------------------------------------
+        flight_dir = os.path.join(root.name, "flight-h")
+        scratch = DataProcessor(
+            trace_source=lambda lb, t, lim: synth_groups(GUARD_TRACES, 0, "guard"), device=device, wal=None
+        )
+        server = DataProcessorServer(scratch, host="127.0.0.1", port=0)
+        server.start()
+        try:
+            with env_set(KMAMIZ_TICK_DEADLINE_MS="1", KMAMIZ_PROF_FLIGHT_DIR=flight_dir):
+                status, body = http_json(server.port, "/", json.dumps({"uniqueId": "trip", "lookBack": 30_000}).encode())
+            deadline = time.monotonic() + 60
+            time.sleep(0.05)
+            while scratch.tick_lock.locked() and time.monotonic() < deadline:
+                time.sleep(0.01)  # the straggler finishes
+        finally:
+            server.stop()
+        check(status == 503 and body.get("reason") == "deadline", f"the tripped tick answered {status} {body}")
+        dumps = [n for n in os.listdir(flight_dir) if n.endswith("-watchdog.json")]
+        check(len(dumps) == 1, f"flight artifacts {dumps}")
+        with open(os.path.join(flight_dir, dumps[0])) as f:
+            artifact = json.load(f)
+        condensed = report.from_any(artifact)
+        check(artifact["kind"] == "kmamiz-flight" and condensed["kind"] == "kmamiz-graftprof", "the flight artifact")
+        out["flight"] = {"file": dumps[0], "trigger": artifact["trigger"], "detail": artifact["detail"], "ticks": condensed["ticks"]}
+        log("   (h) " + json.dumps(out["flight"]))
+    finally:
+        for dp in served:
+            dp.kill()
+        zipkin.stop()
+        root.cleanup()
+    return out
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -4506,6 +4834,11 @@ def main(argv=None) -> int:
         action="store_true",
         help="phases 1-4, then the backward kernels as shipped timed against "
         "builds with other tuning values (BACKWARD_VARIANTS), then the report",
+    )
+    parser.add_argument(
+        "--telemetry-only",
+        action="store_true",
+        help="phases 1-2, then phase 20 (telemetry), then the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -4545,6 +4878,8 @@ def main(argv=None) -> int:
     # not into the checkout's kmamiz-data
     quarantine_root = tempfile.TemporaryDirectory(prefix="chip_smoke_quarantine_")
     os.environ["KMAMIZ_QUARANTINE_DIR"] = quarantine_root.name
+    # and so do the flight artifacts of this process's watchdog trips
+    os.environ["KMAMIZ_PROF_FLIGHT_DIR"] = os.path.join(quarantine_root.name, "flight")
     walls: dict = {}
     report: dict = {}
     jobs: list = []  # device times to take after every event timing
@@ -4592,6 +4927,21 @@ def main(argv=None) -> int:
             for path in cuda_build.build_all(kernel_names):
                 log(f"   built {os.path.relpath(path)}")
             log(f"   built {os.path.relpath(host_lib.result())}")
+
+    if args.telemetry_only:
+        from kmamiz_tpu_torch.server.processor import DataProcessor
+
+        feed = TickFeed()
+        proc = DataProcessor(trace_source=feed, device=device, wal=None)
+        feed.groups = synth_groups(TICK_TRACES, 0, "warm")
+        proc.collect({"uniqueId": "warm", "lookBack": 30_000})
+        with Phase("telemetry", walls):
+            report["telemetry"] = serve_telemetry(torch, device, proc, feed)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"telemetry": report["telemetry"]}))
+        return 0
 
     if args.cluster_only:
         with Phase("in-cluster deployment", walls):
@@ -4779,6 +5129,10 @@ def main(argv=None) -> int:
         finally:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
+
+    # phase 20 too: its capture runs in a DP process of its own
+    with Phase("telemetry", walls):
+        report["telemetry"] = serve_telemetry(torch, device, proc, feed)
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(

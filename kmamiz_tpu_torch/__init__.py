@@ -23,6 +23,11 @@ Layout:
   server/    the Data Processor tick, its HTTP server, the caches and the
              realtime operator
   api/       the REST API: the model and graph routes
+  resilience/ quarantine, WAL, watchdog, breakers and retries, counters
+  telemetry/ the metrics registry (GET /metrics), tick span traces, the
+             SLO scorecard, freshness, device gauges, torch.profiler
+             captures and the profiler's event ring and flight recorder
+  analysis/  the sync guard around a hot section
 """
 
 __version__ = "0.1.0"

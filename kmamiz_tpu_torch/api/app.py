@@ -20,8 +20,7 @@ processor on the card or, in tests, on the CPU:
     ...
     app.tear_down()  # stop the schedules, flush every cache
 
-Not ported yet: simulator mode and its SimulationHandler, the telemetry
-handler.
+Not ported yet: simulator mode and its SimulationHandler.
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ from kmamiz_tpu_torch.api.handlers import (
     HealthHandler,
     ModelHandler,
     SwaggerHandler,
+    TelemetryHandler,
 )
 from kmamiz_tpu_torch.api.router import ApiServer, Router
 from kmamiz_tpu_torch.config import Settings
@@ -102,6 +102,7 @@ def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] =
         ConfigurationHandler(ctx),
         HealthHandler(ctx),
         ModelHandler(ctx),
+        TelemetryHandler(ctx),
     ):
         router.add_handler(handler)
     for line in router.route_list:

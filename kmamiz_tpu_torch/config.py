@@ -6,8 +6,10 @@ defaults: the application's port, timezone, log level, store URI,
 schedules and startup modes, the cluster's addresses (the Kubernetes API
 and Zipkin), the external Data Processor, the static and wasm paths, the
 endpoint-lifetime thresholds of the dependency model, the REST API's
-version prefix, the forecast route's checkpoint directory, and the
-switches of the resilience layer and the stream engine.
+version prefix, the forecast route's checkpoint directory, the
+switches of the resilience layer and the stream engine, and those of the
+telemetry (span tracing, the profiler's event ring and flight recorder,
+torch.profiler captures, the SLO window and the sync guard).
 
 The switches of the resilience layer and the stream engine, and their
 directories, are read by the functions below, which the modules call at
@@ -16,15 +18,20 @@ import) and which the fields here take as their defaults: one reader per
 variable. Their sizes (the trace-bomb cap, the quarantine's and the WAL's
 bounds, the stream's depth and epoch) are the modules' constants at the
 JAX package's defaults, given as constructor arguments where a caller
-needs another value. The JAX package's device, sparse-kernel, tenancy,
-fleet, profiler, control and cost knobs belong to subsystems not ported
-yet.
+needs another value. The telemetry's switches, directories and bounds
+are read the same way, one reader each, at the JAX package's defaults.
+The JAX package's device, sparse-kernel, tenancy, fleet, control and
+cost knobs belong to subsystems not ported yet.
 """
 from __future__ import annotations
 
+import logging
 import os
 import re
 from dataclasses import dataclass, field
+from typing import Optional
+
+logger = logging.getLogger("kmamiz_tpu_torch.config")
 
 
 def _env_bool(name: str) -> bool:
@@ -63,6 +70,97 @@ def stream_enabled(default: str = "0") -> bool:
     """KMAMIZ_STREAM: overlapped micro-ticks unless unset, "0", "false"
     or empty (the serial tick)."""
     return os.environ.get("KMAMIZ_STREAM", default) not in ("0", "false", "")
+
+
+def _env_switch(name: str) -> bool:
+    """A telemetry switch: on unless "0", "false" or empty."""
+    return os.environ.get(name, "1") not in ("0", "false", "")
+
+
+def _env_number(name: str, default, floor, kind=int):
+    try:
+        return max(floor, kind(os.environ.get(name, str(default))))
+    except ValueError:
+        return default
+
+
+def telemetry_enabled() -> bool:
+    """KMAMIZ_TELEMETRY: the tick's span traces, on by default. The
+    tracer reads it once per tick."""
+    return _env_switch("KMAMIZ_TELEMETRY")
+
+
+def trace_ring() -> int:
+    """KMAMIZ_TRACE_RING: finished tick traces kept (256, floor 1)."""
+    return _env_number("KMAMIZ_TRACE_RING", 256, 1)
+
+
+def prof_enabled() -> bool:
+    """KMAMIZ_PROF: the profiler's event ring and flight recorder, on by
+    default; read once per tick."""
+    return _env_switch("KMAMIZ_PROF")
+
+
+def prof_ring() -> int:
+    """KMAMIZ_PROF_RING: events the profiler's ring holds (4,096, floor 64)."""
+    return _env_number("KMAMIZ_PROF_RING", 4096, 64)
+
+
+def prof_flight_dir() -> str:
+    return os.environ.get("KMAMIZ_PROF_FLIGHT_DIR") or os.path.join("kmamiz-data", "flight")
+
+
+def prof_flight_ticks() -> int:
+    """KMAMIZ_PROF_FLIGHT_TICKS: ticks of evidence a flight artifact
+    freezes (64, floor 1)."""
+    return _env_number("KMAMIZ_PROF_FLIGHT_TICKS", 64, 1)
+
+
+def prof_flight_max() -> int:
+    """KMAMIZ_PROF_FLIGHT_MAX: flight artifacts kept per namespace (16,
+    floor 1)."""
+    return _env_number("KMAMIZ_PROF_FLIGHT_MAX", 16, 1)
+
+
+def prof_flight_debounce_s() -> float:
+    """KMAMIZ_PROF_FLIGHT_DEBOUNCE_S: the least time between two flight
+    artifacts of one namespace (5 s, floor 0)."""
+    return _env_number("KMAMIZ_PROF_FLIGHT_DEBOUNCE_S", 5.0, 0.0, float)
+
+
+def profile_dir() -> Optional[str]:
+    """KMAMIZ_PROFILE_DIR: where torch.profiler captures go; unset, the
+    tick's capture points capture nothing."""
+    return os.environ.get("KMAMIZ_PROFILE_DIR") or None
+
+
+def profile_count() -> int:
+    """KMAMIZ_PROFILE_COUNT: tick captures per process (8; a value that is
+    not an integer logs a warning and counts as 8)."""
+    raw = os.environ.get("KMAMIZ_PROFILE_COUNT", "8")
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        logger.warning("KMAMIZ_PROFILE_COUNT=%r is not an integer; using 8", raw)
+        return 8
+
+
+def profile_max_s() -> float:
+    """KMAMIZ_PROFILE_MAX_S: the longest on-demand capture window (10 s,
+    floor 1 ms)."""
+    return _env_number("KMAMIZ_PROFILE_MAX_S", 10.0, 0.001, float)
+
+
+def slo_window() -> int:
+    """KMAMIZ_SLO_WINDOW: ticks in the scorecard's rolling window (512,
+    floor 8)."""
+    return _env_number("KMAMIZ_SLO_WINDOW", 512, 8)
+
+
+def transfer_guard() -> str:
+    """KMAMIZ_TRANSFER_GUARD as given (stripped, lower case): the sync
+    guard's level (analysis/guards.py parses it)."""
+    return os.environ.get("KMAMIZ_TRANSFER_GUARD", "").strip().lower()
 
 
 @dataclass

@@ -22,6 +22,12 @@ keyed on (graph version, label epoch, horizon), and the dirty-service
 incremental recompute that scores only the edges incident to services a
 window touched and splices their lanes into the cached outputs.
 
+Telemetry: every store reports its device arenas (the edge columns, the
+staged windows and pre-union, the scorer tables) to
+`kmamiz_arena_bytes{arena="graph.*"}` at scrape time; a scorer
+recompute is the tick phase `scorers` and the step timer's `scorers`,
+and each window upload's wait the step timer's `transfer`.
+
 Intentional deviation from the reference, kept from the JAX package:
 merging keeps the full edge union. The reference's combineWith overwrites
 same-window duplicate records (JS Map.set), silently dropping edges
@@ -32,13 +38,15 @@ from __future__ import annotations
 import hashlib
 import threading
 import time
-from typing import Optional
+import weakref
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.core.interning import EndpointInterner, StringInterner
+from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.core.spans import (
     KIND_SERVER,
     SpanBatch,
@@ -50,6 +58,8 @@ from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.ops import scorers as scorer_ops
 from kmamiz_tpu_torch.ops import window as window_ops
 from kmamiz_tpu_torch.ops.double_buffer import AsyncCount, UploadPipeline
+from kmamiz_tpu_torch.telemetry import device as tel_device
+from kmamiz_tpu_torch.telemetry.tracing import phase_span
 from kmamiz_tpu_torch.ops.sortutil import (
     EDGE_KEY_MAX_DIST,
     EDGE_KEY_MAX_EP,
@@ -260,6 +270,7 @@ class EndpointGraph:
         # the DP tick mutates from server threads while other threads read;
         # every state transition and snapshot happens under this lock
         self._lock = threading.RLock()
+        _track_store_arenas(self)
 
     # -- capacity management -------------------------------------------------
 
@@ -303,7 +314,9 @@ class EndpointGraph:
         enqueued on the tensors runs after the bytes land, and wait_ms is
         the stall this call paid (the whole copy at depth 0, otherwise the
         retire of the oldest group past the pipeline's depth)."""
-        return self._uploads.put(host_arrays)
+        out, ms = self._uploads.put(host_arrays)
+        step_timer.record("transfer", ms)
+        return out, ms
 
     def _upload(self, *host_arrays):
         """Plain synchronous copies, for the scorer path's tables (the JAX
@@ -312,6 +325,28 @@ class EndpointGraph:
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in host_arrays
         ]
+
+    def arena_bytes(self) -> Dict[str, int]:
+        """Device bytes per arena (the tensors' sizes, no device call):
+        `edges` (the columns and their mask), `staged` (staged windows,
+        the pre-union) and `scorer_tables` (the scorers' device tables)."""
+
+        def nb(*items) -> int:
+            total = 0
+            for item in items:
+                if isinstance(item, torch.Tensor):
+                    total += item.nbytes
+                elif isinstance(item, (tuple, list)):
+                    total += nb(*item)
+            return total
+
+        with self._lock:
+            tables = self._ep_tables_dev[1] if self._ep_tables_dev is not None else ()
+            return {
+                "edges": nb(self._src, self._dst, self._dist, self._mask),
+                "staged": nb(self._staged, self._preunion),
+                "scorer_tables": nb(tables, self._fresh_dev),
+            }
 
     def upload_stats(self) -> dict:
         """Upload-pipeline counters: depth, uploads, in_flight,
@@ -1045,6 +1080,10 @@ class EndpointGraph:
         invalidate_labels the epoch, horizon expiry the fingerprint and
         growth the caps. (The JAX package's key also holds its mesh; the
         multi-GPU path is not ported.)"""
+        with phase_span("scorers"):
+            return self._scored_inner(kind, label_of, now_ms)
+
+    def _scored_inner(self, kind: str, label_of, now_ms):
         snap = self._scorer_snapshot(label_of, now_ms)
         base_key = (
             kind,
@@ -1061,7 +1100,8 @@ class EndpointGraph:
                 self.scorer_stats["hits"] += 1
         if hit is not None:
             return hit
-        result = self._compute_scores(kind, snap, base_key)
+        with step_timer.phase("scorers"):
+            result = self._compute_scores(kind, snap, base_key)
         with self._lock:
             self.scorer_stats["misses"] += 1
             if len(self._scorer_memo) >= 64:
@@ -1140,6 +1180,37 @@ class EndpointGraph:
         with self._lock:
             self.scorer_stats["incremental"] += 1
         return scorer_ops.merge_service_lanes(dirty_d, inc, prev_scores)
+
+
+# -- telemetry: the arena gauges ---------------------------------------------
+
+_ARENA_STORES = []  # weakrefs of live EndpointGraph instances
+_ARENA_LOCK = threading.Lock()
+_ARENA_REGISTERED = False
+
+
+def _track_store_arenas(store: EndpointGraph) -> None:
+    """Register `store` with the telemetry arena gauges: every live store
+    sums into one kmamiz_arena_bytes{arena="graph.*"} reading at scrape
+    time; the merge path reports nothing."""
+    global _ARENA_REGISTERED
+    with _ARENA_LOCK:
+        _ARENA_STORES.append(weakref.ref(store))
+        if _ARENA_REGISTERED:
+            return
+        _ARENA_REGISTERED = True
+
+    def _sum(key: str):
+        def read() -> int:
+            with _ARENA_LOCK:
+                _ARENA_STORES[:] = [r for r in _ARENA_STORES if r() is not None]
+                live = [r() for r in _ARENA_STORES]
+            return sum(s.arena_bytes()[key] for s in live if s is not None)
+
+        return read
+
+    for key in ("edges", "staged", "scorer_tables"):
+        tel_device.track_arena(f"graph.{key}", _sum(key))
 
 
 def graph_signature(graph) -> str:

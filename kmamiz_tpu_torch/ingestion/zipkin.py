@@ -4,28 +4,32 @@ A host copy of kmamiz_tpu/ingestion/zipkin.py (the equivalent of the
 reference's ZipkinService.ts and kmamiz_data_processor's zipkin.rs):
 trace-list queries rooted at the ingress gateway with lookback/endTs/
 limit, gzip accepted, and the paginated raw fetch that feeds
-DataProcessor.ingest_raw_stream. Every fetch is one plain HTTP GET: the
-JAX client's retries and circuit breaker are not ported yet.
+DataProcessor.ingest_raw_stream. Every fetch — the trace list, the raw
+fetch, the page feeder's pages and the service list — is one guarded
+GET, as in the JAX client: jittered-backoff retries on transport errors
+(`Retrier("zipkin", retry_on=(OSError,))`) under the shared `zipkin`
+circuit breaker. While Zipkin is down the breaker short-circuits with
+BreakerOpenError — no connection, no timeout wait — which the public
+methods' error arms turn into the reference's []/None posture, so a dead
+Zipkin costs a tick microseconds instead of the 30 s timeout.
 """
 from __future__ import annotations
 
 import gzip
 import json
 import logging
-import time
 import urllib.request
 from typing import List, Optional
 from urllib.parse import urlencode
+
+from kmamiz_tpu_torch.resilience.breaker import get_breaker
+from kmamiz_tpu_torch.resilience.retry import Retrier
+from kmamiz_tpu_torch.telemetry.profiling.events import wall_ms
 
 logger = logging.getLogger("kmamiz_tpu_torch.ingestion.zipkin")
 
 DEFAULT_LOOKBACK_MS = 86_400_000 * 7  # ZipkinService.ts:11
 DEFAULT_ROOT_SERVICE = "istio-ingressgateway.istio-system"  # ZipkinService.ts:48
-
-
-def wall_ms() -> float:
-    """Epoch ms: the default endTs of a query."""
-    return time.time() * 1000.0
 
 
 def _http_get_raw(url: str, timeout: float) -> bytes:
@@ -48,8 +52,10 @@ class ZipkinClient:
         self._timeout = timeout
 
     def _fetch_raw(self, url: str) -> bytes:
-        """One Zipkin GET."""
-        return _http_get_raw(url, self._timeout)
+        """One guarded Zipkin GET: retries on transport errors under the
+        shared `zipkin` breaker (BreakerOpenError while it is open)."""
+        retrier = Retrier("zipkin", retry_on=(OSError,))
+        return retrier.call(get_breaker("zipkin").call, _http_get_raw, url, self._timeout)
 
     def _traces_url(self, look_back, end_ts, limit, service_name) -> str:
         if end_ts is None:

@@ -9,18 +9,27 @@ PyTorch compiles nothing per shape, so there is no program registry.
 `pad_snapshot` uploads a snapshot once, with its edge index on the card,
 for every forward that reads it (the forecast route shares one between
 the GraphSAGE and STLGT heads).
+
+Each forward counts in `kmamiz_model_serves_total` and times under the
+step timer's `model_forward` phase (GET /health/timings), as in the JAX
+package; `serve_stats()` is the route's own summary.
 """
 from __future__ import annotations
 
 import threading
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.core.spans import _pad_size
 from kmamiz_tpu_torch.ops import sparse
+from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
+from kmamiz_tpu_torch.telemetry.registry import REGISTRY
+
+# preallocated serving counter: the forward increments the handle
+_SERVES = REGISTRY.counter("kmamiz_model_serves_total", "Forecast forward calls served")
 
 _lock = threading.Lock()
 _stats = {
@@ -86,14 +95,15 @@ def forecast_forward(
 def forecast_forward_padded(params, padded: PaddedSnapshot, model) -> Tuple[np.ndarray, np.ndarray]:
     """forecast_forward over a snapshot already padded on the params'
     device (pad_snapshot), with its edge index."""
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    t0 = prof_events.now_ms()
+    with step_timer.phase("model_forward"), torch.no_grad():
         lat, logit = model.forward(
             params, padded.features, padded.src, padded.dst, padded.mask, index=padded.index
         )
         # one copy back of both outputs
         out = torch.stack([torch.expm1(lat), torch.sigmoid(logit)]).cpu().numpy()
-    elapsed_ms = (time.perf_counter() - t0) * 1e3
+    elapsed_ms = prof_events.now_ms() - t0
+    _SERVES.inc()
     with _lock:
         _stats["calls"] += 1
         _stats["last_ms"] = elapsed_ms

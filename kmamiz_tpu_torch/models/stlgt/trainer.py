@@ -27,8 +27,10 @@ ring's buckets grow. A refresh's losses are fetched once.
 
 Failure containment mirrors the tick watchdog: a refresh that raises
 keeps the last-good params serving, staleness keeps climbing, and the
-next fold tries again. The reference's telemetry counters wait for the
-telemetry slice; the same numbers are in `status()`.
+next fold tries again. A refresh is the tick phase `stlgt-refresh`; each
+completed one counts in `kmamiz_model_train_ticks_total{model="stlgt"}`,
+and `kmamiz_model_forecast_staleness_ticks{model="stlgt"}` holds the folds
+since the last (the same numbers as `status()`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.models import common
 from kmamiz_tpu_torch.models.history import ANOMALY_ERROR_SHARE
 from kmamiz_tpu_torch.ops import sparse
+from kmamiz_tpu_torch.telemetry.registry import REGISTRY
+from kmamiz_tpu_torch.telemetry.tracing import phase_span
 
 # feature-column offsets in the assembled base layout
 # (graphsage.assemble_features): err5 share and log1p latency are the
@@ -52,6 +56,24 @@ from kmamiz_tpu_torch.ops import sparse
 _COL_ERR5 = 2
 _COL_LOG_LATENCY = 3
 _COL_ACTIVE = 7
+
+# -- per-model SLO rows --------------------------------------------------------
+#: continual-training refreshes completed, per model head
+MODEL_TRAIN_TICKS = REGISTRY.counter_family(
+    "kmamiz_model_train_ticks_total",
+    "Continual-training refreshes completed, per model",
+    ("model",),
+)
+#: folds observed since the serving params last refreshed, per model: 0 is
+#: fresh; a climbing value means serving falls back to last-good
+MODEL_FORECAST_STALENESS = REGISTRY.gauge_family(
+    "kmamiz_model_forecast_staleness_ticks",
+    "Folds since the model's serving params last refreshed",
+    ("model",),
+)
+# preallocated per-model handles: the fold path never formats a label
+_STLGT_TICKS = MODEL_TRAIN_TICKS.handle("stlgt")
+_STLGT_STALENESS = MODEL_FORECAST_STALENESS.handle("stlgt")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -217,6 +239,7 @@ class ContinualTrainer:
             if prev is not None:
                 self._append_example_locked(prev, win)
                 self._folds_since_refresh += 1
+            _STLGT_STALENESS.set(float(self._folds_since_refresh))
             if not any(self._stale):
                 return None
             if self._params is not None and self._folds_since_refresh < self.refresh_every:
@@ -301,17 +324,21 @@ class ContinualTrainer:
 
     def _refresh_locked(self) -> dict:
         try:
-            report = self._run_epoch_block_locked()
+            with phase_span("stlgt-refresh"):
+                report = self._run_epoch_block_locked()
         except Exception as exc:  # noqa: BLE001 - watchdog-style containment
             # last-good params keep serving; staleness keeps climbing
             self._refresh_failures += 1
             self._last_error = f"{type(exc).__name__}: {exc}"
+            _STLGT_STALENESS.set(float(self._folds_since_refresh))
             return {"ok": False, "error": self._last_error}
         self._refreshes += 1
         self._folds_since_refresh = 0
         self._params_version += 1
         self._last_error = None
         self._stale = [False] * len(self._ring)
+        _STLGT_TICKS.inc()
+        _STLGT_STALENESS.set(0.0)
         report["ok"] = True
         report["version"] = self._params_version
         return report

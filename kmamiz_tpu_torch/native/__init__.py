@@ -132,6 +132,11 @@ def available() -> bool:
     return True
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the library (no build, no load)."""
+    return _lib is not None
+
+
 def supports_columnar() -> bool:
     """True when the library decodes "KMZC" columnar frames (km_wire_caps
     bit 0): always, for a library built from the current sources."""
@@ -153,6 +158,14 @@ _PROF_SCALARS = (
     "fold_ns",
     "fold_chunks",
 )
+
+
+def prof_zero() -> dict:
+    """The counters of a process that has parsed nothing: every counter 0,
+    `available` False (the library is not loaded)."""
+    out = {"available": False, "version": 0, "shards_used": 0, "shards": []}
+    out.update(dict.fromkeys(_PROF_SCALARS, 0))
+    return out
 
 
 def prof_counters() -> dict:

@@ -6,14 +6,15 @@ Counterpart of kmamiz_tpu/resilience/, standard library only:
    payloads divert to a bounded on-disk directory with a reason code
    while the ingest goes on with the rest;
 2. retry and circuit breakers (`retry.py`, `breaker.py`) around the
-   upstream calls of the store and the operator;
+   upstream calls of the Zipkin client, the store and the operator;
 3. the tick watchdog (`watchdog.py`): a deadline on each DP tick, past
    which the DP server serves its last good payload marked stale;
 4. crash recovery (`wal.py`): an fsynced ingest WAL that a restarted
    processor replays through `ingest_raw_window` to the same graph.
 
 `chaos.py` injects the faults deterministically; `metrics.py` keeps the
-counters that /health's `resilience` section reports.
+counters that /health's `resilience` section reports, as cells of the
+telemetry registry that GET /metrics renders.
 """
 from kmamiz_tpu_torch.resilience.breaker import (  # noqa: F401
     BreakerOpenError,

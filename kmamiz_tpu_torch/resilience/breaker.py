@@ -15,17 +15,23 @@ The clock is injectable (tests advance a fake clock); state transitions
 serialize on a per-breaker lock. Breakers register in a process-wide
 registry, so every call site of one upstream shares one failure budget.
 
+A breaker that opens is an upstream SLO breach: it freezes the
+profiler's flight artifact (telemetry/profiling/recorder.py), outside
+the breaker's lock.
+
 A copy of kmamiz_tpu/resilience/breaker.py without what the port has no
 caller for: the environment knobs (the JAX package's
-KMAMIZ_BREAKER_*; here module constants at their defaults), the
-profiler's flight-recorder hook, the control plane's warm-up
-(`warm_up`/`revert_warm_up`) and the per-tenant registry keys.
+KMAMIZ_BREAKER_*; here module constants at their defaults), the control
+plane's warm-up (`warm_up`/`revert_warm_up`) and the per-tenant registry
+keys.
 """
 from __future__ import annotations
 
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+from kmamiz_tpu_torch.telemetry.profiling import recorder
 
 CLOSED = "closed"
 OPEN = "open"
@@ -122,6 +128,7 @@ class CircuitBreaker:
             self._state = CLOSED
 
     def record_failure(self) -> None:
+        tripped = False
         with self._lock:
             state = self._state_locked()
             self._stats["failures"] += 1
@@ -132,8 +139,14 @@ class CircuitBreaker:
                     0, self._half_open_inflight - 1
                 )
                 self._trip_locked()
+                tripped = True
             elif state == CLOSED and self._consecutive_failures >= self.threshold:
                 self._trip_locked()
+                tripped = True
+        if tripped:
+            # outside the lock: the recorder walks the telemetry rings and
+            # must not lengthen the admission critical section
+            recorder.record("breaker-open", self.name)
 
     def _trip_locked(self) -> None:
         self._state = OPEN

@@ -15,6 +15,18 @@ refreshes, params version). Gzip request bodies (Content-Encoding: gzip)
 are accepted; responses are gzip-compressed when the client sends
 Accept-Encoding: gzip.
 
+Telemetry, at the JAX server's paths: GET /metrics (the registry as
+Prometheus text 0.0.4), GET /timings (the step timer's phases, the
+resilience summary, the per-tenant scorecard, freshness and the stream
+engine's counters), GET /debug/traces (the tick-span ring as Zipkin v2
+trace groups, which POST /ingest takes back: the self-trace), GET
+/debug/graftprof (the live profile of the profiler's event ring) and
+POST /debug/profile ({"durationMs": N, "dir": optional}: a torch.profiler
+capture of whatever the process runs meanwhile, 409 while one runs).
+Each tick is a trace rooted at `dp-tick` (an /ingest at `dp-ingest`), the
+answer's encode its `encode-serve` span, and with KMAMIZ_TRANSFER_GUARD
+set it runs under the sync guard (analysis/guards.py).
+
 A tick runs under the tick watchdog (resilience/watchdog.py,
 KMAMIZ_TICK_DEADLINE_MS) and, with KMAMIZ_STREAM=1, as a micro-tick of
 the stream engine (server/stream.py). A tick that overruns its deadline
@@ -30,8 +42,9 @@ Run standalone, configured from the environment like the Rust service
     python -m kmamiz_tpu_torch.server.dp_server
 
 Left out of the JAX server: tenant routing, the control plane's
-admission and defer, /timings, /metrics, /debug/*, and the /fleet/*
-routes.
+admission and defer, and the /fleet/* routes; /timings answers the
+sections the port has (no programs, tenancy, control, cost, fleet or
+lockWitness).
 """
 from __future__ import annotations
 
@@ -40,12 +53,13 @@ import json
 import logging
 import os
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
 from kmamiz_tpu_torch import native
+from kmamiz_tpu_torch.analysis import guards
 from kmamiz_tpu_torch.core import wire
+from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.device import DeviceLike
 from kmamiz_tpu_torch.ops.segment_stats import segment_stats
 from kmamiz_tpu_torch.resilience import metrics as res_metrics
@@ -56,6 +70,13 @@ from kmamiz_tpu_torch.resilience.watchdog import (
 )
 from kmamiz_tpu_torch.server import stream as stream_mod
 from kmamiz_tpu_torch.server.processor import DEFAULT_STREAM_CHUNKS, DataProcessor
+from kmamiz_tpu_torch.telemetry import REGISTRY as TEL_REGISTRY
+from kmamiz_tpu_torch.telemetry import TRACER
+from kmamiz_tpu_torch.telemetry import device as tel_device
+from kmamiz_tpu_torch.telemetry import freshness as tel_freshness
+from kmamiz_tpu_torch.telemetry import slo as tel_slo
+from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
+from kmamiz_tpu_torch.telemetry.profiling import report as prof_report
 
 logger = logging.getLogger("kmamiz_tpu_torch.dp_server")
 
@@ -68,10 +89,8 @@ DEFAULT_STREAM_BYTES = 32 << 20
 #: a host core and level 1 ~0.1 s, for ~1.7x the bytes; the client reads
 #: the same JSON either way
 GZIP_LEVEL = 1
-
-
-def _wall_ms() -> float:
-    return time.time() * 1000.0
+#: the content type of Prometheus text exposition 0.0.4
+PROMETHEUS_TEXT = "text/plain; version=0.0.4; charset=utf-8"
 
 
 class _LastGoodTick:
@@ -87,7 +106,7 @@ class _LastGoodTick:
         self._at_ms: Optional[float] = None
 
     def update(self, payload: dict, version: int, label_epoch: int) -> None:
-        now_ms = _wall_ms()
+        now_ms = prof_events.wall_ms()
         with self._lock:
             self._payload = payload
             self._at_ms = now_ms
@@ -103,7 +122,7 @@ class _LastGoodTick:
             at_ms = self._at_ms
         payload["uniqueId"] = unique_id
         payload["stale"] = True
-        payload["staleAgeMs"] = round(max(0.0, _wall_ms() - at_ms), 1)
+        payload["staleAgeMs"] = round(max(0.0, prof_events.wall_ms() - at_ms), 1)
         payload["staleReason"] = reason
         res_metrics.note_stale_serve()
         return payload
@@ -176,6 +195,13 @@ def make_handler(
         def log_message(self, fmt: str, *args) -> None:  # quiet default logs
             logger.debug("%s " + fmt, self.address_string(), *args)
 
+        def _send_bytes(self, status: int, body: bytes, content_type: str) -> None:
+            self.send_response(status)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def _send_json(
             self,
             status: int,
@@ -203,6 +229,30 @@ def make_handler(
 
         def do_GET(self) -> None:  # health check (main.rs:28-31)
             path = self.path.split("?", 1)[0].rstrip("/")
+            if path == "/metrics":
+                # the registry's cells: the same ones /timings reads
+                self._send_bytes(200, TEL_REGISTRY.render().encode("utf-8"), PROMETHEUS_TEXT)
+                return
+            if path == "/timings":
+                self._send_json(
+                    200,
+                    {
+                        "phases": step_timer.summary(),
+                        "resilience": res_metrics.resilience_summary(),
+                        "tenants": tel_slo.TENANTS.snapshot(),
+                        "freshness": tel_freshness.snapshot(),
+                        "stream": stream_mod.stats(),
+                    },
+                )
+                return
+            if path == "/debug/traces":
+                # POSTing this body back to /ingest builds the pipeline's
+                # own dependency graph (self-trace)
+                self._send_json(200, TRACER.export_zipkin())
+                return
+            if path == "/debug/graftprof":
+                self._send_json(200, prof_report.build_profile())
+                return
             if path == "/model/stlgt":
                 from kmamiz_tpu_torch.models.stlgt import trainer as stlgt_trainer
 
@@ -238,6 +288,9 @@ def make_handler(
             if path == "/ingest":
                 self._ingest(raw)
                 return
+            if path == "/debug/profile":
+                self._profile(raw)
+                return
             if path != "":
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
@@ -258,11 +311,20 @@ def make_handler(
                 # the epoch accounting comes before the watchdog reads its
                 # deadline: a boundary reads the env again
                 engine.note_micro_tick()
-                tick = lambda: engine.collect(request)  # noqa: E731
+                collect = lambda: engine.collect(request)  # noqa: E731
             else:
                 # leaving stream mode must not strand an epoch's deadline
                 watchdog.end_stream_epoch()
-                tick = lambda: processor.collect(request)  # noqa: E731
+                collect = lambda: processor.collect(request)  # noqa: E731
+
+            def tick():
+                # under the sync guard when KMAMIZ_TRANSFER_GUARD asks
+                with guards.maybe_guarded_tick(processor.device) as report:
+                    result = collect()
+                if report is not None:
+                    logger.info("collect tick made %d synchronising calls", report.syncs)
+                return result
+
             try:
                 response = watchdog.run(
                     tick, overrun_reason=stream_mod.REASON_STREAM_OVERRUN if streaming else None
@@ -273,6 +335,7 @@ def make_handler(
                 if stale is None:
                     self._send_json(503, {"error": str(e), "reason": e.reason})
                 else:
+                    tel_slo.TENANTS.note_stale(tel_slo.DEFAULT_TENANT)
                     self._send_stale(stale)
                 return
             except Exception as e:  # noqa: BLE001 - degrade, else 500
@@ -282,6 +345,7 @@ def make_handler(
                     self._send_json(500, {"error": str(e)})
                 else:
                     res_metrics.watchdog_tripped(REASON_FAULT)
+                    tel_slo.TENANTS.note_stale(tel_slo.DEFAULT_TENANT)
                     self._send_stale(stale)
                 return
             graph = processor.graph
@@ -289,12 +353,16 @@ def make_handler(
             last_good.update(response, version, label_epoch)
             # the dependency records the tick encoded in its fetch's shadow
             text = processor.take_encoded_dependencies(response.get("dependencies"))
+            t_enc = prof_events.now_ms()
             self._send_json(
                 200,
                 response,
                 cache_key=(unique_id, version, label_epoch),
                 encoded_parts=None if text is None else {"dependencies": text},
             )
+            # the encode runs after the tick's trace closed (the tick itself
+            # may have run on the watchdog's worker): a post-hoc span
+            TRACER.annotate_last("encode-serve", prof_events.now_ms() - t_enc)
 
         def _send_stale(self, stale: dict) -> None:
             """The degraded answer: 200 and the last good payload, its
@@ -315,13 +383,14 @@ def make_handler(
             routing: the tenancy layer is not ported."""
             try:
                 summary = None
-                # a KMZC frame is indivisible: the splitter reads JSON only
-                if len(raw) >= stream_bytes and not wire.is_columnar(raw):
-                    chunks = native.split_groups(raw, stream_chunks)
-                    if chunks is not None and len(chunks) > 1:
-                        summary = processor.ingest_raw_stream(chunks)
-                if summary is None:
-                    summary = processor.ingest_raw_window(raw)
+                with TRACER.tick(root_name="dp-ingest"):
+                    # a KMZC frame is indivisible: the splitter reads JSON only
+                    if len(raw) >= stream_bytes and not wire.is_columnar(raw):
+                        chunks = native.split_groups(raw, stream_chunks)
+                        if chunks is not None and len(chunks) > 1:
+                            summary = processor.ingest_raw_stream(chunks)
+                    if summary is None:
+                        summary = processor.ingest_raw_window(raw)
             except ValueError as e:
                 self._send_json(400, {"error": str(e)})
                 return
@@ -330,6 +399,19 @@ def make_handler(
                 self._send_json(500, {"error": str(e)})
                 return
             self._send_json(200, summary)
+
+        def _profile(self, raw: bytes) -> None:
+            """POST /debug/profile: a torch.profiler capture of
+            {"durationMs": N} (clamped), into {"dir": ...} or
+            KMAMIZ_PROFILE_DIR; blocks for the window and answers the
+            capture's file, 409 while another capture runs."""
+            try:
+                req = json.loads(raw) if raw else {}
+            except ValueError as e:
+                self._send_json(400, {"error": f"bad request: {e}"})
+                return
+            out = tel_device.capture_profile(req.get("durationMs", 100), req.get("dir"))
+            self._send_json(200 if out.get("ok") else 409, out)
 
     return Handler
 

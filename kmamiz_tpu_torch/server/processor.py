@@ -53,9 +53,20 @@ to disk and answered with a zero-span summary; with the WAL on
 kept trace groups, is appended before its merge, and `replay_wal`
 rebuilds the graph after a crash.
 
-Not ported yet: telemetry spans, and the fold hooks of the JAX processor
-(the control plane and the cost model; the STLGT continual trainer is
-ported).
+Telemetry, as in the JAX processor: each tick (and each raw ingest under
+the DP server's `dp-ingest` root) records a span trace of its phases
+(telemetry/tracing.py: parse, wal-append, walk_sparse, pack, merge,
+scorers, assemble, host-transfer, quarantine, and the port-only
+fetch_cluster_state and dependencies_json), the step timer's phases
+(core/profiling.py: fetch_traces, fetch_cluster_state, dependencies,
+combine_window, graph_merge, combine_assemble, raw_ingest_parse,
+raw_ingest_graph, ingest_parse, ingest_merge), the scorecard and
+freshness observations, and torch.profiler captures of its device stages
+when KMAMIZ_PROFILE_DIR is set. Span boundaries add no device
+synchronisation. `last_stage_ms` keeps the port's own stage walls.
+
+Not ported yet: the fold hooks of the JAX processor for the control plane
+and the cost model (the STLGT continual trainer is ported).
 """
 from __future__ import annotations
 
@@ -65,15 +76,15 @@ import json
 import logging
 import queue
 import threading
-import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kmamiz_tpu_torch import native, synth
-from kmamiz_tpu_torch.core import schema
+from kmamiz_tpu_torch.core import profiling, schema
 from kmamiz_tpu_torch.core.interning import StringInterner
+from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.core.spans import (
     KIND_SERVER,
     RawIngestSession,
@@ -94,6 +105,11 @@ from kmamiz_tpu_torch.ops import window as window_ops
 from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.resilience import quarantine as res_quarantine
 from kmamiz_tpu_torch.resilience.wal import IngestWAL
+from kmamiz_tpu_torch.telemetry import device as tel_device
+from kmamiz_tpu_torch.telemetry import freshness as tel_freshness
+from kmamiz_tpu_torch.telemetry import slo as tel_slo
+from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
+from kmamiz_tpu_torch.telemetry.tracing import TRACER, phase_span
 
 logger = logging.getLogger("kmamiz_tpu_torch.processor")
 
@@ -150,12 +166,16 @@ class _PreparedTick:
         "stages",
         "objects",
         "dependency_records",
+        "arrival_ns",
     )
 
     def __init__(self, request: dict) -> None:
         self.request = request
         self.req_time = 0
-        self.wall_t0 = time.perf_counter()
+        self.wall_t0 = prof_events.now_ms()
+        # the freshness watermark: stamped when the tick starts, observed
+        # when its response is assembled
+        self.arrival_ns = prof_events.now_ns()
         self.trace_groups = []
         self.realtime = None
         self.stats_job = None
@@ -173,10 +193,12 @@ class _ClusterFetch:
     """A tick's cluster fetch, the source's
     get_replicas_and_joinable_logs(namespaces, trace_ids=...), on a thread
     of its own. result() waits and returns (replicas, structured logs) or
-    raises the fetch's error; `ms` is the fetch's own wall."""
+    raises the fetch's error; `ms` is the fetch's own wall, between
+    `start_ns` and `end_ns` (prof_events.now_ns)."""
 
     def __init__(self, source, namespaces, trace_ids) -> None:
         self.ms = 0.0
+        self.start_ns = self.end_ns = 0
         self._out = None
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(
@@ -185,13 +207,14 @@ class _ClusterFetch:
         self._thread.start()
 
     def _run(self, source, namespaces, trace_ids) -> None:
-        t0 = time.perf_counter()
+        self.start_ns = prof_events.now_ns()
         try:
             self._out = source.get_replicas_and_joinable_logs(namespaces, trace_ids=trace_ids)
         except BaseException as err:  # noqa: BLE001 - re-raised by result()
             self._err = err
         finally:
-            self.ms = (time.perf_counter() - t0) * 1e3
+            self.end_ns = prof_events.now_ns()
+            self.ms = (self.end_ns - self.start_ns) / 1e6
 
     def result(self):
         self._thread.join()
@@ -207,10 +230,10 @@ class _stage:
         self.stages, self.name = stages, name
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        self.t0 = prof_events.now_ms()
 
     def __exit__(self, *exc):
-        self.stages[self.name] = (time.perf_counter() - self.t0) * 1e3
+        self.stages[self.name] = prof_events.now_ms() - self.t0
         return False
 
 
@@ -239,7 +262,7 @@ class DataProcessor:
         k8s_source: Optional[object] = None,
         device: DeviceLike = None,
         graph: Optional[EndpointGraph] = None,
-        now_ms: Callable[[], float] = lambda: time.time() * 1000.0,
+        now_ms: Callable[[], float] = prof_events.wall_ms,
         use_device_stats: bool = True,
         wal: object = "from_env",
         max_payload_bytes: int = res_quarantine.MAX_PAYLOAD_BYTES,
@@ -252,6 +275,8 @@ class DataProcessor:
             )
         _tune_gc()
         self.device = resolve_device(device)
+        # a card processor feeds the device memory gauges
+        tel_device.track_device(self.device)
         self._trace_source = trace_source
         self._k8s = k8s_source
         self._use_device_stats = use_device_stats
@@ -427,7 +452,7 @@ class DataProcessor:
             "edges": int(self.graph.n_edges),
             "quarantined": 1,
             "reason": reason,
-            "ms": round((time.perf_counter() - wall_t0) * 1e3, 1),
+            "ms": round(prof_events.now_ms() - wall_t0, 1),
         }
 
     def replay_wal(self) -> dict:
@@ -470,49 +495,54 @@ class DataProcessor:
         (when on) before its merge. A fault on this side (a library
         answer that does not decode, a desynced session) raises
         RuntimeError, where the JAX processor reports it as a malformed
-        payload. Not ported: the telemetry spans and step timers."""
+        payload."""
         t_start = self._now_ms()  # domain time for the dedup registration
-        wall_t0 = time.perf_counter()
+        wall_t0 = prof_events.now_ms()
+        tel_slo.INGEST_PAYLOADS.inc()
         quarantine_on = res_quarantine.enabled()
         if quarantine_on and 0 < self.max_payload_bytes < len(raw):
             # the size gate comes before the parse: a trace bomb never
             # reaches the scanner, the interner or the device
-            res_quarantine.default_quarantine().put(
-                raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_window"
-            )
+            with phase_span("quarantine"):
+                res_quarantine.default_quarantine().put(
+                    raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_window"
+                )
             return self._quarantined_summary(res_quarantine.REASON_TRACE_BOMB, wall_t0)
         with self._dedup_lock:
             skipset = self._skipset_locked()
             session = self._raw_session_locked()
-        out = raw_spans_to_batch(
-            raw, interner=self.graph.interner, skipset=skipset, session=session
-        )
+        with step_timer.phase("raw_ingest_parse"), phase_span("parse"):
+            out = raw_spans_to_batch(
+                raw, interner=self.graph.interner, skipset=skipset, session=session
+            )
         if out is None:
             if not quarantine_on:
                 raise ValueError("malformed span payload")
-            reason = self._divert_poison(raw, "ingest_raw_window")
+            with phase_span("quarantine"):
+                reason = self._divert_poison(raw, "ingest_raw_window")
             return self._quarantined_summary(reason, wall_t0)
         batch, kept = out
-        t_parsed = time.perf_counter()
-        self._wal_append(raw)
+        t_parsed = prof_events.now_ms()
+        with phase_span("wal-append"):
+            self._wal_append(raw)
         # the dedup snapshot is the skip set as the parse saw it: a trace a
         # concurrent collect() registers mid-parse may merge twice, which
         # the set-union edge store absorbs
         self._register_processed(kept, t_start)
         if batch.n_spans:
-            self.graph.merge_window(batch)
+            with step_timer.phase("raw_ingest_graph"), profiling.trace("raw_ingest_graph"), phase_span(
+                "merge"
+            ):
+                self.graph.merge_window(batch)
         edges = int(self.graph.n_edges)  # waits for the merge
-        t_end = time.perf_counter()
-        self.last_ingest_ms = {
-            "parse": (t_parsed - wall_t0) * 1e3,
-            "merge": (t_end - t_parsed) * 1e3,
-        }
+        t_end = prof_events.now_ms()
+        self.last_ingest_ms = {"parse": t_parsed - wall_t0, "merge": t_end - t_parsed}
         return {
             "spans": batch.n_spans,
             "traces": len(kept),
             "endpoints": batch.num_endpoints,
             "edges": edges,
-            "ms": round((t_end - wall_t0) * 1e3, 1),
+            "ms": round(t_end - wall_t0, 1),
         }
 
     def _register_processed(self, kept, when_ms: float) -> None:
@@ -580,7 +610,7 @@ class DataProcessor:
         read's `drain_ms`, `ms`, `pipeline_depth` and the ring's peak
         occupancy (`ring_peak`)."""
         depth = max(1, int(depth))
-        wall_t0 = time.perf_counter()
+        wall_t0 = prof_events.now_ms()
         parse_ms = merge_ms = 0.0
         totals = {"spans": 0, "traces": 0, "chunks": 0}
         quarantined = [0]  # written by the parse thread, read after join
@@ -615,6 +645,7 @@ class DataProcessor:
                         raw = next(it)
                     except StopIteration:
                         break
+                    tel_slo.INGEST_PAYLOADS.inc()
                     if quarantine_on and 0 < size_cap < len(raw):
                         res_quarantine.default_quarantine().put(
                             raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_stream"
@@ -624,11 +655,12 @@ class DataProcessor:
                     with self._dedup_lock:
                         skipset = self._skipset_locked()
                         session = self._raw_session_locked()
-                    t0 = time.perf_counter()
+                    t0 = prof_events.now_ms()
                     out = raw_spans_to_batch(
                         raw, interner=self.graph.interner, skipset=skipset, session=session
                     )
-                    dt = (time.perf_counter() - t0) * 1e3
+                    dt = prof_events.now_ms() - t0
+                    step_timer.record("ingest_parse", dt)
                     if out is None:
                         if quarantine_on:
                             # divert the poison chunk and go on
@@ -664,9 +696,17 @@ class DataProcessor:
                     pending_err = payload
                     break
                 batch, kept = payload
-                t0 = time.perf_counter()
-                transfer_ms = self.graph.merge_window(batch, stage=True) if batch.n_spans else 0.0
-                chunk_ms = (time.perf_counter() - t0) * 1e3
+                t0 = prof_events.now_ms()
+                transfer_ms = 0.0
+                if batch.n_spans:
+                    with step_timer.phase("raw_ingest_graph"), profiling.trace(
+                        "raw_ingest_graph"
+                    ), phase_span("merge"):
+                        # the walk, its self-compaction and the upload;
+                        # one union over every chunk at the drain below
+                        transfer_ms = self.graph.merge_window(batch, stage=True)
+                chunk_ms = prof_events.now_ms() - t0
+                step_timer.record("ingest_merge", chunk_ms)
                 merge_ms += chunk_ms
                 chunk_detail.append(
                     {
@@ -685,11 +725,12 @@ class DataProcessor:
         if pending_err is not None:
             raise pending_err
         # the staged merges resolve here: n_edges waits for the device, the
-        # stream's one fence
-        t0 = time.perf_counter()
-        n_edges = int(self.graph.n_edges)
-        drain_ms = (time.perf_counter() - t0) * 1e3
-        wall_ms = (time.perf_counter() - wall_t0) * 1e3
+        # stream's one fence (so the span boundary costs no sync)
+        t0 = prof_events.now_ms()
+        with phase_span("host-transfer"):
+            n_edges = int(self.graph.n_edges)
+        drain_ms = prof_events.now_ms() - t0
+        wall_ms = prof_events.now_ms() - wall_t0
         return {
             **totals,
             "quarantined": quarantined[0],
@@ -742,8 +783,9 @@ class DataProcessor:
         scratch processor on this device, over synthetic windows of
         WARM_UP_TRACES traces (the second merges through the interned-edge
         path), run it instead. This processor's graph, dedup map, history
-        and WAL are not touched. Nothing loads lazily on the CPU, where it
-        returns at once."""
+        and WAL are not touched (the scratch ticks count in the telemetry
+        like any tick of the process). Nothing loads lazily on the CPU,
+        where it returns at once."""
         if self.device.type != "cuda":
             return
         windows = iter(
@@ -770,7 +812,9 @@ class DataProcessor:
         is one, where the reference's worker thread clones both as JSON
         (EndpointDependencies.handed_over holds the two forms equal)."""
         stages: Dict[str, float] = {}
-        with self.tick_lock:
+        # the trace's root is the tick's own work, not its wait for the
+        # lock; a no-op when the caller already opened the trace
+        with self.tick_lock, TRACER.tick():
             with _stage(stages, "prepare"):
                 p = self.prepare_tick(request)
             p.objects = objects
@@ -787,20 +831,25 @@ class DataProcessor:
         device-stats dispatch, and the span-batch build — everything up to
         (but NOT including) the graph merge. `fetch_cluster_state` in the
         stage walls is the fetch's own wall, which overlaps
-        `wal_append` and `dependencies`."""
+        `wal_append` and `dependencies`; its span (`fetch_cluster_state`,
+        timed on its thread) overlaps them too."""
         p = _PreparedTick(request)
+        tel_slo.TICKS.inc()
         t_start = self._now_ms()  # dedup stamps, default request time
         p.req_time = request.get("time", int(t_start))
         existing_dep = request.get("existingDep")
 
         with _stage(p.stages, "fetch_parse"):
-            trace_groups = self._trace_source(
-                request.get("lookBack", 30_000),
-                p.req_time,
-                ZIPKIN_LIMIT,
-            )
-            trace_groups = self._filter_traces(trace_groups, t_start)
-            traces = Traces(trace_groups)
+            with step_timer.phase("fetch_traces"), phase_span("parse"):
+                trace_groups = self._trace_source(
+                    request.get("lookBack", 30_000),
+                    p.req_time,
+                    ZIPKIN_LIMIT,
+                )
+                trace_groups = self._filter_traces(trace_groups, t_start)
+            with phase_span("parse"):
+                # still parse work: span dicts -> Traces
+                traces = Traces(trace_groups)
 
         # the cluster fetch runs on a thread of its own (its fan-out on the
         # cluster client's worker processes) while this thread logs the
@@ -815,13 +864,14 @@ class DataProcessor:
             cluster = _ClusterFetch(self._k8s, namespaces, trace_ids)
 
         if trace_groups and self._wal is not None:
-            with _stage(p.stages, "wal_append"):
+            with _stage(p.stages, "wal_append"), phase_span("wal-append"):
                 # the tick's kept groups as raw Zipkin JSON, before any
                 # graph mutation; replay re-ingests them through
                 # ingest_raw_window, which merges the same edges
                 self._wal_append(json.dumps(trace_groups).encode("utf-8"))
 
-        with _stage(p.stages, "dependencies"):
+        # the port's walk is the gather form: the JAX walk_sparse phase
+        with _stage(p.stages, "dependencies"), step_timer.phase("dependencies"), phase_span("walk_sparse"):
             dependencies = traces.to_endpoint_dependencies()
             # the raw pre-filter window edges; combine_with returns a new
             # instance without them, so capture before combining
@@ -837,7 +887,7 @@ class DataProcessor:
                 )
 
         if cluster is not None and self.encode_dependencies_early:
-            with _stage(p.stages, "dependencies_json"):
+            with _stage(p.stages, "dependencies_json"), phase_span("dependencies_json"):
                 # the response's largest part, encoded in the fetch's
                 # shadow, one record a call so the fetch's thread gets the
                 # interpreter between records
@@ -850,6 +900,8 @@ class DataProcessor:
         if cluster is not None:
             replicas, structured_logs = cluster.result()
             p.stages["fetch_cluster_state"] = cluster.ms
+            step_timer.record("fetch_cluster_state", cluster.ms)
+            TRACER.record_span("fetch_cluster_state", cluster.start_ns, cluster.end_ns)
             for part, ms in getattr(self._k8s, "last_fetch_ms", {}).items():
                 p.stages[f"cluster_{part}"] = ms
             self._last_replicas.update(
@@ -862,7 +914,9 @@ class DataProcessor:
 
         # dispatch the device stats before the host builds the span batch:
         # the kernel runs and its packed result streams back meanwhile
-        with _stage(p.stages, "combine_window"):
+        with _stage(p.stages, "combine_window"), step_timer.phase("combine_window"), profiling.trace(
+            "combine"
+        ), phase_span("pack"):
             realtime = traces.combine_logs_to_realtime_data(structured_logs, replicas)
             records = realtime.to_json()
             if self._use_device_stats and trace_groups and records:
@@ -872,7 +926,7 @@ class DataProcessor:
         p.realtime = realtime
         p.dependencies = dependencies
         if trace_groups:
-            with _stage(p.stages, "span_batch"):
+            with _stage(p.stages, "span_batch"), step_timer.phase("graph_merge"), phase_span("merge"):
                 p.batch = spans_to_batch(trace_groups, interner=self.graph.interner)
         return p
 
@@ -882,38 +936,50 @@ class DataProcessor:
         then the history-feature accumulation."""
         if not p.trace_groups:
             return
-        if p.window_edges is None or not self.graph.merge_window_edges(
-            p.window_edges, p.batch
-        ):
-            self.graph.merge_window(p.batch)
-        with _stage(p.stages, "history"):
+        with step_timer.phase("graph_merge"), profiling.trace("graph_merge"), phase_span("merge"):
+            if p.window_edges is None or not self.graph.merge_window_edges(p.window_edges, p.batch):
+                self.graph.merge_window(p.batch)
+        # the history feed of the model plane's scorers (the JAX phase name)
+        with _stage(p.stages, "history"), phase_span("scorers"):
             self._observe_history(p.batch, p.req_time)
 
     def finish_tick(self, p: _PreparedTick) -> dict:
         """The tick's response assembly: device-stats drain + host body
-        merge + datatypes, response dict (its dependencies as the object
-        with p.objects, see collect)."""
-        with _stage(p.stages, "combine_assemble"):
+        merge + datatypes, the scorecard and freshness observations, the
+        response dict (its dependencies as the object with p.objects, see
+        collect)."""
+        with _stage(p.stages, "combine_assemble"), step_timer.phase("combine_assemble"), profiling.trace(
+            "combine_assemble"
+        ), phase_span("assemble"):
             combined = self._combine(p.realtime, p.stats_job)
             datatypes = [d.to_json() for d in combined_list_datatypes(combined)]
-        elapsed = (time.perf_counter() - p.wall_t0) * 1e3
-        if p.objects:
-            dependencies = p.dependencies
-        elif p.dependency_records is not None:
-            dependencies = p.dependency_records
-        else:
-            dependencies = p.dependencies.to_json()
-        return {
-            "uniqueId": p.request.get("uniqueId", ""),
-            "combined": combined.to_json(),
-            "dependencies": dependencies,
-            "datatype": datatypes,
-            "log": (
-                f"processed {sum(len(g) for g in p.trace_groups)} spans / "
-                f"{len(p.trace_groups)} traces in {elapsed:.1f}ms "
-                f"(device={self.device})"
-            ),
-        }
+        elapsed = prof_events.now_ms() - p.wall_t0
+        tel_slo.SCORECARD.observe_tick(elapsed)
+        tel_slo.TENANTS.observe_tick(tel_slo.DEFAULT_TENANT, elapsed)
+        # the window stamped at the tick's start is now forecast-visible
+        fresh_ns = prof_events.now_ns() - p.arrival_ns
+        tel_freshness.observe(fresh_ns / 1e6)
+        prof_events.emit("freshness", fresh_ns)
+        with phase_span("assemble"):
+            # the response's shape is assembly work too (the HTTP encode is
+            # the server's encode-serve span)
+            if p.objects:
+                dependencies = p.dependencies
+            elif p.dependency_records is not None:
+                dependencies = p.dependency_records
+            else:
+                dependencies = p.dependencies.to_json()
+            return {
+                "uniqueId": p.request.get("uniqueId", ""),
+                "combined": combined.to_json(),
+                "dependencies": dependencies,
+                "datatype": datatypes,
+                "log": (
+                    f"processed {sum(len(g) for g in p.trace_groups)} spans / "
+                    f"{len(p.trace_groups)} traces in {elapsed:.1f}ms "
+                    f"(device={self.device})"
+                ),
+            }
 
     # -- online history features (models/history.HistoryState) ---------------
 
@@ -1326,7 +1392,10 @@ class DataProcessor:
             schema.body_pairs_for_groups([rows for _key, rows in group_items])
         )
 
-        stats = stats_job.result()
+        # the one device-to-host fence the tick already pays: the span
+        # boundary rides it
+        with phase_span("host-transfer"):
+            stats = stats_job.result()
         out: List[dict] = []
         for i, ((uen, status), rows) in enumerate(group_items):
             # both sides key segments by the RAW status value (spans without

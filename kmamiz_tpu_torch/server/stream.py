@@ -32,6 +32,12 @@ ticks. Both are the JAX defaults; an engine takes others as arguments.
 
 Both paths hold the processor's tick_lock, as collect() does, so a
 scheduled tick and a stream never interleave.
+
+Each micro-tick's finish_tick observes its arrival-to-visible wall on the
+telemetry's freshness plane (telemetry/freshness.py), stamped when its
+prepare stage started: under run_stream, prepare(N+1) overlaps merge(N),
+so the plane sees the overlap. A micro-tick opens no span trace of its
+own, as in the JAX engine.
 """
 from __future__ import annotations
 

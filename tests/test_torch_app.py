@@ -232,6 +232,21 @@ def test_every_shared_get_route_matches_jax(apps):
             if pattern.endswith("/health"):
                 assert got.payload["status"] == want.payload["status"] == "UP"
                 continue
+            if pattern.endswith("/health/timings"):
+                # the port keeps no program registry: no `programs` section
+                assert set(got.payload) == set(want.payload) - {"programs"}, url
+                assert got.payload["phases"] and set(got.payload["resilience"]) <= set(want.payload["resilience"])
+                continue
+            if pattern.endswith("/telemetry/metrics"):
+                assert got.content_type == want.content_type == "text/plain; version=0.0.4; charset=utf-8"
+                assert b"kmamiz_ticks_total" in got.raw_body and b"kmamiz_ticks_total" in want.raw_body
+                continue
+            if pattern.endswith("/telemetry/traces"):
+                # each package's own ring (the JAX conftest empties its ring
+                # between tests): Zipkin groups with one root each
+                assert isinstance(got.payload, list) and isinstance(want.payload, list)
+                assert all(sum(s["parentId"] is None for s in g) == 1 for g in got.payload)
+                continue
             if pattern.endswith("/export"):
                 g, w = (dict(jax.import_export.read_tgz(r.raw_body)) for r in (got, want))
                 assert_close(g, w, path=url)

@@ -812,3 +812,72 @@ def test_warm_up_leaves_the_processor_as_it_was(card):
     dp.warm_up()
     assert ss.segment_stats.launches == before + 4
     assert (graph_signature(dp.graph), len(dp.graph.interner.endpoints), dict(dp._processed), dp.history) == state
+
+
+# -- telemetry on the card (last: a profiler session slows the process's
+# later launches) ------------------------------------------------------------
+
+#: the synchronising calls one warm tick of _telemetry_processor's third
+#: window makes on the H100, as the sync guard counts them
+#: (analysis/guards.py): its budget. The count moves with timing (two chip
+#: runs of one tree counted 8 and 7), so the tick is held to the budget
+WARM_TICK_SYNCS = 8
+
+
+def _telemetry_processor(card):
+    """A card processor over three seeded 2,500-trace windows of the
+    BASELINE mesh, warmed by the first two ticks; `feed["k"]` picks the
+    window."""
+    from kmamiz_tpu_torch import synth
+
+    windows = [
+        json.loads(
+            synth.make_raw_window(2_500, 7, t_start=k * 2_500, trace_prefix=f"g{k}-", n_services=1000, urls_per_service=10)
+        )
+        for k in range(3)
+    ]
+    feed = {"k": 0}
+    dp = DataProcessor(trace_source=lambda lb, t, lim: windows[feed["k"]], device=card, wal=None)
+    for k in (0, 1):
+        feed["k"] = k
+        dp.collect({"uniqueId": f"warm{k}", "lookBack": 30_000})
+    torch.cuda.synchronize()
+    feed["k"] = 2
+    return dp
+
+
+@pytest.mark.cuda
+def test_a_warm_tick_stays_within_its_pinned_synchronising_calls(card):
+    from kmamiz_tpu_torch.analysis import guards
+
+    dp = _telemetry_processor(card)
+    with guards.hot_path_guard("disallow", device=dp.device, expected_syncs=WARM_TICK_SYNCS) as report:
+        dp.collect({"uniqueId": "guarded", "lookBack": 30_000})
+    assert 0 < report.syncs <= WARM_TICK_SYNCS, f"{report.syncs} synchronising calls"
+    # at disallow, one call over the design raises
+    with pytest.raises(guards.SyncsOverBudget):
+        with guards.hot_path_guard("disallow", device=dp.device, expected_syncs=0):
+            torch.ones(1, device=card).item()
+
+
+@pytest.mark.cuda
+def test_a_capture_credits_a_ticks_segment_stats_launches(card, tmp_path):
+    import threading
+    import time
+
+    from kmamiz_tpu_torch.telemetry import device as tel_device
+    from kmamiz_tpu_torch.telemetry.profiling import device_attr
+
+    dp = _telemetry_processor(card)
+    assert tel_device.capture_profile(50, str(tmp_path / "first"))["ok"]  # the profiler's start-up
+    out = {}
+    capture = threading.Thread(target=lambda: out.update(tel_device.capture_profile(3_000, str(tmp_path / "tick"))))
+    capture.start()
+    time.sleep(0.5)
+    before = ss.segment_stats.launches
+    dp.collect({"uniqueId": "captured", "lookBack": 30_000})
+    torch.cuda.synchronize()
+    capture.join()
+    assert out["ok"] and ss.segment_stats.launches == before + 2
+    joined = device_attr.parse_profile_dir(str(tmp_path / "tick"))
+    assert joined["programs"].get("segment_stats", 0.0) > 0, joined

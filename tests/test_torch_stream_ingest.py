@@ -31,6 +31,8 @@ from kmamiz_tpu_torch import native, synth
 from kmamiz_tpu_torch.core import wire
 from kmamiz_tpu_torch.graph.store import graph_signature
 from kmamiz_tpu_torch.ingestion import ZipkinClient
+from kmamiz_tpu_torch.resilience import breaker as port_breaker
+from kmamiz_tpu_torch.resilience import retry as port_retry
 from kmamiz_tpu_torch.server.dp_server import DataProcessorServer
 from kmamiz_tpu_torch.server.processor import DEFAULT_STREAM_DEPTH, DataProcessor
 from test_torch_raw_ingest import port_skip_blob_locked
@@ -41,6 +43,12 @@ TOTAL_KEYS = ("spans", "traces", "chunks", "quarantined", "endpoints", "edges")
 @pytest.fixture(autouse=True)
 def no_quarantine(monkeypatch):
     monkeypatch.setenv("KMAMIZ_QUARANTINE", "0")
+    # the Zipkin client's breaker is process-wide in both packages (the
+    # JAX conftest resets its own): a test's failed fetches must not open
+    # it for the next test
+    port_breaker.reset_for_tests()
+    yield
+    port_breaker.reset_for_tests()
 
 
 def mk_span(tid, sid, parent=None, **over):
@@ -498,8 +506,10 @@ def test_pages_split_the_lookback_window(mock_api, pages, look_back, end_ts):
 
 
 def test_empty_and_failed_pages_are_skipped(mock_api, monkeypatch):
-    # one attempt per fetch on the JAX side: the port has no retry
+    # one attempt per fetch in both packages: the JAX package's env knob,
+    # the port's module constant
     monkeypatch.setenv("KMAMIZ_RETRY_ATTEMPTS", "1")
+    monkeypatch.setattr(port_retry, "ATTEMPTS", 1)
     server, api = mock_api
     calls = {"n": 0}
 
