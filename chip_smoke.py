@@ -251,6 +251,26 @@ Phases, each timed:
    synchronising calls; (h) a scratch DP in this process with
    KMAMIZ_TICK_DEADLINE_MS=1: the trip's kmamiz-flight artifact,
    condensed by report.from_any.
+21. the simulator (after phase 20, before phase 14's profiler sessions),
+   at BASELINE.json's synthetic mesh (make_mesh_config: 1,000 services x
+   10 endpoints, fault fraction 0.08, seed 0) over 1 simulated day: (a)
+   Simulator.generate_simulation_data on the host (its wall, endpoints,
+   distance-1 edges, slots, rows per slot); (b) GraphSAGE through
+   trainer.train_on_simulation on the card (hidden 64, 8 epochs): slots/s,
+   losses, kernel 2's forward and backward launches against the steps,
+   the evaluation metrics and threshold, the first-epoch loss against a
+   2-epoch CPU copy's (rtol 1e-3); (c) GAT on the same dataset, 2 epochs,
+   no launch; (d) (b)'s params saved and restored through
+   models/checkpoint.py, the restored forward on the card against the
+   trained one (rtol 1e-4 / atol 1e-5); (e) beside (a)-(d), the
+   application in simulator mode through its main() over a fresh
+   FileStore: POST /api/v1/simulation/startSimulation with the same YAML
+   (201), the endpoint graph, generateStaticSimConfig and the export (its
+   10,000 dependency records, its SimulatedHistoricalData), then SIGTERM
+   (exit 0, the store left empty); (f) kernel 2 at (b)'s buckets: the edge
+   index against its plain build, the forward at H = 10, 18 and 64 and the
+   ungated row pass at 64 against their plain versions, with bound and
+   library times.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -267,7 +287,7 @@ kernels as shipped against builds with other tuning values (KMZ_* in
 csrc/fused_sddmm_spmm.cu) on the BASELINE graph. With --cluster-only it
 runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 1-2 and then phase 20 alone ((g) on a fresh card processor after one
-warm tick).
+warm tick); with --simulator-only, phases 1-2 and then phase 21 alone.
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -772,6 +792,34 @@ def fused_case(torch, sparse, label, v, src, dst, mask, gated_args, index, jobs)
     return case
 
 
+def check_edge_index(torch, sparse, src, dst, mask, n, index):
+    """Check `index` (sparse.edge_index of the edge list over n rows)
+    against the same build with its keys in plain PyTorch
+    (sparse.edge_keys_plain in place of the keys kernel: the same sort and
+    searchsorted), and the keys kernel alone against its plain version.
+    Returns the plain build, as a function of no arguments."""
+
+    def plain_index():
+        keys, other = sparse.edge_keys_plain(src, dst, mask, n)
+        sorted_keys, order = torch.sort(keys, stable=True)
+        bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+        return torch.searchsorted(sorted_keys, bounds, out_int32=True), other[order], order
+
+    row_ptr, nbr, order = plain_index()
+    check(
+        torch.equal(row_ptr, index.row_ptr) and torch.equal(nbr, index.nbr)
+        and torch.equal(order, index.eid),
+        "the edge index differs from its plain version",
+    )
+    keys, other = sparse.edge_keys(src, dst, mask, n)
+    keys_plain, other_plain = sparse.edge_keys_plain(src, dst, mask, n)
+    check(
+        torch.equal(keys.to(keys_plain.dtype), keys_plain) and torch.equal(other, other_plain),
+        "the keys kernel differs from edge_keys_plain",
+    )
+    return plain_index
+
+
 def fused_cases(torch, graph, jobs):
     """Phase 5: the fused kernel at the forecast's shapes, on the BASELINE
     graph's edge columns and seeded node tables; the edge index's build
@@ -797,28 +845,8 @@ def fused_cases(torch, graph, jobs):
     lengths = (index.row_ptr[1:] - index.row_ptr[:-1]).float()
     real = lengths[:n_eps]
     e, live = int(src.shape[0]), int(mask.sum())
-
-    def plain_index():
-        # the index with its keys in plain PyTorch (sparse.edge_keys_plain)
-        # in place of the keys kernel: the same sort and searchsorted
-        keys, other = sparse.edge_keys_plain(src, dst, mask, n)
-        sorted_keys, order = torch.sort(keys, stable=True)
-        bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
-        return torch.searchsorted(sorted_keys, bounds, out_int32=True), other[order], order
-
-    row_ptr, nbr, order = plain_index()
-    check(
-        torch.equal(row_ptr, index.row_ptr) and torch.equal(nbr, index.nbr)
-        and torch.equal(order, index.eid),
-        "the edge index differs from its plain version",
-    )
-    # the keys kernel alone against its plain version
-    keys, other = sparse.edge_keys(src, dst, mask, n)
-    keys_plain, other_plain = sparse.edge_keys_plain(src, dst, mask, n)
-    check(
-        torch.equal(keys.to(keys_plain.dtype), keys_plain) and torch.equal(other, other_plain),
-        "the keys kernel differs from edge_keys_plain",
-    )
+    plain_index = check_edge_index(torch, sparse, src, dst, mask, n, index)
+    keys = sparse.edge_keys(src, dst, mask, n)[0]
     sorted_keys = torch.sort(keys, stable=True)[0]
     bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
     report = {
@@ -1373,6 +1401,50 @@ def vector_width(h: int) -> int:
     return 4 if h % 4 == 0 else 2 if h % 2 == 0 else 1
 
 
+def ungated_rows_case(torch, sparse, label, src, dst, mask, n, index, v, d_bias, jobs):
+    """The ungated row pass (GraphSAGE's backward: dv of the neighbour sums
+    from d_bias) over `index` (a gather index of src/dst/mask over n rows)
+    against its plain version, with autograd of the index_add_
+    formulation as the library yardstick. The bound: every slot's mask and
+    the ids of live edges, the d_bias rows at the live ends, dv written
+    whole."""
+    h = v.shape[1]
+    dev = v.device
+    live = int(mask.sum())
+    src_l, dst_l = src.long(), dst.long()
+    src_c, dst_c = src_l.clamp(0, n - 1), dst_l.clamp(0, n - 1)
+    src_s = torch.where(mask & (src_l < n), src_l, n)
+    dst_s = torch.where(mask & (dst_l < n), dst_l, n)
+    ends = int(torch.unique(torch.cat([src_c[mask], dst_c[mask]])).numel())
+    em = mask.float()
+    leaf = v.clone().requires_grad_()
+    # gathers by index_select, whose backward is an index_add_
+    msg_fwd = leaf.index_select(0, src_c) * em[:, None]
+    msg_bwd = leaf.index_select(0, dst_c) * em[:, None]
+    lib_out = torch.zeros((n + 1, h), device=dev).index_add(0, dst_s, msg_fwd).index_add(0, src_s, msg_bwd)
+    d_pad = torch.cat([d_bias, torch.zeros(1, h, device=dev)])
+    vw = vector_width(h)
+    return kernel_case(
+        torch,
+        label,
+        lambda: sparse.fused_sddmm_spmm_grad_rows(n, d_bias, index=index),
+        lambda: sparse.grad_rows_plain(n, src, dst, mask, em, d_bias),
+        lambda: torch.autograd.grad(lib_out, leaf, d_pad, retain_graph=True),
+        src.shape[0] * 1 + live * 8 + ends * h * 4 + n * h * 4,
+        live * 4 * h,
+        jobs,
+        # each entry gathers one d_bias row beside its id
+        gather_bytes_per_entry=h * 4 + 4,
+        resources=sparse.backward_info("rows", vw, False),
+        n=n,
+        h=h,
+        edges=src.shape[0],
+        live_edges=live,
+        gated=False,
+        vector_width=vw,
+    )
+
+
 def backward_cases(torch, graph, jobs):
     """Phase 6: the backward kernels against their plain versions on card
     tensors at the training shapes: the BASELINE graph's edge columns over
@@ -1458,26 +1530,7 @@ def backward_cases(torch, graph, jobs):
         info = {"n": n, "h": h, "edges": e, "live_edges": live, "gated": gated, "vector_width": vw}
         rows_kernel = sparse.backward_info("rows", vw, gated)
         if not gated:
-            leaf = v.clone().requires_grad_()
-            lib_out = library_of(leaf)[0]
-            d_pad = torch.cat([d_bias, torch.zeros(1, h, device=dev)])
-            rows_cases.append(
-                kernel_case(
-                    torch,
-                    label,
-                    lambda: sparse.fused_sddmm_spmm_grad_rows(n, d_bias, index=index),
-                    lambda: sparse.grad_rows_plain(n, src, dst, mask, em, d_bias),
-                    lambda: torch.autograd.grad(lib_out, leaf, d_pad, retain_graph=True),
-                    # d_bias rows at the live ends, dv written whole
-                    ids_bytes + ends * h * 4 + n * h * 4,
-                    live * 4 * h,
-                    jobs,
-                    # each entry gathers one d_bias row beside its id
-                    gather_bytes_per_entry=h * 4 + 4,
-                    resources=rows_kernel,
-                    **info,
-                )
-            )
+            rows_cases.append(ungated_rows_case(torch, sparse, label, src, dst, mask, n, index, v, d_bias, jobs))
             return
         q, k = table(n, h), table(n, h)
         b = torch.tensor([0.1], device=dev)
@@ -4799,6 +4852,500 @@ def serve_telemetry(torch, device, proc, feed) -> dict:
     return out
 
 
+# -- phase 21: the simulator -------------------------------------------------
+
+SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE = 1000, 10  # BASELINE.json's synthetic mesh
+SIM_DAYS = 1  # of MODELS.md's 4 simulated days: the depth cut
+SIM_FAULT_FRACTION = 0.08
+SIM_DATE_MS = 1_700_000_000_000.0
+SIM_EPOCHS = 8
+SIM_CPU_EPOCHS = 2
+SIM_GAT_EPOCHS = 2
+SIM_HIDDEN = 64
+SIM_TRAIN_FRACTION = 0.75  # trainer.train_on_simulation's default split
+SIM_NAMESPACE = "mesh"
+
+
+def make_mesh_config(
+    n_services: int,
+    eps_per_service: int,
+    days: int,
+    rng: np.random.Generator,
+    fault_fraction: float = 0.08,
+) -> str:
+    """Layered mesh: gateway tier (external traffic) -> mid tiers -> leaf
+    tier; each endpoint depends on 1-3 endpoints one tier deeper. A copy
+    of tools/eval_models_large.py's make_mesh_config (that tool imports
+    jax): the same arguments give the same YAML."""
+    import yaml
+
+    n_gw = max(1, n_services // 20)
+    n_leaf = max(1, int(n_services * 0.3))
+    n_mid = max(1, n_services - n_gw - n_leaf)
+    tiers = (
+        [0] * n_gw + [1] * (n_mid // 2) + [2] * (n_mid - n_mid // 2) + [3] * n_leaf
+    )
+
+    services = []
+    ep_ids: list = [[] for _ in range(4)]
+    for s in range(n_services):
+        tier = tiers[s]
+        endpoints = []
+        for e in range(eps_per_service):
+            eid = f"s{s}-e{e}"
+            ep_ids[tier].append(eid)
+            endpoints.append(
+                {
+                    "endpointId": eid,
+                    "endpointInfo": {
+                        "path": f"/api/s{s}/op{e}",
+                        "method": "post" if e % 3 == 0 else "get",
+                    },
+                }
+            )
+        services.append(
+            {
+                "serviceName": f"svc{s}",
+                "versions": [
+                    {
+                        "version": "v1",
+                        "replica": int(rng.integers(1, 4)),
+                        "endpoints": endpoints,
+                    }
+                ],
+            }
+        )
+
+    dependencies = []
+    for tier in range(4):
+        deeper = ep_ids[tier + 1] if tier < 3 else []
+        for eid in ep_ids[tier]:
+            entry: dict = {"endpointId": eid}
+            if tier == 0:
+                entry["isExternal"] = True
+            if deeper:
+                k = int(rng.integers(1, min(3, len(deeper)) + 1))
+                picks = rng.choice(len(deeper), size=k, replace=False)
+                entry["dependOn"] = [
+                    {"endpointId": deeper[int(p)]} for p in picks
+                ]
+            if "dependOn" in entry or entry.get("isExternal"):
+                dependencies.append(entry)
+
+    tier_latency = [25, 15, 10, 5]
+    endpoint_metrics = []
+    for tier in range(4):
+        for eid in ep_ids[tier]:
+            m = {
+                "endpointId": eid,
+                "delay": {
+                    "latencyMs": tier_latency[tier] + int(rng.integers(0, 6)),
+                    "jitterMs": 2 + int(rng.integers(0, 4)),
+                },
+                "errorRatePercent": 1,
+            }
+            if tier == 0:
+                m["expectedExternalDailyRequestCount"] = 4800
+            endpoint_metrics.append(m)
+
+    # -- fault schedule -------------------------------------------------------
+    all_eps = [e for t in ep_ids for e in t]
+    n_faulty = max(3, int(len(all_eps) * fault_fraction))
+    faulty = [all_eps[int(i)] for i in rng.choice(len(all_eps), n_faulty, False)]
+    third = max(1, n_faulty // 3)
+    faults = []
+
+    def window(day, hour, dur, prob=100):
+        return {
+            "startTime": {"day": day, "hour": hour},
+            "durationHours": dur,
+            "probabilityPercent": prob,
+        }
+
+    # (a) recurring nightly error windows — periodic, learnable, invisible
+    # to persistence at onset
+    for eid in faulty[:third]:
+        hour = int(rng.integers(1, 20))
+        faults.append(
+            {
+                "type": "increase-error-rate",
+                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
+                "timePeriods": [window(d, hour, 3) for d in range(1, days + 1)],
+                "increaseErrorRatePercent": int(rng.integers(50, 85)),
+            }
+        )
+    # (b) overlapping multi-endpoint incidents: one window, several
+    # endpoints at once (correlated failures along the graph)
+    incident_eps = faulty[third : 2 * third]
+    for i in range(0, len(incident_eps), 3):
+        group = incident_eps[i : i + 3]
+        day = int(rng.integers(1, days + 1))
+        hour = int(rng.integers(0, 20))
+        faults.append(
+            {
+                "type": "increase-error-rate",
+                "targets": {
+                    "services": [],
+                    "endpoints": [{"endpointId": e} for e in group],
+                },
+                "timePeriods": [window(day, hour, int(rng.integers(2, 5)))],
+                "increaseErrorRatePercent": int(rng.integers(50, 80)),
+            }
+        )
+    # (c) probabilistic recurring latency faults (drifting severity)
+    for eid in faulty[2 * third :]:
+        hour = int(rng.integers(0, 20))
+        faults.append(
+            {
+                "type": "increase-latency",
+                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
+                "timePeriods": [
+                    window(d, hour, 2, prob=70) for d in range(1, days + 1)
+                ],
+                "increaseLatencyMs": int(rng.integers(150, 400)),
+            }
+        )
+    # (d) gateway traffic bursts -> overload errors downstream
+    for eid in ep_ids[0][: max(1, len(ep_ids[0]) // 4)]:
+        day = int(rng.integers(1, days + 1))
+        faults.append(
+            {
+                "type": "inject-traffic",
+                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
+                "timePeriods": [window(day, int(rng.integers(8, 16)), 2)],
+                "increaseRequestCount": 4000,
+            }
+        )
+
+    config = {
+        "servicesInfo": [{"namespace": "mesh", "services": services}],
+        "endpointDependencies": dependencies,
+        "loadSimulation": {
+            "config": {
+                "simulationDurationInDays": days,
+                "overloadErrorRateIncreaseFactor": 3,
+            },
+            "serviceMetrics": [],
+            "endpointMetrics": endpoint_metrics,
+            "faultInjection": faults,
+        },
+    }
+    return yaml.safe_dump(config, sort_keys=False)
+
+
+
+class SimulatorApp:
+    """Phase 21 (e): the application in simulator mode, started through
+    its main() over a fresh FileStore, and a thread that POSTs the YAML to
+    startSimulation and then reads the routes, while the phase goes on
+    with (a)-(d) in this process. result() waits for the thread, checks
+    the answers, stops the application (SIGTERM: it clears its store and
+    exits 0) and returns the walls."""
+
+    ROUTES = (
+        ("graph", f"/api/v1/graph/dependency/endpoint/{SIM_NAMESPACE}"),
+        ("static_config", "/api/v1/simulation/generateStaticSimConfig"),
+        ("export", "/api/v1/data/export"),
+    )
+
+    def __init__(self, yaml_text: str, root: str) -> None:
+        import threading
+
+        self.store = os.path.join(root, "store")
+        os.makedirs(self.store)
+        port = free_port()
+        self.served = Served(
+            "kmamiz_tpu_torch.api.app",
+            {"SIMULATOR_MODE": "true", "PORT": str(port), "STORAGE_URI": f"file://{self.store}"},
+            port,
+            "/api/v1/health/",
+            os.path.join(root, "app.log"),
+        )
+        self.out: dict = {"boot_ms": self.served.boot_ms}
+        self.bodies: dict = {}
+        self.error = None
+        self.thread = threading.Thread(target=self._drive, args=(yaml_text.encode(),), daemon=True)
+        self.thread.start()
+
+    def _drive(self, body: bytes) -> None:
+        try:
+            port = self.served.port
+            t0 = time.perf_counter()
+            status, answer = http_json(port, "/api/v1/simulation/startSimulation", body, timeout=900)
+            self.out["start_simulation"] = {
+                "status": status,
+                "answer": answer,
+                "ms": (time.perf_counter() - t0) * 1e3,
+            }
+            for key, path in self.ROUTES:
+                status, self.bodies[key], ms = get_route(port, path)
+                self.out[key] = {"status": status, "ms": ms}
+        except Exception as e:  # noqa: BLE001 - raised in result()
+            self.error = e
+
+    def result(self, n_endpoints: int) -> dict:
+        import signal
+
+        from kmamiz_tpu_torch.server.import_export import ImportExportHandler
+        from kmamiz_tpu_torch.server.storage import COLLECTIONS, store_from_uri
+
+        try:
+            self.thread.join(timeout=900)
+            check(not self.thread.is_alive(), "startSimulation did not answer in 900 s")
+            if self.error is not None:
+                raise self.error
+        finally:
+            code = self.served.stop(signal.SIGTERM)
+        out = self.out
+        start = out["start_simulation"]
+        check(start["status"] == 201 and start["answer"] == {"message": "ok"}, f"startSimulation answered {start}")
+        for key, _path in self.ROUTES:
+            check(out[key]["status"] == 200, f"{key} answered {out[key]['status']}")
+        nodes = self.bodies["graph"]["nodes"]
+        out["graph_nodes"] = len(nodes)
+        check(len(nodes) > n_endpoints, f"the endpoint graph has {len(nodes)} nodes")
+        check(self.bodies["static_config"]["staticYamlStr"].startswith("servicesInfo"), "the static config")
+        out["static_config_bytes"] = len(self.bodies["static_config"]["staticYamlStr"])
+        pairs = dict(ImportExportHandler.read_tgz(self.bodies["export"]))
+        out["export_bytes"] = len(self.bodies["export"])
+        out["dependencies"] = len(pairs["EndpointDependencies"])
+        out["simulated_historical"] = len(pairs["SimulatedHistoricalData"])
+        check(out["dependencies"] == n_endpoints, f"EndpointDependencies holds {out['dependencies']} endpoints")
+        check(out["simulated_historical"] > 0, "SimulatedHistoricalData is empty")
+        out["exit_code"] = code
+        check(code == 0, f"the application exited {code}: {self.served.tail()}")
+        # simulator mode keeps nothing in its store past its exit
+        store = store_from_uri(f"file://{self.store}")
+        kept = {c: len(store.find_all(c)) for c in COLLECTIONS if store.find_all(c)}
+        check(not kept, f"the store kept {kept}")
+        return out
+
+
+def simulation_dataset(result) -> dict:
+    """(a)'s counts: endpoints, distance-1 edges, slots, the realtime rows of
+    each slot."""
+    deps = result.endpoint_dependencies
+    edges = sum(1 for d in deps for on in d.get("dependingOn", []) if on.get("distance") == 1)
+    rows = [len(v) for v in result.realtime_data_per_slot.values()]
+    return {
+        "endpoints": len(deps),
+        "edges": edges,
+        "slots": len(rows),
+        "rows_per_slot": {"min": min(rows), "mean": sum(rows) / len(rows), "max": max(rows)},
+        "realtime_rows": sum(rows),
+    }
+
+
+def simulate(torch, device, counters, jobs) -> dict:
+    """Phase 21, the simulator at BASELINE.json's synthetic mesh (1,000
+    services x 10 endpoints, fault fraction 0.08, seed 0, 1 simulated day):
+    (a) Simulator.generate_simulation_data on the host; (b) GraphSAGE
+    through trainer.train_on_simulation on the card (hidden 64, 8 epochs),
+    its launches against the steps, its first-epoch loss against a CPU
+    copy's (rtol 1e-3); (c) GAT on the same dataset (no kernel launch);
+    (d) (b)'s params saved and restored through models/checkpoint.py, and
+    the restored forward on the card against the trained one; (e) the
+    application in simulator mode (SimulatorApp), beside (a)-(d); (f)
+    kernel 2 at (b)'s buckets against its plain version."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import stacked
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.simulator import Simulator
+
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_sim_")
+    app = None
+    out: dict = {
+        "services": SIM_SERVICES,
+        "endpoints_per_service": SIM_ENDPOINTS_PER_SERVICE,
+        "days": SIM_DAYS,
+        "fault_fraction": SIM_FAULT_FRACTION,
+    }
+    try:
+        yaml_text = make_mesh_config(
+            SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE, SIM_DAYS, np.random.default_rng(SEED), SIM_FAULT_FRACTION
+        )
+        out["yaml_bytes"] = len(yaml_text)
+        app = SimulatorApp(yaml_text, root.name)
+
+        # (a) the simulation, on the host
+        t0 = time.perf_counter()
+        result = Simulator().generate_simulation_data(yaml_text, SIM_DATE_MS, rng=np.random.default_rng(SEED))
+        out["simulation_s"] = time.perf_counter() - t0
+        check(not result.validation_error_message, result.validation_error_message)
+        check(not result.converting_error_message, result.converting_error_message)
+        out.update(simulation_dataset(result))
+        n_endpoints = SIM_SERVICES * SIM_ENDPOINTS_PER_SERVICE
+        check(out["endpoints"] == n_endpoints, f"{out['endpoints']} endpoints")
+        check(out["slots"] == 24 * SIM_DAYS, f"{out['slots']} slots")
+        log("   (a) " + json.dumps(out))
+
+        # (b)-(d), making no plain-version call on card tensors
+        args = (result.endpoint_dependencies, result.realtime_data_per_slot, result.replica_counts)
+        with PlainOnCard(torch, sparse) as plain:
+            train_set = train_simulated(torch, device, counters, args, os.path.join(root.name, "ckpt"), out)
+        check(plain.calls == 0, f"{plain.calls} plain calls on card tensors in (b)-(d)")
+        out["plain_calls_on_card"] = plain.calls
+
+        # (f) kernel 2 at (b)'s buckets
+        out["kernels"] = simulated_kernel_cases(torch, sparse, stacked.stack_dataset(train_set, device), jobs)
+
+        # (e) the application's answers
+        out["app"] = app.result(n_endpoints)
+        log("   (e) " + json.dumps(out["app"]))
+    finally:
+        if app is not None and "app" not in out:
+            app.served.kill()
+        root.cleanup()
+    return out
+
+
+def train_simulated(torch, device, counters, args, ckpt_dir: str, out: dict):
+    """Phase 21 (b)-(d) on the simulator's output `args` (dependencies,
+    realtime data per slot, replica counts), into `out`; returns the
+    training slots' dataset."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import checkpoint as ckpt
+    from kmamiz_tpu_torch.models import gat, graphsage, stacked, trainer
+    from kmamiz_tpu_torch.ops import sparse
+
+    # (b) GraphSAGE on the card
+    t0 = time.perf_counter()
+    dataset = trainer.dataset_from_simulation(*args)
+    out["dataset_s"] = time.perf_counter() - t0
+    train_set, eval_set = trainer.temporal_split(dataset, SIM_TRAIN_FRACTION)
+    train_slots, eval_slots = len(train_set.features), len(eval_set.features)
+    steps = train_slots * SIM_EPOCHS
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sage, metrics, _ = trainer.train_on_simulation(
+        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_EPOCHS, hidden=SIM_HIDDEN, seed=SEED, device=device
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    losses = sage.losses
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # the forwards: two a step, two a slot in calibrate_threshold and in
+    # evaluate; the backward: one C call a step, the ungated row pass
+    forwards = 2 * (steps + train_slots + eval_slots)
+    check(launches[sparse.fused_sddmm_spmm.__name__] == forwards, f"forward launches {launches}, want {forwards}")
+    check(launches[sparse.fused_backward.__name__] == steps, f"backward calls {launches}, want {steps}")
+    check(launches[sparse.fused_sddmm_spmm_grad_rows.__name__] == steps, f"row-pass launches {launches}")
+    check(launches[sparse.fused_sddmm_spmm_grad_edges.__name__] == 0, f"gated backward in GraphSAGE {launches}")
+    t0 = time.perf_counter()
+    cpu = trainer.train_on_simulation(
+        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_CPU_EPOCHS, hidden=SIM_HIDDEN, seed=SEED, device="cpu"
+    )[0]
+    cpu_s = time.perf_counter() - t0
+    np.testing.assert_allclose(losses[0], cpu.losses[0], rtol=1e-3, err_msg="first-epoch loss, card against CPU")
+    out["train"] = {
+        "train_slots": train_slots,
+        "eval_slots": eval_slots,
+        "epochs": SIM_EPOCHS,
+        "hidden": SIM_HIDDEN,
+        "steps": steps,
+        "wall_s": wall,
+        "slots_per_s": steps / wall,
+        "losses": losses,
+        "launches": launches,
+        "threshold": metrics.threshold,
+        "metrics": {k: v for k, v in dataclasses.asdict(metrics).items() if k != "per_slot_flagged"},
+        "cpu_epochs": SIM_CPU_EPOCHS,
+        "cpu_s": cpu_s,
+        "cpu_losses": cpu.losses,
+        "first_loss_rel_diff": abs(losses[0] - cpu.losses[0]) / abs(cpu.losses[0]),
+    }
+    log("   (b) " + json.dumps(out["train"]))
+
+    # (c) GAT on the same dataset: no hand-written kernel
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gat_r, gat_metrics, _ = trainer.train_on_simulation(
+        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_GAT_EPOCHS, hidden=SIM_HIDDEN, seed=SEED,
+        model=gat, device=device,
+    )
+    torch.cuda.synchronize()
+    gat_wall = time.perf_counter() - t0
+    gat_launches = read_counts(torch, counters)
+    check(all(math.isfinite(x) for x in gat_r.losses), f"GAT losses {gat_r.losses}")
+    check(not any(gat_launches.values()), f"GAT launched {gat_launches}")
+    out["gat"] = {
+        "epochs": SIM_GAT_EPOCHS,
+        "wall_s": gat_wall,
+        "slots_per_s": train_slots * SIM_GAT_EPOCHS / gat_wall,
+        "losses": gat_r.losses,
+        "launches": gat_launches,
+        "threshold": gat_metrics.threshold,
+        "anomaly_f1": gat_metrics.anomaly_f1,
+    }
+    log("   (c) " + json.dumps(out["gat"]))
+
+    # (d) (b)'s params through the checkpoint module, forward on the card
+    ckpt.save_params(
+        ckpt_dir, sage.params, SIM_EPOCHS,
+        {"model": "graphsage", "hidden": SIM_HIDDEN, "num_features": graphsage.NUM_FEATURES, "num_nodes": 0},
+    )
+    restored, meta = ckpt.restore_params(ckpt_dir, graphsage, device=device)
+    want = stacked.predict_all(sage.params, eval_set, graphsage)
+    got = stacked.predict_all(restored, eval_set, graphsage)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-5, err_msg="restored checkpoint's forward")
+    out["checkpoint"] = {
+        "step": meta["step"],
+        "max_abs_diff": max(float(np.abs(a - w).max()) for a, w in zip(got, want)),
+    }
+    log("   (d) " + json.dumps(out["checkpoint"]))
+
+    return train_set
+
+
+def simulated_kernel_cases(torch, sparse, st, jobs) -> dict:
+    """Phase 21 (f): kernel 2 on the simulated mesh's edge list at the
+    buckets the training stacked it to (st: models/stacked.StackedDataset):
+    the edge index against its plain build; the forward, ungated, at the
+    simulator's feature width (10), the served width (18) and the hidden
+    width (64); the ungated row pass at 64, GraphSAGE's one backward."""
+    import numpy as np
+
+    src, dst, mask, n = st.src, st.dst, st.edge_mask, st.bucket_nodes
+    index = st.index
+    check_edge_index(torch, sparse, src, dst, mask, n, index)
+    out_deg = torch.zeros(n, dtype=torch.int64, device=src.device)
+    in_deg = torch.zeros_like(out_deg)
+    live_src, live_dst = src[mask].long(), dst[mask].long()
+    out_deg.index_add_(0, live_src, torch.ones_like(live_src))
+    in_deg.index_add_(0, live_dst, torch.ones_like(live_dst))
+    real = slice(0, st.num_nodes)
+    layout = {
+        "layout": st.layout(),
+        "live_edges": int(mask.sum()),
+        "no_in_edges": int((in_deg[real] == 0).sum()),
+        "no_out_edges": int((out_deg[real] == 0).sum()),
+        "isolated": int(((in_deg[real] + out_deg[real]) == 0).sum()),
+    }
+    log("   (f) " + json.dumps(layout))
+    rng = np.random.default_rng(SEED + 3)
+
+    def table(h):
+        return torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(src.device)
+
+    forward = [
+        fused_case(torch, sparse, f"simulated mesh forward H = {h}", table(h), src, dst, mask, (), index, jobs)
+        for h in (10, 18, 64)
+    ]
+    backward = [
+        ungated_rows_case(
+            torch, sparse, "simulated mesh backward H = 64 (ungated)", src, dst, mask, n, index,
+            table(64), table(64), jobs,
+        )
+    ]
+    return {**layout, "forward": forward, "backward": backward}
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -4839,6 +5386,11 @@ def main(argv=None) -> int:
         "--telemetry-only",
         action="store_true",
         help="phases 1-2, then phase 20 (telemetry), then the report",
+    )
+    parser.add_argument(
+        "--simulator-only",
+        action="store_true",
+        help="phases 1-2, then phase 21 (the simulator), then the device times and the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -4941,6 +5493,17 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"telemetry": report["telemetry"]}))
+        return 0
+
+    if args.simulator_only:
+        with Phase("simulator", walls):
+            report["simulator"] = simulate(torch, device, counters, jobs)
+        with Phase("device times", walls):
+            report["profiler_lost_sessions"] = device_times(torch, jobs)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"simulator": report["simulator"]}))
         return 0
 
     if args.cluster_only:
@@ -5133,6 +5696,10 @@ def main(argv=None) -> int:
     # phase 20 too: its capture runs in a DP process of its own
     with Phase("telemetry", walls):
         report["telemetry"] = serve_telemetry(torch, device, proc, feed)
+
+    # and phase 21, the simulator
+    with Phase("simulator", walls):
+        report["simulator"] = simulate(torch, device, counters, jobs)
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(

@@ -3,10 +3,13 @@
 Counterpart of kmamiz_tpu/api/app.py (KMamiz index.ts):
 `build_production_context` wires the Zipkin and Kubernetes clients and
 the card's processor from the settings, `build_router` registers every
-ported handler's routes, and `Application` picks the startup mode
-(production / serve-only / read-only), serves the REST API and tears
-down by stopping the schedules and flushing every cache to the store
-(index.ts:95-113). Run with
+handler's routes (the simulation handler's in simulator mode), and
+`Application` picks the startup mode (production / simulator /
+serve-only / read-only), serves the REST API and tears down by stopping
+the schedules and flushing every cache to the store, or in simulator
+mode clearing it (index.ts:95-113). Simulator mode builds no processor
+and no clients: POST /api/v1/simulation/startSimulation fills the caches
+from a YAML on the host. Run with
 
     python -m kmamiz_tpu_torch.api.app
 
@@ -19,8 +22,6 @@ processor on the card or, in tests, on the CPU:
     app.listen(port=3000)
     ...
     app.tear_down()  # stop the schedules, flush every cache
-
-Not ported yet: simulator mode and its SimulationHandler.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from kmamiz_tpu_torch.config import Settings
 from kmamiz_tpu_torch.device import DeviceLike
 from kmamiz_tpu_torch.server.import_export import ImportExportHandler
 from kmamiz_tpu_torch.server.initializer import AppContext, Initializer
+from kmamiz_tpu_torch.simulator.handler import SimulationHandler
 
 logger = logging.getLogger("kmamiz_tpu_torch.app")
 
@@ -84,7 +86,8 @@ def build_production_context(
 
 
 def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] = None) -> Router:
-    """Register every ported handler's routes under /api/v{N} (Routes.ts:20-30)."""
+    """Register every handler's routes under /api/v{N} (Routes.ts:20-30),
+    the simulation handler's in simulator mode."""
     router = Router(
         api_version=ctx.settings.api_version,
         static_dir=ctx.settings.static_dir,
@@ -93,7 +96,7 @@ def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] =
     import_export = import_export or ImportExportHandler(ctx)
     graph = GraphHandler(ctx)
     data = DataHandler(ctx, import_export)
-    for handler in (
+    handlers = [
         data,
         graph,
         SwaggerHandler(ctx),
@@ -103,7 +106,10 @@ def build_router(ctx: AppContext, import_export: Optional[ImportExportHandler] =
         HealthHandler(ctx),
         ModelHandler(ctx),
         TelemetryHandler(ctx),
-    ):
+    ]
+    if ctx.settings.simulator_mode:
+        handlers.append(SimulationHandler(ctx))
+    for handler in handlers:
         router.add_handler(handler)
     for line in router.route_list:
         logger.debug("route %s", line)
@@ -130,8 +136,9 @@ class Application:
                 s.service_port, s.api_version, simulator_mode=s.simulator_mode
             )
         if s.simulator_mode:
-            raise NotImplementedError("simulator mode waits for the simulator's port")
-        if s.serve_only:
+            logger.info("Starting in simulator mode.")
+            self.initializer.simulation_server_startup()
+        elif s.serve_only:
             logger.info("Serve-only mode; registering caches without schedules.")
             self.initializer.register_data_caches()
         else:
@@ -159,11 +166,15 @@ class Application:
 
     def tear_down(self) -> None:
         """Graceful exit: stop the schedules (a fire in progress finishes
-        first), then flush every cache (index.ts:97-112)."""
+        first), then flush every cache, or in simulator mode clear the
+        store, which never keeps a simulation (index.ts:97-112)."""
         logger.info("Flushing caches to store before exit.")
         self.ctx.scheduler.stop()
         if not self.settings.read_only_mode and not self.settings.serve_only:
-            self.ctx.dispatch.sync_all()
+            if self.settings.simulator_mode:
+                self.ctx.store.clear_database()
+            else:
+                self.ctx.dispatch.sync_all()
         if self.server:
             self.server.stop()
 

@@ -1,5 +1,5 @@
 """REST handlers of the port: every route group of the JAX package's
-application but the simulation handler."""
+application (the simulation handler lives in simulator/handler.py)."""
 from kmamiz_tpu_torch.api.handlers.alert import AlertHandler  # noqa: F401
 from kmamiz_tpu_torch.api.handlers.comparator import ComparatorHandler  # noqa: F401
 from kmamiz_tpu_torch.api.handlers.configuration import ConfigurationHandler  # noqa: F401

@@ -2,14 +2,13 @@
 
 Equivalent of KMamiz src/handler/ComparatorService.ts: a diff
 snapshot captures the dependency graph, every scorer's output, and the
-per-endpoint datatype map, stored locally; a simulator instance pushes its
-snapshots to POST /diffData/simulator.
-
-A copy of kmamiz_tpu/api/handlers/comparator.py without the simulator
-side's push to production, which waits for the simulator's port.
+per-endpoint datatype map, either stored locally (production) or pushed to
+the production instance (simulator).
 """
 from __future__ import annotations
 
+import json
+import urllib.request
 from typing import Optional
 
 from kmamiz_tpu_torch.api.handlers.data import DataHandler
@@ -34,7 +33,8 @@ class ComparatorHandler(IRequestHandler):
         self.add_route("get", "/diffData", self._get_diff)
         self.add_route("post", "/diffData", self._post_diff)
         self.add_route("delete", "/diffData", self._delete_diff)
-        self.add_route("post", "/diffData/simulator", self._post_from_simulator)
+        if not ctx.settings.simulator_mode:
+            self.add_route("post", "/diffData/simulator", self._post_from_simulator)
 
     def _tags(self, req: Request) -> Response:
         return Response(
@@ -50,7 +50,10 @@ class ComparatorHandler(IRequestHandler):
         if not tag:
             return Response.status_only(400)
 
-        self._ctx.cache.get("TaggedDiffDatas").add(self._snapshot(tag))
+        snapshot = self._snapshot(tag)
+        if self._ctx.settings.simulator_mode:
+            return self._push_to_production(snapshot)
+        self._ctx.cache.get("TaggedDiffDatas").add(snapshot)
         return Response.status_only(200)
 
     def _post_from_simulator(self, req: Request) -> Response:
@@ -110,3 +113,25 @@ class ComparatorHandler(IRequestHandler):
                 node_ids
             ),
         }
+
+    def _push_to_production(self, snapshot: dict) -> Response:
+        """Simulator -> production push (ComparatorService.ts:47-79)."""
+        base_url = self._ctx.extra.get("production_service_url", "")
+        if not base_url:
+            return Response.status_only(500)
+        snapshot = {**snapshot, "tag": f"[from Simulator] {snapshot['tag']}"}
+        try:
+            req = urllib.request.Request(
+                f"{base_url}/api/v1/comparator/diffData/simulator",
+                data=json.dumps(snapshot).encode(),
+                method="POST",
+                headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=30) as res:
+                if res.status >= 400:
+                    return Response(
+                        status=500, payload={"message": res.read().decode()}
+                    )
+            return Response.status_only(200)
+        except Exception:  # noqa: BLE001 - production unreachable
+            return Response.status_only(500)

@@ -2,10 +2,7 @@
 
 Equivalent of KMamiz src/handler/DataService.ts, including the
 testing endpoints gated by ENABLE_TESTING_ENDPOINTS (clear / import /
-force-aggregate).
-
-A copy of kmamiz_tpu/api/handlers/data.py without the simulator-only
-clone-from-production route, which waits for the simulator's port.
+force-aggregate) and the simulator-only clone-from-production route.
 """
 from __future__ import annotations
 
@@ -45,6 +42,10 @@ class DataHandler(IRequestHandler):
 
         self.add_route("post", "/sync", self._sync)
         self.add_route("get", "/export", self._export)
+        if ctx.settings.simulator_mode:
+            self.add_route(
+                "post", "/cloneDataFromProductionService", self._clone
+            )
 
         if ctx.settings.enable_testing_endpoints:
             self.add_route("delete", "/clear", self._clear)
@@ -288,3 +289,13 @@ class DataHandler(IRequestHandler):
     def _force_aggregate(self, req: Request) -> Response:
         self._ctx.operator.create_historical_and_aggregated_data()
         return Response.status_only(204)
+
+    def _clone(self, req: Request) -> Response:
+        base_url = self._ctx.extra.get("production_service_url", "")
+        result = self._import_export.clone_data_from_production_service(base_url)
+        if result["isSuccess"]:
+            return Response(status=201, payload={"message": "ok"})
+        return Response(
+            status=500,
+            payload={"message": f"Internal Server Error: {result['message']}"},
+        )

@@ -10,7 +10,8 @@ model=gat, the GAT head) trains full-graph with the family's AdamW. Anomaly grou
 The dataset lives on the host (numpy); `train` stacks it on its device
 once (models/stacked.py) and runs epoch blocks there, or, with
 fused=False (KMAMIZ_SAGE_FUSED=0), the legacy per-slot loop.
-`train_on_simulation` waits for the simulator's port.
+`train_on_simulation` builds the dataset from the simulator's output and
+trains, calibrates and evaluates on one device.
 """
 from __future__ import annotations
 
@@ -523,6 +524,42 @@ def temporal_split(
         )
 
     return subset(0, cut), subset(cut, None)
+
+
+def train_on_simulation(
+    endpoint_dependencies: List[dict],
+    realtime_data_per_slot: Dict[str, List[dict]],
+    replica_counts: List[dict],
+    train_fraction: float = 0.75,
+    epochs: int = 30,
+    hidden: int = 32,
+    seed: int = 0,
+    model=graphsage,
+    use_node_embeddings: bool = False,
+    device: DeviceLike = None,
+) -> Tuple[TrainResult, EvalResult, GraphDataset]:
+    """Temporal split: train on the first slots, evaluate on the rest
+    (fault windows land wherever the config put them). Training,
+    calibration and evaluation run on `device` (the card when None)."""
+    dataset = dataset_from_simulation(endpoint_dependencies, realtime_data_per_slot, replica_counts)
+    train_set, eval_set = temporal_split(dataset, train_fraction)
+    result = train(
+        train_set,
+        epochs=epochs,
+        hidden=hidden,
+        seed=seed,
+        model=model,
+        use_node_embeddings=use_node_embeddings,
+        device=device,
+    )
+    threshold = calibrate_threshold(result.params, train_set, model=model)
+    if eval_set.features:
+        metrics = evaluate(result.params, eval_set, threshold=threshold, model=model)
+    else:  # nothing held out: report train-set metrics, explicitly marked
+        metrics = evaluate(result.params, train_set, threshold=threshold, model=model)
+        metrics.in_sample = True
+    metrics.threshold = threshold
+    return result, metrics, dataset
 
 
 def calibrate_threshold(params, dataset: GraphDataset, model=graphsage, grid=None) -> float:

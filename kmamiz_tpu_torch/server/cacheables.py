@@ -4,10 +4,10 @@ Each cache mirrors its reference twin's merge/filter/label behavior; the
 store-backed ones get init (load) and sync (replace-all flush) hooks wired
 to the pluggable Store instead of Mongoose models.
 
-A copy of kmamiz_tpu/server/cacheables.py without the simulator's two
-caches (TaggedSimulationYAML, SimulatedHistoricalData), which wait for
-the simulator's port. CModelHistoryState persists the processor's online
-forecast state through snapshot_history / restore_history.
+A copy of kmamiz_tpu/server/cacheables.py. The simulator's two caches
+(TaggedSimulationYAML, SimulatedHistoricalData) live in memory only.
+CModelHistoryState persists the processor's online forecast state
+through snapshot_history / restore_history.
 """
 from __future__ import annotations
 
@@ -682,6 +682,62 @@ class CLookBackRealtimeData(Cacheable):
         }
         Cacheable.set_data(self, filtered)
         return filtered
+
+
+class CTaggedSimulationYAML(Cacheable):
+    unique_name = "TaggedSimulationYAML"
+    MAX_STORE_COUNT = 50
+
+    def __init__(self, init_data: Optional[List[dict]] = None) -> None:
+        super().__init__(self.unique_name, init_data)
+        self._set_init(lambda: None)
+        self._set_sync(lambda: None)
+
+    def get_data(self, *args: Any) -> List[dict]:
+        return Cacheable.get_data(self) or []
+
+    def get_data_by_tag(self, tag: Optional[str] = None) -> Optional[dict]:
+        if tag:
+            existing = [d for d in self.get_data() if d.get("tag") == tag]
+            if existing:
+                return existing[0]
+        return None
+
+    def add(self, tagged: dict) -> None:
+        if not tagged.get("tag"):
+            tagged["tag"] = self.default_tag()
+        with self._update_lock:
+            if self.get_data_by_tag(tagged["tag"]) is None:
+                tagged = {**tagged, "time": _now_ms()}
+                updated = sorted(
+                    self.get_data() + [tagged], key=lambda d: -d["time"]
+                )[: self.MAX_STORE_COUNT]
+                self.set_data(updated)
+
+    def delete(self, tag: str) -> None:
+        self.set_data([d for d in self.get_data() if d.get("tag") != tag])
+
+    @staticmethod
+    def default_tag(prefix: str = "my_simulate_") -> str:
+        return prefix + time.strftime("%Y%m%d%H%M%S")
+
+
+class CSimulatedHistoricalData(Cacheable):
+    unique_name = "SimulatedHistoricalData"
+
+    def __init__(self, init_data: Optional[List[dict]] = None) -> None:
+        super().__init__(
+            self.unique_name,
+            [HistoricalData(h) for h in init_data] if init_data else None,
+        )
+        self._set_init(lambda: None)
+        self._set_sync(lambda: None)
+
+    def get_data(self, *args: Any) -> List[HistoricalData]:
+        return Cacheable.get_data(self) or []
+
+    def insert_one(self, one: HistoricalData) -> None:
+        self.set_data(self.get_data() + [one])
 
 
 class CModelHistoryState(Cacheable):

@@ -1,4 +1,4 @@
-"""Full-state snapshot: export / import.
+"""Full-state snapshot: export / import / clone-from-production.
 
 Equivalent of KMamiz src/services/ImportExportHandler.ts: a
 snapshot is a JSON list of [cacheName, data] pairs for every exportable
@@ -6,20 +6,19 @@ cache plus the AggregatedData and HistoricalData collections; the wire
 format is a .tgz containing that JSON (served by the data handler). Import
 clears the database, rebuilds the cache registry from the pairs, re-inserts
 the persisted collections, and refreshes the label map.
-
-A copy of kmamiz_tpu/server/import_export.py without the simulator's
-caches and its clone-from-production path, which wait for the
-simulator's port.
 """
 from __future__ import annotations
 
+import gzip
 import io
 import json
 import logging
 import tarfile
+import urllib.request
 from typing import Any, List, Optional, Tuple
 
 from kmamiz_tpu_torch.domain.endpoint_data_type import EndpointDataType
+from kmamiz_tpu_torch.domain.historical import HistoricalData
 from kmamiz_tpu_torch.server.cache import Cacheable
 from kmamiz_tpu_torch.server.cacheables import (
     CCombinedRealtimeData,
@@ -30,8 +29,10 @@ from kmamiz_tpu_torch.server.cacheables import (
     CLookBackRealtimeData,
     CModelHistoryState,
     CReplicas,
+    CSimulatedHistoricalData,
     CTaggedDiffData,
     CTaggedInterfaces,
+    CTaggedSimulationYAML,
     CTaggedSwaggers,
     CUserDefinedLabel,
 )
@@ -123,6 +124,10 @@ class ImportExportHandler:
             "UserDefinedLabel": lambda: CUserDefinedLabel(
                 init_data=init, store=store, simulator_mode=sim
             ),
+            "TaggedSimulationYAML": lambda: CTaggedSimulationYAML(init_data=init),
+            "SimulatedHistoricalData": lambda: CSimulatedHistoricalData(
+                init_data=init
+            ),
         }
         builder = builders.get(name)
         return builder() if builder else None
@@ -180,11 +185,58 @@ class ImportExportHandler:
             historical = next(
                 (d for n, d in pairs if n == "HistoricalData"), None
             )
-            if aggregated:
-                ctx.store.save("AggregatedData", aggregated)
-            ctx.dispatch.sync_all()
+            if not ctx.settings.simulator_mode:
+                if aggregated:
+                    ctx.store.save("AggregatedData", aggregated)
+                ctx.dispatch.sync_all()
+            elif aggregated:
+                ctx.cache.get("SimulatedHistoricalData").insert_one(
+                    HistoricalData(aggregated)
+                )
             if historical:
                 ctx.store.insert_many("HistoricalData", historical)
 
         ctx.service_utils.update_label()
         return True
+
+    # -- clone from production (ImportExportHandler.ts:116-190) --------------
+
+    def import_data_from_production_environment(
+        self, import_pairs: List[Tuple[str, Any]]
+    ) -> bool:
+        """HistoricalData and AggregatedData are not imported."""
+        return self.import_data(import_pairs, skip_collections=True)
+
+    def clone_data_from_production_service(self, base_url: str) -> dict:
+        try:
+            req = urllib.request.Request(
+                f"{base_url}/api/v1/data/export",
+                headers={"Accept": "application/x-tar+gzip"},
+            )
+            with urllib.request.urlopen(req, timeout=60) as res:
+                blob = res.read()
+                if res.headers.get("Content-Encoding") == "gzip":
+                    blob = gzip.decompress(blob)
+        except Exception:  # noqa: BLE001 - network failure => clean error
+            logger.exception("Failed to reach the production environment")
+            return {
+                "isSuccess": False,
+                "message": (
+                    "Failed to reach the KMamiz production environment. "
+                    "No response received."
+                ),
+            }
+        try:
+            pairs = self.read_tgz(blob)
+            self.import_data_from_production_environment(pairs)
+            return {"isSuccess": True, "message": "ok"}
+        except Exception:  # noqa: BLE001 - malformed snapshot => clean error
+            logger.exception("Failed to clone data from production service")
+            return {
+                "isSuccess": False,
+                "message": (
+                    "An error occurred while cloning data from the KMamiz "
+                    "production service. See the simulator logs for more "
+                    "information."
+                ),
+            }

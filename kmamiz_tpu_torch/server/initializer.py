@@ -3,7 +3,7 @@
 Counterpart of kmamiz_tpu/server/initializer.py (KMamiz
 src/services/Initializer.ts): builds the cache registry (the eleven
 production caches, plus the online forecast state's when a processor owns
-it), loads base data from the store, refreshes the label map,
+it, plus the simulator's two in simulator mode), loads base data from the store, refreshes the label map,
 warm-starts the processor's graph from the dependency cache, and
 registers the three schedules (aggregation / realtime / dispatch).
 `first_time_setup` backfills 30 days of traces from Zipkin when the
@@ -42,8 +42,10 @@ from kmamiz_tpu_torch.server.cacheables import (
     CLookBackRealtimeData,
     CModelHistoryState,
     CReplicas,
+    CSimulatedHistoricalData,
     CTaggedDiffData,
     CTaggedInterfaces,
+    CTaggedSimulationYAML,
     CTaggedSwaggers,
     CUserDefinedLabel,
 )
@@ -158,6 +160,9 @@ class Initializer:
             caches.append(
                 CModelHistoryState(store=store, processor=ctx.processor, simulator_mode=sim)
             )
+        if sim:
+            caches.append(CTaggedSimulationYAML())
+            caches.append(CSimulatedHistoricalData())
         return caches
 
     def register_data_caches(self) -> None:
@@ -211,6 +216,9 @@ class Initializer:
         )
         ctx.scheduler.register("dispatch", ctx.settings.dispatch_interval, ctx.dispatch.sync)
         ctx.scheduler.start()
+
+    def simulation_server_startup(self) -> None:
+        self.register_data_caches()
 
     # -- first-time setup (Initializer.ts:40-101) ----------------------------
 

@@ -14,8 +14,10 @@ into minute-bucketed historical data, risk is re-scored over a merged
 30-minute look-back window, and the running aggregate is combined and
 saved; the realtime cache is then reset.
 
-A copy of kmamiz_tpu/server/operator.py without the simulator's variants,
-which wait for the simulator's port. The external-DP fallback counts as
+Simulator mode (ServiceOperator.ts:186-245,341-384) writes the
+simulator's static data into the caches and replays its per-slot
+combined data through an aggregation that keeps its historical data in
+the SimulatedHistoricalData cache. The external-DP fallback counts as
 `dpFallback` in resilience/metrics.py.
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.server.cache import DataCache
 from kmamiz_tpu_torch.server.service_utils import ServiceUtils
 from kmamiz_tpu_torch.server.storage import Store
+from kmamiz_tpu_torch.simulator.slot_metrics import parse_slot_key
 
 logger = logging.getLogger("kmamiz_tpu_torch.operator")
 
@@ -319,3 +322,47 @@ class ServiceOperator:
             if prev_raw.get("_id"):
                 new_agg.to_json()["_id"] = prev_raw["_id"]
         self._store.save("AggregatedData", new_agg.to_json())
+
+    # -- simulator variants (ServiceOperator.ts:186-245,341-384) -------------
+
+    def create_simulated_historical_and_aggregated_data(self) -> None:
+        with self._cache_update_lock:
+            info = self._get_data_for_aggregate()
+            if not info:
+                return
+            combined, dependencies = info
+            service_dependencies = dependencies.to_service_dependencies()
+            replicas = self._cache.get("ReplicaCounts").get_data() or []
+
+            buckets = combined.to_historical_data(service_dependencies, replicas)
+            if not buckets:
+                return
+            result = HistoricalData(buckets[0]).update_risk_value(
+                risk_analyzer.realtime_risk(combined.to_json(), service_dependencies, replicas)
+            )
+            self._cache.get("SimulatedHistoricalData").insert_one(result)
+
+            self._combine_and_save_aggregate(result.to_aggregated_data())
+            self._cache.get("CombinedRealtimeData").reset()
+
+    def update_static_simulate_data_to_cache(
+        self,
+        dependencies: List[dict],
+        data_types: List[EndpointDataType],
+        replica_counts: List[dict],
+    ) -> None:
+        dep = EndpointDependencies(dependencies)
+        with self._cache_update_lock:
+            self._cache.get("EndpointDependencies").set_data(dep)
+            self._cache.get("ReplicaCounts").set_data(replica_counts)
+            self._cache.get("EndpointDataType").set_data(data_types)
+            self._service_utils.update_label()
+            self._cache.get("LabeledEndpointDependencies").set_data(dep)
+
+    def update_dynamic_simulate_data(self, realtime_data_map: Dict[str, List[dict]]) -> None:
+        """Replay per-slot combined data in 'day-hour-minute' order
+        (ServiceOperator.ts:363-384)."""
+        for _, rows in sorted(realtime_data_map.items(), key=lambda kv: parse_slot_key(kv[0])):
+            if rows:
+                self._cache.get("CombinedRealtimeData").set_data(CombinedRealtimeDataList(rows))
+                self.create_simulated_historical_and_aggregated_data()

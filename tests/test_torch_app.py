@@ -382,10 +382,20 @@ def test_read_only_and_serve_only_boots(tmp_path, monkeypatch, mode):
     assert {p.name: p.read_bytes() for p in tmp_path.iterdir()} == files
 
 
-def test_simulator_mode_is_refused():
+def test_simulator_mode_boots():
+    """Simulator mode starts with no processor, registers the simulation
+    handler's two routes and reports the mode."""
     app = port_app(None, simulator_mode=True)
-    with pytest.raises(NotImplementedError):
-        app.start_up()
+    app.start_up()
+    try:
+        routes = "\n".join(app.router.route_list)
+        assert "/api/v1/simulation/startSimulation" in routes
+        assert "/api/v1/simulation/generateStaticSimConfig" in routes
+        res = app.router.dispatch("GET", "/api/v1/configuration/config")
+        assert res.status == 200 and res.payload == {"SimulatorMode": True}
+        assert app.ctx.processor is None
+    finally:
+        app.tear_down()
 
 
 def test_scheduled_realtime_job_ticks_under_the_tick_lock(monkeypatch):

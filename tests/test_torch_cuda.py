@@ -5,7 +5,8 @@ the graph scorers on the card against the CPU (with no host sync in the
 ops, and the store's incremental splice bit-exact), a raw window
 ingested on the card against the CPU, and the streaming ingest: a staged
 stream on the card against the CPU, the upload pipeline's bound on the
-groups in flight, and staging without a synchronising call.
+groups in flight, and staging without a synchronising call; and
+train_on_simulation on the card against the CPU.
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -881,3 +882,98 @@ def test_a_capture_credits_a_ticks_segment_stats_launches(card, tmp_path):
     assert out["ok"] and ss.segment_stats.launches == before + 2
     joined = device_attr.parse_profile_dir(str(tmp_path / "tick"))
     assert joined["programs"].get("segment_stats", 0.0) > 0, joined
+
+
+#: the JAX package's trainer-test mesh (tests/test_trainer.py's FAULT_YAML,
+#: which tests/test_torch_simulator.py holds this copy to): three endpoints
+#: in a chain, two simulated days, an error window on the leaf each day
+FAULT_YAML = """
+servicesInfo:
+  - namespace: mesh
+    services:
+      - serviceName: front
+        versions:
+          - version: v1
+            replica: 2
+            endpoints:
+              - endpointId: front-get
+                endpointInfo: { path: /front, method: get }
+      - serviceName: mid
+        versions:
+          - version: v1
+            replica: 1
+            endpoints:
+              - endpointId: mid-get
+                endpointInfo: { path: /mid, method: get }
+      - serviceName: back
+        versions:
+          - version: v1
+            replica: 1
+            endpoints:
+              - endpointId: back-get
+                endpointInfo: { path: /back, method: get }
+endpointDependencies:
+  - endpointId: front-get
+    isExternal: true
+    dependOn:
+      - endpointId: mid-get
+  - endpointId: mid-get
+    dependOn:
+      - endpointId: back-get
+loadSimulation:
+  config:
+    simulationDurationInDays: 2
+    overloadErrorRateIncreaseFactor: 3
+  serviceMetrics: []
+  endpointMetrics:
+    - endpointId: front-get
+      delay: { latencyMs: 20, jitterMs: 4 }
+      errorRatePercent: 1
+      expectedExternalDailyRequestCount: 4800
+    - endpointId: mid-get
+      delay: { latencyMs: 10, jitterMs: 2 }
+      errorRatePercent: 1
+    - endpointId: back-get
+      delay: { latencyMs: 5, jitterMs: 1 }
+      errorRatePercent: 1
+  faultInjection:
+    - type: increase-error-rate
+      targets:
+        services: []
+        endpoints:
+          - endpointId: back-get
+      timePeriods:
+        - startTime: { day: 1, hour: 6 }
+          durationHours: 5
+          probabilityPercent: 100
+        - startTime: { day: 2, hour: 6 }
+          durationHours: 5
+          probabilityPercent: 100
+      increaseErrorRatePercent: 80
+"""
+
+
+@pytest.mark.cuda
+def test_train_on_simulation_on_card_launches_kernel_2_and_matches_cpu(card):
+    """GraphSAGE through train_on_simulation on a simulated mesh: two
+    forward launches a step and a slot of calibration and evaluation, one
+    backward call a step, and the losses of the CPU run within rtol 1e-3."""
+    from kmamiz_tpu_torch.models import trainer
+    from kmamiz_tpu_torch.simulator import Simulator
+
+    result = Simulator().generate_simulation_data(FAULT_YAML, 0.0, rng=np.random.default_rng(7))
+    args = (result.endpoint_dependencies, result.realtime_data_per_slot, result.replica_counts)
+    train_set, eval_set = trainer.temporal_split(trainer.dataset_from_simulation(*args))
+    epochs = 4
+    steps = len(train_set.features) * epochs
+    for counter in (sparse.fused_sddmm_spmm, sparse.fused_backward):
+        counter.launches = 0
+    got, got_metrics, _ = trainer.train_on_simulation(*args, epochs=epochs, hidden=8, device=card)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm.launches == 2 * (steps + len(train_set.features) + len(eval_set.features))
+    assert sparse.fused_backward.launches == steps
+    want, want_metrics, _ = trainer.train_on_simulation(*args, epochs=epochs, hidden=8, device="cpu")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-3)
+    for a, b in zip(got.params, want.params):
+        if b is not None:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3, atol=1e-5)
