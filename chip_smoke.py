@@ -130,7 +130,7 @@ Phases, each timed:
    signature, endpoints and edges must equal phase 4's; (c) bench.py's
    raw e2e window (150,000 traces x 7 spans, BASELINE mesh) through
    ingest_raw_window into a fresh card processor, a warm-up and then the
-   median of 3 reps each on a fresh processor (counters zeroed just
+   median of 2 reps each on a fresh processor (counters zeroed just
    before, read just after): spans/s, bytes per span, parse and merge ms,
    the native parse's worker count, peak device memory; the same bytes
    again must ingest 0 spans and 0 traces; (d) that window's parse split
@@ -169,7 +169,7 @@ Phases, each timed:
    FileStore in a temporary directory, its card processor preloaded as in
    phase 4 and its store seeded with the dependency records of the same
    150,000 traces (a deployment's cache); the realtime schedule on a
-   six-field one-second cron fires 5 ticks of 2,500 fresh traces through
+   six-field one-second cron fires 3 ticks of 2,500 fresh traces through
    the operator (the first 2 an hour back, so one hour folds), each under
    5,000 ms, 2 segment-stats launches each (counters zeroed just before
    the boot, read after tear_down); the aggregation job once while the
@@ -202,7 +202,7 @@ Phases, each timed:
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
-   main(), the WAL on) serves 3 ticks of 2,500 traces, each under 5,000
+   main(), the WAL on) serves 2 ticks of 2,500 traces, each under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
    1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the
@@ -234,7 +234,7 @@ Phases, each timed:
 20. telemetry (after phase 19, before phase 14's profiler sessions): two
    `python -m kmamiz_tpu_torch.server.dp_server` processes (main(), no
    cluster source, KMAMIZ_STLGT=1), one with KMAMIZ_TELEMETRY=0
-   KMAMIZ_PROF=0, serve the same 8 windows of 2,500 traces in alternating
+   KMAMIZ_PROF=0, serve the same 3 windows of 2,500 traces in alternating
    turns: (a) the tick walls' medians and spreads of each; (b) the
    telemetry DP's GET /metrics (0.0.4 text, kmamiz_ticks_total up by the
    ticks, a span histogram of every tick phase, the device memory and
@@ -271,6 +271,34 @@ Phases, each timed:
    index against its plain build, the forward at H = 10, 18 and 64 and the
    ungated row pass at 64 against their plain versions, with bound and
    library times.
+22. multi-tenant serving (after phase 21, before phase 14's profiler
+   sessions): (a) eight tenants t0-t7, each the BASELINE generator over
+   125 services x 10 urls in a namespace of its own (1,250 endpoints,
+   the eight together the BASELINE's 10,000), each loaded with 18,750 raw
+   traces (phase 4's 150,000 split eight ways), all in one arena capacity
+   bucket; (b) a DataProcessorServer with a TickRouter over them (gather
+   window 50 ms, an argument) takes 4 rounds in which the eight POST at
+   once (t0-t3 by /t/<tenant>/, t4-t7 by the tenant header), 312 traces
+   each: each round one batched_collect with one stacked merge of 8 lanes,
+   no serial merge but drift re-merges, 16 segment-stats launches, every
+   answer under 5,000 ms; (c) eight serial twin processors on the card
+   take the same windows (graph signatures equal, answers within the tick
+   tolerances), two tenants are replayed on the CPU (equal edge columns),
+   the batched scorers equal each twin's (integer lanes and instability
+   equal, the relying factor rel 1e-5), and the last stacked merge equals
+   eight serial merges on its inputs, both timed; (d) KMAMIZ_CONTROL=1 with
+   the STLGT head phase 12 left (or one refreshed from two seeded folds):
+   t0 and t1 fold two hours, each fold one gated kernel-2 launch, the
+   controller's p99 within rel 1e-4 of the same forward on the CPU; with
+   t0's SLO under its forecast, t0's tick is deferred (no kernel-1
+   launch), a high-priority one runs, t1 stays fresh, and in shed mode t0
+   gets a 429; (e) the scenario factory's multi-tenant-mix (seed 0, index
+   2, 12 ticks) through a second gathered server with the WAL on: alpha's
+   and beta's windows tick by tick, beta's poison storm to
+   /t/beta/ingest (beta's quarantine namespace only), alpha's graph equal
+   to a clean serial run of its windows, /timings with tenancy and
+   control, and a restart over the same WAL replaying each tenant to its
+   signature.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -287,7 +315,8 @@ kernels as shipped against builds with other tuning values (KMZ_* in
 csrc/fused_sddmm_spmm.cu) on the BASELINE graph. With --cluster-only it
 runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 1-2 and then phase 20 alone ((g) on a fresh card processor after one
-warm tick); with --simulator-only, phases 1-2 and then phase 21 alone.
+warm tick); with --simulator-only, phases 1-2 and then phase 21 alone;
+with --tenancy-only, phases 1-2 and then phase 22 alone.
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -342,7 +371,7 @@ SAGE_FEATURES = 18  # 10 base + 8 history columns
 SAGE_LR = 1e-2
 STLGT_HOURS = (920, 921, 922, 923, 924)  # 5 ticks: 4 folds, 3 refreshes
 RAW_TRACES = 150_000  # bench.py's raw e2e window: 1.05M spans
-RAW_REPS = 3
+RAW_REPS = 2
 TICK_WALL_LIMIT_MS = 5_000  # the DP's realtime cadence (PERF.md section 2)
 
 
@@ -433,7 +462,8 @@ def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
 #: larger sessions in the same process record theirs), so measured work is
 #: bracketed by marker kernels (torch.cuda._sleep's spin kernel, which no
 #: measured path launches) with PAD_LAUNCHES small fills before and after
-PAD_LAUNCHES = 64
+#: (64 until a whole run lost a marker in 38 sessions of torch-op work)
+PAD_LAUNCHES = 256
 MARK = "spin_kernel"
 
 
@@ -565,6 +595,54 @@ def segment_stats_case(torch, ss, label, values, seg, ts, num_segments, jobs):
     jobs.append((case, "device_ms", kernel))
     log("   " + json.dumps(case))
     return case
+
+
+def _raw_window(spec: dict) -> bytes:
+    from kmamiz_tpu_torch import synth
+
+    return synth.make_raw_window(**spec)
+
+
+def raw_windows(specs) -> list:
+    """synth.make_raw_window(**spec) of every spec, made on a pool of
+    spawned processes (one a core, up to 8), in order: the generator is
+    pure Python, and phases 4, 15, 16, 17 and 22 make 1.05M spans each
+    with it. The bytes are the in-process calls'."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    specs = list(specs)
+    workers = max(1, min(8, os.cpu_count() or 1, len(specs)))
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_raw_window, specs))
+
+
+def state_windows(n_traces: int = None, chunk: int = None) -> list:
+    """Phase 4's windows (prefix "state") as raw bytes, chunk by chunk
+    (STATE_TRACES in STATE_CHUNK unless given)."""
+    n_traces = STATE_TRACES if n_traces is None else n_traces
+    chunk = STATE_CHUNK if chunk is None else chunk
+    return raw_windows(
+        dict(
+            n_traces=min(chunk, n_traces - start),
+            spans_per=SPANS_PER_TRACE,
+            t_start=start,
+            trace_prefix="state",
+            **BASELINE,
+        )
+        for start in range(0, n_traces, chunk)
+    )
+
+
+def joined_window(n_traces: int, parts: int = 8, **shape) -> bytes:
+    """synth.make_raw_window(n_traces, SPANS_PER_TRACE, **shape)'s bytes,
+    made in `parts` slices at once and joined (json.dumps joins a list's
+    items with ", ")."""
+    bounds = [n_traces * k // parts for k in range(parts + 1)]
+    pieces = raw_windows(
+        dict(n_traces=b - a, spans_per=SPANS_PER_TRACE, t_start=a, **shape) for a, b in zip(bounds, bounds[1:]) if b > a
+    )
+    return b"[" + b", ".join(p[1:-1] for p in pieces if len(p) > 2) + b"]"
 
 
 def synth_groups(n_traces: int, t_start: int, prefix: str):
@@ -1117,8 +1195,8 @@ def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK, r
     feed = TickFeed()
     proc = DataProcessor(trace_source=feed, device=device)
     deps, entries, grown = None, 0, records
-    for start in range(0, n_traces, chunk):
-        groups = synth_groups(min(chunk, n_traces - start), start, "state")
+    for raw in state_windows(n_traces, chunk):
+        groups = json.loads(raw)
         proc.graph.merge_window(spans_to_batch(groups, interner=proc.graph.interner))
         if grown:
             # combine_with merges the records its other side repeats
@@ -2666,7 +2744,6 @@ def raw_state_load(torch, device, state) -> dict:
     """Phase 15 (b): phase 4's windows (the same traces and prefix) as raw
     bytes through ingest_raw_window into a fresh card processor; the graph
     must equal phase 4's."""
-    from kmamiz_tpu_torch import synth
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
@@ -2674,14 +2751,7 @@ def raw_state_load(torch, device, state) -> dict:
     spans = 0
     wall_s = 0.0
     parse_ms = merge_ms = 0.0
-    for start in range(0, STATE_TRACES, STATE_CHUNK):
-        raw = synth.make_raw_window(
-            min(STATE_CHUNK, STATE_TRACES - start),
-            SPANS_PER_TRACE,
-            t_start=start,
-            trace_prefix="state",
-            **BASELINE,
-        )
+    for raw in state_windows():
         t0 = time.perf_counter()
         summary = proc.ingest_raw_window(raw)
         wall_s += time.perf_counter() - t0
@@ -2716,7 +2786,7 @@ def raw_one_shot(torch, device, counters) -> tuple:
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
-    raw = synth.make_raw_window(RAW_TRACES, SPANS_PER_TRACE, **BASELINE)
+    raw = joined_window(RAW_TRACES, **BASELINE)
     DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP).ingest_raw_window(raw)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3064,7 +3134,17 @@ def stream_windows(torch, device, counters, one_shot, raw) -> dict:
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
-    base = synth.make_raw_chunks(RAW_TRACES, SPANS_PER_TRACE, STREAM_CHUNKS, **BASELINE)
+    # synth.make_raw_chunks's pages, made at once
+    per = RAW_TRACES // STREAM_CHUNKS
+    base = raw_windows(
+        dict(
+            n_traces=per if c < STREAM_CHUNKS - 1 else RAW_TRACES - c * per,
+            spans_per=SPANS_PER_TRACE,
+            t_start=c * per,
+            **BASELINE,
+        )
+        for c in range(STREAM_CHUNKS)
+    )
     check(join_chunks(base) == raw, "the stream's chunks are not phase 15 (c)'s window")
     spans = RAW_TRACES * SPANS_PER_TRACE
     clock = {"ms": 1_700_000_000_000.0}
@@ -3281,7 +3361,7 @@ def stream_ingest(torch, device, counters, one_shot, raw) -> dict:
 
 # -- phase 17: the application -------------------------------------------------
 
-APP_TICKS = 5  # scheduled realtime ticks of boot 1 before its aggregation
+APP_TICKS = 3  # scheduled realtime ticks of boot 1 before its aggregation
 APP_WINDOWS = APP_TICKS + 4  # and windows for the ticks that overlap the aggregation
 APP_FOLD_AT = 2  # boot 1's ticks before this one run an hour back: one fold
 NEVER_CRON = "0 0 1 1 *"  # New Year's midnight: a schedule that does not fire in a run
@@ -3749,7 +3829,7 @@ def train_gat(torch, graph, device, counters, fproc, ckpt_dir: str) -> dict:
 
 # -- phase 19: the in-cluster deployment -------------------------------------
 
-CLUSTER_TICKS = 3  # DP ticks through main() with cluster state
+CLUSTER_TICKS = 2  # DP ticks through main() with cluster state
 WAL_WINDOWS = 10  # phase 4's 150,000 traces as raw /ingest windows
 DAY_MS = 86_400_000  # a Zipkin query looking back this far is a backfill
 STUB_BACKLOG = 64  # listen backlog of the stubs: over the 16-worker fan-out
@@ -4548,7 +4628,7 @@ def serve_in_cluster(torch, device, counters) -> dict:
 
 # -- phase 20: telemetry ------------------------------------------------------
 
-TEL_TICKS = 8  # ticks of each gate state, alternating between the two DPs
+TEL_TICKS = 3  # ticks of each gate state, alternating between the two DPs
 TEL_HOUR = 930  # the hour of phase 20's ticks; its fold ticks run in the next two
 CAPTURE_MS = 4_000  # the capture's window, around one tick
 CAPTURE_LEAD_S = 1.0  # the tick starts this long after the capture is asked for
@@ -5346,6 +5426,506 @@ def simulated_kernel_cases(torch, sparse, st, jobs) -> dict:
     return {**layout, "forward": forward, "backward": backward}
 
 
+TENANTS = tuple(f"t{i}" for i in range(8))  # BASELINE split into eight clusters
+TENANT_SERVICES = BASELINE["n_services"] // len(TENANTS)  # 125 services x 10 urls each
+TENANT_TRACES = STATE_TRACES // len(TENANTS)  # phase 4's 150,000 traces split eight ways
+TENANT_TICK_TRACES = TICK_TRACES // len(TENANTS)  # a round carries one BASELINE tick
+TENANT_ROUNDS = 4
+GATHER_WINDOW_MS = 50.0
+TENANT_HOUR = 950  # the rounds' hour; (d) folds it and the next
+SCENARIO = ("multi-tenant-mix", 0, 2, 12)  # build_scenario(archetype, seed, index, ticks)
+SCENARIO_HOUR = 970
+#: the scenario tenants' trace-bomb cap: under chaos.mutate_payload's bomb
+#: (~4.1 KB), so every poison-storm bomb trips it (the JAX runner's
+#: POISON_SIZE_CAP)
+SCENARIO_PAYLOAD_CAP = 4000
+
+
+def tenant_spec(n_traces: int, t_start: int, prefix: str) -> dict:
+    """synth.make_raw_window's arguments of a tenant's window: the
+    BASELINE generator over 125 services x 10 urls in one namespace."""
+    return dict(
+        n_traces=n_traces,
+        spans_per=SPANS_PER_TRACE,
+        t_start=t_start,
+        n_services=TENANT_SERVICES,
+        n_namespaces=1,
+        urls_per_service=BASELINE["urls_per_service"],
+        trace_prefix=prefix,
+    )
+
+
+def in_namespace(i: int, raw: bytes) -> bytes:
+    """A tenant_spec window moved into tenant t<i>'s own namespace."""
+    return raw.replace(b"ns0", f"ns-{TENANTS[i]}".encode())
+
+
+def tenant_window(i: int, n_traces: int, t_start: int, prefix: str) -> bytes:
+    """Tenant t<i>'s raw Zipkin window, made in this process."""
+    return in_namespace(i, _raw_window(tenant_spec(n_traces, t_start, prefix)))
+
+
+def post_as_tenant(port: int, tenant: str, request: dict, by_header: bool) -> tuple:
+    """(status, answer, X-KMamiz-Control header, wall ms) of a DP tick
+    posted for `tenant`: by its /t/<tenant>/ route, or by the tenant
+    header."""
+    path = "/" if by_header else f"/t/{tenant}/"
+    headers = {"Content-Type": "application/json", "Accept-Encoding": "gzip"}
+    if by_header:
+        headers["x-kmamiz-tenant"] = tenant
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(request).encode(), headers=headers, method="POST"
+    )
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, body, header = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        status, body, header = e.code, e.read(), e.headers
+    if header.get("Content-Encoding") == "gzip":
+        body = gzip.decompress(body)
+    wall = (time.perf_counter() - t0) * 1e3
+    return status, json.loads(body), header.get("X-KMamiz-Control"), wall
+
+
+def post_round(port: int, posts) -> tuple:
+    """Every (tenant, request, by_header) of `posts` at once, each on a
+    thread of its own released together; returns ({tenant: post's
+    result}, the round's wall in ms)."""
+    import gc
+    import threading
+
+    # a collection of the process's older generations inside the gather
+    # window would hold arrivals back past it: collect before the round
+    gc.collect()
+    out, gate = {}, threading.Barrier(len(posts) + 1)
+
+    def run(tenant, request, by_header):
+        gate.wait()
+        out[tenant] = post_as_tenant(port, tenant, request, by_header)
+
+    threads = [threading.Thread(target=run, args=p) for p in posts]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def install_stlgt_head(torch, device) -> str:
+    """The STLGT head the control plane forecasts with: phase 12's
+    continual trainer when it ran; otherwise the process trainer takes two
+    seeded fold snapshots, as phase 12's folds feed it, and refreshes once."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
+
+    if stlgt_pkg.serving_params() is not None:
+        return "phase 12"
+    rng = np.random.default_rng(SEED)
+    n, e = 256, 1024
+    src, dst = rng.integers(0, n, e).astype(np.int32), rng.integers(0, n, e).astype(np.int32)
+    trainer = stlgt_pkg.get_trainer(device)
+    for hour in range(2):
+        feats = (rng.random((n, SAGE_FEATURES)) * 0.5).astype(np.float32)
+        trainer.observe_fold(
+            {
+                "features": feats,
+                "src": src,
+                "dst": dst,
+                "mask": np.ones(e, dtype=bool),
+                "names": [f"svc{k}\tns\tlatest\tGET\t/api/{k}" for k in range(n)],
+                "predicted_hour": hour + 1,
+                "cache_key": (1, 0, hour),
+            }
+        )
+    check(stlgt_pkg.serving_params() is not None, "the STLGT head did not refresh")
+    return "seeded folds"
+
+
+def serve_tenancy(torch, device, counters, jobs) -> dict:
+    """Phase 22, multi-tenant serving: (a) eight tenants of 125 services x
+    10 urls, each loaded with 18,750 raw traces, in one capacity bucket;
+    (b) four gathered rounds through a DataProcessorServer (gather window
+    50 ms): the eight post at once (t0-t3 by /t/<tenant>/, t4-t7 by the
+    tenant header), one stacked merge of 8 lanes and 16 segment-stats
+    launches a round; (c) eight serial twins on the card and two CPU
+    replays against them; the batched scorers against the twins'; (d) the
+    control plane on the card: t0 and t1 fold two hours with the live STLGT
+    head (one gated kernel-2 launch a fold), defer, high priority and shed;
+    (e) the scenario factory's multi-tenant-mix through a second server
+    with the WAL on: beta's poison storm in beta's quarantine only,
+    alpha's graph equal to a clean serial run, a restart replaying each
+    tenant's namespace."""
+    import numpy as np
+
+    from kmamiz_tpu_torch import control, scenarios
+    from kmamiz_tpu_torch.graph.store import _merge_edges, graph_signature
+    from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
+    from kmamiz_tpu_torch.models.stlgt import serving as stlgt_serving
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.scenarios import runner as scn_runner
+    from kmamiz_tpu_torch.scenarios import storyline, topology
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer, _make_runtime
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.tenancy import TickRouter, batch, default_arena
+
+    seg, fused = ss.segment_stats.__name__, sparse.fused_sddmm_spmm.__name__
+    out: dict = {"tenants": len(TENANTS), "services_per_tenant": TENANT_SERVICES, "gather_window_ms": GATHER_WINDOW_MS}
+    launches = {c.__name__: 0 for c in counters}
+
+    def add_launches(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    # (a) eight tenants and their twins from the same raw state
+    t0 = time.perf_counter()
+    feeds = {t: TickFeed() for t in TENANTS}
+    twin_feeds = {t: TickFeed() for t in TENANTS}
+    procs, twins = {}, {}
+    state_raw = {
+        t: in_namespace(i, raw)
+        for i, (t, raw) in enumerate(
+            zip(TENANTS, raw_windows(tenant_spec(TENANT_TRACES, 0, f"{t}-state-") for t in TENANTS))
+        )
+    }
+    for t in TENANTS:
+        procs[t] = DataProcessor(trace_source=feeds[t], device=device, wal=None, tenant=t)
+        twins[t] = DataProcessor(trace_source=twin_feeds[t], device=device, wal=None, tenant=f"twin-{t}")
+        for proc in (procs[t], twins[t]):
+            proc.ingest_raw_window(state_raw[t])
+    arena = default_arena()
+    buckets = {cap: [t for t in members if t in TENANTS] for cap, members in arena.buckets().items()}
+    buckets = {cap: m for cap, m in buckets.items() if m}
+    per_tenant = {
+        t: {"endpoints": len(procs[t].graph.interner.endpoints), "edges": procs[t].graph.n_edges} for t in TENANTS
+    }
+    out["load_s"] = time.perf_counter() - t0
+    out["bucket"] = next(iter(buckets)) if len(buckets) == 1 else sorted(buckets)
+    out["per_tenant"] = per_tenant
+    by_tenant = arena.arena_bytes_by_tenant()
+    out["arena_bytes"] = sum(by_tenant[t] for t in TENANTS)
+    log("   (a) " + json.dumps(out))
+    check(len(buckets) == 1 and sorted(next(iter(buckets.values()))) == list(TENANTS), f"buckets {buckets}")
+    check(
+        sum(p["endpoints"] for p in per_tenant.values()) == PROD_ENDPOINTS,
+        f"{sum(p['endpoints'] for p in per_tenant.values())} endpoints in all",
+    )
+    for t in TENANTS:
+        check(graph_signature(procs[t].graph) == graph_signature(twins[t].graph), f"{t}'s twin differs at load")
+
+    cpu_feeds = {t: TickFeed() for t in TENANTS[:2]}
+    cpu_replays = {t: DataProcessor(trace_source=cpu_feeds[t], device="cpu", wal=None, tenant=f"cpu-{t}") for t in TENANTS[:2]}
+    for t, cpu in cpu_replays.items():
+        cpu.ingest_raw_window(state_raw[t])
+    del state_raw
+
+    router = TickRouter(lambda t: _make_runtime(t, procs[t]), batch_window_ms=GATHER_WINDOW_MS)
+    router.keep_inputs = True
+    default = DataProcessor(trace_source=TickFeed(), device=device, wal=None)
+    server = DataProcessorServer(default, host="127.0.0.1", port=0, router=router)
+    server.start()
+    rounds = []
+    try:
+        # every tenant's runtime made (and its route served) before the rounds
+        for t in TENANTS:
+            status, health = http_json(server.port, f"/t/{t}/")
+            check(status == 200 and health["tenant"] == t, f"{t}'s health answered {status}")
+        # (b) gathered rounds, (c) the references after each
+        for r in range(TENANT_ROUNDS):
+            request = {"uniqueId": f"round{r}", "lookBack": 30_000, "time": TENANT_HOUR * HOUR_MS + r}
+            windows = {}
+            for i, t in enumerate(TENANTS):
+                start = TENANT_TRACES + (r * len(TENANTS) + i) * TENANT_TICK_TRACES
+                windows[t] = json.loads(tenant_window(i, TENANT_TICK_TRACES, start, f"{t}-r{r}-"))
+                feeds[t].groups = twin_feeds[t].groups = windows[t]
+            before = router.stats()
+            zero_counts(counters)
+            answers, round_ms = post_round(
+                server.port, [(t, dict(request), i >= 4) for i, t in enumerate(TENANTS)]
+            )
+            got = read_counts(torch, counters)
+            add_launches(got)
+            stats = {k: v - before[k] for k, v in router.stats().items()}
+            record = {
+                "round": r,
+                "wall_ms": round(round_ms, 3),
+                "tick_walls_ms": {t: round(answers[t][3], 3) for t in TENANTS},
+                "launches": got[seg],
+                "stacked_lanes": stats["stackedLanes"],
+                "drift_remerges": stats["driftRemerges"],
+                "merge_ms": round(router.last_batch_merge_ms, 3),
+            }
+            log("   (b) " + json.dumps(record))
+            for t in TENANTS:
+                status, body, _h, wall = answers[t]
+                check(status == 200, f"round {r}: {t} answered {status}")
+                check_response(body, f"round{r}")
+                check(wall < TICK_WALL_LIMIT_MS, f"round {r}: {t}'s tick took {wall:.1f} ms")
+            check(stats["batches"] == 1 and stats["stackedMerges"] == 1, f"round {r}: {stats}")
+            check(stats["stackedLanes"] == len(TENANTS), f"round {r}: {stats['stackedLanes']} lanes")
+            check(stats["serialMerges"] == stats["driftRemerges"], f"round {r}: non-drift serial merges {stats}")
+            check(got[seg] == 2 * len(TENANTS), f"round {r}: segment_stats launched {got[seg]} times")
+            # (c) the serial twins (gather window 0) and the CPU replays
+            for t in TENANTS:
+                want = twins[t].collect(dict(request))
+                compare_ticks(answers[t][1], want)
+                check(graph_signature(procs[t].graph) == graph_signature(twins[t].graph), f"round {r}: {t} differs from its twin")
+            for t, cpu in cpu_replays.items():
+                cpu_feeds[t].groups = windows[t]
+                cpu.collect(dict(request))
+                for got_col, want_col in zip(procs[t].graph.edge_arrays(), cpu.graph.edge_arrays()):
+                    check(torch.equal(got_col.cpu(), want_col), f"round {r}: {t}'s edges differ from the CPU's")
+            rounds.append(record)
+        out["rounds"] = rounds
+        out["stacked_bytes"] = arena.stacked_bytes()
+
+        # (c) the batched scorers against each twin's serial scores
+        scores, svc_caps = router.batched_service_scores(list(TENANTS))
+        exact = ("instability_on", "instability_by", "instability", "ais", "ads", "acs", "is_gateway")
+        worst = 0.0
+        for lane, t in enumerate(TENANTS):
+            want = twins[t].graph.service_scores_uncached()
+            n = svc_caps[lane]
+            for name, got_f, want_f in zip(scores._fields, scores, want):
+                g, w = got_f[lane][:n].cpu().numpy(), want_f[:n].cpu().numpy()
+                if name in exact:
+                    check(np.array_equal(g, w), f"batched {name} of {t} differs")
+                else:
+                    check(np.allclose(g, w, rtol=1e-5, atol=0), f"batched {name} of {t} differs")
+                    worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))))
+        out["batched_scores_rf_max_rel"] = worst
+
+        # the last stacked merge against eight serial merges, on its inputs
+        stack_cols, win_cols, counts = router.last_stack_inputs
+        serial_inputs = []
+        for lane in range(len(TENANTS)):
+            n = int(win_cols[3][lane].sum())
+            width = 1 << max(0, (n - 1).bit_length())
+            serial_inputs.append(
+                [c[lane] for c in stack_cols] + [c[lane, :width] for c in win_cols[:3]] + [win_cols[3][lane, :width]]
+            )
+        stacked_out = batch.batched_merge_edges(*stack_cols, *win_cols)
+        for lane, args in enumerate(serial_inputs):
+            s, d, ds, v = _merge_edges(*args)
+            k = int(v.sum())
+            check(k == counts[lane] == int(stacked_out[4][lane]), f"lane {lane}: counts differ")
+            for a, b in zip(stacked_out[:3], (s, d, ds)):
+                check(torch.equal(a[lane, :k], b[:k]), f"lane {lane}: the stacked union differs from the serial one")
+        stacked_case = {"shape": f"stacked merge, {len(TENANTS)} lanes x {int(stack_cols[0].shape[1])} + {int(win_cols[0].shape[1])}"}
+        serial_case = {"shape": f"{len(TENANTS)} serial merges"}
+        stacked_fn = lambda: batch.batched_merge_edges(*stack_cols, *win_cols)  # noqa: E731
+        serial_fn = lambda: [_merge_edges(*args) for args in serial_inputs]  # noqa: E731
+        stacked_case["ms"] = cuda_ms(torch, stacked_fn)
+        serial_case["ms"] = cuda_ms(torch, serial_fn)
+        jobs.append((stacked_case, "device_ms", stacked_fn))
+        jobs.append((serial_case, "device_ms", serial_fn))
+        out["merge_cases"] = [stacked_case, serial_case]
+        log("   (c) " + json.dumps({"scores_rf_max_rel": worst, "merges": out["merge_cases"]}))
+
+        # (d) the control plane on the card
+        out["stlgt_head"] = install_stlgt_head(torch, device)
+        control.reset_for_tests()
+        control.configure(hysteresis=1)
+        with env_set(KMAMIZ_CONTROL="1", KMAMIZ_CONTROL_MODE="defer", KMAMIZ_STLGT=None):
+            folds = []
+            for step, hour in enumerate((TENANT_HOUR + 1, TENANT_HOUR + 2)):
+                if step == 1:
+                    # t0's SLO well under its forecast p99, t1's well over
+                    seen = control.snapshot()["tenants"]
+                    control.configure(
+                        tenant_slo_ms={
+                            "t0": seen["t0"]["forecast_p99_ms"] / 10,
+                            "t1": max(seen["t1"]["forecast_p99_ms"] * 10, 1.0),
+                        }
+                    )
+                request = {"uniqueId": f"fold{hour}", "lookBack": 30_000, "time": hour * HOUR_MS}
+                for i, t in enumerate(TENANTS[:2]):
+                    start = TENANT_TRACES + (TENANT_ROUNDS * len(TENANTS) + step * 2 + i) * TENANT_TICK_TRACES
+                    feeds[t].groups = json.loads(tenant_window(i, TENANT_TICK_TRACES, start, f"{t}-h{hour}-"))
+                zero_counts(counters)
+                answers, wall = post_round(server.port, [(t, dict(request), False) for t in TENANTS[:2]])
+                got = read_counts(torch, counters)
+                add_launches(got)
+                for t in TENANTS[:2]:
+                    check(answers[t][0] == 200, f"fold tick of {t} answered {answers[t][0]}")
+                check(got[fused] == 2, f"2 folds launched the fused kernel {got[fused]} times")
+                check(got[seg] == 4, f"2 fold ticks launched segment_stats {got[seg]} times")
+                check(all(procs[t].fold_errors["controlFoldErrors"] == 0 for t in TENANTS[:2]), "control fold errors")
+                folds.append({"hour": hour, "wall_ms": round(wall, 3), "launches": got, "control": control.snapshot()["tenants"]})
+                log("   (d) " + json.dumps({k: v for k, v in folds[-1].items() if k != "control"}))
+            # the view against the same forward on the CPU
+            live = stlgt_pkg.serving_params()
+            cpu_params = type(live["params"])(*(p.detach().cpu() for p in live["params"]))
+            for t in TENANTS[:2]:
+                snap = procs[t].forecast_snapshot
+                q_ms, _prob, gate = stlgt_serving.quantile_forward(
+                    cpu_params, snap["features"], snap["src"], snap["dst"], snap["mask"], live["model"]
+                )
+                view = control.view_from_forecast(t, q_ms, gate, snap, version=live["version"])
+                state = control.snapshot()["tenants"][t]
+                check(
+                    math.isclose(state["forecast_p99_ms"], view.p99_ms, rel_tol=1e-4, abs_tol=1e-5),
+                    f"{t}: card p99 {state['forecast_p99_ms']} against the CPU's {view.p99_ms}",
+                )
+                slo = control.slo_ms(t)
+                cpu_action = "defer" if view.p99_ms > slo else "allow"
+                check(state["action"] == cpu_action, f"{t}: action {state['action']} against the CPU's {cpu_action}")
+            tenants_state = control.snapshot()["tenants"]
+            check(tenants_state["t0"]["action"] == "defer" and not tenants_state["t1"]["active"], f"{tenants_state}")
+            out["control_folds"] = folds
+            hour = TENANT_HOUR + 2
+            verdicts = {}
+            feeds["t0"].groups = feeds["t1"].groups = []
+            zero_counts(counters)
+            status, body, header, _w = post_as_tenant(server.port, "t0", {"uniqueId": "d-low", "lookBack": 30_000, "time": hour * HOUR_MS}, False)
+            deferred_launches = read_counts(torch, counters)[seg]
+            verdicts["t0_low"] = [status, bool(body.get("deferred")), header]
+            check(status == 200 and body.get("deferred") is True and header == "defer", f"t0 low: {verdicts['t0_low']}")
+            check(deferred_launches == 0, f"a deferred tick launched segment_stats {deferred_launches} times")
+            feeds["t0"].groups = json.loads(tenant_window(0, TENANT_TICK_TRACES, TENANT_TRACES * 3, "t0-high-"))
+            status, body, header, _w = post_as_tenant(
+                server.port, "t0", {"uniqueId": "d-high", "lookBack": 30_000, "time": hour * HOUR_MS, "priority": "high"}, True
+            )
+            verdicts["t0_high"] = [status, bool(body.get("deferred")), header]
+            check(status == 200 and not body.get("deferred"), f"t0 high: {verdicts['t0_high']}")
+            feeds["t1"].groups = json.loads(tenant_window(1, TENANT_TICK_TRACES, TENANT_TRACES * 3, "t1-fresh-"))
+            status, body, header, _w = post_as_tenant(server.port, "t1", {"uniqueId": "d-t1", "lookBack": 30_000, "time": hour * HOUR_MS}, False)
+            verdicts["t1"] = [status, bool(body.get("deferred")), header]
+            check(status == 200 and not body.get("deferred") and not body.get("stale"), f"t1: {verdicts['t1']}")
+            with env_set(KMAMIZ_CONTROL_MODE="shed"):
+                state = control.snapshot()["tenants"]["t0"]
+                control.ingest_forecast(
+                    control.ForecastView(tenant="t0", p99_ms=state["forecast_p99_ms"], cost_ms=state["predictedCostMs"])
+                )
+                status, body, header, _w = post_as_tenant(server.port, "t0", {"uniqueId": "d-shed", "lookBack": 30_000, "time": hour * HOUR_MS}, False)
+            verdicts["t0_shed"] = [status, body.get("control", {}).get("action"), header]
+            check(status == 429 and header == "shed", f"t0 shed: {verdicts['t0_shed']}")
+            out["verdicts"] = verdicts
+            log("   (d) " + json.dumps(verdicts))
+        control.reset_for_tests()
+    finally:
+        server.stop()
+
+    out["scenario"] = serve_scenario_tenants(torch, device, scenarios, scn_runner, storyline, topology)
+    out["launches"] = launches
+    return out
+
+
+def serve_scenario_tenants(torch, device, scenarios, scn_runner, storyline, topology) -> dict:
+    """Phase 22 (e): multi-tenant-mix's alpha and beta windows, tick by
+    tick through a gathered DP server with the WAL on; beta's poison-storm
+    payloads to /t/beta/ingest; then a restart over the same WAL."""
+    from kmamiz_tpu_torch.graph.store import graph_signature
+    from kmamiz_tpu_torch.resilience import quarantine
+    from kmamiz_tpu_torch.server.dp_server import DataProcessorServer, _make_runtime
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.tenancy import TickRouter
+
+    DEFAULT_PAYLOAD_CAP = quarantine.MAX_PAYLOAD_BYTES
+    spec = scenarios.build_scenario(*SCENARIO)
+    plans = {plan.tenant: plan for plan in spec.tenants}
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_tenancy_")
+    out: dict = {"spec": spec.name, "signature": scenarios.spec_signature(spec)}
+
+    def boot(cap):
+        feeds = {t: TickFeed() for t in plans}
+
+        def factory(tenant):
+            proc = DataProcessor(trace_source=feeds[tenant], device=device, tenant=tenant, max_payload_bytes=cap)
+            proc.replay_wal()
+            return _make_runtime(tenant, proc)
+
+        router = TickRouter(factory, batch_window_ms=GATHER_WINDOW_MS)
+        server = DataProcessorServer(
+            DataProcessor(trace_source=TickFeed(), device=device, wal=None), host="127.0.0.1", port=0, router=router
+        )
+        server.start()
+        return server, router, feeds
+
+    def windows(plan, tick):
+        view = scn_runner._tick_view(plan, tick)
+        return topology.tick_groups(
+            plan.topology,
+            spec.name,
+            tick,
+            plan.traffic[tick],
+            drop_services=frozenset(view["drop"]),
+            error_services=frozenset(view["error"]),
+            version_of=scn_runner._deploy_version_fn(plan, tick),
+            latency_boost_us=view["latency_us"],
+        ), view
+
+    q_root = os.path.join(os.environ["KMAMIZ_QUARANTINE_DIR"], "tenants")
+    try:
+        with env_set(KMAMIZ_WAL="1", KMAMIZ_WAL_DIR=os.path.join(root.name, "wal"), KMAMIZ_CONTROL=None):
+            # the live boot caps /ingest payloads so that every bomb trips
+            server, router, feeds = boot(SCENARIO_PAYLOAD_CAP)
+            ref_feed = TickFeed()
+            reference = DataProcessor(trace_source=ref_feed, device=device, wal=None, tenant="alpha-ref")
+            poisons = {"delivered": 0, "quarantined": 0}
+            t0 = time.perf_counter()
+            try:
+                for tick in range(spec.n_ticks):
+                    request = {"uniqueId": f"scn{tick}", "lookBack": 30_000, "time": SCENARIO_HOUR * HOUR_MS + tick}
+                    views = {}
+                    for t, plan in plans.items():
+                        feeds[t].groups, views[t] = windows(plan, tick)
+                    answers, _wall = post_round(server.port, [(t, dict(request), False) for t in plans])
+                    for t in plans:
+                        check(answers[t][0] == 200, f"tick {tick}: {t} answered {answers[t][0]}")
+                    ref_feed.groups = feeds["alpha"].groups
+                    reference.collect(dict(request))
+                    plan = plans["beta"]
+                    for ev in views["beta"]["poisons"]:
+                        clean = json.dumps([topology.trace_group(plan.topology, f"{spec.name}-poison", tick, 0)]).encode()
+                        for _kind, payload in storyline.poison_payloads_for(ev, plan.topology, tick, clean):
+                            status, summary = http_json(server.port, "/t/beta/ingest", payload)
+                            poisons["delivered"] += 1
+                            poisons["quarantined"] += int(status == 200 and summary.get("quarantined") == 1)
+                out["ticks_s"] = time.perf_counter() - t0
+                status, timings = http_json(server.port, "/timings")
+                check(status == 200 and {"tenancy", "control"} <= set(timings), f"/timings {sorted(timings)}")
+                check(sorted(timings["tenancy"]["tenants"]) == ["alpha", "beta"], f"{timings['tenancy']['tenants']}")
+                signatures = {t: graph_signature(router.runtime(t).processor.graph) for t in plans}
+                out["stacked"] = router.stats()
+                for t in plans:
+                    router.runtime(t).processor.wal.close()
+            finally:
+                server.stop()
+            out["poisons"] = poisons
+            check(poisons["delivered"] > 0 and poisons["quarantined"] == poisons["delivered"], f"poisons {poisons}")
+            beta_files = [p for p in os.listdir(os.path.join(q_root, "beta")) if p.endswith(".bin")]
+            alpha_dir = os.path.join(q_root, "alpha")
+            alpha_files = [p for p in os.listdir(alpha_dir) if p.endswith(".bin")] if os.path.isdir(alpha_dir) else []
+            out["quarantine_files"] = {"beta": len(beta_files), "alpha": len(alpha_files)}
+            check(len(beta_files) == poisons["delivered"] and not alpha_files, f"quarantine {out['quarantine_files']}")
+            check(signatures["alpha"] == graph_signature(reference.graph), "alpha differs from its clean serial run")
+            check(out["stacked"]["stackedMerges"] > 0, f"no stacked merge: {out['stacked']}")
+            # the restart: each tenant replays its own WAL namespace (the
+            # default cap: the logged tick windows are larger than the
+            # live boot's)
+            t0 = time.perf_counter()
+            server, router, _feeds = boot(DEFAULT_PAYLOAD_CAP)
+            try:
+                for t in plans:
+                    status, health = http_json(server.port, f"/t/{t}/")
+                    check(status == 200 and health["tenant"] == t, f"restart: {t} answered {status}")
+                    check(graph_signature(router.runtime(t).processor.graph) == signatures[t], f"restart: {t}'s replay differs")
+                    router.runtime(t).processor.wal.close()
+            finally:
+                server.stop()
+            out["restart_s"] = time.perf_counter() - t0
+            out["tenant_quarantine"] = {t: s["count"] for t, s in quarantine.tenant_quarantine_stats().items()}
+    finally:
+        root.cleanup()
+    log("   (e) " + json.dumps(out))
+    return out
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -5391,6 +5971,11 @@ def main(argv=None) -> int:
         "--simulator-only",
         action="store_true",
         help="phases 1-2, then phase 21 (the simulator), then the device times and the report",
+    )
+    parser.add_argument(
+        "--tenancy-only",
+        action="store_true",
+        help="phases 1-2, then phase 22 (multi-tenant serving), then the device times and the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -5504,6 +6089,17 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"simulator": report["simulator"]}))
+        return 0
+
+    if args.tenancy_only:
+        with Phase("multi-tenant serving", walls):
+            report["tenancy"] = serve_tenancy(torch, device, counters, jobs)
+        with Phase("device times", walls):
+            report["profiler_lost_sessions"] = device_times(torch, jobs)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"tenancy": {k: v for k, v in report["tenancy"].items() if k != "rounds"}}))
         return 0
 
     if args.cluster_only:
@@ -5701,6 +6297,17 @@ def main(argv=None) -> int:
     with Phase("simulator", walls):
         report["simulator"] = simulate(torch, device, counters, jobs)
 
+    # and phase 22, multi-tenant serving (its control folds use phase 12's
+    # STLGT head)
+    with Phase("multi-tenant serving", walls):
+        stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
+        try:
+            report["tenancy"] = serve_tenancy(torch, device, counters, jobs)
+        finally:
+            if stlgt_env is not None:
+                os.environ["KMAMIZ_STLGT"] = stlgt_env
+        tenancy_launches = report["tenancy"]["launches"]
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -5748,15 +6355,27 @@ def main(argv=None) -> int:
             "cases": all_cases,
         }
 
-    # launches: the segment-stats kernel on the tick path, the fused kernel
-    # on the forecast path, the backward's row pass on the GraphSAGE
-    # training path and its SDDMM on the STLGT path; the shown times are the
+    # launches: the segment-stats kernel on the tick path (phase 7's served
+    # ticks and phase 22's gathered rounds and fold ticks), the fused kernel
+    # on the forecast path (phase 9, and phase 22's control folds), the
+    # backward's row pass on the GraphSAGE training path and its SDDMM on
+    # the STLGT path; the shown times are the
     # tick's first pass, GraphSAGE's second layer (H = 64) forward and
     # backward, and STLGT's gated backward (H = 32)
     line = {
         "kernels": [
-            entry(*kernels[0], launches[ss.segment_stats.__name__], cases + raw_cases, cases[2]),
-            entry(*kernels[1], forecast_launches[sparse.fused_sddmm_spmm.__name__], f_cases, f_cases[1]),
+            entry(
+                *kernels[0],
+                launches[ss.segment_stats.__name__] + tenancy_launches[ss.segment_stats.__name__],
+                cases + raw_cases,
+                cases[2],
+            ),
+            entry(
+                *kernels[1],
+                forecast_launches[sparse.fused_sddmm_spmm.__name__] + tenancy_launches[sparse.fused_sddmm_spmm.__name__],
+                f_cases,
+                f_cases[1],
+            ),
             entry(
                 *kernels[2],
                 stlgt_launches[sparse.fused_sddmm_spmm_grad_edges.__name__],

@@ -20,8 +20,12 @@ bounds, the stream's depth and epoch) are the modules' constants at the
 JAX package's defaults, given as constructor arguments where a caller
 needs another value. The telemetry's switches, directories and bounds
 are read the same way, one reader each, at the JAX package's defaults.
-The JAX package's device, sparse-kernel, tenancy, fleet, control and
-cost knobs belong to subsystems not ported yet.
+The control plane's switches (KMAMIZ_CONTROL, KMAMIZ_CONTROL_MODE) are
+read by control/__init__.py at the call; its tuning values and the
+tenancy layer's (the gather window, the tenant limit, the tenant header)
+are module constants at the JAX defaults, given as arguments where a
+caller needs another value. The JAX package's device, sparse-kernel,
+fleet and cost knobs belong to subsystems not ported yet.
 """
 from __future__ import annotations
 

@@ -12,6 +12,15 @@ stages its windows instead: each window's walk self-compacts on the
 device, staged windows collapse into one pending union while the next
 chunk parses, and the store adopts it at the next read.
 
+Every store belongs to a tenant (`tenant`, "default" unless given) and
+admits itself into the process-wide tenant arena (tenancy/arena.py): the
+arena's (tenant, version) index, its capacity buckets and its stacked
+[T, cap] views. The tenancy router's stacked merge reads a window as id
+columns (`intern_window_edges`), unions every same-bucket tenant's window
+in one batched program, and each store adopts its lane
+(`adopt_batched_merged`); a store that moved since the stack was read
+raises StoreVersionDrift, and the router merges that window serially.
+
 Not ported: the JAX store's 'segment' growth mode (a capacity crossing
 that recompiles no XLA program; PyTorch compiles nothing per shape) and
 its mesh-sharded staging.
@@ -116,6 +125,13 @@ def _merge_edges(src_a, dst_a, dist_a, mask_a, src_b, dst_b, dist_b, mask_b):
     return s, d, ds, valid
 
 
+class StoreVersionDrift(RuntimeError):
+    """A stacked-merge lane was built from an arena snapshot the store has
+    since moved past (a merge landed between the snapshot and the adopt).
+    The caller re-merges its window serially against the current store:
+    merges are set unions, so the result is the same."""
+
+
 def _union_walk(edges, src, dst, dist, mask):
     """Union a walk's candidate edges into the store columns; returns the
     merged columns and the valid count as a device scalar."""
@@ -198,8 +214,10 @@ class EndpointGraph:
         device: DeviceLike = None,
         interner: Optional[EndpointInterner] = None,
         ml_interner: Optional[StringInterner] = None,
+        tenant: str = "default",
     ) -> None:
         self.device = resolve_device(device)
+        self.tenant = tenant
         self.interner = interner or EndpointInterner()
         # method+label strings of the scorers' ep_ml table
         self.ml_interner = ml_interner or StringInterner()
@@ -271,6 +289,11 @@ class EndpointGraph:
         # every state transition and snapshot happens under this lock
         self._lock = threading.RLock()
         _track_store_arenas(self)
+        # every graph admits itself into the process-wide tenant arena,
+        # which holds it by weakref (re-admitting a tenant replaces it)
+        from kmamiz_tpu_torch.tenancy.arena import default_arena
+
+        default_arena().admit(tenant, self)
 
     # -- capacity management -------------------------------------------------
 
@@ -465,6 +488,57 @@ class EndpointGraph:
             self._min_dist = min(self._min_dist, min(dist_l))
             self._union_host_edges_locked(src_l, dst_l, dist_l)
             return True
+
+    def capacity_bucket(self) -> int:
+        """The power-of-two capacity of the edge columns: the tenant
+        arena's bucket key (same-bucket graphs stack into [T, cap])."""
+        return self.capacity
+
+    def intern_window_edges(self, edges):
+        """The host half of merge_window_edges without any state change: a
+        window's (caller_uen, callee_uen, distance) triples as
+        (src_ids, dst_ids, dist) int lists, or None when the window is
+        empty or an endpoint is missing from the interner (the caller
+        merges serially then). The tenancy router stacks these before any
+        tenant's merge."""
+        with self._lock:
+            eps = self.interner.endpoints
+            src_l, dst_l, dist_l = [], [], []
+            for caller, callee, dist in edges:
+                s_id = eps.get(caller)
+                d_id = eps.get(callee)
+                if s_id is None or d_id is None:
+                    return None
+                src_l.append(s_id)
+                dst_l.append(d_id)
+                dist_l.append(dist)
+        if not src_l:
+            return None
+        return src_l, dst_l, dist_l
+
+    def adopt_batched_merged(
+        self, src, dst, dist, valid_count, batch: SpanBatch, max_dist: int, min_dist: int,
+        expected_version=None,
+    ) -> None:
+        """Adopt one lane of a stacked same-bucket union
+        (tenancy.batch.batched_merge_edges) as this window's merge, with
+        merge_window_edges' bookkeeping: version, dirty journal, endpoint
+        metadata, distance bounds, the deferred count. The lane was
+        computed outside the lock from an arena snapshot, so it is adopted
+        only while the store still sits at that snapshot's version with
+        nothing staged or pending; otherwise StoreVersionDrift."""
+        with self._lock:
+            drifted = expected_version is not None and self._version != expected_version
+            if drifted or self._pending is not None or self._staged or self._preunion is not None:
+                raise StoreVersionDrift(
+                    f"store v{self._version} (expected v{expected_version}); the stacked lane is stale"
+                )
+            self._version += 1
+            self._note_dirty_locked(batch)
+            self._update_ep_metadata(batch)
+            self._max_dist = max(self._max_dist, max_dist)
+            self._min_dist = min(self._min_dist, min_dist)
+            self._pending = (src, dst, dist, valid_count)
 
     def _union_host_edges_locked(self, src, dst, dist) -> None:
         """Pow2-pad host edge columns (so windows of similar size share

@@ -7,6 +7,11 @@ in one variadic lax.sort; torch has no multi-key sort, so lex_unique packs
 the two most significant columns into one int64 key (exact for any int32
 values) and sorts the remaining columns by stable passes in reverse key
 order before it.
+
+Every function works along the last dimension: a [T, n] stack of columns
+sorts and compacts each of its T rows on its own, in one batched program
+(the tenant axis of tenancy/batch.py), with each row bit-equal to the
+same call on that row alone.
 """
 from __future__ import annotations
 
@@ -31,15 +36,16 @@ def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 
 def _lex_order(cols: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Row permutation sorting cols lexicographically (cols[0] primary)."""
-    n = cols[0].shape[0]
-    order = torch.arange(n, device=cols[0].device)
+    """Permutation along the last dimension sorting cols lexicographically
+    (cols[0] primary)."""
+    n = cols[0].shape[-1]
+    order = torch.arange(n, device=cols[0].device).expand(cols[0].shape)
     tail = list(cols[2:]) if len(cols) > 1 else []
     # least significant keys first; each later stable pass keeps their order
     for c in reversed(tail):
-        order = order[torch.sort(c[order], stable=True).indices]
+        order = order.gather(-1, torch.sort(c.gather(-1, order), dim=-1, stable=True).indices)
     key = _pair_key(cols[0], cols[1]) if len(cols) > 1 else cols[0]
-    return order[torch.sort(key[order], stable=True).indices]
+    return order.gather(-1, torch.sort(key.gather(-1, order), dim=-1, stable=True).indices)
 
 
 def lex_unique(
@@ -53,13 +59,14 @@ def lex_unique(
     """
     parked = park_invalid(cols, valid)
     order = _lex_order(parked)
-    sorted_cols = [c[order] for c in parked]
+    sorted_cols = [c.gather(-1, order) for c in parked]
+    lead = sorted_cols[0].shape[:-1]
     neq = torch.zeros(
-        sorted_cols[0].shape[0] - 1, dtype=torch.bool, device=valid.device
+        (*lead, sorted_cols[0].shape[-1] - 1), dtype=torch.bool, device=valid.device
     )
     for c in sorted_cols:
-        neq = neq | (c[1:] != c[:-1])
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=valid.device), neq])
+        neq = neq | (c[..., 1:] != c[..., :-1])
+    first = torch.cat([torch.ones((*lead, 1), dtype=torch.bool, device=valid.device), neq], dim=-1)
     is_valid = sorted_cols[0] != SENTINEL
     return sorted_cols, first & is_valid
 
@@ -70,14 +77,15 @@ def scatter_compact(
     """Pack kept rows into a prefix (input order preserved), parking the
     tail at SENTINEL. cumsum + scatter, so no host sync on the kept count;
     order-preserving, so sorted input stays sorted."""
-    n = cols[0].shape[0]
-    pos = torch.cumsum(keep, 0) - 1
+    n = cols[0].shape[-1]
+    lead = cols[0].shape[:-1]
+    pos = torch.cumsum(keep, -1) - 1
     dest = torch.where(keep, pos, n)  # dropped rows land in a trash slot
     out = []
     for c in cols:
-        buf = torch.full((n + 1,), SENTINEL, dtype=torch.int32, device=c.device)
-        buf[dest] = torch.where(keep, c.to(torch.int32), SENTINEL)
-        out.append(buf[:n])
+        buf = torch.full((*lead, n + 1), SENTINEL, dtype=torch.int32, device=c.device)
+        buf.scatter_(-1, dest, torch.where(keep, c.to(torch.int32), SENTINEL))
+        out.append(buf[..., :n])
     return out, out[0] != SENTINEL
 
 

@@ -19,11 +19,16 @@ A breaker that opens is an upstream SLO breach: it freezes the
 profiler's flight artifact (telemetry/profiling/recorder.py), outside
 the breaker's lock.
 
-A copy of kmamiz_tpu/resilience/breaker.py without what the port has no
-caller for: the environment knobs (the JAX package's
-KMAMIZ_BREAKER_*; here module constants at their defaults), the control
-plane's warm-up (`warm_up`/`revert_warm_up`) and the per-tenant registry
-keys.
+The control plane (control/warmup.py) adds warm-up: when the forecast's
+attribution blames an upstream, `warm_up()` puts a CLOSED breaker into a
+warmed HALF_OPEN with a shortened probe cooldown and a one-failure trip
+wire; `revert_warm_up()` restores its posture. Warm-up never overrides a
+breaker that opened on real failures. A non-default tenant's breakers are
+registered as ``<tenant>:<name>`` (tenancy/isolation.py).
+
+A copy of kmamiz_tpu/resilience/breaker.py without the environment knobs
+(the JAX package's KMAMIZ_BREAKER_*; here module constants at their
+defaults).
 """
 from __future__ import annotations
 
@@ -74,7 +79,9 @@ class CircuitBreaker:
         self._consecutive_failures = 0
         self._opened_at: Optional[float] = None
         self._half_open_inflight = 0
-        self._stats = {"opens": 0, "shortCircuits": 0, "failures": 0}
+        self._warmed = False
+        self._saved_cooldown_s: Optional[float] = None
+        self._stats = {"opens": 0, "shortCircuits": 0, "failures": 0, "warmUps": 0}
 
     # -- state machine -------------------------------------------------------
 
@@ -140,7 +147,12 @@ class CircuitBreaker:
                 )
                 self._trip_locked()
                 tripped = True
-            elif state == CLOSED and self._consecutive_failures >= self.threshold:
+            elif state == CLOSED and (
+                self._consecutive_failures >= self.threshold
+                # warmed by the forecast's attribution: the cascade's first
+                # real failure trips at once
+                or self._warmed
+            ):
                 self._trip_locked()
                 tripped = True
         if tripped:
@@ -152,6 +164,40 @@ class CircuitBreaker:
         self._state = OPEN
         self._opened_at = self._now()
         self._stats["opens"] += 1
+
+    # -- control-plane warm-up (control/warmup.py) -----------------------------
+
+    def warm_up(self, probe_cooldown_s: float) -> bool:
+        """Pre-trip into a warmed HALF_OPEN with a shortened probe
+        cooldown. Only a CLOSED breaker warms (True); one already open or
+        half-open from real failures outranks the forecast (False). While
+        warmed, one failure trips whatever the threshold."""
+        with self._lock:
+            if self._state_locked() != CLOSED:
+                return False
+            if not self._warmed:
+                self._saved_cooldown_s = self.cooldown_s
+            self._warmed = True
+            self.cooldown_s = max(0.0, float(probe_cooldown_s))
+            self._state = HALF_OPEN
+            self._half_open_inflight = 0
+            self._stats["warmUps"] += 1
+            return True
+
+    def revert_warm_up(self) -> None:
+        """Undo warm_up: the configured cooldown again, and a clean warmed
+        HALF_OPEN back to CLOSED (a breaker that tripped on a real failure
+        while warmed keeps its state)."""
+        with self._lock:
+            if not self._warmed:
+                return
+            self._warmed = False
+            if self._saved_cooldown_s is not None:
+                self.cooldown_s = self._saved_cooldown_s
+                self._saved_cooldown_s = None
+            if self._state_locked() == HALF_OPEN and self._consecutive_failures == 0:
+                self._state = CLOSED
+                self._half_open_inflight = 0
 
     def call(self, fn: Callable, *args, **kwargs):
         """allow() -> fn() -> record_{success,failure}. The upstream's
@@ -176,6 +222,8 @@ class CircuitBreaker:
                 "opens": self._stats["opens"],
                 "failures": self._stats["failures"],
                 "shortCircuits": self._stats["shortCircuits"],
+                "warmed": self._warmed,
+                "warmUps": self._stats["warmUps"],
             }
 
 
@@ -185,23 +233,57 @@ _REGISTRY_LOCK = threading.Lock()
 _REGISTRY: Dict[str, CircuitBreaker] = {}
 
 
-def get_breaker(name: str, **kwargs) -> CircuitBreaker:
+def _registry_key(name: str, tenant) -> str:
+    if tenant in (None, "", "default"):
+        return name
+    return f"{tenant}:{name}"
+
+
+def get_breaker(name: str, tenant=None, **kwargs) -> CircuitBreaker:
     """The breaker for an upstream, created on first use. kwargs apply
     only at creation (all call sites of one upstream share one breaker
-    and therefore one failure budget)."""
+    and therefore one failure budget). A non-default `tenant` keys it
+    ``<tenant>:<name>``: a failure budget of the tenant's own."""
+    key = _registry_key(name, tenant)
     with _REGISTRY_LOCK:
-        breaker = _REGISTRY.get(name)
+        breaker = _REGISTRY.get(key)
         if breaker is None:
-            breaker = CircuitBreaker(name, **kwargs)
-            _REGISTRY[name] = breaker
+            breaker = CircuitBreaker(key, **kwargs)
+            _REGISTRY[key] = breaker
         return breaker
 
 
-def breaker_states() -> Dict[str, dict]:
-    """Every breaker's snapshot by name (/health's `resilience` field)."""
+def breaker_states(tenant=None) -> Dict[str, dict]:
+    """Every breaker's snapshot by name (/health's `resilience` field), or
+    with `tenant` only that tenant's ``<tenant>:`` entries."""
     with _REGISTRY_LOCK:
         breakers = dict(_REGISTRY)
+    if tenant not in (None, "", "default"):
+        prefix = f"{tenant}:"
+        breakers = {name: b for name, b in breakers.items() if name.startswith(prefix)}
     return {name: b.snapshot() for name, b in breakers.items()}
+
+
+def breakers_for(tenant=None) -> Dict[str, CircuitBreaker]:
+    """The live breakers a tenant owns: the unprefixed names for the
+    default tenant, the ``<tenant>:`` entries for any other (the set the
+    control plane's warm-up reconciles)."""
+    with _REGISTRY_LOCK:
+        breakers = dict(_REGISTRY)
+    if tenant in (None, "", "default"):
+        return {k: b for k, b in breakers.items() if ":" not in k}
+    prefix = f"{tenant}:"
+    return {k: b for k, b in breakers.items() if k.startswith(prefix)}
+
+
+def reset_tenant(tenant: str) -> None:
+    """Drop one tenant's ``<tenant>:`` breakers, no other tenant's."""
+    if tenant in (None, "", "default"):
+        return
+    prefix = f"{tenant}:"
+    with _REGISTRY_LOCK:
+        for key in [k for k in _REGISTRY if k.startswith(prefix)]:
+            del _REGISTRY[key]
 
 
 def reset_for_tests() -> None:

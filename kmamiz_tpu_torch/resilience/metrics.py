@@ -125,16 +125,20 @@ def job_succeeded(name: str) -> None:
             entry["consecutiveFailures"] = 0
 
 
-def reset_job_streaks(names=None) -> None:
-    """Drop the failure state of `names`, or of every job: a (re)started
+def reset_job_streaks(names=None, prefix=None) -> None:
+    """Drop the failure state of `names`, of every job under `prefix` (a
+    tenant's ``<tenant>/`` namespace), or of every job: a (re)started
     scheduler begins its jobs from a clean slate, so a streak left by an
     earlier instance does not report the new jobs as failing."""
     with _LOCK:
-        if names is None:
+        if names is None and prefix is None:
             _JOBS.clear()
             return
-        for n in names:
+        for n in names or ():
             _JOBS.pop(n, None)
+        if prefix is not None:
+            for n in [n for n in _JOBS if n.startswith(prefix)]:
+                del _JOBS[n]
 
 
 def job_states() -> Dict[str, dict]:
@@ -184,13 +188,14 @@ def resilience_summary() -> dict:
     quarantine totals, watchdog and last-good, job streaks, and the flat
     counters."""
     from kmamiz_tpu_torch.resilience.breaker import breaker_states
-    from kmamiz_tpu_torch.resilience.quarantine import quarantine_stats
+    from kmamiz_tpu_torch.resilience.quarantine import quarantine_stats, tenant_quarantine_stats
 
     with _LOCK:
         counters = {name: int(h.value) for name, h in _HANDLES.items() if h.value}
     return {
         "breakers": breaker_states(),
         "quarantine": quarantine_stats(),
+        "tenantQuarantine": tenant_quarantine_stats(),
         "watchdog": watchdog_state(),
         "jobs": job_states(),
         "counters": counters,

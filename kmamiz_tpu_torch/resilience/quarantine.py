@@ -19,9 +19,9 @@ Each payload lands as ``<millis>-<seq>-<reason>.bin`` plus a
 directory is bounded by MAX_BYTES and MAX_FILES (the JAX defaults) with
 oldest-first eviction. Totals surface in /health's `resilience` section.
 The directory is ``KMAMIZ_QUARANTINE_DIR`` (``./kmamiz-data/quarantine``),
-read when the process first diverts a payload.
-
-Left out: the per-tenant quarantines, which come with the tenancy layer.
+read when the process first diverts a payload. A non-default tenant's
+payloads go to a bounded directory of its own, ``<dir>/tenants/<tenant>``
+(`quarantine_for`), so they never count against another tenant's budget.
 """
 from __future__ import annotations
 
@@ -200,6 +200,9 @@ class Quarantine:
 
 _DEFAULT_LOCK = threading.Lock()
 _DEFAULT: dict = {"instance": None}
+# the tenants' quarantines: tenant -> Quarantine bound to
+# <dir>/tenants/<tenant>, created at the tenant's first diversion
+_TENANT_INSTANCES: dict = {}
 
 
 def default_quarantine() -> Quarantine:
@@ -209,6 +212,38 @@ def default_quarantine() -> Quarantine:
         if _DEFAULT["instance"] is None:
             _DEFAULT["instance"] = Quarantine()
         return _DEFAULT["instance"]
+
+
+def quarantine_for(tenant: str = "default") -> Quarantine:
+    """The tenant's quarantine: the default tenant's is the plain
+    directory, any other tenant's ``<dir>/tenants/<tenant>``. The name is
+    checked again here: it becomes a path component."""
+    if tenant in (None, "", "default"):
+        return default_quarantine()
+    from kmamiz_tpu_torch.tenancy.arena import TenantNameError, valid_tenant
+
+    if not valid_tenant(tenant):
+        raise TenantNameError(f"invalid tenant name: {tenant!r}")
+    with _DEFAULT_LOCK:
+        instance = _TENANT_INSTANCES.get(tenant)
+        if instance is None:
+            instance = Quarantine(directory=str(Path(config.quarantine_dir()) / "tenants" / tenant))
+            _TENANT_INSTANCES[tenant] = instance
+    return instance
+
+
+def drop_tenant(tenant: str) -> None:
+    """Forget one tenant's quarantine binding (its files stay on disk; a
+    new binding counts them again)."""
+    with _DEFAULT_LOCK:
+        _TENANT_INSTANCES.pop(tenant, None)
+
+
+def tenant_quarantine_stats() -> dict:
+    """Every non-default tenant's quarantine stats, by tenant."""
+    with _DEFAULT_LOCK:
+        instances = dict(_TENANT_INSTANCES)
+    return {tenant: q.stats() for tenant, q in sorted(instances.items())}
 
 
 def quarantine_stats() -> dict:
@@ -222,3 +257,4 @@ def quarantine_stats() -> dict:
 def reset_for_tests() -> None:
     with _DEFAULT_LOCK:
         _DEFAULT["instance"] = None
+        _TENANT_INSTANCES.clear()

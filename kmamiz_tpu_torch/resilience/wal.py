@@ -25,9 +25,10 @@ defaults: a replay rebuilds at most the newest 192-256 MiB of payloads.
 
 On with ``KMAMIZ_WAL=1`` (directory ``KMAMIZ_WAL_DIR``,
 ``./kmamiz-data/wal``); off by default, so the fsync per ingest is
-opt-in. Left out: the per-tenant namespaces (the tenancy layer), the
-fleet migration's handoff export and import (the fleet harness), and
-`truncate` and `record_count`, which only those call.
+opt-in. A non-default tenant logs under ``<dir>/tenants/<tenant>`` and
+replays on its own. Left out: the fleet migration's handoff export and
+import (the fleet harness), and `truncate` and `record_count`, which only
+those call.
 """
 from __future__ import annotations
 
@@ -78,11 +79,20 @@ class IngestWAL:
         self._records_appended = 0
 
     @classmethod
-    def from_env(cls) -> Optional["IngestWAL"]:
-        """The env-configured WAL, or None unless KMAMIZ_WAL=1."""
+    def from_env(cls, tenant: str = "default") -> Optional["IngestWAL"]:
+        """The env-configured WAL, or None unless KMAMIZ_WAL=1. A
+        non-default tenant's log is ``<wal-dir>/tenants/<tenant>`` (the
+        name checked again: it becomes a path component)."""
         if not config.wal_enabled():
             return None
-        return cls(config.wal_dir())
+        directory = config.wal_dir()
+        if tenant not in (None, "", "default"):
+            from kmamiz_tpu_torch.tenancy.arena import TenantNameError, valid_tenant
+
+            if not valid_tenant(tenant):
+                raise TenantNameError(f"invalid tenant name: {tenant!r}")
+            directory = os.path.join(directory, "tenants", tenant)
+        return cls(directory)
 
     @property
     def directory(self) -> Path:

@@ -41,9 +41,23 @@ Run standalone, configured from the environment like the Rust service
 
     python -m kmamiz_tpu_torch.server.dp_server
 
-Left out of the JAX server: tenant routing, the control plane's
-admission and defer, and the /fleet/* routes; /timings answers the
-sections the port has (no programs, tenancy, control, cost, fleet or
+Tenants, as in the JAX server: a request names its tenant by a
+``/t/<tenant>/`` path prefix or the tenant header (tenancy/router.py's
+TENANT_HEADER, ``x-kmamiz-tenant``); neither is the default tenant, whose
+processor is the server's. Each tenant gets a runtime on its first
+request (its processor from `sibling_for_tenant`, with its own WAL
+namespace replayed first, its last-good payload, watchdog and encode
+cache); a bad tenant name answers 400 and a tenant past the arena's limit
+429. With a gather window (`batch_window_ms` > 0) concurrent ticks of
+several tenants run as one batch with one stacked merge
+(TickRouter.submit). With KMAMIZ_CONTROL=1 the control plane's stored
+verdict is read before the tick: shed answers 429 with Retry-After,
+defer the tenant's last good payload marked `deferred` (and the
+X-KMamiz-Control header); a tick with "priority": "high" always runs.
+/timings carries `tenancy` and `control`, /metrics the tenant labels.
+
+Left out of the JAX server: the /fleet/* routes (the fleet harness), and
+the /timings sections of unported parts (programs, cost, fleet,
 lockWitness).
 """
 from __future__ import annotations
@@ -56,6 +70,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
+from kmamiz_tpu_torch import control as ctl_plane
 from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.analysis import guards
 from kmamiz_tpu_torch.core import wire
@@ -77,6 +92,14 @@ from kmamiz_tpu_torch.telemetry import freshness as tel_freshness
 from kmamiz_tpu_torch.telemetry import slo as tel_slo
 from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
 from kmamiz_tpu_torch.telemetry.profiling import report as prof_report
+from kmamiz_tpu_torch.tenancy.arena import DEFAULT_TENANT, TenantLimitError, TenantNameError
+from kmamiz_tpu_torch.tenancy.router import (
+    BATCH_WINDOW_MS,
+    TenantResolutionError,
+    TenantRuntime,
+    TickRouter,
+    resolve_tenant,
+)
 
 logger = logging.getLogger("kmamiz_tpu_torch.dp_server")
 
@@ -91,6 +114,14 @@ DEFAULT_STREAM_BYTES = 32 << 20
 GZIP_LEVEL = 1
 #: the content type of Prometheus text exposition 0.0.4
 PROMETHEUS_TEXT = "text/plain; version=0.0.4; charset=utf-8"
+#: the listen backlog: several tenants' ticks connect at once (the gather
+#: window coalesces them), and past socketserver's default of 5 a
+#: connection's SYN is dropped and retried a second later, out of the window
+LISTEN_BACKLOG = 64
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    request_queue_size = LISTEN_BACKLOG
 
 
 class _LastGoodTick:
@@ -125,6 +156,22 @@ class _LastGoodTick:
         payload["staleAgeMs"] = round(max(0.0, prof_events.wall_ms() - at_ms), 1)
         payload["staleReason"] = reason
         res_metrics.note_stale_serve()
+        return payload
+
+    def serve_deferred(self, unique_id: str, control: dict) -> Optional[dict]:
+        """The control plane deferred this tick: the last good payload
+        answers, marked `deferred` with the verdict. A chosen degradation,
+        not a stale serve: no stale counter moves. None before the first
+        good tick (the caller then admits the tick)."""
+        with self._lock:
+            if self._payload is None:
+                return None
+            payload = dict(self._payload)
+            at_ms = self._at_ms
+        payload["uniqueId"] = unique_id
+        payload["deferred"] = True
+        payload["deferredAgeMs"] = round(max(0.0, prof_events.wall_ms() - at_ms), 1)
+        payload["control"] = control
         return payload
 
 
@@ -172,28 +219,69 @@ class _EncodedPayloadCache:
         return body
 
 
-def make_handler(
-    processor: DataProcessor,
-    stream_bytes: int = DEFAULT_STREAM_BYTES,
-    stream_chunks: int = DEFAULT_STREAM_CHUNKS,
-):
+def _make_runtime(tenant: str, proc: DataProcessor) -> TenantRuntime:
+    """One tenant's serving state: its processor and its own last-good
+    payload, watchdog and encode cache (per-instance state is the
+    isolation: one tenant's overrun trips only its watchdog, its stale
+    serve reads only its last-good payload)."""
     last_good = _LastGoodTick()
     # the deadline follows KMAMIZ_TICK_DEADLINE_MS (0 = off); a straggler
     # that finishes after its trip still refreshes last_good
     watchdog = TickWatchdog(
-        on_late_result=lambda result: last_good.update(
-            result, processor.graph.version, processor.graph.label_epoch
-        )
+        on_late_result=lambda result: last_good.update(result, proc.graph.version, proc.graph.label_epoch)
         if isinstance(result, dict)
         else None
     )
-    encoded_cache = _EncodedPayloadCache()
+    return TenantRuntime(tenant, proc, last_good=last_good, watchdog=watchdog, encoded_cache=_EncodedPayloadCache())
+
+
+def make_handler(
+    processor: DataProcessor,
+    stream_bytes: int = DEFAULT_STREAM_BYTES,
+    stream_chunks: int = DEFAULT_STREAM_CHUNKS,
+    router: Optional[TickRouter] = None,
+    batch_window_ms: float = BATCH_WINDOW_MS,
+):
+    if router is None:
+
+        def _factory(tenant: str) -> TenantRuntime:
+            if tenant == DEFAULT_TENANT:
+                return _make_runtime(tenant, processor)
+            proc = processor.sibling_for_tenant(tenant)
+            # the tenant's own WAL namespace replays before its first
+            # tick, so a restarted server answers from its recovered graph
+            recovered = proc.replay_wal()
+            if recovered["replayed"]:
+                logger.info("tenant %s wal replay: %s", tenant, recovered)
+            return _make_runtime(tenant, proc)
+
+        router = TickRouter(_factory, batch_window_ms=batch_window_ms)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt: str, *args) -> None:  # quiet default logs
             logger.debug("%s " + fmt, self.address_string(), *args)
+
+        def _route(self) -> Optional[Tuple[str, str]]:
+            """(tenant, the path without its prefix), or None after
+            answering 400 for a bad tenant name."""
+            try:
+                return resolve_tenant(self.headers, self.path)
+            except (TenantResolutionError, TenantNameError) as e:
+                self._send_json(400, {"error": str(e)})
+                return None
+
+        def _runtime(self, tenant: str) -> Optional[TenantRuntime]:
+            """The tenant's runtime (made at its first request), or None
+            after answering 429 (the tenant limit) or 400 (a bad name)."""
+            try:
+                return router.runtime(tenant)
+            except TenantLimitError as e:
+                self._send_json(429, {"error": str(e)})
+            except TenantNameError as e:
+                self._send_json(400, {"error": str(e)})
+            return None
 
         def _send_bytes(self, status: int, body: bytes, content_type: str) -> None:
             self.send_response(status)
@@ -209,10 +297,11 @@ def make_handler(
             cache_key: Optional[tuple] = None,
             extra_headers: Optional[dict] = None,
             encoded_parts: Optional[dict] = None,
+            cache: Optional[_EncodedPayloadCache] = None,
         ) -> None:
             encoded = "gzip" in self.headers.get("Accept-Encoding", "")
-            if cache_key is not None:
-                body = encoded_cache.get_or_encode(cache_key, payload, encoded, encoded_parts)
+            if cache_key is not None and cache is not None:
+                body = cache.get_or_encode(cache_key, payload, encoded, encoded_parts)
             else:
                 body = json.dumps(payload).encode()
                 if encoded:
@@ -228,7 +317,11 @@ def make_handler(
             self.wfile.write(body)
 
         def do_GET(self) -> None:  # health check (main.rs:28-31)
-            path = self.path.split("?", 1)[0].rstrip("/")
+            route = self._route()
+            if route is None:
+                return
+            tenant, path = route
+            path = path.split("?", 1)[0].rstrip("/")
             if path == "/metrics":
                 # the registry's cells: the same ones /timings reads
                 self._send_bytes(200, TEL_REGISTRY.render().encode("utf-8"), PROMETHEUS_TEXT)
@@ -239,7 +332,9 @@ def make_handler(
                     {
                         "phases": step_timer.summary(),
                         "resilience": res_metrics.resilience_summary(),
+                        "tenancy": router.summary(),
                         "tenants": tel_slo.TENANTS.snapshot(),
+                        "control": ctl_plane.snapshot(),
                         "freshness": tel_freshness.snapshot(),
                         "stream": stream_mod.stats(),
                     },
@@ -261,16 +356,20 @@ def make_handler(
             if path != "":
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
+            rt = self._runtime(tenant)
+            if rt is None:
+                return
             self._send_json(
                 200,
                 {
                     "status": "UP",
                     "service": "kmamiz-tpu-torch-data-processor",
-                    "device": str(processor.device),
+                    "tenant": tenant,
+                    "device": str(rt.processor.device),
                     # the tick's CUDA kernel launches in this process
                     "launches": {"segment_stats": segment_stats.launches},
-                    # the last serial tick's stage walls (processor.collect)
-                    "lastTickStagesMs": dict(processor.last_stage_ms),
+                    # the tenant's last tick's stage walls
+                    "lastTickStagesMs": dict(rt.processor.last_stage_ms),
                 },
             )
 
@@ -284,29 +383,72 @@ def make_handler(
                 # EOFError: gzip.decompress raises it on a truncated stream
                 self._send_json(400, {"error": f"bad request: {e}"})
                 return
-            path = self.path.split("?", 1)[0].rstrip("/")
-            if path == "/ingest":
-                self._ingest(raw)
+            route = self._route()
+            if route is None:
                 return
+            tenant, path = route
+            path = path.split("?", 1)[0].rstrip("/")
             if path == "/debug/profile":
                 self._profile(raw)
                 return
-            if path != "":
+            if path not in ("", "/ingest"):
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
-            try:
-                request = json.loads(raw) if raw else {}
-            except ValueError as e:
-                self._send_json(400, {"error": f"bad request: {e}"})
+            if path == "":
+                try:
+                    request = json.loads(raw) if raw else {}
+                except ValueError as e:
+                    self._send_json(400, {"error": f"bad request: {e}"})
+                    return
+            rt = self._runtime(tenant)
+            if rt is None:
                 return
-            self._tick(request)
+            if path == "/ingest":
+                self._ingest(rt, raw)
+                return
+            self._tick(rt, request)
 
-        def _tick(self, request: dict) -> None:
-            """POST /: one tick under the watchdog, serial or, with
-            KMAMIZ_STREAM=1, a micro-tick of the stream engine."""
+        def _admitted(self, rt: TenantRuntime, request: dict) -> bool:
+            """The control plane's stored verdict, read before the tick:
+            shed answers 429, defer the last good payload marked
+            `deferred` (none yet: the tick runs); False when answered."""
+            verdict = ctl_plane.admission_verdict(rt.tenant, request)
+            if verdict is None:
+                return True
+            unique_id = request.get("uniqueId", "")
+            if verdict["action"] == "shed":
+                self._send_json(
+                    429,
+                    {
+                        "uniqueId": unique_id,
+                        "error": f"tick shed: forecasted p99 {verdict['forecastP99Ms']}ms exceeds SLO "
+                        f"{verdict['sloMs']}ms (KMAMIZ_CONTROL)",
+                        "control": verdict,
+                    },
+                    extra_headers={"Retry-After": "1", "X-KMamiz-Control": "shed"},
+                )
+                return False
+            deferred = rt.last_good.serve_deferred(unique_id, verdict)
+            if deferred is None:
+                return True
+            self._send_json(200, deferred, extra_headers={"X-KMamiz-Control": "defer"})
+            return False
+
+        def _tick(self, rt: TenantRuntime, request: dict) -> None:
+            """POST /: the admission read, then one tick under the
+            tenant's watchdog: in a gathered batch when the router's
+            window is on, else serial or, with KMAMIZ_STREAM=1, a
+            micro-tick of the stream engine."""
+            if not self._admitted(rt, request):
+                return
+            tenant, processor, watchdog = rt.tenant, rt.processor, rt.watchdog
             unique_id = request.get("uniqueId", "")
             streaming = stream_mod.stream_enabled()
-            if streaming:
+            if router.batch_window_ms > 0:
+                # the deadline spans the whole gathered batch
+                watchdog.end_stream_epoch()
+                collect = lambda: router.submit(tenant, request)  # noqa: E731
+            elif streaming:
                 engine = stream_mod.engine_for(processor, watchdog)
                 # the epoch accounting comes before the watchdog reads its
                 # deadline: a boundary reads the env again
@@ -330,27 +472,27 @@ def make_handler(
                     tick, overrun_reason=stream_mod.REASON_STREAM_OVERRUN if streaming else None
                 )
             except TickDeadlineExceeded as e:
-                logger.warning("collect tick degraded: %s", e)
-                stale = last_good.serve_stale(unique_id, e.reason)
+                logger.warning("collect tick degraded (tenant %s): %s", tenant, e)
+                stale = rt.last_good.serve_stale(unique_id, e.reason)
                 if stale is None:
                     self._send_json(503, {"error": str(e), "reason": e.reason})
                 else:
-                    tel_slo.TENANTS.note_stale(tel_slo.DEFAULT_TENANT)
+                    tel_slo.TENANTS.note_stale(tenant)
                     self._send_stale(stale)
                 return
             except Exception as e:  # noqa: BLE001 - degrade, else 500
-                logger.exception("collect failed")
-                stale = last_good.serve_stale(unique_id, REASON_FAULT)
+                logger.exception("collect failed (tenant %s)", tenant)
+                stale = rt.last_good.serve_stale(unique_id, REASON_FAULT)
                 if stale is None:
                     self._send_json(500, {"error": str(e)})
                 else:
                     res_metrics.watchdog_tripped(REASON_FAULT)
-                    tel_slo.TENANTS.note_stale(tel_slo.DEFAULT_TENANT)
+                    tel_slo.TENANTS.note_stale(tenant)
                     self._send_stale(stale)
                 return
             graph = processor.graph
             version, label_epoch = graph.version, graph.label_epoch
-            last_good.update(response, version, label_epoch)
+            rt.last_good.update(response, version, label_epoch)
             # the dependency records the tick encoded in its fetch's shadow
             text = processor.take_encoded_dependencies(response.get("dependencies"))
             t_enc = prof_events.now_ms()
@@ -359,6 +501,7 @@ def make_handler(
                 response,
                 cache_key=(unique_id, version, label_epoch),
                 encoded_parts=None if text is None else {"dependencies": text},
+                cache=rt.encoded_cache,
             )
             # the encode runs after the tick's trace closed (the tick itself
             # may have run on the watchdog's worker): a post-hoc span
@@ -369,18 +512,19 @@ def make_handler(
             staleness in the payload and in a header."""
             self._send_json(200, stale, extra_headers={"X-KMamiz-Stale-Age-Ms": stale["staleAgeMs"]})
 
-        def _ingest(self, raw: bytes) -> None:
+        def _ingest(self, rt: TenantRuntime, raw: bytes) -> None:
             """POST /ingest: the body IS the Zipkin response (or a KMZC
-            frame). A decompressed JSON body of at least `stream_bytes`
-            splits into `stream_chunks` chunks of whole trace groups and
+            frame), into the tenant's graph. A decompressed JSON body of
+            at least `stream_bytes` splits into `stream_chunks` chunks of
+            whole trace groups and
             streams through processor.ingest_raw_stream (the parse of chunk
             k+1 overlaps the merge of chunk k; span-id maps are scoped per
             chunk); any other body, or one that splits into a single chunk,
             is one window through processor.ingest_raw_window. A malformed
             payload is quarantined and answered 200 with the zero-span
             summary (400 with KMAMIZ_QUARANTINE=0); any other failure
-            answers 500. Unlike the JAX server, this route has no tenant
-            routing: the tenancy layer is not ported."""
+            answers 500."""
+            processor = rt.processor
             try:
                 summary = None
                 with TRACER.tick(root_name="dp-ingest"):
@@ -413,6 +557,7 @@ def make_handler(
             out = tel_device.capture_profile(req.get("durationMs", 100), req.get("dir"))
             self._send_json(200 if out.get("ok") else 409, out)
 
+    Handler.router = router  # the server and its tests reach the router here
     return Handler
 
 
@@ -420,7 +565,9 @@ class DataProcessorServer:
     """The DP protocol on `host:port` (port 0 picks a free one), served
     from a background thread between start() and stop(), or on the
     caller's thread by serve_forever(). `stream_bytes` and
-    `stream_chunks` set when and how POST /ingest streams a body."""
+    `stream_chunks` set when and how POST /ingest streams a body;
+    `batch_window_ms` is the tenants' gather window (0: every tick on its
+    own); `router` replaces the default per-tenant sibling factory."""
 
     def __init__(
         self,
@@ -429,14 +576,17 @@ class DataProcessorServer:
         port: int = 8600,
         stream_bytes: int = DEFAULT_STREAM_BYTES,
         stream_chunks: int = DEFAULT_STREAM_CHUNKS,
+        batch_window_ms: float = BATCH_WINDOW_MS,
+        router: Optional[TickRouter] = None,
     ) -> None:
         self.processor = processor
         # the server answers in JSON: a tick may encode its dependency
         # records while its cluster fetch runs
         processor.encode_dependencies_early = True
-        self._server = ThreadingHTTPServer(
-            (host, port), make_handler(processor, stream_bytes, stream_chunks)
-        )
+        handler = make_handler(processor, stream_bytes, stream_chunks, router=router, batch_window_ms=batch_window_ms)
+        #: the tenants' runtimes and the gathered dispatch
+        self.router: TickRouter = handler.router
+        self._server = _HTTPServer((host, port), handler)
         self._thread: Optional[threading.Thread] = None
 
     @property

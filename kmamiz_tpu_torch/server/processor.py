@@ -65,8 +65,19 @@ freshness observations, and torch.profiler captures of its device stages
 when KMAMIZ_PROFILE_DIR is set. Span boundaries add no device
 synchronisation. `last_stage_ms` keeps the port's own stage walls.
 
-Not ported yet: the fold hooks of the JAX processor for the control plane
-and the cost model (the STLGT continual trainer is ported).
+Tenancy, as in the JAX processor: a processor serves one tenant
+(`tenant`, "default" unless given), whose graph is admitted into the
+tenant arena under that name, whose WAL and quarantine are the tenant's
+namespaces and whose ticks count in its scorecard.
+`sibling_for_tenant` brings another tenant up from this one's sources.
+The tenancy router runs several tenants' prepare_tick, one stacked merge
+(`prepare_batched_merge` gives a tick's window as id columns,
+`adopt_batched_merge` takes its lane) and each finish_tick.
+
+The fold hooks: the STLGT continual trainer, then the control plane
+(control.on_fold, inside its `control-decide` span), each contained and
+counted in `fold_errors`. Not ported yet: the JAX processor's fold hook
+of the cost model.
 """
 from __future__ import annotations
 
@@ -167,6 +178,7 @@ class _PreparedTick:
         "objects",
         "dependency_records",
         "arrival_ns",
+        "merged",
     )
 
     def __init__(self, request: dict) -> None:
@@ -187,6 +199,8 @@ class _PreparedTick:
         self.objects = False
         # the response's dependency records, when they were encoded early
         self.dependency_records = None
+        # whether the graph merge is done (the router's stacked lane)
+        self.merged = False
 
 
 class _ClusterFetch:
@@ -252,9 +266,9 @@ class DataProcessor:
     worker processes structured). With use_device_stats
     off, the window statistics run on the host (the JAX processor's
     flag: the stream's bit-exact contract runs so). `wal` is the ingest
-    WAL: "from_env" (KMAMIZ_WAL), an IngestWAL, or None.
-    `max_payload_bytes` is the quarantine's trace-bomb cap of one raw
-    ingest payload (0: none)."""
+    WAL: "from_env" (KMAMIZ_WAL, in the tenant's namespace), an IngestWAL,
+    or None. `max_payload_bytes` is the quarantine's trace-bomb cap of one
+    raw ingest payload (0: none). `tenant` names the tenant it serves."""
 
     def __init__(
         self,
@@ -266,6 +280,7 @@ class DataProcessor:
         use_device_stats: bool = True,
         wal: object = "from_env",
         max_payload_bytes: int = res_quarantine.MAX_PAYLOAD_BYTES,
+        tenant: str = "default",
     ) -> None:
         if k8s_source is not None and not callable(
             getattr(k8s_source, "get_replicas_and_joinable_logs", None)
@@ -274,6 +289,7 @@ class DataProcessor:
                 "k8s_source has no get_replicas_and_joinable_logs(namespaces)"
             )
         _tune_gc()
+        self.tenant = tenant
         self.device = resolve_device(device)
         # a card processor feeds the device memory gauges
         tel_device.track_device(self.device)
@@ -287,7 +303,7 @@ class DataProcessor:
         # crash-safe ingest WAL (resilience/wal.py), None unless
         # KMAMIZ_WAL=1: every parsed ingest payload appends before its
         # graph merge; _wal_replaying stops re-appends during replay_wal
-        self._wal = IngestWAL.from_env() if wal == "from_env" else wal
+        self._wal = IngestWAL.from_env(tenant=tenant) if wal == "from_env" else wal
         self._wal_replaying = False
         self._now_ms = now_ms  # the dedup map's clock
         self._processed: Dict[str, float] = {}
@@ -321,7 +337,7 @@ class DataProcessor:
                 f"graph lies on {graph.device}, the processor runs on {self.device}"
             )
         # a carried graph (graph.convert.graph_from_export) or a new one
-        self.graph = graph if graph is not None else EndpointGraph(device=self.device)
+        self.graph = graph if graph is not None else EndpointGraph(device=self.device, tenant=tenant)
         #: wall ms of the last finished tick's stages
         self.last_stage_ms: Dict[str, float] = {}
         #: whether a tick with a cluster fetch JSON-encodes its dependency
@@ -348,7 +364,7 @@ class DataProcessor:
         #                            cls_count, cls_lat, cls_lat^2]
         self._history_lock = threading.Lock()
         #: failures the fold hooks contained (the fold itself went on)
-        self.fold_errors: Dict[str, int] = {"stlgtFoldErrors": 0}
+        self.fold_errors: Dict[str, int] = {"stlgtFoldErrors": 0, "controlFoldErrors": 0}
         #: parsed stream chunks that never merged (the consumer bailed out)
         self.ingest_dropped = 0
 
@@ -356,6 +372,23 @@ class DataProcessor:
     def wal(self) -> Optional[IngestWAL]:
         """This processor's ingest WAL (None when durability is off)."""
         return self._wal
+
+    def sibling_for_tenant(self, tenant: str) -> "DataProcessor":
+        """A new processor for another tenant that shares this one's
+        sources, device, clock and settings and nothing stateful: its own
+        graph (admitted under `tenant`), WAL namespace, dedup map and
+        history. The tenancy router's runtime factory uses it."""
+        sibling = DataProcessor(
+            self._trace_source,
+            k8s_source=self._k8s,
+            device=self.device,
+            now_ms=self._now_ms,
+            use_device_stats=self._use_device_stats,
+            max_payload_bytes=self.max_payload_bytes,
+            tenant=tenant,
+        )
+        sibling.encode_dependencies_early = self.encode_dependencies_early
+        return sibling
 
     # -- trace dedup (data_processor.rs:30-73) -------------------------------
 
@@ -439,7 +472,7 @@ class DataProcessor:
         there (a failed build raises at the parse), so a payload the
         classifier finds sound is a parser rejection: parse-error."""
         reason = res_quarantine.classify_payload(raw, self.max_payload_bytes) or res_quarantine.REASON_PARSE_ERROR
-        res_quarantine.default_quarantine().put(raw, reason, source=source)
+        res_quarantine.quarantine_for(self.tenant).put(raw, reason, source=source)
         return reason
 
     def _quarantined_summary(self, reason: str, wall_t0: float) -> dict:
@@ -504,7 +537,7 @@ class DataProcessor:
             # the size gate comes before the parse: a trace bomb never
             # reaches the scanner, the interner or the device
             with phase_span("quarantine"):
-                res_quarantine.default_quarantine().put(
+                res_quarantine.quarantine_for(self.tenant).put(
                     raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_window"
                 )
             return self._quarantined_summary(res_quarantine.REASON_TRACE_BOMB, wall_t0)
@@ -647,7 +680,7 @@ class DataProcessor:
                         break
                     tel_slo.INGEST_PAYLOADS.inc()
                     if quarantine_on and 0 < size_cap < len(raw):
-                        res_quarantine.default_quarantine().put(
+                        res_quarantine.quarantine_for(self.tenant).put(
                             raw, res_quarantine.REASON_TRACE_BOMB, source="ingest_raw_stream"
                         )
                         quarantined[0] += 1
@@ -782,8 +815,8 @@ class DataProcessor:
         the first served tick would pay for all of it. Two ticks of a
         scratch processor on this device, over synthetic windows of
         WARM_UP_TRACES traces (the second merges through the interned-edge
-        path), run it instead. This processor's graph, dedup map, history
-        and WAL are not touched (the scratch ticks count in the telemetry
+        path), run it instead. This processor's graph (its arena slot given
+        back after), dedup map, history and WAL are not touched (the scratch ticks count in the telemetry
         like any tick of the process). Nothing loads lazily on the CPU,
         where it returns at once."""
         if self.device.type != "cuda":
@@ -801,6 +834,10 @@ class DataProcessor:
         )
         for k in range(2):
             scratch.collect({"uniqueId": f"warm-up{k}", "lookBack": 30_000})
+        # the scratch graph took this tenant's arena slot: hand it back
+        from kmamiz_tpu_torch.tenancy.arena import default_arena
+
+        default_arena().admit(self.tenant, self.graph)
 
     def collect(self, request: dict, objects: bool = False) -> dict:
         """TExternalDataProcessorRequest -> TExternalDataProcessorResponse.
@@ -934,12 +971,36 @@ class DataProcessor:
         """The tick's graph merge (the host walk's edge set when every
         endpoint is interned, else the device walk over the span batch),
         then the history-feature accumulation."""
-        if not p.trace_groups:
+        if not p.trace_groups or p.merged:
             return
         with step_timer.phase("graph_merge"), profiling.trace("graph_merge"), phase_span("merge"):
             if p.window_edges is None or not self.graph.merge_window_edges(p.window_edges, p.batch):
                 self.graph.merge_window(p.batch)
         # the history feed of the model plane's scorers (the JAX phase name)
+        with _stage(p.stages, "history"), phase_span("scorers"):
+            self._observe_history(p.batch, p.req_time)
+
+    def prepare_batched_merge(self, p: _PreparedTick):
+        """The tick's window as interned id columns for the router's
+        stacked merge, or None when it cannot join a stack (no spans, no
+        host edge set, already merged, or an endpoint the interner lacks);
+        merge_prepared then merges it serially."""
+        if not p.trace_groups or p.merged or p.window_edges is None:
+            return None
+        return self.graph.intern_window_edges(p.window_edges)
+
+    def adopt_batched_merge(self, p: _PreparedTick, src_row, dst_row, dist_row, count, cols, expected_version) -> None:
+        """Take this tick's lane of a stacked same-bucket union as its
+        merge (tenancy/router.py), then the history feed. Raises
+        StoreVersionDrift when the graph moved past the stack's snapshot
+        (the router then merges serially: a set union, the same edges)."""
+        _src_l, _dst_l, dist_l = cols
+        with step_timer.phase("graph_merge"), phase_span("merge"):
+            self.graph.adopt_batched_merged(
+                src_row, dst_row, dist_row, count, p.batch, max(dist_l), min(dist_l),
+                expected_version=expected_version,
+            )
+        p.merged = True
         with _stage(p.stages, "history"), phase_span("scorers"):
             self._observe_history(p.batch, p.req_time)
 
@@ -955,7 +1016,7 @@ class DataProcessor:
             datatypes = [d.to_json() for d in combined_list_datatypes(combined)]
         elapsed = prof_events.now_ms() - p.wall_t0
         tel_slo.SCORECARD.observe_tick(elapsed)
-        tel_slo.TENANTS.observe_tick(tel_slo.DEFAULT_TENANT, elapsed)
+        tel_slo.TENANTS.observe_tick(self.tenant, elapsed)
         # the window stamped at the tick's start is now forecast-visible
         fresh_ns = prof_events.now_ns() - p.arrival_ns
         tel_freshness.observe(fresh_ns / 1e6)
@@ -1136,6 +1197,18 @@ class DataProcessor:
             self.fold_errors["stlgtFoldErrors"] += 1
             res_metrics.incr("stlgtFoldErrors")
             logger.exception("STLGT fold hook failed")
+        # the control plane's recompute (KMAMIZ_CONTROL=1): admission,
+        # warm-up and scheduling decisions are computed only here, at the
+        # fold; the serving edge reads the stored verdict. Contained as
+        # the STLGT hook is.
+        try:
+            from kmamiz_tpu_torch import control as _control
+
+            _control.on_fold(self.tenant, self.forecast_snapshot)
+        except Exception:  # noqa: BLE001 - containment, counted
+            self.fold_errors["controlFoldErrors"] += 1
+            res_metrics.incr("controlFoldErrors")
+            logger.exception("control fold hook failed")
 
     # -- history persistence (server/cacheables.CModelHistoryState) ---------
 

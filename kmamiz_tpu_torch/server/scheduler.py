@@ -14,9 +14,11 @@ configured timezone (GlobalSettings.ts TIMEZONE). Three kinds of schedules:
 Jobs run on daemon threads; exceptions are logged, not fatal, and each
 job's failure streak counts in resilience/metrics.py.
 
-A copy of kmamiz_tpu/server/scheduler.py without the per-tenant job
-names and the
-`interval_from_cron` estimate, which the port has no caller for. `stop`
+A copy of kmamiz_tpu/server/scheduler.py without the
+`interval_from_cron` estimate, which the port has no caller for. A job
+registered for a non-default tenant is named ``<tenant>/<name>``
+(tenancy/isolation.tenant_job_name), and `stop_tenant` stops one
+tenant's jobs and resets their streaks. `stop`
 also waits for a job that is running to finish its fire, so a caller
 that stops the scheduler before a final flush (Application.tear_down)
 flushes after the last tick.
@@ -142,8 +144,16 @@ class Scheduler:
         # reference's Logger.fatal on invalid cron (Scheduler.ts:35-38)
         return CronJob(name, CronExpr(interval, tz=self._tz), fn)
 
-    def register(self, name: str, interval: "float | str", fn: Callable[[], None]) -> None:
-        """Register (or replace) a job."""
+    def register(
+        self, name: str, interval: "float | str", fn: Callable[[], None], tenant: Optional[str] = None
+    ) -> None:
+        """Register (or replace) a job; a non-default `tenant` names it
+        ``<tenant>/<name>``, so it replaces, stops and streaks apart from
+        every other tenant's."""
+        if tenant not in (None, "", "default"):
+            from kmamiz_tpu_torch.tenancy.isolation import tenant_job_name
+
+            name = tenant_job_name(tenant, name)
         job = self._make_job(name, interval, fn)
         existing = self._jobs.get(name)
         if existing is not None:
@@ -165,6 +175,16 @@ class Scheduler:
         for job in self._jobs.values():
             job.stop()
         self._started = False
+
+    def stop_tenant(self, tenant: str) -> None:
+        """Stop and remove one tenant's ``<tenant>/`` jobs and reset their
+        streaks; every other job runs on."""
+        if tenant in (None, "", "default"):
+            return
+        prefix = f"{tenant}/"
+        for name in [n for n in self._jobs if n.startswith(prefix)]:
+            self._jobs.pop(name).stop()
+        res_metrics.reset_job_streaks(prefix=prefix)
 
     @property
     def jobs(self) -> List[str]:

@@ -815,6 +815,112 @@ def test_warm_up_leaves_the_processor_as_it_was(card):
     assert (graph_signature(dp.graph), len(dp.graph.interner.endpoints), dict(dp._processed), dp.history) == state
 
 
+# -- multi-tenant serving on the card -------------------------------------------
+
+
+def _stacks(seed, t=4, cap=512, device="cpu"):
+    """Seeded [T, cap] store stacks (a sorted unique prefix per lane, then
+    SENTINEL) and SENTINEL-padded windows of uneven lengths."""
+    from kmamiz_tpu_torch.ops.sortutil import SENTINEL
+
+    rng = np.random.default_rng(seed)
+    a = np.full((3, t, cap), SENTINEL, dtype=np.int32)
+    for lane in range(t):
+        rows = np.unique(rng.integers(1, 60, size=(300, 3)), axis=0)[: int(rng.integers(0, 250))]
+        a[:, lane, : len(rows)] = rows.T
+    w = np.full((3, t, 256), SENTINEL, dtype=np.int32)
+    for lane in range(t):
+        n = int(rng.integers(1, 200))
+        w[:, lane, :n] = rng.integers(1, 60, size=(3, n))
+    cols = [torch.from_numpy(x).to(device) for x in (a[0], a[1], a[2], a[0] != SENTINEL, w[0], w[1], w[2], w[0] != SENTINEL)]
+    return cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stacked_merge_on_card_matches_serial_and_cpu(card, seed):
+    from kmamiz_tpu_torch.graph.store import _merge_edges
+    from kmamiz_tpu_torch.tenancy import batch
+
+    got = batch.batched_merge_edges(*_stacks(seed, device=card))
+    want = batch.batched_merge_edges(*_stacks(seed))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    cols = _stacks(seed, device=card)
+    for lane in range(4):
+        n = int(cols[7][lane].sum())
+        s, d, ds, v = _merge_edges(*(c[lane] for c in cols[:4]), *(c[lane, :n] for c in cols[4:]))
+        k = int(v.sum())
+        assert k == int(got[4][lane])
+        for a, b in zip(got[:3], (s, d, ds)):
+            assert torch.equal(a[lane, :k], b[:k])
+
+
+@pytest.mark.cuda
+def test_a_gathered_round_launches_kernel_1_twice_per_tenant(card):
+    """Three tenants' ticks in one batch: one stacked merge of 3 lanes,
+    2 segment-stats launches each, graphs equal to serial card ticks and
+    to the CPU's."""
+    from kmamiz_tpu_torch.tenancy import TenantRuntime, TickRouter
+
+    groups = json.loads((FIXTURES / "bookinfo_traces.json").read_text())
+    request = {"uniqueId": "round", "lookBack": 30_000, "time": 0}
+    names = ("ca", "cb", "cc")
+
+    def runtime(tenant):
+        return TenantRuntime(tenant, DataProcessor(trace_source=lambda lb, t, lim: groups, device=card, wal=None, tenant=tenant))
+
+    router = TickRouter(runtime)
+    for t in names:
+        router.runtime(t)
+    before = ss.segment_stats.launches
+    out = router.batched_collect([(t, dict(request)) for t in names])
+    torch.cuda.synchronize()
+    assert ss.segment_stats.launches == before + 2 * len(names)
+    assert router.stats()["stackedLanes"] == len(names) and router.stats()["serialMerges"] == 0
+    serial = DataProcessor(trace_source=lambda lb, t, lim: groups, device=card, wal=None, tenant="serial")
+    cpu = DataProcessor(trace_source=lambda lb, t, lim: groups, device="cpu", wal=None, tenant="cpu")
+    want = serial.collect(dict(request))
+    cpu.collect(dict(request))
+    for t, resp in zip(names, out):
+        graph = router.runtime(t).processor.graph
+        for g, s, c in zip(graph.edge_arrays(), serial.graph.edge_arrays(), cpu.graph.edge_arrays()):
+            assert torch.equal(g, s) and torch.equal(g.cpu(), c)
+        assert resp["dependencies"] == want["dependencies"]
+
+
+@pytest.mark.cuda
+def test_a_control_fold_launches_kernel_2_once(card, monkeypatch):
+    """With the control plane on and a live STLGT head, a processor's hour
+    fold runs the quantile forward: one gated launch of the fused kernel,
+    and the controller holds the tenant's verdict."""
+    from kmamiz_tpu_torch import control
+    from kmamiz_tpu_torch.models import stlgt as stlgt_pkg
+
+    params = stlgt.init_params(torch.Generator().manual_seed(3), hidden=32, num_features=18, device=card)
+    monkeypatch.setattr(stlgt_pkg, "serving_params", lambda: {"params": params, "version": 1, "model": stlgt})
+    monkeypatch.setenv("KMAMIZ_CONTROL", "1")
+    monkeypatch.delenv("KMAMIZ_STLGT", raising=False)
+    control.reset_for_tests()
+    groups = json.loads((FIXTURES / "bookinfo_traces.json").read_text())
+    tick = {"k": 0}
+
+    def source(lb, t, lim):
+        tick["k"] += 1
+        return [[dict(s, traceId=f"{tick['k']}-{s['traceId']}") for s in g] for g in groups]
+
+    dp = DataProcessor(trace_source=source, device=card, wal=None, tenant="folding")
+    dp.collect({"uniqueId": "h0", "lookBack": 30_000, "time": 910 * 3_600_000})
+    torch.cuda.synchronize()
+    before = sparse.fused_sddmm_spmm.launches
+    dp.collect({"uniqueId": "h1", "lookBack": 30_000, "time": 911 * 3_600_000})
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm.launches == before + 1
+    assert dp.fold_errors["controlFoldErrors"] == 0
+    assert control.snapshot()["tenants"]["folding"]["evaluations"] == 1
+    control.reset_for_tests()
+
+
 # -- telemetry on the card (last: a profiler session slows the process's
 # later launches) ------------------------------------------------------------
 

@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 65
+    assert len(names) >= 140
     assert {
         "kmamiz_tpu_torch.native",
         "kmamiz_tpu_torch.ops.host_build",
@@ -57,6 +57,19 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.ops.double_buffer",
         "kmamiz_tpu_torch.ingestion",
         "kmamiz_tpu_torch.ingestion.zipkin",
+        "kmamiz_tpu_torch.tenancy.arena",
+        "kmamiz_tpu_torch.tenancy.batch",
+        "kmamiz_tpu_torch.tenancy.isolation",
+        "kmamiz_tpu_torch.tenancy.router",
+        "kmamiz_tpu_torch.control.admission",
+        "kmamiz_tpu_torch.control.policy",
+        "kmamiz_tpu_torch.control.warmup",
+        "kmamiz_tpu_torch.scenarios.topology",
+        "kmamiz_tpu_torch.scenarios.traffic",
+        "kmamiz_tpu_torch.scenarios.storyline",
+        "kmamiz_tpu_torch.scenarios.factory",
+        "kmamiz_tpu_torch.scenarios.labeled",
+        "kmamiz_tpu_torch.scenarios.runner",
     } <= set(names)
 
 

@@ -649,7 +649,7 @@ def test_resilience_summary_shape():
     assert summary["breakers"]["zipkin"]["consecutiveFailures"] == 1
     from kmamiz_tpu.resilience import metrics as jax_metrics
 
-    assert set(summary) == set(jax_metrics.resilience_summary()) - {"tenantQuarantine"}
+    assert set(summary) == set(jax_metrics.resilience_summary())
     assert set(summary["watchdog"]) == set(jax_metrics.watchdog_state())
 
 
