@@ -45,7 +45,7 @@ Phases, each timed:
    registers, shared memory, spills and resident warps; the whole gated
    backward as one call (one ctypes call, the same bits twice, db
    included) beside autograd of the index_add_ formulation;
-7. the tick path: the port's DataProcessorServer on the card answers 4 DP
+7. the tick path: the port's DataProcessorServer on the card answers 2 DP
    ticks (POST /, gzip) of 2,500 fresh traces each; every kernel launch
    counter is zeroed just before and read just after, and the
    segment-stats kernel must have run exactly twice per tick; every tick
@@ -67,7 +67,7 @@ Phases, each timed:
    served compared per endpoint with the CPU forward after the route's
    rounding;
 11. GraphSAGE training at the served head's shape (hidden 64, 18 features)
-   over the BASELINE graph's live edges: 24 seeded slots, 8 fused epochs,
+   over the BASELINE graph's live edges: 24 seeded slots, 4 fused epochs,
    lr 1e-2, pos_weight 4, through trainer.train with a checkpoint; the
    losses must fall, and the counters, zeroed just before, must show 2
    forward launches and 1 backward C call per step, launching the row
@@ -76,8 +76,8 @@ Phases, each timed:
    CPU (losses rtol 1e-3); then the checkpoint served by GET
    /api/v1/model/forecast (one edge index for the snapshot);
 12. the STLGT continual trainer behind the fold hook (KMAMIZ_STLGT=1,
-   production defaults) fed by a processor's ticks in 5 successive
-   hours (4 folds, 3 refreshes) through the DP server, counters zeroed
+   production defaults) fed by a processor's ticks in 4 successive
+   hours (3 folds, 2 refreshes) through the DP server, counters zeroed
    just before (each backward one C call launching the SDDMM and the row
    pass): GET /model/stlgt must show the refreshes and no failure,
    the fold hook no error; the last refresh replayed on the port's CPU
@@ -130,7 +130,7 @@ Phases, each timed:
    signature, endpoints and edges must equal phase 4's; (c) bench.py's
    raw e2e window (150,000 traces x 7 spans, BASELINE mesh) through
    ingest_raw_window into a fresh card processor, a warm-up and then the
-   median of 2 reps each on a fresh processor (counters zeroed just
+   median of RAW_REPS (1) reps each on a fresh processor (counters zeroed just
    before, read just after): spans/s, bytes per span, parse and merge ms,
    the native parse's worker count, peak device memory; the same bytes
    again must ingest 0 spans and 0 traces; (d) that window's parse split
@@ -152,7 +152,7 @@ Phases, each timed:
    traces through DataProcessor.ingest_raw_stream into a persistent card
    processor on a virtual clock: the graph signature, endpoints and edges
    of 15 (c); beside it a twin that takes the same windows one shot; (b)
-   one uncounted steady window each; (c) 2 counted windows under fresh
+   one uncounted steady window each; (c) 1 counted window under fresh
    trace prefixes, the clock stepped 301,000 ms (past the dedup TTL)
    before each, the two paths in turns (counters zeroed just before each,
    read just after, peak device memory over base): the streamed wall,
@@ -169,8 +169,8 @@ Phases, each timed:
    FileStore in a temporary directory, its card processor preloaded as in
    phase 4 and its store seeded with the dependency records of the same
    150,000 traces (a deployment's cache); the realtime schedule on a
-   six-field one-second cron fires 3 ticks of 2,500 fresh traces through
-   the operator (the first 2 an hour back, so one hour folds), each under
+   six-field one-second cron fires 2 ticks of 2,500 fresh traces through
+   the operator (the first an hour back, so one hour folds), each under
    5,000 ms, 2 segment-stats launches each (counters zeroed just before
    the boot, read after tear_down); the aggregation job once while the
    realtime job goes on firing (the ticks that overlap it wait for the
@@ -188,7 +188,7 @@ Phases, each timed:
    serves);
 18. GAT (after phase 17): a GAT head (hidden 64, no hand-written kernel:
    no counter may move) trained through trainer.train(model=gat) on phase
-   11's dataset for 4 epochs with a checkpoint, its losses falling; a
+   11's dataset for 2 epochs with a checkpoint, its losses falling; a
    2-slot epoch on the card against the CPU (rtol 1e-3); the checkpoint
    served by GET /api/v1/model/forecast (model "gat") on phase 9's
    snapshot, its forward on the card against the CPU (rtol 1e-4 / atol
@@ -202,7 +202,7 @@ Phases, each timed:
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
-   main(), the WAL on) serves 2 ticks of 2,500 traces, each under 5,000
+   main(), the WAL on) serves 1 tick of 2,500 traces, under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
    1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the
@@ -234,7 +234,7 @@ Phases, each timed:
 20. telemetry (after phase 19, before phase 14's profiler sessions): two
    `python -m kmamiz_tpu_torch.server.dp_server` processes (main(), no
    cluster source, KMAMIZ_STLGT=1), one with KMAMIZ_TELEMETRY=0
-   KMAMIZ_PROF=0, serve the same 3 windows of 2,500 traces in alternating
+   KMAMIZ_PROF=0, serve the same 2 windows of 2,500 traces in alternating
    turns: (a) the tick walls' medians and spreads of each; (b) the
    telemetry DP's GET /metrics (0.0.4 text, kmamiz_ticks_total up by the
    ticks, a span histogram of every tick phase, the device memory and
@@ -262,9 +262,11 @@ Phases, each timed:
    2-epoch CPU copy's (rtol 1e-3); (c) GAT on the same dataset, 2 epochs,
    no launch; (d) (b)'s params saved and restored through
    models/checkpoint.py, the restored forward on the card against the
-   trained one (rtol 1e-4 / atol 1e-5); (e) beside (a)-(d), the
-   application in simulator mode through its main() over a fresh
-   FileStore: POST /api/v1/simulation/startSimulation with the same YAML
+   trained one (rtol 1e-4 / atol 1e-5); (e) the application in simulator
+   mode through its main() over a fresh FileStore, started (its own
+   phase, "simulator app start") before phase 17, so that its
+   startSimulation runs beside phases 17-21 (with --simulator-only: beside
+   (a)-(d)): POST /api/v1/simulation/startSimulation with the same YAML
    (201), the endpoint graph, generateStaticSimConfig and the export (its
    10,000 dependency records, its SimulatedHistoricalData), then SIGTERM
    (exit 0, the store left empty); (f) kernel 2 at (b)'s buckets: the edge
@@ -277,7 +279,7 @@ Phases, each timed:
    the eight together the BASELINE's 10,000), each loaded with 18,750 raw
    traces (phase 4's 150,000 split eight ways), all in one arena capacity
    bucket; (b) a DataProcessorServer with a TickRouter over them (gather
-   window 50 ms, an argument) takes 4 rounds in which the eight POST at
+   window 50 ms, an argument) takes 2 rounds in which the eight POST at
    once (t0-t3 by /t/<tenant>/, t4-t7 by the tenant header), 312 traces
    each: each round one batched_collect with one stacked merge of 8 lanes,
    no serial merge but drift re-merges, 16 segment-stats launches, every
@@ -293,12 +295,42 @@ Phases, each timed:
    t0's SLO under its forecast, t0's tick is deferred (no kernel-1
    launch), a high-priority one runs, t1 stays fresh, and in shed mode t0
    gets a 429; (e) the scenario factory's multi-tenant-mix (seed 0, index
-   2, 12 ticks) through a second gathered server with the WAL on: alpha's
+   2, 6 ticks) through a second gathered server with the WAL on: alpha's
    and beta's windows tick by tick, beta's poison storm to
    /t/beta/ingest (beta's quarantine namespace only), alpha's graph equal
    to a clean serial run of its windows, /timings with tenancy and
    control, and a restart over the same WAL replaying each tenant to its
    signature.
+23. the fleet and the scenario runner (after phase 22, over its tenant
+   windows, before phase 14's profiler sessions): (a) four FleetWorkers
+   w0-w3 on the card behind a coordinator with a LocalTransport (ring
+   seed 0, 64 vnodes, each worker's WAL on) take phase 22's eight state
+   windows (1,250 endpoints and 18,750 traces a tenant) as 10 frames each
+   through route_ingest: spans/s per worker and in all; each tenant's
+   graph signature equals a serial twin's fed the same frames, and the
+   fold of the eight into one aggregate store on the card (its wall;
+   its device time under the profiler, taken last) equals the CPU fold of
+   the same exports (edge set and signature), its edges the tenants' sum;
+   (b) the tenant the placement's rebalance plan names (t0 without one)
+   migrates by WAL handoff with one frame of its traffic routed
+   mid-handoff: the replay equals the pre-drain signature, the target the
+   twin with the frame applied, no trace lost, the source's copy dropped
+   (drain, ship, replay and flip walls, the handoff's bytes); (c) four
+   `python -m kmamiz_tpu_torch.fleet.worker` processes on the card,
+   booted while (a) and (b) run (their boot walls, the card's memory in
+   use with all four up, by process where nvidia-smi shows them) behind an
+   HTTPTransport, two tenants each (the first ring seed that spreads them
+   so), 2 frames a tenant, one migration over the /fleet/* routes with a
+   frame mid-handoff, bit-exact as in (b), and fleetscrape's merge of the
+   four /metrics pages (fleet totals and per-worker series); (d)
+   run_scenario on the card at seed 0 of steady-chain, cascade-fanout,
+   multi-tenant-mix, kill9-wal-replay (its child on the card),
+   capacity-growth-chain, fleet-migration and wal-replay at the factory's
+   sizes and 10 ticks, and run_counterfactual(seed=0, n_ticks=8): every
+   card passes, no span lost, bit-exact, at least one SLO violation
+   prevented (walls, p50/p99 ticks). No hand-written kernel runs in the
+   phase (device statistics off, the counterfactual's forecast given):
+   every launch counter must read 0.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -316,7 +348,9 @@ csrc/fused_sddmm_spmm.cu) on the BASELINE graph. With --cluster-only it
 runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 1-2 and then phase 20 alone ((g) on a fresh card processor after one
 warm tick); with --simulator-only, phases 1-2 and then phase 21 alone;
-with --tenancy-only, phases 1-2 and then phase 22 alone.
+with --tenancy-only, phases 1-2 and then phase 22 alone; with
+--fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
+makes itself).
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -324,6 +358,7 @@ holds this script without the kmamiz_tpu_torch package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gzip
 import json
@@ -346,7 +381,7 @@ BASELINE = dict(n_services=1000, urls_per_service=10)  # bench.py's mesh
 SPANS_PER_TRACE = 7
 STATE_TRACES = 150_000
 STATE_CHUNK = 15_000
-TICKS = 4
+TICKS = 2
 TICK_TRACES = 2_500  # the reference's per-tick cap (ZIPKIN_LIMIT)
 #: the trace-bomb cap of phases 15-16's processors: bench.py's one-shot
 #: window is one 609 MB body, past the quarantine's 256 MiB default
@@ -365,13 +400,13 @@ STLGT_HIDDEN = 32  # the STLGT head's default width
 SEED = 0
 # GraphSAGE training at the served head's shape (bench.py's training setup)
 SAGE_SLOTS = 24
-SAGE_EPOCHS = 8
+SAGE_EPOCHS = 4
 SAGE_HIDDEN = 64
 SAGE_FEATURES = 18  # 10 base + 8 history columns
 SAGE_LR = 1e-2
-STLGT_HOURS = (920, 921, 922, 923, 924)  # 5 ticks: 4 folds, 3 refreshes
+STLGT_HOURS = (920, 921, 922, 923)  # 4 ticks: 3 folds, 2 refreshes
 RAW_TRACES = 150_000  # bench.py's raw e2e window: 1.05M spans
-RAW_REPS = 2
+RAW_REPS = 1
 TICK_WALL_LIMIT_MS = 5_000  # the DP's realtime cadence (PERF.md section 2)
 
 
@@ -617,21 +652,29 @@ def raw_windows(specs) -> list:
         return list(pool.map(_raw_window, specs))
 
 
+#: state_windows' bytes by (n_traces, chunk): phases 4, 15 and 17 read the
+#: same windows, made once
+_STATE_WINDOWS: dict = {}
+
+
 def state_windows(n_traces: int = None, chunk: int = None) -> list:
     """Phase 4's windows (prefix "state") as raw bytes, chunk by chunk
-    (STATE_TRACES in STATE_CHUNK unless given)."""
+    (STATE_TRACES in STATE_CHUNK unless given), made on the first call and
+    kept for the run's later readers."""
     n_traces = STATE_TRACES if n_traces is None else n_traces
     chunk = STATE_CHUNK if chunk is None else chunk
-    return raw_windows(
-        dict(
-            n_traces=min(chunk, n_traces - start),
-            spans_per=SPANS_PER_TRACE,
-            t_start=start,
-            trace_prefix="state",
-            **BASELINE,
+    if (n_traces, chunk) not in _STATE_WINDOWS:
+        _STATE_WINDOWS[n_traces, chunk] = raw_windows(
+            dict(
+                n_traces=min(chunk, n_traces - start),
+                spans_per=SPANS_PER_TRACE,
+                t_start=start,
+                trace_prefix="state",
+                **BASELINE,
+            )
+            for start in range(0, n_traces, chunk)
         )
-        for start in range(0, n_traces, chunk)
-    )
+    return _STATE_WINDOWS[n_traces, chunk]
 
 
 def joined_window(n_traces: int, parts: int = 8, **shape) -> bytes:
@@ -3025,7 +3068,7 @@ def raw_ingest(torch, device, counters, state, ticks, build, jobs) -> tuple:
 # -- phase 16: streaming ingest -----------------------------------------------
 
 STREAM_CHUNKS = 4  # bench.py's streaming split: 4 chunks of 37,500 traces
-STREAM_WINDOWS = 2  # counted steady windows, one in each order
+STREAM_WINDOWS = 1  # counted steady windows (the stream first)
 STREAM_CLOCK_STEP_MS = 301_000  # past the processed map's 5-minute TTL
 STREAM_HTTP_TRACES = 10_000  # ~41 MB of JSON: over /ingest's 32 MiB threshold
 
@@ -3361,9 +3404,9 @@ def stream_ingest(torch, device, counters, one_shot, raw) -> dict:
 
 # -- phase 17: the application -------------------------------------------------
 
-APP_TICKS = 3  # scheduled realtime ticks of boot 1 before its aggregation
+APP_TICKS = 2  # scheduled realtime ticks of boot 1 before its aggregation
 APP_WINDOWS = APP_TICKS + 4  # and windows for the ticks that overlap the aggregation
-APP_FOLD_AT = 2  # boot 1's ticks before this one run an hour back: one fold
+APP_FOLD_AT = 1  # boot 1's ticks before this one run an hour back: one fold
 NEVER_CRON = "0 0 1 1 *"  # New Year's midnight: a schedule that does not fire in a run
 
 
@@ -3688,7 +3731,7 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
 
 # -- phase 18: GAT ------------------------------------------------------------
 
-GAT_EPOCHS = 4
+GAT_EPOCHS = 2
 GAT_HIDDEN = 64
 
 
@@ -3829,7 +3872,7 @@ def train_gat(torch, graph, device, counters, fproc, ckpt_dir: str) -> dict:
 
 # -- phase 19: the in-cluster deployment -------------------------------------
 
-CLUSTER_TICKS = 2  # DP ticks through main() with cluster state
+CLUSTER_TICKS = 1  # DP ticks through main() with cluster state
 WAL_WINDOWS = 10  # phase 4's 150,000 traces as raw /ingest windows
 DAY_MS = 86_400_000  # a Zipkin query looking back this far is a backfill
 STUB_BACKLOG = 64  # listen backlog of the stubs: over the 16-worker fan-out
@@ -4170,11 +4213,13 @@ def http_json(port: int, path: str, body: bytes = None, timeout: float = 600):
 
 class Served:
     """A server started through its `python -m` entry (its main()), with
-    the environment given; waits until `health` answers 200 and records
-    the boot wall. Output goes to `log_path`. stop() sends `sig` and
-    waits; kill() is kill -9."""
+    the environment and command-line `args` given; waits until `health`
+    answers 200 and records the boot wall. Output goes to `log_path`.
+    stop() sends `sig` and waits; kill() is kill -9."""
 
-    def __init__(self, module: str, env: dict, port: int, health: str, log_path: str, timeout: float = 300) -> None:
+    def __init__(
+        self, module: str, env: dict, port: int, health: str, log_path: str, timeout: float = 300, args=()
+    ) -> None:
         full = {k: v for k, v in os.environ.items() if not k.startswith("KMAMIZ_")}
         full.update(env, PYTHONPATH=REPO)
         self.port, self.log_path = port, log_path
@@ -4183,7 +4228,7 @@ class Served:
         # a session of its own: stop() and kill() end its children too (the
         # cluster client's fan-out processes)
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", module],
+            [sys.executable, "-m", module, *args],
             cwd=REPO,
             env=full,
             stdout=self.out,
@@ -4628,7 +4673,7 @@ def serve_in_cluster(torch, device, counters) -> dict:
 
 # -- phase 20: telemetry ------------------------------------------------------
 
-TEL_TICKS = 3  # ticks of each gate state, alternating between the two DPs
+TEL_TICKS = 2  # ticks of each gate state, alternating between the two DPs
 TEL_HOUR = 930  # the hour of phase 20's ticks; its fold ticks run in the next two
 CAPTURE_MS = 4_000  # the capture's window, around one tick
 CAPTURE_LEAD_S = 1.0  # the tick starts this long after the capture is asked for
@@ -5216,7 +5261,16 @@ def simulation_dataset(result) -> dict:
     }
 
 
-def simulate(torch, device, counters, jobs) -> dict:
+def mesh_yaml() -> str:
+    """Phase 21's YAML: BASELINE.json's synthetic mesh, seeded."""
+    import numpy as np
+
+    return make_mesh_config(
+        SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE, SIM_DAYS, np.random.default_rng(SEED), SIM_FAULT_FRACTION
+    )
+
+
+def simulate(torch, device, counters, jobs, app: "SimulatorApp" = None) -> dict:
     """Phase 21, the simulator at BASELINE.json's synthetic mesh (1,000
     services x 10 endpoints, fault fraction 0.08, seed 0, 1 simulated day):
     (a) Simulator.generate_simulation_data on the host; (b) GraphSAGE
@@ -5225,7 +5279,8 @@ def simulate(torch, device, counters, jobs) -> dict:
     copy's (rtol 1e-3); (c) GAT on the same dataset (no kernel launch);
     (d) (b)'s params saved and restored through models/checkpoint.py, and
     the restored forward on the card against the trained one; (e) the
-    application in simulator mode (SimulatorApp), beside (a)-(d); (f)
+    application in simulator mode (SimulatorApp: `app` when the run
+    started it earlier, else one started here), beside (a)-(d); (f)
     kernel 2 at (b)'s buckets against its plain version."""
     import numpy as np
 
@@ -5234,7 +5289,6 @@ def simulate(torch, device, counters, jobs) -> dict:
     from kmamiz_tpu_torch.simulator import Simulator
 
     root = tempfile.TemporaryDirectory(prefix="chip_smoke_sim_")
-    app = None
     out: dict = {
         "services": SIM_SERVICES,
         "endpoints_per_service": SIM_ENDPOINTS_PER_SERVICE,
@@ -5242,11 +5296,10 @@ def simulate(torch, device, counters, jobs) -> dict:
         "fault_fraction": SIM_FAULT_FRACTION,
     }
     try:
-        yaml_text = make_mesh_config(
-            SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE, SIM_DAYS, np.random.default_rng(SEED), SIM_FAULT_FRACTION
-        )
+        yaml_text = mesh_yaml()
         out["yaml_bytes"] = len(yaml_text)
-        app = SimulatorApp(yaml_text, root.name)
+        if app is None:
+            app = SimulatorApp(yaml_text, root.name)
 
         # (a) the simulation, on the host
         t0 = time.perf_counter()
@@ -5430,10 +5483,10 @@ TENANTS = tuple(f"t{i}" for i in range(8))  # BASELINE split into eight clusters
 TENANT_SERVICES = BASELINE["n_services"] // len(TENANTS)  # 125 services x 10 urls each
 TENANT_TRACES = STATE_TRACES // len(TENANTS)  # phase 4's 150,000 traces split eight ways
 TENANT_TICK_TRACES = TICK_TRACES // len(TENANTS)  # a round carries one BASELINE tick
-TENANT_ROUNDS = 4
+TENANT_ROUNDS = 2
 GATHER_WINDOW_MS = 50.0
 TENANT_HOUR = 950  # the rounds' hour; (d) folds it and the next
-SCENARIO = ("multi-tenant-mix", 0, 2, 12)  # build_scenario(archetype, seed, index, ticks)
+SCENARIO = ("multi-tenant-mix", 0, 2, 6)  # build_scenario(archetype, seed, index, ticks)
 SCENARIO_HOUR = 970
 #: the scenario tenants' trace-bomb cap: under chaos.mutate_payload's bomb
 #: (~4.1 KB), so every poison-storm bomb trips it (the JAX runner's
@@ -5545,10 +5598,17 @@ def install_stlgt_head(torch, device) -> str:
     return "seeded folds"
 
 
-def serve_tenancy(torch, device, counters, jobs) -> dict:
+def tenant_state_windows() -> dict:
+    """Each tenant's state window (18,750 raw traces in its namespace),
+    made on the process pool: tenant -> raw bytes."""
+    raws = raw_windows(tenant_spec(TENANT_TRACES, 0, f"{t}-state-") for t in TENANTS)
+    return {t: in_namespace(i, raw) for i, (t, raw) in enumerate(zip(TENANTS, raws))}
+
+
+def serve_tenancy(torch, device, counters, jobs, windows_out: dict = None) -> dict:
     """Phase 22, multi-tenant serving: (a) eight tenants of 125 services x
     10 urls, each loaded with 18,750 raw traces, in one capacity bucket;
-    (b) four gathered rounds through a DataProcessorServer (gather window
+    (b) TENANT_ROUNDS (2) gathered rounds through a DataProcessorServer (gather window
     50 ms): the eight post at once (t0-t3 by /t/<tenant>/, t4-t7 by the
     tenant header), one stacked merge of 8 lanes and 16 segment-stats
     launches a round; (c) eight serial twins on the card and two CPU
@@ -5558,7 +5618,8 @@ def serve_tenancy(torch, device, counters, jobs) -> dict:
     (e) the scenario factory's multi-tenant-mix through a second server
     with the WAL on: beta's poison storm in beta's quarantine only,
     alpha's graph equal to a clean serial run, a restart replaying each
-    tenant's namespace."""
+    tenant's namespace. The tenants' state windows go into `windows_out`
+    when one is given (phase 23 routes them through the fleet)."""
     import numpy as np
 
     from kmamiz_tpu_torch import control, scenarios
@@ -5586,12 +5647,7 @@ def serve_tenancy(torch, device, counters, jobs) -> dict:
     feeds = {t: TickFeed() for t in TENANTS}
     twin_feeds = {t: TickFeed() for t in TENANTS}
     procs, twins = {}, {}
-    state_raw = {
-        t: in_namespace(i, raw)
-        for i, (t, raw) in enumerate(
-            zip(TENANTS, raw_windows(tenant_spec(TENANT_TRACES, 0, f"{t}-state-") for t in TENANTS))
-        )
-    }
+    state_raw = tenant_state_windows()
     for t in TENANTS:
         procs[t] = DataProcessor(trace_source=feeds[t], device=device, wal=None, tenant=t)
         twins[t] = DataProcessor(trace_source=twin_feeds[t], device=device, wal=None, tenant=f"twin-{t}")
@@ -5621,6 +5677,8 @@ def serve_tenancy(torch, device, counters, jobs) -> dict:
     cpu_replays = {t: DataProcessor(trace_source=cpu_feeds[t], device="cpu", wal=None, tenant=f"cpu-{t}") for t in TENANTS[:2]}
     for t, cpu in cpu_replays.items():
         cpu.ingest_raw_window(state_raw[t])
+    if windows_out is not None:
+        windows_out.update(state_raw)
     del state_raw
 
     router = TickRouter(lambda t: _make_runtime(t, procs[t]), batch_window_ms=GATHER_WINDOW_MS)
@@ -5926,6 +5984,339 @@ def serve_scenario_tenants(torch, device, scenarios, scn_runner, storyline, topo
     return out
 
 
+# -- phase 23: the fleet and the scenario runner ------------------------------
+
+FLEET_WORKERS = tuple(f"w{i}" for i in range(4))
+FLEET_VNODES = 64
+FLEET_SEED = 0
+FLEET_FRAMES = 10  # (a): each tenant's state window as this many frames
+FLEET_PROC_FRAMES = 2  # (c): the frames each tenant sends the worker processes
+#: (d): the archetypes the runner drives on the card, each at the factory's
+#: own sizes and DEFAULT_TICKS (the always-on first three, kill -9, growth,
+#: the fleet and the WAL replay)
+RUNNER_ARCHETYPES = (
+    "steady-chain",
+    "cascade-fanout",
+    "multi-tenant-mix",
+    "kill9-wal-replay",
+    "capacity-growth-chain",
+    "fleet-migration",
+    "wal-replay",
+)
+COUNTERFACTUAL_TICKS = 8
+
+
+class TimedTransport:
+    """A fleet transport proxy that times the migration's steps (drain,
+    ship = the WAL export, replay = the import, flip = from the commit to
+    the migration's end, which the caller closes) and fires `mid` once,
+    between the drain and the export: a frame racing the handoff."""
+
+    def __init__(self, inner, mid) -> None:
+        self._inner, self._mid = inner, mid
+        self.walls: dict = {}
+        self.blob_bytes = 0
+        self.commit_t0 = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _timed(self, key, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.walls[key] = (time.perf_counter() - t0) * 1e3
+
+    def drain(self, worker_id, tenant):
+        return self._timed("drain_ms", self._inner.drain, worker_id, tenant)
+
+    def wal_export(self, worker_id, tenant):
+        self._mid()
+        blob = self._timed("ship_ms", self._inner.wal_export, worker_id, tenant)
+        self.blob_bytes = len(blob)
+        return blob
+
+    def wal_import(self, worker_id, tenant, data):
+        return self._timed("replay_ms", self._inner.wal_import, worker_id, tenant, data)
+
+    def commit_import(self, worker_id, tenant):
+        self.commit_t0 = time.perf_counter()
+        return self._inner.commit_import(worker_id, tenant)
+
+
+def migrate_with_frame(coord, tenant: str, target: str, mid_frame: bytes, migrate_tenant) -> tuple:
+    """migrate_tenant(coord, tenant, target) through a TimedTransport whose
+    mid-handoff frame is `mid_frame`, routed through the coordinator (it
+    must park in the drain queue); returns (the migration's result, its
+    step walls and handoff bytes)."""
+    parked = []
+
+    def mid():
+        parked.append(coord.route_ingest(tenant, mid_frame))
+
+    real = coord.transport
+    timed = TimedTransport(real, mid)
+    coord.swap_transport(timed)
+    try:
+        result = migrate_tenant(coord, tenant, target)
+    finally:
+        coord.swap_transport(real)
+    walls = dict(timed.walls, flip_ms=(time.perf_counter() - timed.commit_t0) * 1e3, handoff_bytes=timed.blob_bytes)
+    check(parked == [None], f"the mid-handoff frame was not queued: {parked}")
+    check(result["ok"] and result["queuedReleased"] == 1, f"migration {result}")
+    return result, {k: round(v, 3) if isinstance(v, float) else v for k, v in walls.items()}
+
+
+def gpu_memory_used_mib() -> int:
+    """The card's memory in use, every process's, by nvidia-smi (MiB)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def gpu_memory_by_process_mib() -> dict:
+    """pid -> the card memory each process holds, by nvidia-smi (MiB);
+    empty where the sandbox hides the processes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True,
+        text=True,
+    ).stdout
+    rows = [line.split(",") for line in out.strip().splitlines() if line.count(",") == 1]
+    return {pid.strip(): int(mib) for pid, mib in rows if mib.strip().isdigit()}
+
+
+def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
+    """Phase 23, the fleet and the scenario runner: (a) four in-process
+    FleetWorkers on the card behind a LocalTransport coordinator (ring seed
+    0, 64 vnodes) take phase 22's eight tenant state windows as 10 frames
+    each through route_ingest; every tenant's signature equals a serial
+    twin fed the same frames, and the fold of the eight on the card equals
+    the CPU fold of the same exports; (b) the tenant placement's rebalance
+    plan names (t0 without a plan) migrates with one frame mid-handoff,
+    bit-exact with the twin, no trace lost, the source's copy dropped;
+    (c) four `python -m kmamiz_tpu_torch.fleet.worker` processes on the
+    card (booted while (a) and (b) run) behind an HTTPTransport, two
+    tenants each, one migration over the
+    /fleet/* routes with a frame mid-handoff, and fleetscrape's merge of
+    their /metrics; (d) run_scenario of RUNNER_ARCHETYPES and
+    run_counterfactual on the card, every card passing. No kernel runs on
+    this path (device statistics off, the counterfactual's forecast
+    given): the counters must read 0."""
+    from kmamiz_tpu_torch import native
+    from kmamiz_tpu_torch.fleet import placement
+    from kmamiz_tpu_torch.fleet.coordinator import FleetCoordinator, HTTPTransport, LocalTransport
+    from kmamiz_tpu_torch.fleet.migration import migrate_tenant
+    from kmamiz_tpu_torch.fleet.ring import HashRing
+    from kmamiz_tpu_torch.fleet.worker import FleetWorker
+    from kmamiz_tpu_torch.graph.store import EndpointGraph, graph_signature
+    from kmamiz_tpu_torch.scenarios import ARCHETYPES, build_scenario, run_counterfactual, run_scenario
+    from kmamiz_tpu_torch.scenarios.factory import DEFAULT_TICKS
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.telemetry import fleetscrape
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    out: dict = {"workers": len(FLEET_WORKERS), "tenants": len(TENANTS), "frames_per_tenant": FLEET_FRAMES}
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    zero_counts(counters)
+    frames = {t: native.split_groups(state_raw[t], FLEET_FRAMES) for t in TENANTS}
+    check(all(len(f) == FLEET_FRAMES for f in frames.values()), "a state window split into fewer frames")
+
+    # (c)'s worker processes boot while (a) and (b) run: the first ring
+    # seed that gives each worker two tenants
+    seed = next(s for s in range(1000) if set(HashRing(list(FLEET_WORKERS), FLEET_VNODES, s).spread(TENANTS).values()) == {2})
+    ring2 = HashRing(list(FLEET_WORKERS), vnodes=FLEET_VNODES, seed=seed)
+    ports = {w: free_port() for w in FLEET_WORKERS}
+    mem_before = gpu_memory_used_mib()
+
+    def boot(w):
+        env = {
+            "KMAMIZ_WAL": "1",
+            "KMAMIZ_WAL_DIR": os.path.join(root.name, "procs", w),
+            "KMAMIZ_QUARANTINE_DIR": os.path.join(root.name, "quarantine", w),
+        }
+        args = ["--worker-id", w, "--port", str(ports[w])]
+        return Served("kmamiz_tpu_torch.fleet.worker", env, ports[w], "/", os.path.join(root.name, f"{w}.log"), args=args)
+
+    boots = ThreadPoolExecutor(max_workers=len(FLEET_WORKERS))
+    booting = {w: boots.submit(boot, w) for w in FLEET_WORKERS}
+
+    def twin_of(t, frame_list, tag):
+        twin = DataProcessor(TickFeed(), device=device, use_device_stats=False, wal=None, tenant=f"{tag}-{t}")
+        for raw in frame_list:
+            twin.ingest_raw_window(raw)
+        return twin
+
+    def mid_frame(t, k):
+        i = TENANTS.index(t)
+        return tenant_window(i, TENANT_TICK_TRACES, TENANT_TRACES * (4 + k), f"{t}-mid{k}-")
+
+    try:
+        # (a) the in-process fleet at BASELINE width
+        ring = HashRing(list(FLEET_WORKERS), vnodes=FLEET_VNODES, seed=FLEET_SEED)
+        workers = {w: FleetWorker(w, wal_root=os.path.join(root.name, "inproc"), device=device) for w in ring.workers}
+        coord = FleetCoordinator(ring, LocalTransport(workers))
+        out["placement"] = ring.assignment(TENANTS)
+        per_worker = {w: {"spans": 0, "ms": 0.0} for w in ring.workers}
+        t0 = time.perf_counter()
+        for k in range(FLEET_FRAMES):
+            for t in TENANTS:
+                owner = coord.owner(t)
+                t1 = time.perf_counter()
+                summary = coord.route_ingest(t, frames[t][k])  # returns after the merge
+                per_worker[owner]["ms"] += (time.perf_counter() - t1) * 1e3
+                per_worker[owner]["spans"] += summary["spans"]
+        route_s = time.perf_counter() - t0
+        spans = sum(w["spans"] for w in per_worker.values())
+        out["spans"] = spans
+        out["spans_per_s"] = spans / route_s
+        out["spans_per_s_by_worker"] = {
+            w: (v["spans"] / (v["ms"] / 1e3) if v["ms"] else 0.0) for w, v in per_worker.items()
+        }
+        check(spans == TENANT_TRACES * SPANS_PER_TRACE * len(TENANTS), f"{spans} spans routed")
+        twins = {t: twin_of(t, frames[t], "fleet-twin") for t in TENANTS}
+        for t in TENANTS:
+            check(workers[coord.owner(t)].signature(t) == graph_signature(twins[t].graph), f"{t} differs from its twin")
+        tenant_edges = {t: int(twins[t].graph.n_edges) for t in TENANTS}
+        exports = [workers[coord.owner(t)].export_edges(t) for t in TENANTS]
+        aggregate = EndpointGraph(device=device, tenant="fleet-aggregate")
+        t0 = time.perf_counter()
+        folded = coord.fold(list(TENANTS), aggregate)
+        torch.cuda.synchronize()
+        out["fold_ms"] = (time.perf_counter() - t0) * 1e3
+        cpu_agg = EndpointGraph(device="cpu", tenant="fleet-aggregate-cpu")
+        cpu_folded = sum(cpu_agg.fold_named_edges(e) for e in exports)
+        check(folded == cpu_folded == aggregate.n_edges == sum(tenant_edges.values()), f"fold {folded} edges")
+        check(graph_signature(aggregate) == graph_signature(cpu_agg), "the card fold's signature differs from the CPU's")
+        check(aggregate.export_named_edges() == cpu_agg.export_named_edges(), "the card fold's edges differ from the CPU's")
+        out["aggregate"] = {
+            "edges": int(aggregate.n_edges),
+            "endpoints": len(aggregate.interner.endpoints),
+            "capacity": int(aggregate.capacity),
+            "device_bytes": sum(aggregate.arena_bytes().values()),
+        }
+        del cpu_agg
+        log("   (a) " + json.dumps(out))
+
+        # (b) live migration of the tenant the placement names
+        plan = placement.rebalance_plan(ring, TENANTS, overrides=coord.snapshot()["overrides"])
+        if plan:
+            tenant, source, target = plan[0]
+        else:
+            tenant, source = "t0", coord.owner("t0")
+            target = placement.pick_target(ring, tenant, TENANTS)
+            if target == source:
+                target = next(w for w in ring.workers if w != source)
+        pre = workers[source].signature(tenant)
+        mid = mid_frame(tenant, 0)
+        result, walls = migrate_with_frame(coord, tenant, target, mid, migrate_tenant)
+        twins[tenant].ingest_raw_window(mid)
+        check(result["signature"] == pre, f"{tenant}: the replay differs from the pre-drain signature")
+        check(workers[target].signature(tenant) == graph_signature(twins[tenant].graph), f"{tenant} differs after the flip")
+        landed = set(workers[target].processor(tenant)._processed)
+        lost = len(set(twins[tenant]._processed) - landed)
+        check(lost == 0, f"{lost} traces of {tenant} lost in the migration")
+        check(tenant not in workers[source].tenants(), f"{source} kept {tenant}")
+        out["migration"] = {"plan": [list(m) for m in plan], "tenant": tenant, "source": source, "target": target,
+                            "records": result["records"], "lost_traces": lost, **walls}
+        log("   (b) " + json.dumps(out["migration"]))
+        del workers, coord, twins, aggregate
+
+        # (c) four worker processes behind an HTTPTransport, two tenants each
+        served = {w: f.result() for w, f in booting.items()}
+        procs_out = {"ring_seed": seed, "placement": ring2.assignment(TENANTS), "boot_ms": {w: round(p.boot_ms, 1) for w, p in served.items()}}
+        try:
+            for w, p in served.items():
+                check(p.health["device"].startswith("cuda"), f"worker {w} serves on {p.health['device']}")
+            procs_out["gpu_memory_used_mib"] = {
+                "before_phase": mem_before,
+                "four_up": gpu_memory_used_mib(),
+                "by_process": gpu_memory_by_process_mib(),
+            }
+            endpoints = {w: f"http://127.0.0.1:{port}" for w, port in ports.items()}
+            transport = HTTPTransport(endpoints, timeout_s=300)
+            coord2 = FleetCoordinator(ring2, transport)
+            t0 = time.perf_counter()
+            for k in range(FLEET_PROC_FRAMES):
+                for t in TENANTS:
+                    coord2.route_ingest(t, frames[t][k])
+            procs_out["route_s"] = time.perf_counter() - t0
+            tenant2 = "t1"
+            source2 = coord2.owner(tenant2)
+            target2 = placement.pick_target(ring2, tenant2, TENANTS)
+            if target2 == source2:
+                target2 = next(w for w in FLEET_WORKERS if w != source2)
+            pre2 = transport.signature(source2, tenant2)
+            mid2 = mid_frame(tenant2, 1)
+            result2, walls2 = migrate_with_frame(coord2, tenant2, target2, mid2, migrate_tenant)
+            twin2 = twin_of(tenant2, [*frames[tenant2][:FLEET_PROC_FRAMES], mid2], "fleet-proc-twin")
+            check(result2["signature"] == pre2, f"{tenant2}: the replay over HTTP differs from the pre-drain signature")
+            check(transport.signature(target2, tenant2) == graph_signature(twin2.graph), f"{tenant2} differs after the flip over HTTP")
+            check(transport.drop_tenant(source2, tenant2)["dropped"] is False, f"{source2} kept {tenant2}")
+            procs_out["migration"] = {"tenant": tenant2, "source": source2, "target": target2, "records": result2["records"], **walls2}
+            pages = fleetscrape.scrape_workers(endpoints)
+            merged = fleetscrape.aggregate(pages)
+            page = fleetscrape.render(pages)
+            payloads = merged["kmamiz_ingest_payloads_total"]
+            per = {w: payloads.get(f'worker="{w}"', 0.0) for w in FLEET_WORKERS}
+            check(all(per.values()) and payloads[""] == sum(per.values()), f"scraped payloads {payloads}")
+            check(all(f'kmamiz_ingest_payloads_total{{worker="{w}"}}' in page for w in FLEET_WORKERS), "per-worker series missing")
+            procs_out["scrape"] = {"payloads_total": payloads[""], "payloads_by_worker": per, "page_lines": page.count("\n")}
+        finally:
+            for p in served.values():
+                p.stop(15)
+        out["processes"] = procs_out
+        log("   (c) " + json.dumps(procs_out))
+
+        # (d) the runner on the card
+        names = [name for name, _ in ARCHETYPES]
+        cards = {}
+        for arch in RUNNER_ARCHETYPES:
+            spec = build_scenario(arch, 0, names.index(arch), DEFAULT_TICKS)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_scn_") as tmp:
+                card = run_scenario(spec, tmpdir=tmp, device=device)
+            cards[arch] = {k: card[k] for k in ("wall_s", "p50_tick_ms", "p99_tick_ms", "posts", "lost_spans")}
+            check(card["pass"], f"{arch}: {card['gates']} {card['errors']}")
+            check(card["lost_spans"] == 0 and card["gates"]["bit_exact"], f"{arch}: lost {card['lost_spans']}")
+        cf = run_counterfactual(seed=0, n_ticks=COUNTERFACTUAL_TICKS, device=device)
+        check(cf["pass"] and cf["slo_violations_prevented"] >= 1, f"counterfactual {cf['gates']}")
+        cards["counterfactual"] = {"wall_s": cf["wall_s"], "prevented": cf["slo_violations_prevented"]}
+        out["runner"] = cards
+        log("   (d) " + json.dumps(cards))
+
+        # the fold's device time, last: a profiler session slows the host's
+        # later launches
+        def fold_all():
+            g = EndpointGraph(device=device, tenant="fleet-fold-probe")
+            for e in exports:
+                g.fold_named_edges(e)
+            return g
+
+        events = traced(torch, fold_all)
+        out["fold_device_ms"] = (
+            sum(e.time_range.end - e.time_range.start for e in events) / 1e3 if events is not None else None
+        )
+        out["fold_device_events"] = len(events) if events is not None else None
+        log("   fold " + json.dumps({k: out[k] for k in ("fold_ms", "fold_device_ms", "fold_device_events")}))
+    finally:
+        for pending in booting.values():
+            try:
+                pending.result().stop(15)
+            except Exception:  # noqa: BLE001 - a boot that failed has nothing to stop
+                pass
+        boots.shutdown()
+        root.cleanup()
+    out["launches"] = read_counts(torch, counters)
+    check(not any(out["launches"].values()), f"phase 23 launched {out['launches']}")
+    return out
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -5976,6 +6367,12 @@ def main(argv=None) -> int:
         "--tenancy-only",
         action="store_true",
         help="phases 1-2, then phase 22 (multi-tenant serving), then the device times and the report",
+    )
+    parser.add_argument(
+        "--fleet-only",
+        action="store_true",
+        help="phases 1-2, then phase 23 (the fleet and the scenario runner) over "
+        "tenant windows made here, then the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -6100,6 +6497,15 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"tenancy": {k: v for k, v in report["tenancy"].items() if k != "rounds"}}))
+        return 0
+
+    if args.fleet_only:
+        with Phase("fleet and scenario runner", walls):
+            report["fleet"] = serve_fleet(torch, device, counters, tenant_state_windows())
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"fleet": report["fleet"]}))
         return 0
 
     if args.cluster_only:
@@ -6262,6 +6668,15 @@ def main(argv=None) -> int:
         )
         del raw
 
+    # phase 21's application in simulator mode starts now, in a process of
+    # its own: its startSimulation (the simulation and its hourly slots'
+    # aggregations, host work on one core) runs beside phases 17-20, and
+    # phase 21 reads its answers
+    with Phase("simulator app start", walls):
+        sim_root = tempfile.TemporaryDirectory(prefix="chip_smoke_simapp_")
+        sim_app = SimulatorApp(mesh_yaml(), sim_root.name)
+        atexit.register(sim_app.served.kill)
+
     # phases 17 and 18 too: the application, then the GAT head (whose own
     # profiler session comes last in it)
     with Phase("application", walls):
@@ -6293,20 +6708,34 @@ def main(argv=None) -> int:
     with Phase("telemetry", walls):
         report["telemetry"] = serve_telemetry(torch, device, proc, feed)
 
-    # and phase 21, the simulator
+    # and phase 21, the simulator, whose application has been simulating
+    # since before phase 17
     with Phase("simulator", walls):
-        report["simulator"] = simulate(torch, device, counters, jobs)
+        report["simulator"] = simulate(torch, device, counters, jobs, app=sim_app)
+    sim_root.cleanup()
 
     # and phase 22, multi-tenant serving (its control folds use phase 12's
     # STLGT head)
+    tenant_windows: dict = {}
     with Phase("multi-tenant serving", walls):
         stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
         try:
-            report["tenancy"] = serve_tenancy(torch, device, counters, jobs)
+            report["tenancy"] = serve_tenancy(torch, device, counters, jobs, windows_out=tenant_windows)
         finally:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
         tenancy_launches = report["tenancy"]["launches"]
+
+    # and phase 23, the fleet and the scenario runner, over phase 22's
+    # tenant windows (its ticks fold no hour with STLGT either)
+    with Phase("fleet and scenario runner", walls):
+        stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
+        try:
+            report["fleet"] = serve_fleet(torch, device, counters, tenant_windows)
+        finally:
+            if stlgt_env is not None:
+                os.environ["KMAMIZ_STLGT"] = stlgt_env
+        del tenant_windows
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(

@@ -26,9 +26,13 @@ defaults: a replay rebuilds at most the newest 192-256 MiB of payloads.
 On with ``KMAMIZ_WAL=1`` (directory ``KMAMIZ_WAL_DIR``,
 ``./kmamiz-data/wal``); off by default, so the fsync per ingest is
 opt-in. A non-default tenant logs under ``<dir>/tenants/<tenant>`` and
-replays on its own. Left out: the fleet migration's handoff export and
-import (the fleet harness), and `truncate` and `record_count`, which only
-those call.
+replays on its own.
+
+The fleet's live migration ships a tenant's log as one handoff blob
+(`export_handoff`): the magic ``KMHO\\x01\\0\\0\\0`` followed by the
+records' v2 frames, segment boundaries collapsed, so the importing worker
+(`import_handoff`) lays out segments of its own. The blob's bytes are the
+JAX package's for the same records, and each package imports the other's.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ logger = logging.getLogger("kmamiz_tpu_torch.resilience.wal")
 _HEADER = struct.Struct("<II")  # v1: payload_len, crc32
 _HEADER_V2 = struct.Struct("<IIB")  # payload_len, crc32, kind
 _SEGMENT_MAGIC = b"KMWL\x02\x00\x00\x00"
+# the fleet migration's handoff blob: this magic, then v2 record frames
+_HANDOFF_MAGIC = b"KMHO\x01\x00\x00\x00"
 
 #: record wire-format kinds (the v2 frame's kind byte)
 KIND_JSON = 0
@@ -243,6 +249,71 @@ class IngestWAL:
                     "wal: %d trailing bytes in %s, stopping replay", len(data) - offset, segment.name
                 )
                 return
+
+    def record_count(self) -> int:
+        return sum(1 for _ in self.replay())
+
+    # -- fleet migration handoff ---------------------------------------------
+
+    def export_handoff(self) -> bytes:
+        """Every durable record as one shippable blob: the handoff magic,
+        then v2 frames. Built through replay_records, so a torn tail on
+        the source is already dropped: the blob carries only the records
+        a local crash replay would keep (the target must not rebuild MORE
+        state than the source would after a kill -9)."""
+        parts = [_HANDOFF_MAGIC]
+        for kind, payload in self.replay_records():
+            parts.append(_HEADER_V2.pack(len(payload), zlib.crc32(payload), kind))
+            parts.append(payload)
+        return b"".join(parts)
+
+    def import_handoff(self, data: bytes) -> int:
+        """Append a shipped handoff blob's records to this WAL, oldest
+        first; returns how many were imported. The stop-clean contract of
+        replay_records: a torn tail (the source died mid-export, a cut
+        transfer) imports the intact prefix, and a crc mismatch or a kind
+        byte that contradicts its payload stops at the last good record.
+        A missing magic is a protocol error (the wrong endpoint, not a torn
+        stream) and raises ValueError."""
+        if data[: len(_HANDOFF_MAGIC)] != _HANDOFF_MAGIC:
+            raise ValueError("handoff blob missing KMHO magic")
+        offset = len(_HANDOFF_MAGIC)
+        imported = 0
+        while offset + _HEADER_V2.size <= len(data):
+            length, crc, kind = _HEADER_V2.unpack_from(data, offset)
+            start = offset + _HEADER_V2.size
+            end = start + length
+            if end > len(data):
+                logger.warning("wal: torn handoff record at +%d, stopping import", offset)
+                return imported
+            payload = data[start:end]
+            if zlib.crc32(payload) != crc:
+                logger.warning("wal: handoff crc mismatch at +%d, stopping import", offset)
+                return imported
+            if kind not in (KIND_JSON, KIND_COLUMNAR) or (kind == KIND_COLUMNAR) != _is_columnar(payload):
+                logger.warning(
+                    "wal: handoff kind byte %d contradicts payload at +%d, stopping import", kind, offset
+                )
+                return imported
+            self.append(payload, kind)
+            imported += 1
+            offset = end
+        if offset != len(data):
+            logger.warning("wal: %d trailing handoff bytes, stopping import", len(data) - offset)
+        return imported
+
+    def truncate(self) -> None:
+        """Drop every segment (a migration's target starts its tenant's
+        namespace clean before the import)."""
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+            for segment in self._segments_locked():
+                try:
+                    segment.unlink()
+                except OSError:
+                    pass
 
     def bytes_on_disk(self) -> int:
         with self._lock:

@@ -56,9 +56,20 @@ defer the tenant's last good payload marked `deferred` (and the
 X-KMamiz-Control header); a tick with "priority": "high" always runs.
 /timings carries `tenancy` and `control`, /metrics the tenant labels.
 
-Left out of the JAX server: the /fleet/* routes (the fleet harness), and
-the /timings sections of unported parts (programs, cost, fleet,
-lockWitness).
+The fleet's routes, per tenant (the /t/<tenant>/ prefix or the header),
+as the JAX server has them: GET /fleet/signature (the tenant's graph
+signature), /fleet/export (its edges by endpoint name, for the
+coordinator's fold) and /fleet/wal (its WAL as one handoff blob, 409 with
+the WAL off); POST /fleet/drain (the stage fence, then the pre-drain
+signature and durable record count), /fleet/wal-import (the blob replayed
+into a new processor that waits, staged, for the commit), /fleet/wal-commit
+(the staged runtime installed into the router), /fleet/wal-abort (the
+staged runtime dropped) and /fleet/drop (the migrated-away tenant's
+runtime forgotten). /timings carries `fleet`.
+
+Left out of the JAX server: the /timings sections of parts the port does
+not have (programs and cost: nothing is compiled per shape; lockWitness:
+the lock witness is not ported).
 """
 from __future__ import annotations
 
@@ -71,11 +82,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
 from kmamiz_tpu_torch import control as ctl_plane
+from kmamiz_tpu_torch import fleet as fleet_mod
 from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.analysis import guards
 from kmamiz_tpu_torch.core import wire
 from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.device import DeviceLike
+from kmamiz_tpu_torch.graph.store import graph_signature
 from kmamiz_tpu_torch.ops.segment_stats import segment_stats
 from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.resilience.watchdog import (
@@ -257,6 +270,14 @@ def make_handler(
 
         router = TickRouter(_factory, batch_window_ms=batch_window_ms)
 
+    # the fleet migration's two-phase import: /fleet/wal-import replays the
+    # shipped blob into a runtime that waits here; only the coordinator's
+    # /fleet/wal-commit, after its check, installs it into the router (an
+    # aborted handoff drops it by /fleet/wal-abort, the tenant's live
+    # runtime never touched)
+    pending_lock = threading.Lock()
+    pending_imports: dict = {}
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -337,8 +358,12 @@ def make_handler(
                         "control": ctl_plane.snapshot(),
                         "freshness": tel_freshness.snapshot(),
                         "stream": stream_mod.stats(),
+                        "fleet": fleet_mod.snapshot(),
                     },
                 )
+                return
+            if path.startswith("/fleet/"):
+                self._fleet_get(tenant, path)
                 return
             if path == "/debug/traces":
                 # POSTing this body back to /ingest builds the pipeline's
@@ -390,6 +415,9 @@ def make_handler(
             path = path.split("?", 1)[0].rstrip("/")
             if path == "/debug/profile":
                 self._profile(raw)
+                return
+            if path.startswith("/fleet/"):
+                self._fleet_post(tenant, path, raw)
                 return
             if path not in ("", "/ingest"):
                 self._send_json(404, {"error": f"no route {self.path}"})
@@ -543,6 +571,95 @@ def make_handler(
                 self._send_json(500, {"error": str(e)})
                 return
             self._send_json(200, summary)
+
+        def _fleet_get(self, tenant: str, path: str) -> None:
+            """GET /fleet/signature, /fleet/export and /fleet/wal of the
+            tenant's runtime."""
+            if path not in ("/fleet/signature", "/fleet/export", "/fleet/wal"):
+                self._send_json(404, {"error": f"no route {self.path}"})
+                return
+            rt = self._runtime(tenant)
+            if rt is None:
+                return
+            if path == "/fleet/signature":
+                # the migration's bit-exactness oracle
+                self._send_json(200, {"tenant": tenant, "signature": graph_signature(rt.processor.graph)})
+            elif path == "/fleet/export":
+                # edges by endpoint name, for the coordinator's fold
+                self._send_json(200, rt.processor.graph.export_named_edges())
+            else:
+                wal = rt.processor.wal
+                if wal is None:
+                    self._send_json(409, {"error": "WAL disabled (KMAMIZ_WAL=0): no handoff"})
+                    return
+                self._send_bytes(200, wal.export_handoff(), "application/octet-stream")
+
+        def _fleet_post(self, tenant: str, path: str, raw: bytes) -> None:
+            """The migration's steps on this worker: POST /fleet/drain (the
+            source), /fleet/wal-import, /fleet/wal-commit, /fleet/wal-abort
+            (the target) and /fleet/drop (the source after the flip)."""
+            if path == "/fleet/drain":
+                rt = self._runtime(tenant)
+                if rt is None:
+                    return
+                rt.processor.graph.stage_fence()
+                wal = rt.processor.wal
+                self._send_json(
+                    200,
+                    {
+                        "tenant": tenant,
+                        "signature": graph_signature(rt.processor.graph),
+                        "walRecords": wal.record_count() if wal is not None else 0,
+                    },
+                )
+            elif path == "/fleet/wal-import":
+                # a new processor and WAL namespace replay the shipped blob
+                # in order; the runtime stages until /fleet/wal-commit
+                proc = processor.sibling_for_tenant(tenant)
+                if proc.wal is None:
+                    self._send_json(409, {"error": "WAL disabled (KMAMIZ_WAL=0): no import"})
+                    return
+                try:
+                    proc.wal.truncate()
+                    records = proc.wal.import_handoff(raw)
+                    replayed = proc.replay_wal()
+                except ValueError as e:
+                    self._send_json(400, {"error": str(e)})
+                    return
+                with pending_lock:
+                    stale = pending_imports.pop(tenant, None)
+                    pending_imports[tenant] = _make_runtime(tenant, proc)
+                if stale is not None and stale.processor.wal is not None and stale.processor.wal is not proc.wal:
+                    stale.processor.wal.close()
+                self._send_json(
+                    200,
+                    {
+                        "tenant": tenant,
+                        "records": records,
+                        "replayed": replayed["replayed"],
+                        "spans": replayed["spans"],
+                        "signature": graph_signature(proc.graph),
+                    },
+                )
+            elif path == "/fleet/wal-commit":
+                with pending_lock:
+                    rt = pending_imports.pop(tenant, None)
+                if rt is None:
+                    self._send_json(409, {"error": f"no pending import for tenant {tenant!r}"})
+                    return
+                router.install_runtime(tenant, rt)
+                self._send_json(200, {"tenant": tenant, "installed": True})
+            elif path == "/fleet/wal-abort":
+                with pending_lock:
+                    rt = pending_imports.pop(tenant, None)
+                if rt is not None and rt.processor.wal is not None:
+                    rt.processor.wal.close()
+                self._send_json(200, {"tenant": tenant, "dropped": rt is not None})
+            elif path == "/fleet/drop":
+                # exactly one worker keeps the migrated tenant's live state
+                self._send_json(200, {"tenant": tenant, "dropped": router.drop_runtime(tenant)})
+            else:
+                self._send_json(404, {"error": f"no route {self.path}"})
 
         def _profile(self, raw: bytes) -> None:
             """POST /debug/profile: a torch.profiler capture of

@@ -175,12 +175,13 @@ class StreamEngine:
         return responses
 
 
-def engine_for(processor, watchdog=None) -> StreamEngine:
-    """The processor's engine, attached on first use; a watchdog given
-    later fills an engine that has none."""
+def engine_for(processor, watchdog=None, epoch_ticks: int = EPOCH_TICKS) -> StreamEngine:
+    """The processor's engine, attached on first use (with `epoch_ticks`:
+    the scenario runner attaches one before the DP server serves); a
+    watchdog given later fills an engine that has none."""
     eng = getattr(processor, "_stream_engine", None)
     if eng is None:
-        eng = StreamEngine(processor, watchdog=watchdog)
+        eng = StreamEngine(processor, watchdog=watchdog, epoch_ticks=epoch_ticks)
         processor._stream_engine = eng
     elif watchdog is not None and eng.watchdog is None:
         eng.watchdog = watchdog

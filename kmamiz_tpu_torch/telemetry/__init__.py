@@ -1,7 +1,6 @@
 """graftscope: the port's self-tracing telemetry.
 
-Counterpart of kmamiz_tpu/telemetry/ (its fleet scrape waits for the
-fleet harness). The parts:
+Counterpart of kmamiz_tpu/telemetry/. The parts:
 
 - `registry`  — the unified metrics registry (counters / gauges /
   fixed-bucket histograms, preallocated handles, Prometheus text
@@ -17,6 +16,7 @@ fleet harness). The parts:
 - `profiling` — graftprof: the lock-free host event ring, native
   parse/merge contention counters, device attribution, and the
   SLO-breach flight recorder (`GET /debug/graftprof`).
+- `fleetscrape` — the fleet's workers' /metrics pages merged into one.
 
 `KMAMIZ_TELEMETRY=0` disables span capture; the metrics registry stays
 live regardless (the resilience counters and `/timings` ride on it).

@@ -20,9 +20,11 @@ The debounce reads `clock` (time.monotonic), which a test replaces with
 a fake clock: the JAX package's debounce test, on the real clock, can
 lose its window to a slow host.
 
-The JAX recorder's per-caller namespaces (the soak harness's
-``flight-<namespace>-*.json``, with their own debounce and retention)
-wait for that harness.
+A caller may pass ``namespace`` (the scenario runner passes
+``<archetype>-<seed>``) to get ``flight-<namespace>-*.json`` names, with
+the debounce and the retention applied per namespace: two scenario cells
+that fail back to back never evict or suppress each other's evidence.
+Artifacts without a namespace form a group of their own.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import os
 import re
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.telemetry import slo, tracing
@@ -48,11 +50,12 @@ ARTIFACT_VERSION = 1
 clock: Callable[[], float] = time.monotonic
 
 _lock = threading.Lock()
-_last_dump: Optional[float] = None
+#: namespace (None: the un-namespaced group) -> the clock of its last dump
+_last_dump_by_ns: Dict[Optional[str], float] = {}
 _seq = itertools.count(1)
 
 _SAFE_TRIGGER = re.compile(r"[^A-Za-z0-9_.-]+")
-#: an artifact's name: flight-<epoch ms>-<seq>-<slug>.json
+#: an un-namespaced artifact's name: flight-<epoch ms>-<seq>-<slug>.json
 _NAME = re.compile(r"^flight-\d{13}-.*\.json$")
 
 
@@ -85,46 +88,68 @@ def build_artifact(trigger: str, detail: str = "") -> dict:
     }
 
 
-def record(trigger: str, detail: str = "", force: bool = False) -> Optional[str]:
+def record(trigger: str, detail: str = "", force: bool = False, namespace: Optional[str] = None) -> Optional[str]:
     """Dump a flight artifact; returns its path, or None when skipped
     (profiling off, debounced) or failed. NEVER raises — the trigger
-    sites are the resilience layer's own failure paths."""
+    sites are the resilience layer's own failure paths. ``namespace``
+    gives a caller its own file-name prefix, debounce clock and
+    retention budget."""
     try:
-        return _record(trigger, detail, force)
+        return _record(trigger, detail, force, namespace)
     except Exception as exc:  # noqa: BLE001 - the recorder must not re-fail a failure path
         logger.warning("flight recorder dump failed: %s", exc)
         return None
 
 
-def _record(trigger: str, detail: str, force: bool) -> Optional[str]:
-    global _last_dump
+def _safe_namespace(namespace: Optional[str]) -> Optional[str]:
+    if namespace is None:
+        return None
+    ns = _SAFE_TRIGGER.sub("-", str(namespace)).strip("-")
+    # a purely numeric namespace could read as the un-namespaced names'
+    # epoch-ms stamp: anchor it with a letter
+    return f"ns-{ns}" if not ns or ns.isdigit() else ns
+
+
+def _record(trigger: str, detail: str, force: bool, namespace: Optional[str]) -> Optional[str]:
     events.refresh_from_env()
     if not events.prof_enabled() and not force:
         return None
+    ns = _safe_namespace(namespace)
     now = clock()
     with _lock:
-        if not force and _last_dump is not None and (now - _last_dump) < config.prof_flight_debounce_s():
+        last = _last_dump_by_ns.get(ns)
+        if not force and last is not None and (now - last) < config.prof_flight_debounce_s():
             return None
-        _last_dump = now
+        _last_dump_by_ns[ns] = now
         seq = next(_seq)
     artifact = build_artifact(trigger, detail)
+    if ns is not None:
+        artifact["namespace"] = ns
     out_dir = config.prof_flight_dir()
     os.makedirs(out_dir, exist_ok=True)
     slug = _SAFE_TRIGGER.sub("-", trigger) or "trigger"
-    path = os.path.join(out_dir, f"flight-{int(events.wall_ms()):013d}-{seq:04d}-{slug}.json")
+    stamp = f"{int(events.wall_ms()):013d}-{seq:04d}-{slug}.json"
+    path = os.path.join(out_dir, f"flight-{ns}-{stamp}" if ns is not None else f"flight-{stamp}")
     tmp = path + ".tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(artifact, f, separators=(",", ":"))
     os.replace(tmp, path)
-    _prune(out_dir)
+    _prune(out_dir, ns)
     return path
 
 
-def _prune(out_dir: str) -> None:
-    """Bounded retention: keep the newest KMAMIZ_PROF_FLIGHT_MAX
-    artifacts (their timestamped names sort chronologically)."""
+def _prune(out_dir: str, namespace: Optional[str] = None) -> None:
+    """Bounded retention per namespace: keep the newest
+    KMAMIZ_PROF_FLIGHT_MAX artifacts of the record's namespace (their
+    timestamped names sort chronologically within one namespace); the
+    un-namespaced artifacts are a group of their own."""
+    prefix = "flight-" if namespace is None else f"flight-{namespace}-"
+
+    def mine(name: str) -> bool:
+        return name.startswith(prefix) and bool(_NAME.match("flight-" + name[len(prefix):]))
+
     try:
-        names = sorted(n for n in os.listdir(out_dir) if _NAME.match(n))
+        names = sorted(n for n in os.listdir(out_dir) if mine(n))
     except OSError:
         return
     keep = config.prof_flight_max()
@@ -136,7 +161,7 @@ def _prune(out_dir: str) -> None:
 
 
 def reset_for_tests() -> None:
-    global _seq, _last_dump
+    global _seq
     with _lock:
-        _last_dump = None
+        _last_dump_by_ns.clear()
         _seq = itertools.count(1)

@@ -5,8 +5,10 @@ the graph scorers on the card against the CPU (with no host sync in the
 ops, and the store's incremental splice bit-exact), a raw window
 ingested on the card against the CPU, and the streaming ingest: a staged
 stream on the card against the CPU, the upload pipeline's bound on the
-groups in flight, and staging without a synchronising call; and
-train_on_simulation on the card against the CPU.
+groups in flight, and staging without a synchronising call;
+train_on_simulation on the card against the CPU; and a two-worker fleet
+on the card (a migration bit-equal to its source, a fold equal to the
+CPU's) and a scenario soak on the card, launching no kernel.
 
 These tests need a card and skip inside the test without one. They import
 neither jax nor the JAX package, so on a machine with a card and without
@@ -1083,3 +1085,68 @@ def test_train_on_simulation_on_card_launches_kernel_2_and_matches_cpu(card):
     for a, b in zip(got.params, want.params):
         if b is not None:
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3, atol=1e-5)
+
+
+def _fleet_window(tenant, tick):
+    import random
+
+    from kmamiz_tpu_torch.scenarios.topology import sample_topology, trace_group
+
+    topo = sample_topology("fanout", random.Random(5), f"cf-{tenant}")
+    return json.dumps([trace_group(topo, f"cf-{tenant}", tick, i) for i in range(4)]).encode()
+
+
+def _launches():
+    return (
+        ss.segment_stats.launches,
+        sparse.fused_sddmm_spmm.launches,
+        sparse.fused_sddmm_spmm_grad_edges.launches,
+        sparse.fused_sddmm_spmm_grad_rows.launches,
+    )
+
+
+@pytest.mark.cuda
+def test_a_card_fleet_migrates_bit_exact_and_folds_as_the_cpu(card, tmp_path):
+    from kmamiz_tpu_torch.fleet.coordinator import FleetCoordinator, LocalTransport
+    from kmamiz_tpu_torch.fleet.migration import migrate_tenant
+    from kmamiz_tpu_torch.fleet.ring import HashRing
+    from kmamiz_tpu_torch.fleet.worker import FleetWorker
+    from kmamiz_tpu_torch.graph.store import EndpointGraph
+
+    ring = HashRing(["w0", "w1"])
+    workers = {w: FleetWorker(w, wal_root=str(tmp_path / "wal"), device=card) for w in ring.workers}
+    coord = FleetCoordinator(ring, LocalTransport(workers))
+    tenants = ["alpha", "beta", "gamma"]
+    for tick in range(3):
+        for t in tenants:
+            assert coord.route_ingest(t, _fleet_window(t, tick))["spans"] > 0
+    source = coord.owner("alpha")
+    target = next(w for w in ring.workers if w != source)
+    pre = workers[source].signature("alpha")
+    out = migrate_tenant(coord, "alpha", target)
+    assert out["ok"] and out["signature"] == pre == workers[target].signature("alpha")
+    assert workers[target].processor("alpha").graph.device.type == "cuda"
+    assert "alpha" not in workers[source].tenants()
+    # the fold on the card against a fold of the same exports on the CPU
+    exports = [workers[coord.owner(t)].export_edges(t) for t in tenants]
+    card_agg = EndpointGraph(device=card, tenant="card-aggregate")
+    cpu_agg = EndpointGraph(device="cpu", tenant="cpu-aggregate")
+    assert coord.fold(tenants, card_agg) == sum(cpu_agg.fold_named_edges(e) for e in exports)
+    assert card_agg.n_edges == cpu_agg.n_edges == sum(len(e["src"]) for e in exports)
+    assert graph_signature(card_agg) == graph_signature(cpu_agg)
+    assert card_agg.export_named_edges() == cpu_agg.export_named_edges()
+
+
+@pytest.mark.cuda
+def test_a_steady_chain_soak_on_card_launches_no_kernel_and_equals_cpu(card, tmp_path, monkeypatch):
+    from kmamiz_tpu_torch.scenarios import build_scenario, run_scenario
+
+    monkeypatch.setenv("KMAMIZ_PROF_FLIGHT_DIR", str(tmp_path / "flight"))
+    spec = build_scenario("steady-chain", 0, 0, 4)
+    before = _launches()
+    on_card = run_scenario(spec, tmpdir=str(tmp_path / "card"), device=card)
+    torch.cuda.synchronize()
+    assert _launches() == before  # device statistics off: no kernel on this path
+    on_cpu = run_scenario(spec, tmpdir=str(tmp_path / "cpu"), device="cpu")
+    assert on_card["pass"] and on_cpu["pass"], (on_card["gates"], on_cpu["gates"])
+    assert on_card["signatures"] == on_cpu["signatures"] == on_card["ref_signatures"]

@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 140
+    assert len(names) >= 151
     assert {
         "kmamiz_tpu_torch.native",
         "kmamiz_tpu_torch.ops.host_build",
@@ -70,6 +70,17 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.scenarios.factory",
         "kmamiz_tpu_torch.scenarios.labeled",
         "kmamiz_tpu_torch.scenarios.runner",
+        "kmamiz_tpu_torch.fleet",
+        "kmamiz_tpu_torch.fleet.ring",
+        "kmamiz_tpu_torch.fleet.worker",
+        "kmamiz_tpu_torch.fleet.coordinator",
+        "kmamiz_tpu_torch.fleet.migration",
+        "kmamiz_tpu_torch.fleet.placement",
+        "kmamiz_tpu_torch.fleet.soak",
+        "kmamiz_tpu_torch.soak",
+        "kmamiz_tpu_torch.soak.walreplay",
+        "kmamiz_tpu_torch.soak.capture",
+        "kmamiz_tpu_torch.telemetry.fleetscrape",
     } <= set(names)
 
 
@@ -143,3 +154,18 @@ def test_training_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinualTrainer()
     assert ContinualTrainer(device="cpu").device.type == "cpu"
+
+
+def test_fleet_and_runner_entry_points_raise_without_a_card(no_card, tmp_path):
+    from kmamiz_tpu_torch.fleet import worker
+    from kmamiz_tpu_torch.scenarios import build_scenario, run_counterfactual, run_scenario
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        worker.FleetWorker("w0", wal_root=str(tmp_path)).processor("alpha")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        worker.main(["--worker-id", "w0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(build_scenario("steady-chain", 0, 0, 2), tmpdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_counterfactual(n_ticks=2)
+    assert worker.FleetWorker("w0", device="cpu").processor("alpha").device.type == "cpu"

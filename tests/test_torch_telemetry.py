@@ -535,7 +535,7 @@ def test_dp_metrics_timings_and_traces(dp):
         "phases", "programs", "resilience", "tenancy", "tenants", "control",
         "cost", "freshness", "stream", "fleet", "lockWitness",
     }
-    assert set(timings) == jax_sections - {"programs", "cost", "fleet", "lockWitness"}
+    assert set(timings) == jax_sections - {"programs", "cost", "lockWitness"}
     assert timings["tenants"]["default"]["ticks"] == 1 and timings["freshness"]["samples"] == 1
     with urllib.request.urlopen(f"http://127.0.0.1:{dp.port}/debug/traces", timeout=30) as resp:
         export = json.loads(resp.read())
