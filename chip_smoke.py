@@ -331,6 +331,29 @@ Phases, each timed:
    prevented (walls, p50/p99 ticks). No hand-written kernel runs in the
    phase (device statistics off, the counterfactual's forecast given):
    every launch counter must read 0.
+24. the soak sweep (after phase 23, before phase 14's profiler sessions):
+   (a) `python -m kmamiz_tpu_torch.tools.graftsoak --cells 48 --ticks 4
+   --workers 4 --poison 1` (the JAX package's acceptance sweep, cut from
+   200 cells to 48, its worker processes on the card): the report
+   complete with 48 cells,
+   a pass rate >= 0.9999, every failure triaged, exactly one poison cell
+   whose bug blames soak_poison, exit 0 iff soak_pass (the sweep's wall,
+   cells/min, the cells' p99 ticks, the card's memory with the workers
+   up); (b) a 12-cell sweep killed (SIGKILL to its process group) once 3
+   results have landed, resumed: exactly the remaining cells execute,
+   and a third run executes none and reproduces the report's
+   deterministic fields; (c) `scenario_soak --matrix 3 --ticks 6` on the
+   card: the matrix passes with no span lost; (d) graftprof's seeded
+   capture on the card, 4 collect ticks with device statistics on and
+   the raw-ingest leg: attribution >= 0.90, the ticks' answers equal a
+   CPU capture's (the tick's tolerances), the raw-ingest leg ran (not
+   skipped, not quarantined, its tick and native merge profiled) and
+   counted the CPU leg's spans, traces, endpoints and edges, the
+   segment-stats kernel launched 8 times (counted, and added to the
+   kernels line); `--diff`
+   of the capture against itself exits 0, and of (a)'s poison cell's
+   flight box against its archetype's baseline prints a blame block
+   naming soak_poison.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -350,7 +373,7 @@ runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 warm tick); with --simulator-only, phases 1-2 and then phase 21 alone;
 with --tenancy-only, phases 1-2 and then phase 22 alone; with
 --fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
-makes itself).
+makes itself); with --soak-only, phases 1-2 and then phase 24 alone.
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -6317,6 +6340,244 @@ def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
     return out
 
 
+#: (a): the JAX package's acceptance sweep has 200 cells; depth cut to 6
+#: seeds of each of the 8 archetypes (the least the sweep keeps) to hold
+#: the whole run near 900 s
+SOAK_CELLS = 48
+SOAK_TICKS = 4
+SOAK_WORKERS = 4
+SOAK_RESUME_CELLS = 12  # (b): the JAX kill-and-resume test's sweep
+SOAK_RESUME_AFTER = 3  # results landed before the kill
+SOAK_MATRIX = 3  # (c)
+SOAK_MATRIX_TICKS = 6
+PROF_CAPTURE_TICKS = 4  # (d)
+#: the report fields a resumed sweep must reproduce (tests/test_graftsoak.py)
+SOAK_DETERMINISTIC = ("cells", "bugs", "pass_rate", "triaged_fraction", "poison_cells", "soak_pass", "cells_total")
+
+
+class MemorySampler:
+    """The card's memory in use (nvidia-smi, every process's), sampled on a
+    thread until stopped: the peak, in MiB."""
+
+    def __init__(self, period_s: float = 0.5) -> None:
+        import threading
+
+        self.peak = gpu_memory_used_mib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(period_s,), daemon=True)
+        self._thread.start()
+
+    def _run(self, period_s: float) -> None:
+        while not self._stop.wait(period_s):
+            self.peak = max(self.peak, gpu_memory_used_mib())
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        return self.peak
+
+
+def graftsoak_args(cells: int, soak_dir: str, poison: int) -> list:
+    return [
+        "--cells", str(cells), "--ticks", str(SOAK_TICKS), "--workers", str(SOAK_WORKERS),
+        "--poison", str(poison), "--soak-dir", soak_dir,
+    ]
+
+
+def graftsoak_cmd(cells: int, soak_dir: str, poison: int) -> list:
+    return [sys.executable, "-m", "kmamiz_tpu_torch.tools.graftsoak", *graftsoak_args(cells, soak_dir, poison)]
+
+
+def run_graftsoak(cells: int, soak_dir: str, poison: int, log_path: str) -> tuple:
+    """One graftsoak process run to its end: (exit code, its report, host
+    wall s)."""
+    t0 = time.perf_counter()
+    with open(log_path, "a") as err:
+        proc = subprocess.run(graftsoak_cmd(cells, soak_dir, poison), cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(bool(lines), f"graftsoak printed no report (exit {proc.returncode}); see {log_path}")
+    return proc.returncode, json.loads(lines[-1]), wall
+
+
+def tool_main(main, argv) -> tuple:
+    """A tool's main(argv) in this process: (exit code, its last stdout
+    line as JSON)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    return code, json.loads(lines[-1])
+
+
+def serve_soak(torch, device, counters) -> dict:
+    """Phase 24, the soak sweep: (a) graftsoak's acceptance sweep (SOAK_CELLS
+    cells) with four worker processes on the card; (b) a 12-cell sweep killed
+    mid-run and resumed twice; (c) scenario_soak's 3-scenario matrix on
+    the card; (d) graftprof's capture on the card (kernel 1's launches
+    counted, the raw-ingest leg checked) against a CPU capture, and its --diff blame over (a)'s
+    poison cell."""
+    import signal
+
+    from kmamiz_tpu_torch.soak import SoakManifest
+    from kmamiz_tpu_torch.tools import graftprof, graftsoak, scenario_soak
+
+    out: dict = {}
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_soak_")
+    try:
+        # (a) the acceptance sweep
+        sweep_dir = os.path.join(root.name, "sweep")
+        log_path = os.path.join(root.name, "graftsoak.log")
+        mem = MemorySampler()
+        mem_before = mem.peak
+        code, report, wall = run_graftsoak(SOAK_CELLS, sweep_dir, 1, log_path)
+        mem_peak = mem.stop()
+        results = SoakManifest(sweep_dir).load_results()
+        p99 = sorted(r["p99_tick_ms"] for r in results.values() if not r["poison"])
+        sweep = {
+            "cells_total": report["cells_total"],
+            "cells_executed": report["cells_executed"],
+            "pass_rate": report["pass_rate"],
+            "triaged_fraction": report["triaged_fraction"],
+            "soak_pass": report["soak_pass"],
+            "exit_code": code,
+            "poison_cells": report["poison_cells"],
+            "bugs": [{k: b[k] for k in ("signature", "count", "cells")} for b in report["bugs"]],
+            "wall_s": report["wall_s"],
+            "host_wall_s": round(wall, 2),
+            "cells_per_min": report["cells_per_min"],
+            "p99_tick_ms": {"min": p99[0], "median": statistics.median(p99), "max": p99[-1]} if p99 else None,
+            "cell_wall_s": statistics.median(r["wall_s"] for r in results.values()) if results else None,
+            "gpu_memory_used_mib": {"before": mem_before, "peak_with_workers": mem_peak},
+        }
+        out["sweep"] = sweep
+        log("   (a) " + json.dumps(sweep))
+        check(report["complete"] and report["cells_total"] == SOAK_CELLS, f"sweep incomplete: {report['cells_finished']}/{report['cells_total']}")
+        check(report["pass_rate"] >= 0.9999, f"pass rate {report['pass_rate']}: {report['failures']}")
+        check(report["triaged_fraction"] == 1.0, f"triaged fraction {report['triaged_fraction']}")
+        check(len(report["poison_cells"]) == 1, f"poison cells {report['poison_cells']}")
+        poison_bug = [b for b in report["bugs"] if b["blamed_gate"] == "soak_poison"]
+        check(bool(poison_bug) and poison_bug[0]["cells"] == report["poison_cells"], f"poison bug {report['bugs']}")
+        check((code == 0) == report["soak_pass"] and report["soak_pass"], f"exit {code}, soak_pass {report['soak_pass']}")
+        check(mem_peak - mem_before >= 1024, f"the workers held {mem_peak - mem_before} MiB of the card")
+
+        # (b) kill -9 mid-sweep, then resume
+        resume_dir = os.path.join(root.name, "resume")
+        with open(log_path, "a") as err:
+            killed = subprocess.Popen(
+                graftsoak_cmd(SOAK_RESUME_CELLS, resume_dir, 0), cwd=REPO,
+                stdout=subprocess.DEVNULL, stderr=err, start_new_session=True,
+            )
+        man = SoakManifest(resume_dir)
+        deadline = time.time() + 240
+        try:
+            while time.time() < deadline and len(man.load_results()) < SOAK_RESUME_AFTER and killed.poll() is None:
+                time.sleep(0.1)
+        finally:
+            os.killpg(killed.pid, signal.SIGKILL)
+            killed.wait()
+        done_before = set(man.load_results())
+        in_flight = len(os.listdir(man.claims_dir)) - len(done_before)
+        check(SOAK_RESUME_AFTER <= len(done_before) < SOAK_RESUME_CELLS, f"{len(done_before)} cells before the kill")
+        # the resume and the third run through the tool's main() in this
+        # process (its workers are processes of their own): no interpreter
+        # start of their own
+        t0 = time.perf_counter()
+        code, resumed = tool_main(graftsoak.main, graftsoak_args(SOAK_RESUME_CELLS, resume_dir, 0))
+        resume_wall = time.perf_counter() - t0
+        check(code == 0 and resumed["complete"] and resumed["cells_total"] == SOAK_RESUME_CELLS, f"resume: exit {code}")
+        check(resumed["cells_executed"] == SOAK_RESUME_CELLS - len(done_before), f"resume executed {resumed['cells_executed']}")
+        after = man.load_results()
+        check(all(after[c]["run_id"] != resumed["run_id"] for c in done_before), "the resume re-ran a finished cell")
+        t0 = time.perf_counter()
+        code, again = tool_main(graftsoak.main, graftsoak_args(SOAK_RESUME_CELLS, resume_dir, 0))
+        again_wall = time.perf_counter() - t0
+        check(code == 0 and again["cells_executed"] == 0, f"third run: exit {code}, executed {again['cells_executed']}")
+        for key in SOAK_DETERMINISTIC:
+            check(again[key] == resumed[key], f"the third run's {key} differs")
+        out["resume"] = {
+            "done_before_kill": len(done_before),
+            "in_flight_at_kill": in_flight,
+            "resume_executed": resumed["cells_executed"],
+            "third_executed": again["cells_executed"],
+            "resume_wall_s": round(resume_wall, 2),
+            "third_wall_s": round(again_wall, 2),
+        }
+        log("   (b) " + json.dumps(out["resume"]))
+
+        # (c) the scenario matrix on the card
+        t0 = time.perf_counter()
+        code, matrix = tool_main(scenario_soak.main, ["--matrix", str(SOAK_MATRIX), "--ticks", str(SOAK_MATRIX_TICKS)])
+        out["matrix"] = {
+            "exit_code": code,
+            "wall_s": round(time.perf_counter() - t0, 2),
+            **{k: v for k, v in matrix.items() if k != "scenarios"},
+            "cards": {c["name"]: {k: c[k] for k in ("wall_s", "p99_tick_ms", "posts")} for c in matrix["scenarios"]},
+        }
+        log("   (c) " + json.dumps(out["matrix"]))
+        check(code == 0 and matrix["scenario_matrix_pass"], f"scenario matrix: {[c['gates'] for c in matrix['scenarios']]}")
+        check(matrix["scenario_lost_spans"] == 0 and len(matrix["scenarios"]) == SOAK_MATRIX, f"matrix lost {matrix['scenario_lost_spans']}")
+
+        # (d) graftprof: the capture on the card, its answers against a CPU
+        # capture's, and the diffs
+        cap = os.path.join(root.name, "capture.json")
+        answers, cpu_answers, ingest, cpu_ingest = [], [], [], []
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        profile = graftprof.capture(cap, ticks=PROF_CAPTURE_TICKS, device=device, answers=answers, ingest=ingest)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches = read_counts(torch, counters)
+        graftprof.capture(
+            os.path.join(root.name, "capture_cpu.json"), ticks=PROF_CAPTURE_TICKS, device="cpu",
+            answers=cpu_answers, ingest=cpu_ingest,
+        )
+        check(len(answers) == len(cpu_answers) == PROF_CAPTURE_TICKS, f"{len(answers)} capture answers")
+        for got, want in zip(answers, cpu_answers):
+            compare_ticks(got, want)
+        # the raw-ingest leg ran on the card (the tool skips it on a
+        # ValueError), counted what the CPU's counted, and is profiled
+        check(len(ingest) == len(cpu_ingest) == 1, f"the raw-ingest leg was skipped: {len(ingest)}/{len(cpu_ingest)} summaries")
+        leg = {k: v for k, v in ingest[0].items() if k != "ms"}
+        check(leg["spans"] > 0 and "quarantined" not in leg, f"the raw-ingest leg: {ingest[0]}")
+        check(leg == {k: v for k, v in cpu_ingest[0].items() if k != "ms"}, f"the raw-ingest leg {ingest[0]} against the CPU's {cpu_ingest[0]}")
+        check(profile["ticks"] == PROF_CAPTURE_TICKS + 1, f"the capture profiled {profile['ticks']} ticks")
+        check({"dp-ingest", "native-merge"} <= set(profile["phases"]), f"the capture's phases: {sorted(profile['phases'])}")
+        self_code, self_diff = tool_main(graftprof.main, ["--diff", cap, cap])
+        poison_id = report["poison_cells"][0]
+        poison = results[poison_id]
+        baseline = SoakManifest(sweep_dir).baseline_path(poison["archetype"])
+        blame_code, blame = tool_main(graftprof.main, ["--diff", baseline, poison["flight_artifact"]])
+        out["graftprof"] = {
+            "ticks": profile["ticks"],
+            "wall_ms": profile["wall_ms"],
+            "attribution_ratio": profile["attribution_ratio"],
+            "capture_s": round(capture_s, 3),
+            "ingest": ingest[0],
+            "launches": launches,
+            "self_diff_exit": self_code,
+            "blame_exit": blame_code,
+            "blame": blame.get("blame"),
+            "regressions": len(blame["regressions"]),
+        }
+        log("   (d) " + json.dumps(out["graftprof"]))
+        check(profile["attribution_ratio"] >= 0.90, f"attribution {profile['attribution_ratio']}")
+        check(launches["segment_stats"] == 2 * PROF_CAPTURE_TICKS, f"the capture launched segment_stats {launches['segment_stats']} times")
+        check(not any(v for k, v in launches.items() if k != "segment_stats"), f"the capture launched {launches}")
+        check(self_code == 0 and self_diff["regressions"] == [], f"the capture's self-diff: {self_diff}")
+        check(
+            blame.get("blame", {}).get("blamed_gate") == "soak_poison" and blame["blame"]["blamed_phase"] == "poison",
+            f"the poison cell's blame: {blame}",
+        )
+    finally:
+        root.cleanup()
+    out["launches"] = out["graftprof"]["launches"]
+    return out
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -6373,6 +6634,12 @@ def main(argv=None) -> int:
         action="store_true",
         help="phases 1-2, then phase 23 (the fleet and the scenario runner) over "
         "tenant windows made here, then the report",
+    )
+    parser.add_argument(
+        "--soak-only",
+        action="store_true",
+        help="phases 1-2, then phase 24 (the soak sweep, the scenario matrix and "
+        "graftprof over the port), then the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -6506,6 +6773,15 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"fleet": report["fleet"]}))
+        return 0
+
+    if args.soak_only:
+        with Phase("soak sweep", walls):
+            report["soak"] = serve_soak(torch, device, counters)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"soak": report["soak"]}))
         return 0
 
     if args.cluster_only:
@@ -6737,6 +7013,16 @@ def main(argv=None) -> int:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
         del tenant_windows
 
+    # and phase 24, the soak sweep (its scenarios fold no hour with STLGT)
+    with Phase("soak sweep", walls):
+        stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
+        try:
+            report["soak"] = serve_soak(torch, device, counters)
+        finally:
+            if stlgt_env is not None:
+                os.environ["KMAMIZ_STLGT"] = stlgt_env
+        soak_launches = report["soak"]["launches"]
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -6785,7 +7071,8 @@ def main(argv=None) -> int:
         }
 
     # launches: the segment-stats kernel on the tick path (phase 7's served
-    # ticks and phase 22's gathered rounds and fold ticks), the fused kernel
+    # ticks, phase 22's gathered rounds and fold ticks and phase 24's
+    # graftprof capture), the fused kernel
     # on the forecast path (phase 9, and phase 22's control folds), the
     # backward's row pass on the GraphSAGE training path and its SDDMM on
     # the STLGT path; the shown times are the
@@ -6795,7 +7082,9 @@ def main(argv=None) -> int:
         "kernels": [
             entry(
                 *kernels[0],
-                launches[ss.segment_stats.__name__] + tenancy_launches[ss.segment_stats.__name__],
+                launches[ss.segment_stats.__name__]
+                + tenancy_launches[ss.segment_stats.__name__]
+                + soak_launches[ss.segment_stats.__name__],
                 cases + raw_cases,
                 cases[2],
             ),

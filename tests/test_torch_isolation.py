@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 151
+    assert len(names) >= 162
     assert {
         "kmamiz_tpu_torch.native",
         "kmamiz_tpu_torch.ops.host_build",
@@ -81,6 +81,17 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.soak.walreplay",
         "kmamiz_tpu_torch.soak.capture",
         "kmamiz_tpu_torch.telemetry.fleetscrape",
+        "kmamiz_tpu_torch.cost",
+        "kmamiz_tpu_torch.cost.scenario",
+        "kmamiz_tpu_torch.soak.cells",
+        "kmamiz_tpu_torch.soak.engine",
+        "kmamiz_tpu_torch.soak.manifest",
+        "kmamiz_tpu_torch.soak.triage",
+        "kmamiz_tpu_torch.soak.worker",
+        "kmamiz_tpu_torch.tools",
+        "kmamiz_tpu_torch.tools.graftsoak",
+        "kmamiz_tpu_torch.tools.scenario_soak",
+        "kmamiz_tpu_torch.tools.graftprof",
     } <= set(names)
 
 
