@@ -8,7 +8,10 @@ Phases, each timed:
 1. card identity (nvidia-smi name and power limit);
 2. build every hand-written kernel from kmamiz_tpu_torch/csrc with nvcc
    (one process per source, all at once) and, beside them, the port's
-   native host library (csrc/*.cpp) with g++;
+   native host library (csrc/*.cpp) with g++ and the port's own lint of
+   this checkout: `python -m kmamiz_tpu_torch.tools.graftlint --strict`
+   and `... graftrace --strict`, each of which must exit 0 with 0
+   findings;
 3. the segment-stats kernel against its plain PyTorch version on card
    tensors, at the production window (2^20 spans, 10,000 endpoints x 8
    statuses) and at the Data Processor tick's own shape, both passes
@@ -21,8 +24,8 @@ Phases, each timed:
    beside the least time the card could take;
 4. state load: the endpoint graph built to BASELINE size on the card with
    EndpointGraph.merge_window (150,000 synthetic traces x 7 spans, 1,000
-   services x 10 urls, merged in chunks); its graph signature is kept
-   before any tick;
+   services x 10 urls, merged in chunks, the merge's wall); its graph
+   signature and its edges by name are kept before any tick;
 5. the fused SDDMM/SpMM kernel against its plain version on card tensors
    at the forecast's shapes: the BASELINE graph's edge columns (masked
    padding included) over node tables at the pow2 bucket of its
@@ -148,8 +151,9 @@ Phases, each timed:
    against the Python fold, equal results, beside the served ticks'
    combine_assemble;
 16. streaming ingest (run after phase 15, before phase 14's profiler
-   sessions): (a) phase 15 (c)'s window as bench.py's 4 chunks of 37,500
-   traces through DataProcessor.ingest_raw_stream into a persistent card
+   sessions; phase 24 (a)'s sweep runs beside it and is waited for
+   before phase 17): (a) phase 15 (c)'s window as bench.py's 4 chunks of
+   37,500 traces through DataProcessor.ingest_raw_stream into a persistent card
    processor on a virtual clock: the graph signature, endpoints and edges
    of 15 (c); beside it a twin that takes the same windows one shot; (b)
    one uncounted steady window each; (c) 1 counted window under fresh
@@ -166,10 +170,12 @@ Phases, each timed:
    graph of that window taken one shot;
 17. the application (run after phase 16, before phase 14's profiler
    sessions): (a) boot 1, `Application` in production mode over a
-   FileStore in a temporary directory, its card processor preloaded as in
-   phase 4 and its store seeded with the dependency records of the same
-   150,000 traces (a deployment's cache); the realtime schedule on a
-   six-field one-second cron fires 2 ticks of 2,500 fresh traces through
+   FileStore in a temporary directory, its card processor preloaded with
+   phase 4's graph (carried by name, its graph signature equal to phase
+   4's) and its store seeded with the dependency records of the same
+   150,000 traces (a deployment's cache: made and written by a process of
+   its own beside phases 15 and 16, the records' and the write's walls
+   timed apart); the realtime schedule on a six-field one-second cron fires 2 ticks of 2,500 fresh traces through
    the operator (the first an hour back, so one hour folds), each under
    5,000 ms, 2 segment-stats launches each (counters zeroed just before
    the boot, read after tear_down); the aggregation job once while the
@@ -177,7 +183,8 @@ Phases, each timed:
    operator's cache lock: their walls are recorded beside the limit, not
    held to it), the realtime schedule parked, tear_down (every cache
    flushed, the history snapshot among them), each timed; (b) boot
-   2, a new card processor over the same store: the cache load and the
+   2, a new card processor over the same store (opened once, for the
+   flush's checks and the boot): the cache load and the
    graph warm start timed, its graph signature equal to a read-only CPU
    app's over the same store and its history snapshot equal to the one
    boot 1 flushed; (c) every GET route of boot 2 over HTTP at 200 with
@@ -202,13 +209,18 @@ Phases, each timed:
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
-   main(), the WAL on) serves 1 tick of 2,500 traces, under 5,000
+   main(), the WAL on, KMAMIZ_LOCK_WITNESS=1) serves 1 tick of 2,500
+   traces, under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
    1e-5 / abs 1e-6, cv rel 1e-3 / abs 1e-5), printing its wall, the
    client's decode of the answer, the pods read, the log lines, the
    bodies and the datatypes, and, by the DP's own GET / answer, 2
-   segment-stats launches a tick and the tick's stage walls; (b) an
+   segment-stats launches a tick and the tick's stage walls; after its
+   ticks, /timings' lockWitness reads installed with acquires, and its
+   edges, held here to the port's static lock model, are acyclic, all in
+   the model's wide set, with no unknown site (its edges, acquires and
+   longest hold printed on a line of their own); (b) an
    in-process twin on the card gives the stage walls and 2 launches a
    tick, and at the last tick the cluster fetch on the client's worker
    processes (of every request, and of the window's as the tick asks)
@@ -264,9 +276,9 @@ Phases, each timed:
    models/checkpoint.py, the restored forward on the card against the
    trained one (rtol 1e-4 / atol 1e-5); (e) the application in simulator
    mode through its main() over a fresh FileStore, started (its own
-   phase, "simulator app start") before phase 17, so that its
-   startSimulation runs beside phases 17-21 (with --simulator-only: beside
-   (a)-(d)): POST /api/v1/simulation/startSimulation with the same YAML
+   phase, "simulator app start", which starts a thread that waits for its
+   boot) before phase 17, so that its boot and startSimulation run beside
+   phases 17-21 (with --simulator-only: beside (a)-(d)): POST /api/v1/simulation/startSimulation with the same YAML
    (201), the endpoint graph, generateStaticSimConfig and the export (its
    10,000 dependency records, its SimulatedHistoricalData), then SIGTERM
    (exit 0, the store left empty); (f) kernel 2 at (b)'s buckets: the edge
@@ -328,18 +340,24 @@ Phases, each timed:
    capacity-growth-chain, fleet-migration and wal-replay at the factory's
    sizes and 10 ticks, and run_counterfactual(seed=0, n_ticks=8): every
    card passes, no span lost, bit-exact, at least one SLO violation
-   prevented (walls, p50/p99 ticks). No hand-written kernel runs in the
+   prevented (walls, p50/p99 ticks); the fleet-migration card runs with
+   the lock witness armed (KMAMIZ_LOCK_WITNESS=1) and passes its
+   lock_witness_acyclic and lock_witness_covered gates (its edges and
+   acquires). No hand-written kernel runs in the
    phase (device statistics off, the counterfactual's forecast given):
    every launch counter must read 0.
 24. the soak sweep (after phase 23, before phase 14's profiler sessions):
    (a) `python -m kmamiz_tpu_torch.tools.graftsoak --cells 48 --ticks 4
    --workers 4 --poison 1` (the JAX package's acceptance sweep, cut from
-   200 cells to 48, its worker processes on the card): the report
+   200 cells to 48, its worker processes on the card), started beside
+   phase 16 and waited for before phase 17 (the wait is phase 24's wall
+   "soak sweep (a)"): the report
    complete with 48 cells,
    a pass rate >= 0.9999, every failure triaged, exactly one poison cell
    whose bug blames soak_poison, exit 0 iff soak_pass (the sweep's wall,
    cells/min, the cells' p99 ticks, the card's memory with the workers
-   up); (b) a 12-cell sweep killed (SIGKILL to its process group) once 3
+   up, less this process's allocator's reserve, at least 1 GiB over its
+   start); (b) a 12-cell sweep killed (SIGKILL to its process group) once 3
    results have landed, resumed: exactly the remaining cells execute,
    and a third run executes none and reproduces the report's
    deterministic fields; (c) `scenario_soak --matrix 3 --ticks 6` on the
@@ -1244,35 +1262,119 @@ def forecast_card_against_cpu(torch, proc, served, card_stlgt) -> dict:
     }
 
 
-def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK, records: bool = False):
-    """Phase 4: a processor whose graph holds the BASELINE edge set. With
-    records, also the dependency records those traces leave in the cache
-    of a deployment that saw them: each endpoint with every entry its
-    spans' records carry. A tick keeps the last record of an endpoint in
-    its window, so a cache takes many windows to hold them all (phase 17
-    seeds its store with them). They stop growing at the first chunk that
-    adds no entry, and are not built further (the mesh repeats every
-    28,000 traces)."""
+LINT_TOOLS = ("graftlint", "graftrace")
+
+
+def start_lint() -> dict:
+    """Phase 2's lint: the port's graftlint and graftrace, --strict, over
+    this checkout's kmamiz_tpu_torch/ (no card), each a process of its own
+    started beside the kernels' builds."""
+    return {
+        name: subprocess.Popen(
+            [sys.executable, "-m", f"kmamiz_tpu_torch.tools.{name}", "--strict"],
+            cwd=REPO,
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            text=True,
+        )
+        for name in LINT_TOOLS
+    }
+
+
+def finish_lint(started: dict) -> dict:
+    """Each tool's exit code (must be 0) and its finding and suppression
+    counts, from its last line."""
+    import re
+
+    out = {}
+    for name, proc in started.items():
+        stdout, stderr = proc.communicate()
+        last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+        check(proc.returncode == 0, f"{name} --strict exited {proc.returncode}:\n{stdout[-4000:]}{stderr[-4000:]}")
+        m = re.fullmatch(r"graftlint: (\d+) finding\(s\), (\d+) suppressed", last)
+        check(m is not None and m.group(1) == "0", f"{name} --strict: {last!r}")
+        out[name] = {"exit": proc.returncode, "findings": int(m.group(1)), "suppressed": int(m.group(2))}
+    return out
+
+
+def load_state(device, n_traces: int = STATE_TRACES, chunk: int = STATE_CHUNK):
+    """Phase 4: a processor whose graph holds the BASELINE edge set."""
     from kmamiz_tpu_torch.core.spans import spans_to_batch
-    from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
-    from kmamiz_tpu_torch.domain.traces import Traces
     from kmamiz_tpu_torch.server.processor import DataProcessor
 
     feed = TickFeed()
     proc = DataProcessor(trace_source=feed, device=device)
-    deps, entries, grown = None, 0, records
     for raw in state_windows(n_traces, chunk):
         groups = json.loads(raw)
         proc.graph.merge_window(spans_to_batch(groups, interner=proc.graph.interner))
-        if grown:
-            # combine_with merges the records its other side repeats
-            spans = EndpointDependencies([]).combine_with(Traces(groups).to_endpoint_dependencies())
-            deps = spans if deps is None else spans.combine_with(deps)
-            n = sum(len(d["dependingBy"]) + len(d["dependingOn"]) for d in deps.dependencies)
-            grown, entries = n > entries, n
-    if records:
-        return proc, feed, deps.trim().to_json()
     return proc, feed
+
+
+def carry_state(graph, signature: str) -> dict:
+    """What carried_graph rebuilds `graph` from, on the host: its endpoint
+    names in id order with their metadata, and its edges by name."""
+    interner = graph.interner
+    return {
+        "names": list(interner.endpoints.strings),
+        "infos": list(interner.endpoint_infos),
+        "export": graph.export_named_edges(),
+        "signature": signature,
+    }
+
+
+def carried_graph(state: dict, device):
+    """A graph on `device` equal to the one carry_state read: the endpoints
+    interned in its id order with their metadata, then its edge set
+    folded in (EndpointGraph.fold_named_edges), without a merge."""
+    from kmamiz_tpu_torch.graph.store import EndpointGraph
+
+    graph = EndpointGraph(device=device)
+    for name, info in zip(state["names"], state["infos"]):
+        graph.interner.intern_endpoint(name, info)
+    graph.fold_named_edges(state["export"])
+    return graph
+
+
+def dependency_records(windows) -> list:
+    """The dependency records phase 4's traces leave in the cache of a
+    deployment that saw them: each endpoint with every entry its spans'
+    records carry. A tick keeps the last record of an endpoint in its
+    window, so a cache takes many windows to hold them all (phase 17 seeds
+    its store with them). They stop growing at the first chunk that adds
+    no entry, and are not built further (the mesh repeats every 28,000
+    traces)."""
+    from kmamiz_tpu_torch.domain.endpoint_dependencies import EndpointDependencies
+    from kmamiz_tpu_torch.domain.traces import Traces
+
+    deps, entries = None, 0
+    for raw in windows:
+        # combine_with merges the records its other side repeats
+        spans = EndpointDependencies([]).combine_with(Traces(json.loads(raw)).to_endpoint_dependencies())
+        deps = spans if deps is None else spans.combine_with(deps)
+        n = sum(len(d["dependingBy"]) + len(d["dependingOn"]) for d in deps.dependencies)
+        if n <= entries:
+            break
+        entries = n
+    return deps.trim().to_json()
+
+
+def write_seed_store(store_dir: str, windows) -> dict:
+    """Phase 17's store seed, made beside phases 15 and 16 in a process of
+    its own (no card): the dependency records of phase 4's traces
+    (dependency_records) written into a FileStore in store_dir. Returns
+    their counts and the two walls, timed apart."""
+    from kmamiz_tpu_torch.server.storage import FileStore
+
+    t0 = time.perf_counter()
+    seed = dependency_records(windows)
+    t1 = time.perf_counter()
+    FileStore(store_dir).insert_many("EndpointDependencies", seed)
+    return {
+        "records_s": t1 - t0,
+        "seed_write_s": time.perf_counter() - t1,
+        "seed_records": len(seed),
+        "seed_entries": sum(len(d["dependingOn"]) + len(d["dependingBy"]) for d in seed),
+    }
 
 
 class TickFeed:
@@ -3532,12 +3634,16 @@ def compare_forecast(got: dict, want: dict, what: str) -> None:
         check(abs(e["predictedLatencyMs"] - w["predictedLatencyMs"]) <= 0.01 + 1e-9, f"{what}: latency")
 
 
-def serve_application(torch, device, counters, t_start: int) -> dict:
+def serve_application(torch, device, counters, t_start: int, state: dict, store, seeded) -> dict:
     """Phase 17: the port's Application (api/app.py) on the card. (a) Boot
-    1 over a FileStore in a temporary directory, its processor preloaded
-    with phase 4's graph (load_state) and its store seeded with the
-    dependency records of the same 150,000 traces, so that its dependency
-    cache starts at a deployment's size; the realtime job on a six-field
+    1 over a FileStore in the temporary directory `store` (removed at the
+    end), its processor preloaded with phase 4's graph (carried_graph of
+    carry_state's `state`, taken before phase 7's ticks; its graph
+    signature checked against phase 4's) and its store seeded with the
+    dependency records of the same 150,000 traces (write_seed_store, in a
+    process of its own beside phases 15 and 16: `seeded` is its future,
+    waited for first, the wait timed), so that its dependency cache
+    starts at a deployment's size; the realtime job on a six-field
     one-second cron firing APP_TICKS scheduled ticks of 2,500 fresh traces
     (the first APP_FOLD_AT an hour back, so one hour folds), counters
     zeroed just before the boot and read after tear_down; then the
@@ -3545,8 +3651,9 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
     ticks that overlap it wait for the operator's cache lock: their walls
     are recorded apart, beside the limit, not held to it), the realtime
     schedule parked, and tear_down (schedules stopped, every cache
-    flushed). (b) Boot 2: a new card processor over the same directory,
-    the cache load and the graph warm start timed; its graph signature
+    flushed). (b) Boot 2: a new card processor over the same directory
+    (the store opened once, for the flush's checks and the boot), the
+    cache load and the graph warm start timed; its graph signature
     equal to a CPU graph warm-started from the same records, its history
     snapshot equal to the one boot 1 flushed. A read-only CPU app boots
     over the same store: boot 2's graph signature equals its CPU graph's,
@@ -3563,20 +3670,18 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
     from kmamiz_tpu_torch.server.processor import DataProcessor
     from kmamiz_tpu_torch.server.storage import FileStore
 
-    out: dict = {}
-    root = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
-    store_dir = root.name
+    store_dir = store.name
     try:
         # -- (a) boot 1 -----------------------------------------------------
         t0 = time.perf_counter()
-        proc1, feed, seed = load_state(device, records=True)
-        out["state_load_s"] = time.perf_counter() - t0
+        out: dict = dict(seeded.result())
+        out["seed_wait_s"] = time.perf_counter() - t0
+        log("   seed " + json.dumps(out))
         t0 = time.perf_counter()
-        FileStore(store_dir).insert_many("EndpointDependencies", seed)
-        out["seed_write_s"] = time.perf_counter() - t0
-        out["seed_records"] = len(seed)
-        out["seed_entries"] = sum(len(d["dependingOn"]) + len(d["dependingBy"]) for d in seed)
-        del seed
+        feed = TickFeed()
+        proc1 = DataProcessor(trace_source=feed, device=device, graph=carried_graph(state, device))
+        out["state_carry_s"] = time.perf_counter() - t0
+        check(graph_signature(proc1.graph) == state["signature"], "phase 17's graph differs from phase 4's")
         windows = [
             synth_groups(TICK_TRACES, t_start + k * TICK_TRACES, f"app{k}-") for k in range(APP_WINDOWS)
         ]
@@ -3644,7 +3749,14 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
         )
         check(out["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS, f"a scheduled tick took {out['max_tick_wall_ms']} ms")
         check(proc1.forecast_snapshot is not None, "boot 1 folded no hour")
+        del app, proc1, op, retrieve
+        torch.cuda.empty_cache()
+
+        # -- (b) boot 2 -----------------------------------------------------
+        boot: dict = {}
+        t0 = time.perf_counter()
         stored = FileStore(store_dir)
+        boot["store_open_ms"] = (time.perf_counter() - t0) * 1e3
         flushed = stored.find_all("ModelHistoryState")
         check(bool(flushed), "boot 1 flushed no history snapshot")
         check(len(stored.find_all("HistoricalData")) > 0, "the aggregation stored no historical data")
@@ -3652,16 +3764,8 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
         out["store_bytes"] = sum(
             os.path.getsize(os.path.join(store_dir, f)) for f in os.listdir(store_dir)
         )
-        del app, proc1, op, retrieve, stored
-        torch.cuda.empty_cache()
-
-        # -- (b) boot 2 -----------------------------------------------------
-        boot: dict = {}
-        t0 = time.perf_counter()
-        store2 = FileStore(store_dir)
-        boot["store_open_ms"] = (time.perf_counter() - t0) * 1e3
         proc2 = DataProcessor(trace_source=TickFeed(), device=device)
-        app2 = Application(ctx=AppContext.build(app_settings=app_settings(store_dir), store=store2, processor=proc2))
+        app2 = Application(ctx=AppContext.build(app_settings=app_settings(store_dir), store=stored, processor=proc2))
         app2.ctx.cache.load_base_data = timed_call(app2.ctx.cache.load_base_data, boot, "cache_load_ms")
         app2.initializer.warm_start = timed_call(app2.initializer.warm_start, boot, "warm_start_ms")
         zero_counts(counters)
@@ -3748,7 +3852,7 @@ def serve_application(torch, device, counters, t_start: int) -> dict:
             f"boot 2's GETs launched {out['boot2_launches']}, {want} fused launches expected",
         )
     finally:
-        root.cleanup()
+        store.cleanup()
     return out
 
 
@@ -4383,6 +4487,7 @@ def serve_in_cluster(torch, device, counters) -> dict:
     import signal
     from concurrent.futures import ProcessPoolExecutor
 
+    from kmamiz_tpu_torch.analysis.concurrency import witness as lock_witness
     from kmamiz_tpu_torch.graph.store import graph_signature
     from kmamiz_tpu_torch.ingestion import KubernetesClient, ZipkinClient
     from kmamiz_tpu_torch.ops import segment_stats as ss
@@ -4435,9 +4540,10 @@ def serve_in_cluster(torch, device, counters) -> dict:
     }
     try:
         # -- (a), (b), (f): the DP through main(), its twins ----------------
+        # (a)'s DP runs with the lock witness armed by its main()
         port = free_port()
         dp = Served(
-            "kmamiz_tpu_torch.server.dp_server", {**dp_env, "DP_PORT": str(port)}, port, "/",
+            "kmamiz_tpu_torch.server.dp_server", {**dp_env, "DP_PORT": str(port), "KMAMIZ_LOCK_WITNESS": "1"}, port, "/",
             os.path.join(root.name, "dp.log"),
         )
         served.append(dp)
@@ -4531,6 +4637,30 @@ def serve_in_cluster(torch, device, counters) -> dict:
         check(out["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS, f"a cluster tick took {out['max_tick_wall_ms']} ms")
         out["pods"] = sum(len(p) for p in kube.pods.values())
         out["stream_micro_ticks"] = CLUSTER_TICKS
+        # the DP's witness after its ticks: installed, acquires recorded,
+        # and its edges held here to the port's static lock model (acyclic,
+        # every edge in the model's wide set, no site unknown to it)
+        status, timings = http_json(port, "/timings")
+        check(status == 200, f"the DP's /timings answered {status}")
+        lw = timings["lockWitness"]
+        check(lw["enabled"] and lw["installed"], f"the DP's lock witness: enabled {lw['enabled']}, installed {lw['installed']}")
+        t = time.perf_counter()
+        witnessed = lock_witness.check_snapshot(lw)
+        out["lock_witness"] = {
+            "edges": witnessed.edge_count,
+            "acquires": witnessed.acquire_count,
+            "max_hold_ms": max((v["maxHoldMs"] for v in lw["locks"].values()), default=0.0),
+            "sites": len(lw["locks"]),
+            "peer_edges": witnessed.peer_edges,
+            "model_and_check_ms": round((time.perf_counter() - t) * 1e3, 3),
+        }
+        log("   (a) lock witness " + json.dumps(out["lock_witness"]))
+        check(witnessed.acquire_count > 0, "the DP's lock witness recorded no acquire")
+        check(witnessed.acyclic, f"the DP's witnessed lock order has cycles: {witnessed.cycles}")
+        check(
+            not witnessed.uncovered and not witnessed.unknown_sites,
+            f"the DP's witnessed locks outside the static model: edges {witnessed.uncovered}, sites {witnessed.unknown_sites}",
+        )
 
         # -- (c) crash recovery ----------------------------------------------
         # the windows in the KMZC wire format: with the ticks' JSON records
@@ -5184,11 +5314,11 @@ def make_mesh_config(
 
 class SimulatorApp:
     """Phase 21 (e): the application in simulator mode, started through
-    its main() over a fresh FileStore, and a thread that POSTs the YAML to
-    startSimulation and then reads the routes, while the phase goes on
-    with (a)-(d) in this process. result() waits for the thread, checks
-    the answers, stops the application (SIGTERM: it clears its store and
-    exits 0) and returns the walls."""
+    its main() over a fresh FileStore by a thread that waits for its boot,
+    POSTs the YAML to startSimulation and then reads the routes, while the
+    caller goes on. result() waits for the thread, checks the answers,
+    stops the application (SIGTERM: it clears its store and exits 0) and
+    returns the walls; kill() ends it if the run ends first."""
 
     ROUTES = (
         ("graph", f"/api/v1/graph/dependency/endpoint/{SIM_NAMESPACE}"),
@@ -5201,23 +5331,29 @@ class SimulatorApp:
 
         self.store = os.path.join(root, "store")
         os.makedirs(self.store)
-        port = free_port()
-        self.served = Served(
-            "kmamiz_tpu_torch.api.app",
-            {"SIMULATOR_MODE": "true", "PORT": str(port), "STORAGE_URI": f"file://{self.store}"},
-            port,
-            "/api/v1/health/",
-            os.path.join(root, "app.log"),
-        )
-        self.out: dict = {"boot_ms": self.served.boot_ms}
+        self.root = root
+        self.served = None
+        self.out: dict = {}
         self.bodies: dict = {}
         self.error = None
         self.thread = threading.Thread(target=self._drive, args=(yaml_text.encode(),), daemon=True)
         self.thread.start()
 
+    def kill(self) -> None:
+        if self.served is not None:
+            self.served.kill()
+
     def _drive(self, body: bytes) -> None:
         try:
-            port = self.served.port
+            port = free_port()
+            self.served = Served(
+                "kmamiz_tpu_torch.api.app",
+                {"SIMULATOR_MODE": "true", "PORT": str(port), "STORAGE_URI": f"file://{self.store}"},
+                port,
+                "/api/v1/health/",
+                os.path.join(self.root, "app.log"),
+            )
+            self.out["boot_ms"] = self.served.boot_ms
             t0 = time.perf_counter()
             status, answer = http_json(port, "/api/v1/simulation/startSimulation", body, timeout=900)
             self.out["start_simulation"] = {
@@ -5243,7 +5379,7 @@ class SimulatorApp:
             if self.error is not None:
                 raise self.error
         finally:
-            code = self.served.stop(signal.SIGTERM)
+            code = self.served.stop(signal.SIGTERM) if self.served is not None else None
         out = self.out
         start = out["start_simulation"]
         check(start["status"] == 201 and start["answer"] == {"message": "ok"}, f"startSimulation answered {start}")
@@ -6302,11 +6438,22 @@ def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
         cards = {}
         for arch in RUNNER_ARCHETYPES:
             spec = build_scenario(arch, 0, names.index(arch), DEFAULT_TICKS)
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_scn_") as tmp:
+            # the fleet-migration card with the runner's lock witness armed
+            witnessed = arch == "fleet-migration"
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_scn_") as tmp, env_set(
+                KMAMIZ_LOCK_WITNESS="1" if witnessed else None
+            ):
                 card = run_scenario(spec, tmpdir=tmp, device=device)
             cards[arch] = {k: card[k] for k in ("wall_s", "p50_tick_ms", "p99_tick_ms", "posts", "lost_spans")}
             check(card["pass"], f"{arch}: {card['gates']} {card['errors']}")
             check(card["lost_spans"] == 0 and card["gates"]["bit_exact"], f"{arch}: lost {card['lost_spans']}")
+            if witnessed:
+                gates = card["gates"]
+                check(
+                    gates.get("lock_witness_acyclic") is True and gates.get("lock_witness_covered") is True,
+                    f"{arch}: lock witness gates {gates} {card['lock_witness']}",
+                )
+                cards[arch]["lock_witness"] = {k: card["lock_witness"][k] for k in ("edges", "acquires")}
         cf = run_counterfactual(seed=0, n_ticks=COUNTERFACTUAL_TICKS, device=device)
         check(cf["pass"] and cf["slo_violations_prevented"] >= 1, f"counterfactual {cf['gates']}")
         cards["counterfactual"] = {"wall_s": cf["wall_s"], "prevented": cf["slo_violations_prevented"]}
@@ -6357,19 +6504,27 @@ SOAK_DETERMINISTIC = ("cells", "bugs", "pass_rate", "triaged_fraction", "poison_
 
 class MemorySampler:
     """The card's memory in use (nvidia-smi, every process's), sampled on a
-    thread until stopped: the peak, in MiB."""
+    thread until stopped: the peak, in MiB. With `minus` (bytes, read at
+    each sample: this process's caching allocator's reserve), the card's
+    memory less that: what the other processes and this one's fixed
+    context hold, while this process allocates beside them."""
 
-    def __init__(self, period_s: float = 0.5) -> None:
+    def __init__(self, period_s: float = 0.5, minus=None) -> None:
         import threading
 
-        self.peak = gpu_memory_used_mib()
+        self._minus = minus
+        self.peak = self._sample()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(period_s,), daemon=True)
         self._thread.start()
 
+    def _sample(self) -> int:
+        used = gpu_memory_used_mib()
+        return used - (self._minus() >> 20 if self._minus else 0)
+
     def _run(self, period_s: float) -> None:
         while not self._stop.wait(period_s):
-            self.peak = max(self.peak, gpu_memory_used_mib())
+            self.peak = max(self.peak, self._sample())
 
     def stop(self) -> int:
         self._stop.set()
@@ -6388,16 +6543,53 @@ def graftsoak_cmd(cells: int, soak_dir: str, poison: int) -> list:
     return [sys.executable, "-m", "kmamiz_tpu_torch.tools.graftsoak", *graftsoak_args(cells, soak_dir, poison)]
 
 
-def run_graftsoak(cells: int, soak_dir: str, poison: int, log_path: str) -> tuple:
-    """One graftsoak process run to its end: (exit code, its report, host
-    wall s)."""
-    t0 = time.perf_counter()
-    with open(log_path, "a") as err:
-        proc = subprocess.run(graftsoak_cmd(cells, soak_dir, poison), cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
-    wall = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-    check(bool(lines), f"graftsoak printed no report (exit {proc.returncode}); see {log_path}")
-    return proc.returncode, json.loads(lines[-1]), wall
+class SweepProcess:
+    """Phase 24 (a)'s graftsoak process (SOAK_CELLS cells, one poison),
+    started beside phase 16 and read in phase 24: its wall from the start
+    to the process's end, and the card's memory meanwhile less this
+    process's allocator's reserve (MemorySampler's `minus`: phase 16
+    allocates beside the workers). Killed with its workers if the run
+    ends first."""
+
+    def __init__(self, torch, root: str) -> None:
+        import threading
+
+        self.dir = os.path.join(root, "sweep")
+        self.log_path = os.path.join(root, "graftsoak.log")
+        self.mem = MemorySampler(minus=torch.cuda.memory_reserved)
+        self.mem_before = self.mem.peak
+        self._err = open(self.log_path, "a")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            graftsoak_cmd(SOAK_CELLS, self.dir, 1), cwd=REPO, stdout=subprocess.PIPE, stderr=self._err,
+            text=True, start_new_session=True,
+        )
+        atexit.register(self.kill)
+        self._out: list = []
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self._out.append(self.proc.communicate()[0])
+        self.wall = time.perf_counter() - self.t0
+        self.mem_peak = self.mem.stop()
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def join(self) -> None:
+        self._waiter.join()
+        self._err.close()
+
+    def result(self) -> tuple:
+        """(exit code, its report, host wall s) once joined."""
+        lines = [ln for ln in self._out[0].splitlines() if ln.strip()]
+        check(bool(lines), f"graftsoak printed no report (exit {self.proc.returncode}); see {self.log_path}")
+        return self.proc.returncode, json.loads(lines[-1]), self.wall
 
 
 def tool_main(main, argv) -> tuple:
@@ -6413,9 +6605,10 @@ def tool_main(main, argv) -> tuple:
     return code, json.loads(lines[-1])
 
 
-def serve_soak(torch, device, counters) -> dict:
+def serve_soak(torch, device, counters, sweep: SweepProcess = None) -> dict:
     """Phase 24, the soak sweep: (a) graftsoak's acceptance sweep (SOAK_CELLS
-    cells) with four worker processes on the card; (b) a 12-cell sweep killed
+    cells) with four worker processes on the card (`sweep`, started beside
+    phase 16; started here and joined without it); (b) a 12-cell sweep killed
     mid-run and resumed twice; (c) scenario_soak's 3-scenario matrix on
     the card; (d) graftprof's capture on the card (kernel 1's launches
     counted, the raw-ingest leg checked) against a CPU capture, and its --diff blame over (a)'s
@@ -6429,12 +6622,12 @@ def serve_soak(torch, device, counters) -> dict:
     root = tempfile.TemporaryDirectory(prefix="chip_smoke_soak_")
     try:
         # (a) the acceptance sweep
-        sweep_dir = os.path.join(root.name, "sweep")
-        log_path = os.path.join(root.name, "graftsoak.log")
-        mem = MemorySampler()
-        mem_before = mem.peak
-        code, report, wall = run_graftsoak(SOAK_CELLS, sweep_dir, 1, log_path)
-        mem_peak = mem.stop()
+        if sweep is None:
+            sweep = SweepProcess(torch, root.name)
+            sweep.join()
+        code, report, wall = sweep.result()
+        sweep_dir, log_path = sweep.dir, sweep.log_path
+        mem_before, mem_peak = sweep.mem_before, sweep.mem_peak
         results = SoakManifest(sweep_dir).load_results()
         p99 = sorted(r["p99_tick_ms"] for r in results.values() if not r["poison"])
         sweep = {
@@ -6723,11 +6916,15 @@ def main(argv=None) -> int:
         build = {
             "built_in_this_run": not host_build.library_path(native.NAME, native.SOURCES).exists()
         }
+        # and the port's own lint over the tree this run builds
+        lint = start_lint()
         with ThreadPoolExecutor(max_workers=1) as pool:
             host_lib = pool.submit(native.library_path)
             for path in cuda_build.build_all(kernel_names):
                 log(f"   built {os.path.relpath(path)}")
             log(f"   built {os.path.relpath(host_lib.result())}")
+        report["lint"] = finish_lint(lint)
+        log("   lint " + json.dumps(report["lint"]))
 
     if args.telemetry_only:
         from kmamiz_tpu_torch.server.processor import DataProcessor
@@ -6809,7 +7006,9 @@ def main(argv=None) -> int:
         return 0
 
     with Phase("state load", walls):
+        t0 = time.perf_counter()
         proc, feed = load_state(device)
+        merge_s = time.perf_counter() - t0
         n_eps = len(proc.graph.interner.endpoints)
         n_edges = proc.graph.n_edges
         log(f"   endpoints {n_eps}, edges {n_edges}, capacity {proc.graph.capacity}")
@@ -6823,7 +7022,11 @@ def main(argv=None) -> int:
             "edges": n_edges,
             # before any tick: phase 15 rebuilds this graph from raw bytes
             "signature": graph_signature(proc.graph),
+            "merge_s": merge_s,
         }
+        # phase 17's processor starts from this graph, carried by name:
+        # taken before phase 7's ticks grow it
+        state_carry = carry_state(proc.graph, report["state"]["signature"])
 
     if args.backward_variants:
         with Phase("backward variants", walls):
@@ -6930,12 +7133,29 @@ def main(argv=None) -> int:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
 
+    # phase 17's store seed: phase 4's traces' dependency records, made
+    # and written by a process of its own (no card) beside phases 15 and
+    # 16 (their walls recorded, their gates parity only); phase 17 waits
+    # for it
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    seed_store = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    seeding = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    seeded = seeding.submit(write_seed_store, seed_store.name, state_windows())
+
     # phase 15 runs here, before phase 14's profiler sessions (which slow
     # every later launch on the host) and the device times
     with Phase("raw ingest", walls):
         report["raw_ingest"], raw_cases, raw = raw_ingest(
             torch, device, counters, report["state"], report["ticks"], build, jobs
         )
+
+    # phase 24 (a)'s sweep starts now, its four worker processes on the
+    # card beside phase 16 (whose walls are recorded, its gates parity
+    # only); joined before phase 17
+    sweep_root = tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_")
+    sweep = SweepProcess(torch, sweep_root.name)
 
     # phase 16 too: the same window, streamed
     with Phase("streaming ingest", walls):
@@ -6944,14 +7164,19 @@ def main(argv=None) -> int:
         )
         del raw
 
+    # phase 24 (a)'s sweep ends before phase 17, whose walls are held to
+    # 5,000 ms: the wait is phase 24's
+    with Phase("soak sweep (a)", walls):
+        sweep.join()
+
     # phase 21's application in simulator mode starts now, in a process of
-    # its own: its startSimulation (the simulation and its hourly slots'
-    # aggregations, host work on one core) runs beside phases 17-20, and
-    # phase 21 reads its answers
+    # its own that boots on a thread of this one: its startSimulation (the
+    # simulation and its hourly slots' aggregations, host work on one
+    # core) runs beside phases 17-20, and phase 21 reads its answers
     with Phase("simulator app start", walls):
         sim_root = tempfile.TemporaryDirectory(prefix="chip_smoke_simapp_")
         sim_app = SimulatorApp(mesh_yaml(), sim_root.name)
-        atexit.register(sim_app.served.kill)
+        atexit.register(sim_app.kill)
 
     # phases 17 and 18 too: the application, then the GAT head (whose own
     # profiler session comes last in it)
@@ -6960,11 +7185,13 @@ def main(argv=None) -> int:
         stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
         try:
             report["application"] = serve_application(
-                torch, device, counters, STATE_TRACES + (TICKS + 30) * TICK_TRACES
+                torch, device, counters, STATE_TRACES + (TICKS + 30) * TICK_TRACES, state_carry, seed_store, seeded
             )
         finally:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
+        seeding.shutdown()
+        del state_carry
         log("   " + json.dumps({k: v for k, v in report["application"].items() if k not in ("ticks", "routes")}))
 
     with Phase("gat", walls):
@@ -7017,10 +7244,11 @@ def main(argv=None) -> int:
     with Phase("soak sweep", walls):
         stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
         try:
-            report["soak"] = serve_soak(torch, device, counters)
+            report["soak"] = serve_soak(torch, device, counters, sweep)
         finally:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
+        sweep_root.cleanup()
         soak_launches = report["soak"]["launches"]
 
     with Phase("profile", walls):

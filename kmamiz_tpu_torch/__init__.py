@@ -27,7 +27,10 @@ Layout:
   telemetry/ the metrics registry (GET /metrics), tick span traces, the
              SLO scorecard, freshness, device gauges, torch.profiler
              captures and the profiler's event ring and flight recorder
-  analysis/  the sync guard around a hot section
+  analysis/  graftlint's static rules and graftrace's lock model over
+             this tree, the runtime lock witness, and the sync guard
+             around a hot section
+  tools/     command-line tools (python -m kmamiz_tpu_torch.tools.<name>)
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,8 @@ endpoint-lifetime thresholds of the dependency model, the REST API's
 version prefix, the forecast route's checkpoint directory, the
 switches of the resilience layer and the stream engine, and those of the
 telemetry (span tracing, the profiler's event ring and flight recorder,
-torch.profiler captures, the SLO window and the sync guard).
+torch.profiler captures, the SLO window and the sync guard), and the
+lock witness's.
 
 The switches of the resilience layer and the stream engine, and their
 directories, are read by the functions below, which the modules call at
@@ -19,7 +20,8 @@ variable. Their sizes (the trace-bomb cap, the quarantine's and the WAL's
 bounds, the stream's depth and epoch) are the modules' constants at the
 JAX package's defaults, given as constructor arguments where a caller
 needs another value. The telemetry's switches, directories and bounds
-are read the same way, one reader each, at the JAX package's defaults.
+are read the same way, one reader each, at the JAX package's defaults,
+and so is the lock witness's switch (KMAMIZ_LOCK_WITNESS).
 The control plane's switches (KMAMIZ_CONTROL, KMAMIZ_CONTROL_MODE) are
 read by control/__init__.py at the call; its tuning values and the
 tenancy layer's (the gather window, the tenant limit, the tenant header)
@@ -161,6 +163,13 @@ def slo_window() -> int:
     return _env_number("KMAMIZ_SLO_WINDOW", 512, 8)
 
 
+def lock_witness() -> bool:
+    """KMAMIZ_LOCK_WITNESS: the runtime lock witness
+    (analysis/concurrency/witness.py), off unless set to a value other
+    than "0", "false" or empty."""
+    return os.environ.get("KMAMIZ_LOCK_WITNESS", "0") not in ("0", "false", "")
+
+
 def transfer_guard() -> str:
     """KMAMIZ_TRANSFER_GUARD as given (stripped, lower case): the sync
     guard's level (analysis/guards.py parses it)."""
@@ -245,6 +254,9 @@ class Settings:
     wal_enabled: bool = field(default_factory=wal_enabled)
     wal_dir: str = field(default_factory=wal_dir)
     stream_enabled: bool = field(default_factory=stream_enabled)
+    # the runtime lock witness's switch, which the witness reads at arm
+    # time; the field mirrors it so one `Settings()` dump shows everything
+    lock_witness: bool = field(default_factory=lock_witness)
 
     def __post_init__(self) -> None:
         # in a cluster, the API server's own address (KubernetesService.ts)

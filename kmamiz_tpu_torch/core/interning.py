@@ -115,6 +115,7 @@ class EndpointInterner:
         import numpy as np
 
         with self._intern_lock:
+            # graftlint: disable=dtype-drift -- host-side mirror; epoch-ms exceeds f32 integer range
             return np.asarray(self._info_ts, dtype=np.float64)
 
     def refresh_info_timestamps(self, eids, ts_ms, expected_ts=None):

@@ -59,7 +59,7 @@ class StepTimer:
             hist = self._hists.get(name)
             if hist is None:
                 # first use of a phase name only; cached thereafter
-                hist = _PHASE_HIST.handle(name)
+                hist = _PHASE_HIST.handle(name)  # graftlint: disable=hot-path-metric-label -- first-use registration, cached in _hists thereafter
                 self._hists[name] = hist
         hist.observe(elapsed_ms)
 

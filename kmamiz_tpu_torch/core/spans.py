@@ -302,6 +302,7 @@ def spans_to_batch(
     rt_service_id = np.zeros(capacity, dtype=np.int32)
     status_id = np.zeros(capacity, dtype=np.int32)
     status_class = np.zeros(capacity, dtype=np.int8)
+    # graftlint: disable=dtype-drift -- host span column: latency sums stay exact in f64; device path downcasts at upload
     latency_ms = np.zeros(capacity, dtype=np.float64)
     timestamp_us = np.zeros(capacity, dtype=np.int64)
     trace_of = np.zeros(capacity, dtype=np.int32)
@@ -440,7 +441,7 @@ def _raw_batch(parsed, pad, ts_base_us, interner, statuses, by_shape, by_status)
         rt_service_id=rt_service_id,
         status_id=status_id,
         status_class=status_class,
-        latency_ms=_padded(parsed["latency_ms"], np.float64),
+        latency_ms=_padded(parsed["latency_ms"], np.float64),  # graftlint: disable=dtype-drift -- host span column, f64 by design (see spans_to_batch)
         timestamp_us=timestamp_us,
         timestamp_rel=timestamp_rel,
         ts_base_us=ts_base,
@@ -489,8 +490,7 @@ def raw_spans_to_batch(
         and (interner is None or interner is session.interner)
         and (statuses is None or statuses is session.statuses)
     ):
-        with session.lock:
-            return _session_batch_locked(raw, session, pad, ts_base_us, skipset)
+        return _raw_spans_to_batch_session(raw, session, pad, ts_base_us, skipset)
 
     parsed = native.parse_spans(
         raw, list(skip_trace_ids), skip_blob=skip_blob, skipset=skipset
@@ -594,7 +594,7 @@ class RawIngestSession:
         # per-ENDPOINT winner bookkeeping: code = 2*shape_idx + is_rt
         # (session shape ids are stable, so codes stay comparable)
         self.applied_code = np.full(0, -1, np.int64)
-        self.applied_ts = np.zeros(0, np.float64)
+        self.applied_ts = np.zeros(0, np.float64)  # graftlint: disable=dtype-drift -- epoch-ms bookkeeping exceeds f32 integer range
 
     def reset(self) -> None:
         """Fresh native session + cleared views (after a rejected payload,
@@ -609,6 +609,20 @@ class RawIngestSession:
             self.applied_code = np.concatenate(
                 [self.applied_code, np.full(grow, -1, np.int64)]
             )
+
+
+def _raw_spans_to_batch_session(
+    raw: bytes,
+    session: RawIngestSession,
+    pad: bool,
+    ts_base_us: Optional[int],
+    skipset,
+):
+    """raw_spans_to_batch through a session, under its lock (one consumer
+    at a time). The annotation names the session's class, so the static
+    lock model resolves `session.lock` (analysis/concurrency/locks.py)."""
+    with session.lock:
+        return _session_batch_locked(raw, session, pad, ts_base_us, skipset)
 
 
 def _session_batch_locked(raw, session, pad, ts_base_us, skipset):
@@ -679,6 +693,7 @@ def _session_batch_locked(raw, session, pad, ts_base_us, skipset):
     # maxima: a monotone-max equivalence).
     n_shapes = parsed["shapes_total"]
     if n_shapes:
+        # graftlint: disable=dtype-drift -- epoch-ms timestamps exceed f32 integer range
         shape_ts = np.asarray(parsed["shape_max_ts_ms"], dtype=np.float64)
         idx = np.arange(n_shapes, dtype=np.int64)
         eids_all = np.concatenate([session.by_shape[0], session.by_shape[2]]).astype(np.int64)

@@ -22,8 +22,11 @@ runner card:
 
 The JAX soak's ``zero_steady_recompiles`` gate counts XLA compiles and is
 not on this card (nothing is compiled per shape); its rehearsal windows
-stay, since they are part of each tenant's ingest log. The lock witness
-is not ported.
+stay, since they are part of each tenant's ingest log. With the lock
+witness armed (the runner's KMAMIZ_LOCK_WITNESS=1), the card also gates
+on the witnessed lock-order graph: acyclic, and every edge and site
+known to the static model (``lock_witness_acyclic``,
+``lock_witness_covered``), with the counts in ``lock_witness``.
 """
 from __future__ import annotations
 
@@ -211,6 +214,23 @@ def run_fleet_scenario(spec, tmpdir: str, verbose: bool = False, device=None) ->
         "mid_handoff_queued": state["queued_mid_handoff"] >= 1 and bool(mig and mig.get("queuedReleased", 0) >= 1),
         "fold_consistent": folded_edges == sum(live_edges.values()),
     }
+    from kmamiz_tpu_torch.analysis.concurrency import witness
+
+    lock_witness = None
+    if witness.installed():
+        report = witness.check()
+        gates["lock_witness_acyclic"] = report.acyclic
+        # a witnessed edge the static model missed is an extractor blind
+        # spot — the soak fails so the model gets fixed, not ignored
+        gates["lock_witness_covered"] = not report.uncovered and not report.unknown_sites
+        lock_witness = {
+            "edges": report.edge_count,
+            "acquires": report.acquire_count,
+            "cycles": report.cycles,
+            "uncovered": [list(p) for p in report.uncovered],
+            "unknownSites": report.unknown_sites,
+            "peerEdges": report.peer_edges,
+        }
     lat = sorted(state["latencies"])
     card = {
         "name": spec.name,
@@ -239,6 +259,7 @@ def run_fleet_scenario(spec, tmpdir: str, verbose: bool = False, device=None) ->
             "workers": {w: fleet_workers[w].summary() for w in ring.workers},
         },
         "wal": None,
+        "lock_witness": lock_witness,
         "errors": state["errors"][:4],
         "gates": gates,
         "pass": all(gates.values()),

@@ -326,6 +326,7 @@ class EndpointGraph:
                 [self._ep_record, np.zeros(grow, dtype=bool)]
             )
             self._ep_last_ts = np.concatenate(
+                # graftlint: disable=dtype-drift -- host-side mirror; epoch-ms exceeds f32 integer range
                 [self._ep_last_ts, np.zeros(grow, dtype=np.float64)]
             )
 
@@ -805,6 +806,7 @@ class EndpointGraph:
         where src/dst index into ``names`` (uniqueEndpointName strings),
         NOT into this store's interner ids — the same layout as the JAX
         package's export, so either package folds the other's."""
+        # graftlint: disable=host-sync-in-hot-path -- a migration's export reads the edge set back once, off the tick
         src, dst, dist, mask = (a.cpu().numpy() for a in self.edge_arrays())
         live = np.nonzero(mask)[0]
         used = np.unique(np.concatenate([src[live], dst[live]]))
@@ -1293,6 +1295,7 @@ def graph_signature(graph) -> str:
     package's resilience.chaos.graph_signature, for graphs of either
     package."""
     src, dst, dist, mask = (
+        # graftlint: disable=host-sync-in-hot-path -- a digest reads the edge set back by definition; checks and a migration's verify call it, not the tick
         a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
         for a in graph.edge_arrays()
     )

@@ -115,8 +115,8 @@ class AdamW(NamedTuple):
         g = [grads[i] for i in live]
         count = state.count + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.full((), b1, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.full((), b2, device=c.device), c)
+        bc1 = 1 - torch.pow(torch.full((), b1, dtype=c.dtype, device=c.device), c)
+        bc2 = 1 - torch.pow(torch.full((), b2, dtype=c.dtype, device=c.device), c)
         mu_old = [state.mu[i] for i in live]
         nu_old = [state.nu[i] for i in live]
         mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(mu_old, b1))

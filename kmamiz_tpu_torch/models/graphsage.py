@@ -118,7 +118,7 @@ def init_params(
         w_latency_skip=zeros(num_features, 1),
         w_anomaly_skip=zeros(num_features, 1),
         embedding=(
-            torch.randn((num_nodes, EMB_DIM), generator=generator) * 0.1
+            torch.randn((num_nodes, EMB_DIM), generator=generator, dtype=torch.float32) * 0.1
             if num_nodes
             else None
         ),

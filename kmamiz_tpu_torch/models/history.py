@@ -206,7 +206,7 @@ class HistoryState:
         err5 = fit(err5)
         lat = fit(lat)
         # host hour-bucket weights; float64 keeps long-run sums exact
-        act = fit(np.asarray(active, dtype=np.float32)).astype(np.float64)
+        act = fit(np.asarray(active, dtype=np.float32)).astype(np.float64)  # graftlint: disable=dtype-drift -- host hour-bucket weights; f64 keeps long-run sums exact
 
         hour = int(hour) % 24
         h_pred = (hour + 1) % 24
@@ -214,7 +214,7 @@ class HistoryState:
         # label fold first: this bucket's anomaly state is the label of the
         # example emitted one hour ago (keyed by occurrence hour)
         if self._started:
-            label = (err5 > anomaly_threshold).astype(np.float64)
+            label = (err5 > anomaly_threshold).astype(np.float64)  # graftlint: disable=dtype-drift -- host accumulator fold (see above)
             self._label_sum[hour] += label * act
             self._label_obs[hour] += act
         self._started = True
@@ -241,7 +241,7 @@ class HistoryState:
         )
 
         # observation fold after the emit, keyed by the observed hour
-        self._err_sum[hour] += err5.astype(np.float64) * act
+        self._err_sum[hour] += err5.astype(np.float64) * act  # graftlint: disable=dtype-drift -- host accumulator fold (see above)
         self._err_obs[hour] += act
         self._prev_err5, self._prev_lat = err5, lat
         return cols

@@ -101,6 +101,7 @@ def forecast_forward_padded(params, padded: PaddedSnapshot, model) -> Tuple[np.n
             params, padded.features, padded.src, padded.dst, padded.mask, index=padded.index
         )
         # one copy back of both outputs
+        # graftlint: disable=host-sync-in-hot-path -- the route returns host arrays; one fetch per forward
         out = torch.stack([torch.expm1(lat), torch.sigmoid(logit)]).cpu().numpy()
     elapsed_ms = prof_events.now_ms() - t0
     _SERVES.inc()

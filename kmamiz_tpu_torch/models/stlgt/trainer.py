@@ -368,7 +368,9 @@ class ContinualTrainer:
         params, opt_state, losses = runner(
             self._params, self._opt_state, self._slots, stale, self.epochs
         )
-        losses = losses.cpu().numpy()  # one fetch per refresh
+        # one fetch per refresh
+        # graftlint: disable=host-sync-in-hot-path,blocking-call-under-lock -- one loss fetch per refresh (per fold at most), not per tick; the lock keeps the forecast route off params being replaced
+        losses = losses.cpu().numpy()
         self._params, self._opt_state = params, opt_state
         self._last_loss = float(losses[-1, 0])
         return {

@@ -30,20 +30,17 @@ touches it only under its lock.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
+
 #: two windows in flight hide one whole copy behind one whole pack and
 #: dispatch without pinning more than two windows of staging memory
 DEFAULT_DEPTH = 2
-
-
-def _now_ms() -> float:
-    return time.perf_counter() * 1e3
 
 
 class UploadPipeline:
@@ -92,25 +89,30 @@ class UploadPipeline:
         """Upload one group; returns (device tensors, blocked_ms).
         blocked_ms is the host wait this call paid: the whole copy at depth
         0, otherwise only the retire of the groups past `depth`."""
-        t0 = _now_ms()
+        t0 = prof_events.now_ms()
         out, event, pinned = self._copy_group(host_arrays)
         self.uploads += 1
         if self.depth <= 0:
             if event is not None:
+                # graftlint: disable=host-sync-in-hot-path -- depth 0 is the synchronous mode: blocking IS the requested behavior and the measurement
                 event.synchronize()
-            return out, _now_ms() - t0
+            return out, prof_events.now_ms() - t0
         self._in_flight.append((event, pinned))
         while len(self._in_flight) > self.depth:
             self._retire(self._in_flight.popleft())
         self.peak_in_flight = max(self.peak_in_flight, len(self._in_flight))
-        blocked = _now_ms() - t0
+        blocked = prof_events.now_ms() - t0
         self.blocked_ms += blocked
         return out, blocked
 
     @staticmethod
     def _retire(group) -> None:
+        """Wait for one group's copy: the pipeline's bounded backpressure
+        on the OLDEST in-flight copy (the one wait double buffering cannot
+        hide), or the drain at the store's read fence."""
         event, _pinned = group
         if event is not None:
+            # graftlint: disable=host-sync-in-hot-path -- retire of the oldest in-flight copy, or the drain at the pre-existing read fence; not inside the per-window loop
             event.synchronize()
 
     def drain(self) -> float:
@@ -119,10 +121,10 @@ class UploadPipeline:
         have long landed."""
         if not self._in_flight:
             return 0.0
-        t0 = _now_ms()
+        t0 = prof_events.now_ms()
         while self._in_flight:
             self._retire(self._in_flight.popleft())
-        waited = _now_ms() - t0
+        waited = prof_events.now_ms() - t0
         self.blocked_ms += waited
         return waited
 

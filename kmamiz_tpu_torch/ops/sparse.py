@@ -394,6 +394,7 @@ def _check(v, src_ep, dst_ep, edge_mask, q, k, b_edge) -> None:
     if v.shape[0] < 1 or v.shape[1] < 1:
         raise ValueError(f"fused_sddmm_spmm: empty node table {tuple(v.shape)}")
     # float64 only on the CPU: the plain version is dtype-generic (gradcheck)
+    # graftlint: disable=dtype-drift -- a dtype check, not f64 work: the card path admits float32 only
     floats = (torch.float32, torch.float64) if v.device.type == "cpu" else (torch.float32,)
     if (
         v.dtype not in floats

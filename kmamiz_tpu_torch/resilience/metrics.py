@@ -80,7 +80,7 @@ def _handle(name: str):
             if h is None:
                 # cold first-use registration (retry.*, quarantined.*);
                 # cached, so steady state is a dict hit
-                h = _FAM.handle(name)
+                h = _FAM.handle(name)  # graftlint: disable=hot-path-metric-label -- first-use registration, cached in _HANDLES thereafter
                 _HANDLES[name] = h
     return h
 

@@ -29,12 +29,12 @@ import hashlib
 import json
 import logging
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
 from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.core import wire
+from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
 
 logger = logging.getLogger("kmamiz_tpu_torch.resilience.quarantine")
 
@@ -123,10 +123,11 @@ class Quarantine:
             self._by_reason[reason] = self._by_reason.get(reason, 0) + 1
             self._total += 1
         metrics.incr("quarantined")
+        # graftlint: disable=hot-path-metric-label -- diversion path, not the clean tick: it already writes files and logs; the per-reason counter is the /timings contract
         metrics.incr(f"quarantined.{reason}")
         try:
             self._dir.mkdir(parents=True, exist_ok=True)
-            stamp = int(time.time() * 1000)
+            stamp = int(prof_events.wall_ms())
             path = self._dir / f"{stamp}-{seq:04d}-{reason}.bin"
             path.write_bytes(raw)
             meta = {

@@ -189,6 +189,7 @@ class IngestWAL:
             if self._fsync:
                 # durability order is append order, and a rotation may
                 # close the file the moment the lock drops
+                # graftlint: disable=blocking-call-under-lock -- durability order must equal append order, and rotation may close the fd the moment the lock drops
                 os.fsync(self._fh.fileno())
             self._records_appended += 1
             self._rotate_if_needed_locked()

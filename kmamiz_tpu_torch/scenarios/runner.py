@@ -48,7 +48,9 @@ What differs from the JAX runner:
   KMAMIZ_WAL_DIR, KMAMIZ_STREAM, KMAMIZ_CONTROL, KMAMIZ_CONTROL_MODE) is
   set for the scenario's span and restored after it.
 - The soak workers' harness is this module's own (`run_soak_workers`).
-- The lock witness (KMAMIZ_LOCK_WITNESS) is not ported.
+- Under KMAMIZ_LOCK_WITNESS=1 a scenario runs with the lock witness
+  armed, as in the JAX runner; the fleet-migration card then carries the
+  ``lock_witness_acyclic`` and ``lock_witness_covered`` gates.
 
 The kill-9 child is ``python -m kmamiz_tpu_torch.scenarios.runner
 --child-kill --device <the parent's device>``.
@@ -141,12 +143,12 @@ def run_soak_workers(worker_fns: Sequence[Callable[[], None]], seconds: float) -
     errors, the wall in s). A thread that will not stop raises."""
     errors: List[str] = []
     stop = threading.Event()
-    deadline = time.time() + seconds
+    deadline = prof_events.now_ms() + seconds * 1e3
 
     def guard(fn):
         def run():
             try:
-                while time.time() < deadline and not stop.is_set():
+                while prof_events.now_ms() < deadline and not stop.is_set():
                     fn()
             except Exception as e:  # noqa: BLE001 - reported, and the loop stops
                 errors.append(f"{fn.__name__}: {e!r}")
@@ -155,14 +157,14 @@ def run_soak_workers(worker_fns: Sequence[Callable[[], None]], seconds: float) -
         return run
 
     threads = [threading.Thread(target=guard(fn), daemon=True) for fn in worker_fns]
-    t0 = time.time()
+    t0 = prof_events.now_ms()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=300)
         if t.is_alive():
             raise RuntimeError("soak worker failed to stop")
-    return errors, time.time() - t0
+    return errors, (prof_events.now_ms() - t0) / 1e3
 
 
 class _ScenarioSource:
@@ -371,6 +373,13 @@ def run_scenario(spec: ScenarioSpec, tmpdir: Optional[str] = None, verbose: bool
             "KMAMIZ_STREAM": "1" if spec.archetype == "streaming-freshness" else "0",
         }
         stack.enter_context(scoped_env(env))
+        # lock-witness (KMAMIZ_LOCK_WITNESS=1): every lock the scenario
+        # constructs from here on records real acquisition orders; the
+        # fleet soak cross-checks them against the static graftrace model
+        from kmamiz_tpu_torch.analysis.concurrency import witness
+
+        if witness.enabled():
+            stack.enter_context(witness.armed())
         _reset_shared_state()
         if spec.archetype == "fleet-migration":
             # archetype 10: a 4-worker ring behind one coordinator, with a

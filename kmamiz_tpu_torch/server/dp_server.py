@@ -68,8 +68,9 @@ staged runtime dropped) and /fleet/drop (the migrated-away tenant's
 runtime forgotten). /timings carries `fleet`.
 
 Left out of the JAX server: the /timings sections of parts the port does
-not have (programs and cost: nothing is compiled per shape; lockWitness:
-the lock witness is not ported).
+not have (programs and cost: nothing is compiled per shape). /timings
+carries `lockWitness`, the runtime lock witness's snapshot, which main()
+arms before the processor exists under KMAMIZ_LOCK_WITNESS=1.
 """
 from __future__ import annotations
 
@@ -348,6 +349,8 @@ def make_handler(
                 self._send_bytes(200, TEL_REGISTRY.render().encode("utf-8"), PROMETHEUS_TEXT)
                 return
             if path == "/timings":
+                from kmamiz_tpu_torch.analysis.concurrency import witness
+
                 self._send_json(
                     200,
                     {
@@ -359,6 +362,7 @@ def make_handler(
                         "freshness": tel_freshness.snapshot(),
                         "stream": stream_mod.stats(),
                         "fleet": fleet_mod.snapshot(),
+                        "lockWitness": witness.snapshot(),
                     },
                 )
                 return
@@ -766,6 +770,18 @@ def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
     return server, recovered
 
 
+def arm_lock_witness() -> bool:
+    """Arm the runtime lock witness when KMAMIZ_LOCK_WITNESS asks for it,
+    as main() does BEFORE the processor exists, so every lock the serving
+    stack creates is wrapped (the scenario runner does the same for
+    soaks). Returns whether it is armed; /timings reads it."""
+    from kmamiz_tpu_torch.analysis.concurrency import witness as lock_witness
+
+    if lock_witness.enabled():
+        lock_witness.install()
+    return lock_witness.installed()
+
+
 def main() -> None:
     """The standalone external DP on the card: point a KMamiz install's
     EXTERNAL_DATA_PROCESSOR here. LOG_LEVEL (verbose|info|warn|error)
@@ -774,6 +790,7 @@ def main() -> None:
 
     logging.basicConfig(level=logging.INFO)
     klog.configure(os.environ.get("LOG_LEVEL", "info"))
+    arm_lock_witness()
     server, _ = build_server()
     logger.info("external DP listening on %d", server.port)
     server.serve_forever()

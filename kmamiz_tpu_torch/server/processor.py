@@ -1062,10 +1062,10 @@ class DataProcessor:
         abs_hour = int(min(req_time_ms, self._now_ms()) // 3_600_000)
         sel = batch.valid & (batch.kind == KIND_SERVER)
         eids = batch.endpoint_id[sel]
-        # host-side hour-bucket accumulators; float64 keeps long-run sums exact
+        # graftlint: disable=dtype-drift -- host-side hour-bucket accumulators; f64 keeps long-run sums exact
         err4 = (batch.status_class[sel] == 4).astype(np.float64)
-        err5 = (batch.status_class[sel] == 5).astype(np.float64)
-        lat = np.asarray(batch.latency_ms, dtype=np.float64)[sel]
+        err5 = (batch.status_class[sel] == 5).astype(np.float64)  # graftlint: disable=dtype-drift -- host-side accumulator (see above)
+        lat = np.asarray(batch.latency_ms, dtype=np.float64)[sel]  # graftlint: disable=dtype-drift -- host-side accumulator (see above)
         scls = np.clip(np.asarray(batch.status_class, dtype=np.int64)[sel], 0, 5)
 
         with self._history_lock:
@@ -1134,6 +1134,7 @@ class DataProcessor:
         lat_mean = lat_sum / safe
         # the edge columns cross to the host once per fold, in one copy
         src, dst, _dist, mask = self.graph.edge_arrays()
+        # graftlint: disable=host-sync-in-hot-path -- one copy back per fold (an hour), not per tick
         cols = torch.stack([src, dst, mask.to(torch.int32)]).cpu().numpy()
         src, dst, mask = cols[0], cols[1], cols[2].astype(bool)
         self.history.set_degrees(src, dst, mask, len(count))
@@ -1627,6 +1628,7 @@ class DeviceStatsJob:
 
     def result(self) -> Dict[tuple, dict]:
         if self._ready is not None:
+            # graftlint: disable=host-sync-in-hot-path -- single packed fetch per tick, copied back asynchronously into pinned memory
             self._ready.synchronize()
         cols = self._cols
         packed = self._host.numpy()

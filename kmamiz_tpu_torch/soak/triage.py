@@ -3,8 +3,10 @@ phase / tenant / gate, then dedupe failures into bugs.
 
 Counterpart of kmamiz_tpu/soak/triage.py. ``GATE_PHASE`` has no
 ``zero_steady_recompiles`` entry: no card of the port carries that gate
-(it counts XLA compiles, and nothing is compiled per shape here). The
-lock-witness gates come with ``analysis/``.
+(it counts XLA compiles, and nothing is compiled per shape here). Like
+the JAX table, it has no entry for the lock-witness gates
+(``lock_witness_acyclic``, ``lock_witness_covered``) either: a failed one
+blames the phase ``unknown``.
 
 On any gate failure the scenario runner freezes a ``flight-*.json``
 evidence box; the sweep keeps the LAST PASSING flight profile per

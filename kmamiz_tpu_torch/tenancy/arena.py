@@ -222,6 +222,7 @@ def _register_arena_telemetry() -> None:
     from kmamiz_tpu_torch.telemetry import REGISTRY
     from kmamiz_tpu_torch.telemetry.slo import tenant_label
 
+    # graftlint: disable=hot-path-metric-label -- one-time registration, called once per process from default_arena()
     family = REGISTRY.gauge_family(
         "kmamiz_tenant_arena_bytes", "Tracked device-arena bytes per tenant graph", ("tenant",)
     )
@@ -236,6 +237,7 @@ def _register_arena_telemetry() -> None:
             label = tenant_label(tenant)
             totals[label] = totals.get(label, 0) + nbytes
         for label, nbytes in totals.items():
+            # graftlint: disable=hot-path-metric-label -- scrape-time pull callback, never on the tick path
             family.handle(label).set(float(nbytes))
 
     REGISTRY.register_callback(scrape)

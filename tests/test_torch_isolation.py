@@ -92,7 +92,47 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.tools.graftsoak",
         "kmamiz_tpu_torch.tools.scenario_soak",
         "kmamiz_tpu_torch.tools.graftprof",
+        "kmamiz_tpu_torch.analysis",
+        "kmamiz_tpu_torch.analysis.framework",
+        "kmamiz_tpu_torch.analysis.callgraph",
+        "kmamiz_tpu_torch.analysis.rules",
+        "kmamiz_tpu_torch.analysis.guards",
+        "kmamiz_tpu_torch.analysis.concurrency",
+        "kmamiz_tpu_torch.analysis.concurrency.locks",
+        "kmamiz_tpu_torch.analysis.concurrency.rules",
+        "kmamiz_tpu_torch.analysis.concurrency.witness",
+        "kmamiz_tpu_torch.tools.graftlint",
+        "kmamiz_tpu_torch.tools.graftrace",
     } <= set(names)
+
+
+_IMPORT_LINT = """
+import sys
+sys.modules["torch"] = None        # linting needs no torch (and no card)
+sys.modules["jax"] = None
+sys.modules["kmamiz_tpu"] = None
+import kmamiz_tpu_torch.analysis.concurrency.witness
+import kmamiz_tpu_torch.tools.graftlint
+import kmamiz_tpu_torch.tools.graftrace
+from kmamiz_tpu_torch.analysis import framework
+framework.all_rules()
+leaked = sorted(
+    m for m, mod in sys.modules.items()
+    if mod is not None and (m in ("torch", "jax") or m.startswith(("torch.", "jax.", "kmamiz_tpu.")))
+)
+assert not leaked, leaked
+"""
+
+
+def test_lint_tools_and_witness_import_neither_torch_nor_the_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_LINT],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_no_source_mentions_an_import_of_the_reference():

@@ -530,12 +530,15 @@ def test_dp_metrics_timings_and_traces(dp):
     assert 'le="+Inf"' in text and "kmamiz_ticks_total 1" in text
     with urllib.request.urlopen(f"http://127.0.0.1:{dp.port}/timings", timeout=30) as resp:
         timings = json.loads(resp.read())
-    # the JAX server's sections, less those of parts not ported yet
+    # the JAX server's sections, less those of parts the port does not
+    # have (nothing is compiled per shape)
     jax_sections = {
         "phases", "programs", "resilience", "tenancy", "tenants", "control",
         "cost", "freshness", "stream", "fleet", "lockWitness",
     }
-    assert set(timings) == jax_sections - {"programs", "cost", "lockWitness"}
+    assert set(timings) == jax_sections - {"programs", "cost"}
+    # the witness is off unless KMAMIZ_LOCK_WITNESS arms it
+    assert timings["lockWitness"]["installed"] is False
     assert timings["tenants"]["default"]["ticks"] == 1 and timings["freshness"]["samples"] == 1
     with urllib.request.urlopen(f"http://127.0.0.1:{dp.port}/debug/traces", timeout=30) as resp:
         export = json.loads(resp.read())
