@@ -373,6 +373,35 @@ Phases, each timed:
    flight box against its archetype's baseline prints a blame block
    naming soak_poison.
 
+25. the device mesh (kmamiz_tpu_torch/parallel/mesh.py; after phase 24,
+   before phase 14's profiler sessions) on 8 virtual shards of the one
+   card (parallel/mesh.process_devices, the mesh's test seam, answering 8
+   copies of cuda:0, so every deployed caller shards as on a host with 8
+   cards; every wall is printed beside "8 x cuda:0": launch cost on one
+   card, not scaling): (a) sharded_window_stats under psum, ring and
+   hierarchical (a 2 x 4 ('host', 'spans') grid) against window_stats on
+   the card, at the production window (2^20 spans, 10,000 endpoints x 8
+   statuses) and at a 2,500-trace tick, within the tick's tolerances, the
+   segment-stats kernel launching 2 x 8 times a call (counted); (b) a
+   collect tick with the mesh (16 launches) and one without (2), both from
+   phase 4's graph carried by name (export_named_edges ->
+   graph_from_export): combined rows (the tick's tolerances),
+   dependencies and graph signature equal; (c) ingest_raw_stream of 4
+   chunks of 12,500 traces at the BASELINE mesh with the mesh (each chunk
+   staged by sharded_window_edges_compact) and without, and with the mesh
+   once more under a stage cap of 256 rows (every shard re-walks through
+   sharded_dependency_edges_packed): equal summaries and graph
+   signatures; (d) sharded_service_scores on phase 4's graph (grown by
+   the ticks since) against the store's single-device scorer (integer
+   lanes and instability equal, relying factor rel 1e-5); (e) one
+   make_sharded_slot_grad step of GraphSAGE (hidden 64, 18 features, 8
+   slots of phase 11's dataset, one a shard) against the per-slot loop
+   (rtol 1e-5 / atol 1e-6), the fused kernel's forward launching 2 and
+   its backward 1 C call (the row pass) a slot, counted; (f) phase 22's
+   last stacked merge with its 8 tenant lanes sharded one a shard
+   (tenancy/batch.sharded_merge_edges) against 8 serial merges,
+   bit-equal. Its launches join the kernels line.
+
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
 for a comparison of two checkouts on the same card in one run. With
@@ -390,6 +419,7 @@ runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 1-2 and then phase 20 alone ((g) on a fresh card processor after one
 warm tick); with --simulator-only, phases 1-2 and then phase 21 alone;
 with --tenancy-only, phases 1-2 and then phase 22 alone; with
+--mesh-only, phases 1-2 and 4 and then phase 25 without (f); with
 --fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
 makes itself); with --soak-only, phases 1-2 and then phase 24 alone.
 Any failed check raises, and the script then exits non-zero without the
@@ -400,7 +430,9 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import dataclasses
+import gc
 import gzip
 import json
 import math
@@ -409,6 +441,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.parse
@@ -449,6 +482,11 @@ STLGT_HOURS = (920, 921, 922, 923)  # 4 ticks: 3 folds, 2 refreshes
 RAW_TRACES = 150_000  # bench.py's raw e2e window: 1.05M spans
 RAW_REPS = 1
 TICK_WALL_LIMIT_MS = 5_000  # the DP's realtime cadence (PERF.md section 2)
+# Taken by every tick whose wall this process times while the tick runs in,
+# or answers to, this process (phases 17, 19, 20), and by the harness thread
+# that reads phase 21's large route answers beside them: a tick's wall is
+# never a harness thread's hold of the interpreter lock.
+HOST_QUIET = threading.Lock()
 
 
 def log(msg: str) -> None:
@@ -473,6 +511,29 @@ class Phase:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+class GcPauses:
+    """The collections of this process's garbage collector, in any thread,
+    while the block runs: their summed wall (`ms`) and how many were full
+    (`full`, generation 2)."""
+
+    def __enter__(self):
+        self.ms, self.full, self._t = 0.0, 0, None
+        gc.callbacks.append(self._on)
+        return self
+
+    def _on(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.ms += (time.perf_counter() - self._t) * 1e3
+            self.full += info["generation"] == 2
+            self._t = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on)
+        return False
 
 
 def cuda_ms(torch, fn, runs: int = TIMING_RUNS, calls: int = TIMING_CALLS) -> float:
@@ -739,15 +800,14 @@ def synth_groups(n_traces: int, t_start: int, prefix: str):
     )
 
 
-def segment_inputs(torch, device, tick_groups):
-    """Phase 3's inputs: (label, values, seg, ts, num_segments) at the
-    production window and at the tick's shape, both passes of window_stats
-    (the second takes no timestamps)."""
+def stat_windows(tick_groups) -> list:
+    """window_stats' host columns at the production window (2^20 spans,
+    10,000 endpoints x 8 statuses, bench.py's inputs) and at the tick's
+    shape (the stats columns of a window of tick_groups): (label, columns
+    by window_stats' argument names, num_endpoints, num_statuses)."""
     import numpy as np
 
     from kmamiz_tpu_torch.domain.traces import Traces
-    from kmamiz_tpu_torch.ops import segment_stats as ss
-    from kmamiz_tpu_torch.ops import window as window_ops
     from kmamiz_tpu_torch.server.processor import stats_columns
 
     rng = np.random.default_rng(0)  # bench.py's production window inputs
@@ -770,11 +830,21 @@ def segment_inputs(torch, device, tick_groups):
         timestamp_rel=cols.timestamp_rel,
         valid_server=cols.valid,
     )
-    inputs = []
-    for label, arrays, ne, ns in (
+    return [
         ("production window", prod, PROD_ENDPOINTS, PROD_STATUSES),
         ("tick", tick, cols.num_endpoints, cols.num_statuses),
-    ):
+    ]
+
+
+def segment_inputs(torch, device, tick_groups):
+    """Phase 3's inputs: (label, values, seg, ts, num_segments) at the
+    production window and at the tick's shape, both passes of window_stats
+    (the second takes no timestamps)."""
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.ops import window as window_ops
+
+    inputs = []
+    for label, arrays, ne, ns in stat_windows(tick_groups):
         dev = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
         values, seg, ts, n_seg = window_ops.stat_rows(
             **dev, num_endpoints=ne, num_statuses=ns
@@ -1075,19 +1145,22 @@ def fused_cases(torch, graph, jobs):
     return cases, report
 
 
-def get_route(port: int, path: str):
+def get_route(port: int, path: str, quiet: bool = False):
     """GET any API route over HTTP (gzip accepted): (status, body, wall
     ms), the body parsed when it is JSON, else its bytes (the export's
-    tgz, the swagger YAML)."""
+    tgz, the swagger YAML). With `quiet`, the body's read, gunzip and
+    parse hold HOST_QUIET (a thread beside timed ticks)."""
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers={"Accept-Encoding": "gzip"})
     t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as resp:
+    with urllib.request.urlopen(req, timeout=600) as resp, (HOST_QUIET if quiet else contextlib.nullcontext()):
         body = resp.read()
         if resp.headers.get("Content-Encoding") == "gzip":
             body = gzip.decompress(body)
         status, kind = resp.status, resp.headers.get("Content-Type", "")
-    ms = (time.perf_counter() - t0) * 1e3
-    return status, json.loads(body) if kind.startswith("application/json") else body, ms
+        ms = (time.perf_counter() - t0) * 1e3
+        if kind.startswith("application/json"):
+            body = json.loads(body)
+    return status, body, ms
 
 
 def serve_forecast(torch, graph, device, launch_counters, t_start: int):
@@ -3700,9 +3773,10 @@ def serve_application(torch, device, counters, t_start: int, state: dict, store,
             k = len(ticks)
             feed.groups = windows[k] if k < len(windows) else []
             clock["shift_ms"] = HOUR_MS if k < APP_FOLD_AT else 0
-            t0 = time.perf_counter()
-            retrieve()
-            t1 = time.perf_counter()
+            with HOST_QUIET:
+                t0 = time.perf_counter()
+                retrieve()
+                t1 = time.perf_counter()
             stages = {s: round(v, 3) for s, v in proc1.last_stage_ms.items()}
             tick = {"tick": k, "traces": len(feed.groups), "wall_ms": round((t1 - t0) * 1e3, 3), **stages}
             ticks.append({**tick, "span": (t0, t1)})
@@ -4559,15 +4633,27 @@ def serve_in_cluster(torch, device, counters) -> dict:
             request = {"uniqueId": f"cluster{k}", "lookBack": 30_000, "time": int(time.time() * 1000)}
             gets, lines = kube.reads()
             launched = dp_launches(port)
-            t = time.perf_counter()
             timing: dict = {}
-            resp = post_tick(port, request, timing)
-            wall = (time.perf_counter() - t) * 1e3
+            with HOST_QUIET:
+                # this process's own heap (every phase's state) is collected
+                # before the wall, as post_round does, so that a full
+                # collection of it does not land in the client's decode
+                t = time.perf_counter()
+                gc.collect()
+                collect_ms = (time.perf_counter() - t) * 1e3
+                with GcPauses() as pauses:
+                    t = time.perf_counter()
+                    resp = post_tick(port, request, timing)
+                    wall = (time.perf_counter() - t) * 1e3
             gets_after, lines_after = kube.reads()
             tick = {
                 "tick": k,
                 "wall_ms": round(wall, 3),
                 "client_decode_ms": timing["decode_ms"],
+                "client_gc_ms": round(pauses.ms, 3),
+                "client_full_gcs": pauses.full,
+                "harness_collect_ms": round(collect_ms, 3),
+                "harness_objects": len(gc.get_objects()),
                 "pods_read": gets_after - gets,
                 "log_lines": lines_after - lines,
                 "bodies_logged": bodies,
@@ -4634,7 +4720,12 @@ def serve_in_cluster(torch, device, counters) -> dict:
         )
         out["ticks"] = ticks
         out["max_tick_wall_ms"] = max(t["wall_ms"] for t in ticks)
-        check(out["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS, f"a cluster tick took {out['max_tick_wall_ms']} ms")
+        slowest = max(ticks, key=lambda t: t["wall_ms"])
+        check(
+            out["max_tick_wall_ms"] < TICK_WALL_LIMIT_MS,
+            f"a cluster tick took {out['max_tick_wall_ms']} ms: "
+            + json.dumps({key: slowest[key] for key in ("client_decode_ms", "client_gc_ms", "dp_stages")}),
+        )
         out["pods"] = sum(len(p) for p in kube.pods.values())
         out["stream_micro_ticks"] = CLUSTER_TICKS
         # the DP's witness after its ticks: installed, acquires recorded,
@@ -4882,11 +4973,13 @@ def post_raw_tick(port: int, request: dict) -> tuple:
         headers={"Content-Type": "application/json", "Content-Encoding": "gzip", "Accept-Encoding": "gzip"},
         method="POST",
     )
-    t = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        check(resp.status == 200, f"tick answered {resp.status}")
-        body = resp.read()
-    return (time.perf_counter() - t) * 1e3, len(body)
+    with HOST_QUIET:
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            check(resp.status == 200, f"tick answered {resp.status}")
+            body = resp.read()
+        wall = (time.perf_counter() - t) * 1e3
+    return wall, len(body)
 
 
 def spread(walls) -> dict:
@@ -5361,8 +5454,9 @@ class SimulatorApp:
                 "answer": answer,
                 "ms": (time.perf_counter() - t0) * 1e3,
             }
+            # the answers are large: decoded while no tick is timed
             for key, path in self.ROUTES:
-                status, self.bodies[key], ms = get_route(port, path)
+                status, self.bodies[key], ms = get_route(port, path, quiet=True)
                 self.out[key] = {"status": status, "ms": ms}
         except Exception as e:  # noqa: BLE001 - raised in result()
             self.error = e
@@ -5704,9 +5798,6 @@ def post_round(port: int, posts) -> tuple:
     """Every (tenant, request, by_header) of `posts` at once, each on a
     thread of its own released together; returns ({tenant: post's
     result}, the round's wall in ms)."""
-    import gc
-    import threading
-
     # a collection of the process's older generations inside the gather
     # window would hold arrivals back past it: collect before the round
     gc.collect()
@@ -5764,7 +5855,7 @@ def tenant_state_windows() -> dict:
     return {t: in_namespace(i, raw) for i, (t, raw) in enumerate(zip(TENANTS, raws))}
 
 
-def serve_tenancy(torch, device, counters, jobs, windows_out: dict = None) -> dict:
+def serve_tenancy(torch, device, counters, jobs, windows_out: dict = None, stack_out: dict = None) -> dict:
     """Phase 22, multi-tenant serving: (a) eight tenants of 125 services x
     10 urls, each loaded with 18,750 raw traces, in one capacity bucket;
     (b) TENANT_ROUNDS (2) gathered rounds through a DataProcessorServer (gather window
@@ -5778,7 +5869,9 @@ def serve_tenancy(torch, device, counters, jobs, windows_out: dict = None) -> di
     with the WAL on: beta's poison storm in beta's quarantine only,
     alpha's graph equal to a clean serial run, a restart replaying each
     tenant's namespace. The tenants' state windows go into `windows_out`
-    when one is given (phase 23 routes them through the fleet)."""
+    when one is given (phase 23 routes them through the fleet), and the
+    last stacked merge's inputs into `stack_out["inputs"]` (phase 25 (f)
+    shards them over the mesh)."""
     import numpy as np
 
     from kmamiz_tpu_torch import control, scenarios
@@ -5918,6 +6011,8 @@ def serve_tenancy(torch, device, counters, jobs, windows_out: dict = None) -> di
 
         # the last stacked merge against eight serial merges, on its inputs
         stack_cols, win_cols, counts = router.last_stack_inputs
+        if stack_out is not None:
+            stack_out["inputs"] = router.last_stack_inputs
         serial_inputs = []
         for lane in range(len(TENANTS)):
             n = int(win_cols[3][lane].sum())
@@ -6771,6 +6866,332 @@ def serve_soak(torch, device, counters, sweep: SweepProcess = None) -> dict:
     return out
 
 
+MESH_SHARDS = 8  # phase 25: virtual shards of the one card
+MESH_GRID = (2, 4)  # the ('host', 'spans') grid of the hierarchical merge
+MESH_MERGES = ("psum", "ring", "hierarchical")
+MESH_STREAM_CHUNKS = 4  # (c): ingest_raw_stream's chunks
+MESH_STREAM_TRACES = 12_500  # (c): traces a chunk, at the BASELINE mesh
+MESH_STAGE_CAP = 256  # (c): the stage cap that forces every shard to re-walk
+MESH_SLOTS = 8  # (e): the slot batch, one slot a shard
+STAT_COLUMNS = ("endpoint_id", "status_id", "status_class", "latency_ms", "timestamp_rel", "valid_server")
+
+
+class VirtualShards:
+    """parallel/mesh.process_devices, the mesh's one test seam, answering
+    `n` copies of one card for the block: active_mesh("cuda") is then the
+    mesh of n virtual shards that a host with n cards would give, and every
+    deployed caller shards over it. The patch goes when the block ends."""
+
+    def __init__(self, torch, pmesh, card, n: int = MESH_SHARDS) -> None:
+        self.torch, self.pmesh, self.card, self.n = torch, pmesh, card, n
+
+    def __enter__(self):
+        self.saved = self.pmesh.process_devices
+        saved, torch = self.saved, self.torch
+
+        def devices(device):
+            return [self.card] * self.n if torch.device(device).type == self.card.type else saved(device)
+
+        self.pmesh.process_devices = devices
+        self.env = env_set(KMAMIZ_MESH=None, KMAMIZ_MESH_DEVICES=None, KMAMIZ_TENANT_SHARD=None)
+        self.env.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.env.__exit__(*exc)
+        self.pmesh.process_devices = self.saved
+        return False
+
+
+class CallCount:
+    """Counts the calls of a module's function during the block (through
+    the module attribute, as its callers reach it)."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def synced_s(torch, fn):
+    """(fn()'s result, its wall in s from an idle card to a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_stats(torch, got, want, what: str) -> dict:
+    """The tick's tolerances between two WindowStats on the card: counts,
+    4xx/5xx and timestamps equal; latency mean rel 1e-5 / abs 1e-6; cv rel
+    1e-3 / abs 1e-5. Returns the largest differences of the two floats."""
+    for name in ("count", "error_4xx", "error_5xx", "latest_timestamp_rel"):
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"{what}: {name} differs")
+    out = {}
+    for name, rtol, atol in (("latency_mean", 1e-5, 1e-6), ("latency_cv", 1e-3, 1e-5)):
+        g, w = getattr(got, name), getattr(want, name)
+        check(torch.allclose(g, w, rtol=rtol, atol=atol), f"{what}: {name} off by {float((g - w).abs().max())}")
+        out[name] = float((g - w).abs().max())
+    return out
+
+
+def serve_mesh(torch, device, counters, proc, tenant_stack=None) -> dict:
+    """Phase 25, the device mesh (parallel/mesh.py) on MESH_SHARDS (8)
+    virtual shards of the one card: (a) sharded_window_stats under psum,
+    ring and hierarchical (a 2 x 4 ('host', 'spans') grid) against
+    window_stats on the card, at the production window and at a
+    2,500-trace tick, kernel 1 launching 2 x 8 times a call; (b) a collect
+    tick with the mesh and one without, both from phase 4's graph carried
+    by name; (c) ingest_raw_stream of 4 chunks of 12,500 traces at the
+    BASELINE mesh with the mesh and without, and once more with a stage
+    cap of 256 rows that makes every shard re-walk; (d)
+    sharded_service_scores on phase 4's graph against the single-device
+    scorer; (e) one make_sharded_slot_grad step of GraphSAGE (hidden 64, 18
+    features, the phase-11 slots, 8 of them) against the per-slot loop;
+    (f) phase 22's last stacked merge, its eight tenant lanes sharded one a
+    device, against serial merges (None: not carried, recorded). Every
+    wall is printed beside the mesh's devices: it is launch cost on one
+    card, not scaling across cards."""
+    import contextlib
+
+    import numpy as np
+
+    from kmamiz_tpu_torch.graph import store as store_mod
+    from kmamiz_tpu_torch.graph.convert import graph_from_export
+    from kmamiz_tpu_torch.graph.store import _merge_edges, graph_signature
+    from kmamiz_tpu_torch.models import common, graphsage, stacked
+    from kmamiz_tpu_torch.ops import scorers as scorer_ops
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.ops import window as window_ops
+    from kmamiz_tpu_torch.parallel import mesh as pmesh
+    from kmamiz_tpu_torch.server.processor import DataProcessor
+    from kmamiz_tpu_torch.tenancy import batch
+
+    card = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" else device
+    shards = [card] * MESH_SHARDS
+    label = f"{MESH_SHARDS} x {card}"
+    mesh = pmesh.make_mesh(devices=shards)
+    grid = pmesh.Mesh(np.array(shards, dtype=object).reshape(MESH_GRID), ("host", "spans"))
+    seg, fwd = ss.segment_stats.__name__, sparse.fused_sddmm_spmm.__name__
+    bwd, rows = sparse.fused_backward.__name__, sparse.fused_sddmm_spmm_grad_rows.__name__
+    launches = {c.__name__: 0 for c in counters}
+    out: dict = {"mesh": label, "grid": f"{MESH_GRID[0]} x {MESH_GRID[1]} ('host', 'spans') of {card}"}
+
+    def counted(fn):
+        zero_counts(counters)
+        result, wall = synced_s(torch, fn)
+        got = read_counts(torch, counters)
+        for k, v in got.items():
+            launches[k] += v
+        return result, wall, got
+
+    def virtual():
+        return VirtualShards(torch, pmesh, card)
+
+    # (a) the sharded stats against window_stats on the card
+    stats_rows = []
+    tick_groups = synth_groups(TICK_TRACES, STATE_TRACES * 3, "meshstats")
+    for name, arrays, ne, ns in stat_windows(tick_groups):
+        cols = [torch.from_numpy(arrays[k]).to(device) for k in STAT_COLUMNS]
+        window_ops.window_stats(*cols, num_endpoints=ne, num_statuses=ns)  # warm: the timed call below is steady
+        want, single_s = synced_s(torch, lambda: window_ops.window_stats(*cols, num_endpoints=ne, num_statuses=ns))
+        for merge in MESH_MERGES:
+            m = grid if merge == "hierarchical" else mesh
+
+            def run(m=m, merge=merge):
+                return pmesh.sharded_window_stats(m, *cols, num_endpoints=ne, num_statuses=ns, merge=merge)
+
+            got, first_s, got_launches = counted(run)
+            check(got_launches[seg] == 2 * MESH_SHARDS, f"(a) {name} {merge}: segment_stats launched {got_launches[seg]} times")
+            _again, wall_s, _l = counted(run)
+            row = {
+                "window": name, "spans": int(cols[0].shape[0]), "segments": ne * ns, "merge": merge, "mesh": label,
+                "launches": got_launches[seg], "first_ms": round(first_s * 1e3, 3), "wall_ms": round(wall_s * 1e3, 3),
+                "single_device_ms": round(single_s * 1e3, 3), **check_stats(torch, got, want, f"(a) {name} {merge}"),
+            }
+            stats_rows.append(row)
+            log("   (a) " + json.dumps(row))
+    out["stats"] = stats_rows
+
+    # (b) a collect tick with the mesh and one without, from the carried graph
+    export = proc.graph.export_named_edges()
+    groups = synth_groups(TICK_TRACES, STATE_TRACES * 3 + TICK_TRACES, "meshtick")
+    ticks = {}
+    for name, ctx in (("single", contextlib.nullcontext), ("mesh", virtual)):
+        p = DataProcessor(trace_source=lambda lb, t, lim: groups, device=device, graph=graph_from_export(export, device))
+        with ctx():
+            resp, wall, got = counted(lambda: p.collect({"uniqueId": "mesh", "lookBack": 30_000}))
+        ticks[name] = (resp, graph_signature(p.graph), wall, got[seg])
+    compare_ticks(ticks["mesh"][0], ticks["single"][0])
+    check(ticks["mesh"][1] == ticks["single"][1], "(b) graph signatures differ")
+    check(ticks["single"][3] == 2 and ticks["mesh"][3] == 2 * MESH_SHARDS, f"(b) launches {ticks['single'][3]}, {ticks['mesh'][3]}")
+    # the single-device tick is the reference: its launches stay out of the count
+    launches[seg] -= ticks["single"][3]
+    out["tick"] = {
+        "mesh": label, "combined": len(ticks["mesh"][0]["combined"]), "dependencies": len(ticks["mesh"][0]["dependencies"]),
+        "mesh_tick_ms": round(ticks["mesh"][2] * 1e3, 3), "single_tick_ms": round(ticks["single"][2] * 1e3, 3),
+        "mesh_launches": ticks["mesh"][3], "single_launches": ticks["single"][3],
+    }
+    log("   (b) " + json.dumps(out["tick"]))
+
+    # (c) the streamed ingest with the mesh and without, and the re-walk
+    chunks = raw_windows(
+        dict(n_traces=MESH_STREAM_TRACES, spans_per=SPANS_PER_TRACE, t_start=c * MESH_STREAM_TRACES, trace_prefix="mesh", **BASELINE)
+        for c in range(MESH_STREAM_CHUNKS)
+    )
+    streams = {}
+    # in turns: the single-device stream before and after the mesh's two
+    runs = (("single", False, None), ("mesh", True, None), ("mesh, re-walk", True, MESH_STAGE_CAP), ("single again", False, None))
+    for name, on, cap in runs:
+        p = DataProcessor(trace_source=TickFeed(), device=device, max_payload_bytes=RAW_CAP)
+        with contextlib.ExitStack() as stack:
+            if on:
+                stack.enter_context(virtual())
+            staged = stack.enter_context(CallCount(pmesh, "sharded_window_edges_compact"))
+            rewalks = stack.enter_context(CallCount(pmesh, "sharded_dependency_edges_packed"))
+            if cap is not None:
+                stack.enter_context(AttrSet(store_mod, "STAGE_CAP", cap))
+            summary, wall = synced_s(torch, lambda: p.ingest_raw_stream(list(chunks)))
+            signature = graph_signature(p.graph)
+        streams[name] = {
+            "mesh": label if on else "1 x " + str(card), "wall_ms": round(wall * 1e3, 3),
+            "spans_per_s": round(summary["spans"] / wall, 1), "sharded_stages": staged.calls, "sharded_rewalks": rewalks.calls,
+            **{k: summary[k] for k in ("spans", "traces", "endpoints", "edges")}, "signature": signature,
+        }
+        log("   (c) " + json.dumps({"run": name, **streams[name]}))
+    for name in ("mesh", "mesh, re-walk", "single again"):
+        for k in ("spans", "traces", "endpoints", "edges", "signature"):
+            check(streams[name][k] == streams["single"][k], f"(c) {name}: {k} differs from the single-device stream")
+    check(streams["mesh"]["sharded_stages"] == MESH_STREAM_CHUNKS and streams["single"]["sharded_stages"] == 0, f"(c) stages {streams}")
+    check(streams["mesh, re-walk"]["sharded_rewalks"] >= 1 and streams["mesh"]["sharded_rewalks"] == 0, f"(c) re-walks {streams}")
+    out["stream"] = streams
+
+    # (d) the sharded scorer on phase 4's graph
+    snap, num_services, dist_bits = store_snapshot(torch, proc.graph, device)
+    cap = int(snap[0].shape[0])
+    check(cap % MESH_SHARDS == 0, f"(d) capacity {cap} does not shard")
+    single = lambda: scorer_ops.service_scores(*snap, num_services=num_services, dist_bits=dist_bits)  # noqa: E731
+    legacy = lambda: scorer_ops.service_scores(*snap, num_services=num_services)  # noqa: E731
+    sharded_scores = lambda: pmesh.sharded_service_scores(mesh, *snap, num_services=num_services)  # noqa: E731
+    got, first_s = synced_s(torch, sharded_scores)
+    want, single_first_s = synced_s(torch, single)
+    synced_s(torch, legacy)  # warm: each path's steady call is timed below
+    _single, single_s = synced_s(torch, single)
+    _legacy, legacy_s = synced_s(torch, legacy)
+    got, mesh_s = synced_s(torch, sharded_scores)
+    out["scores"] = {
+        "mesh": label, "edges": proc.graph.n_edges, "capacity": cap, "services": num_services,
+        "rf_max_rel": assert_scores_match(got, want, "(d) sharded scores"),
+        "first_ms": round(first_s * 1e3, 3), "mesh_ms": round(mesh_s * 1e3, 3),
+        "single_device_first_ms": round(single_first_s * 1e3, 3), "single_device_ms": round(single_s * 1e3, 3),
+        "single_device_legacy_ms": round(legacy_s * 1e3, 3),
+    }
+    log("   (d) " + json.dumps(out["scores"]))
+
+    # (e) one sharded slot-grad step of GraphSAGE against the per-slot loop
+    ds = training_dataset(torch, proc.graph, MESH_SLOTS)
+    st = stacked.stack_dataset(ds, device)
+    params = graphsage.init_params(
+        torch.Generator().manual_seed(SEED), hidden=SAGE_HIDDEN, num_features=SAGE_FEATURES, device=device
+    )
+    loss_fn = common.make_loss_fn(graphsage.forward, 4.0)
+    feats, tl, ta, nm, w = (x[0] for x in stacked.batch_slots_arrays(st, MESH_SLOTS))
+    edges = (st.src, st.dst, st.edge_mask)
+    grad = pmesh.make_sharded_slot_grad(pmesh.make_mesh(devices=shards, axis="slots"), loss_fn, axis="slots")
+    step = lambda: grad(params, feats, tl, ta, nm, *edges, w, st.index)  # noqa: E731
+    (g_mesh, losses), first, got = counted(step)
+    check(got[fwd] == 2 * MESH_SLOTS, f"(e) forward launches {got}")
+    check(got[bwd] == MESH_SLOTS and got[rows] == MESH_SLOTS, f"(e) backward launches {got}")
+    _again, wall, _again_got = counted(step)
+
+    def per_slot():
+        total, loss_sum = None, 0.0
+        for i in range(MESH_SLOTS):
+            loss, _aux, g = common.value_and_grad(loss_fn, params, feats[i], *edges, tl[i], ta[i], nm[i], index=st.index)
+            total = list(g) if total is None else [None if a is None else a + b for a, b in zip(total, g)]
+            loss_sum = loss_sum + loss
+        return [None if a is None else a / MESH_SLOTS for a in total], loss_sum / MESH_SLOTS
+
+    (g_ref, loss_ref), loop_s = synced_s(torch, per_slot)
+    err = 0.0
+    for name, a, b in zip(g_mesh._fields, g_mesh, g_ref):
+        if a is None:
+            continue
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-6), f"(e) grad {name} off by {float((a - b).abs().max())}")
+        err = max(err, float((a - b).abs().max()))
+    check(math.isclose(float(losses[0]), float(loss_ref), rel_tol=1e-5), f"(e) loss {float(losses[0])} against {float(loss_ref)}")
+    out["slot_grad"] = {
+        "mesh": label, "slots": MESH_SLOTS, "hidden": SAGE_HIDDEN, "features": SAGE_FEATURES, "nodes": st.bucket_nodes,
+        "first_ms": round(first * 1e3, 3), "wall_ms": round(wall * 1e3, 3), "per_slot_loop_ms": round(loop_s * 1e3, 3),
+        "max_abs_err": err,
+        "launches": {fwd: got[fwd], bwd: got[bwd], rows: got[rows]},
+    }
+    log("   (e) " + json.dumps(out["slot_grad"]))
+
+    # (f) phase 22's last stacked merge, its lanes sharded one a device
+    if tenant_stack is None:
+        out["tenant_merge"] = "not carried: phase 22 did not run in this process"
+    else:
+        stack_cols, win_cols, counts = tenant_stack
+        lanes = int(stack_cols[0].shape[0])
+        check(lanes % MESH_SHARDS == 0, f"(f) {lanes} lanes do not shard")
+        sharded = lambda: batch.sharded_merge_edges(  # noqa: E731
+            tuple(pmesh.shard(c, shards) for c in stack_cols), tuple(pmesh.shard(c, shards) for c in win_cols)
+        )
+        (s, d, ds, c), wall = synced_s(torch, sharded)
+        _again, wall = synced_s(torch, sharded)
+        per = lanes // MESH_SHARDS
+        serial_s = 0.0
+        for lane in range(lanes):
+            n = int(win_cols[3][lane].sum())
+            width = 1 << max(0, (n - 1).bit_length())
+            args = [col[lane] for col in stack_cols] + [col[lane, :width] for col in win_cols[:3]] + [win_cols[3][lane, :width]]
+            (s1, d1, ds1, v1), lane_s = synced_s(torch, lambda args=args: _merge_edges(*args))
+            serial_s += lane_s
+            k = int(v1.sum())
+            g, j = lane // per, lane % per
+            check(k == counts[lane] == int(c[g][j]), f"(f) lane {lane}: counts differ")
+            for a, b in zip((s[g][j], d[g][j], ds[g][j]), (s1, d1, ds1)):
+                check(torch.equal(a[:k], b[:k]), f"(f) lane {lane}: the sharded union differs from the serial one")
+        out["tenant_merge"] = {
+            "mesh": label, "lanes": lanes, "capacity": int(stack_cols[0].shape[1]), "window": int(win_cols[0].shape[1]),
+            "sharded_ms": round(wall * 1e3, 3), "serial_ms": round(serial_s * 1e3, 3),
+        }
+    log("   (f) " + json.dumps(out["tenant_merge"]))
+    out["launches"] = launches
+    return out
+
+
+class AttrSet:
+    """An attribute of a module set for a with-block, then restored."""
+
+    def __init__(self, module, name: str, value) -> None:
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+        return False
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -6833,6 +7254,12 @@ def main(argv=None) -> int:
         action="store_true",
         help="phases 1-2, then phase 24 (the soak sweep, the scenario matrix and "
         "graftprof over the port), then the report",
+    )
+    parser.add_argument(
+        "--mesh-only",
+        action="store_true",
+        help="phases 1-2 and 4, then phase 25 (the device mesh on virtual shards of "
+        "the card) without its part (f), which needs phase 22's stacked merge",
     )
     parser.add_argument(
         "--cluster-only",
@@ -6988,6 +7415,17 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"in_cluster": {k: v for k, v in report["in_cluster"].items() if k != "ticks"}}))
+        return 0
+
+    if args.mesh_only:
+        with Phase("state load", walls):
+            proc, _feed = load_state(device)
+        with Phase("mesh", walls):
+            report["mesh"] = serve_mesh(torch, device, counters, proc)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"mesh": {k: v for k, v in report["mesh"].items() if k != "stats"}}))
         return 0
 
     tick_shape_groups = synth_groups(TICK_TRACES, STATE_TRACES, "shape")
@@ -7220,10 +7658,13 @@ def main(argv=None) -> int:
     # and phase 22, multi-tenant serving (its control folds use phase 12's
     # STLGT head)
     tenant_windows: dict = {}
+    tenant_stack: dict = {}
     with Phase("multi-tenant serving", walls):
         stlgt_env = os.environ.pop("KMAMIZ_STLGT", None)
         try:
-            report["tenancy"] = serve_tenancy(torch, device, counters, jobs, windows_out=tenant_windows)
+            report["tenancy"] = serve_tenancy(
+                torch, device, counters, jobs, windows_out=tenant_windows, stack_out=tenant_stack
+            )
         finally:
             if stlgt_env is not None:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
@@ -7250,6 +7691,14 @@ def main(argv=None) -> int:
                 os.environ["KMAMIZ_STLGT"] = stlgt_env
         sweep_root.cleanup()
         soak_launches = report["soak"]["launches"]
+
+    # and phase 25, the device mesh on virtual shards of the card (over
+    # phase 4's graph, grown by the ticks since, and phase 22's last
+    # stacked merge)
+    with Phase("mesh", walls):
+        report["mesh"] = serve_mesh(torch, device, counters, proc, tenant_stack.pop("inputs"))
+        mesh_launches = report["mesh"]["launches"]
+        del tenant_stack
 
     with Phase("profile", walls):
         report["profile"] = profile_tick(
@@ -7299,10 +7748,11 @@ def main(argv=None) -> int:
         }
 
     # launches: the segment-stats kernel on the tick path (phase 7's served
-    # ticks, phase 22's gathered rounds and fold ticks and phase 24's
-    # graftprof capture), the fused kernel
-    # on the forecast path (phase 9, and phase 22's control folds), the
-    # backward's row pass on the GraphSAGE training path and its SDDMM on
+    # ticks, phase 22's gathered rounds and fold ticks, phase 24's
+    # graftprof capture and phase 25's sharded stats and mesh tick), the
+    # fused kernel on the forecast path (phase 9, phase 22's control folds)
+    # and phase 25's sharded slot grads, the backward's row pass on the
+    # GraphSAGE training path (phases 11 and 25) and its SDDMM on
     # the STLGT path; the shown times are the
     # tick's first pass, GraphSAGE's second layer (H = 64) forward and
     # backward, and STLGT's gated backward (H = 32)
@@ -7312,13 +7762,16 @@ def main(argv=None) -> int:
                 *kernels[0],
                 launches[ss.segment_stats.__name__]
                 + tenancy_launches[ss.segment_stats.__name__]
-                + soak_launches[ss.segment_stats.__name__],
+                + soak_launches[ss.segment_stats.__name__]
+                + mesh_launches[ss.segment_stats.__name__],
                 cases + raw_cases,
                 cases[2],
             ),
             entry(
                 *kernels[1],
-                forecast_launches[sparse.fused_sddmm_spmm.__name__] + tenancy_launches[sparse.fused_sddmm_spmm.__name__],
+                forecast_launches[sparse.fused_sddmm_spmm.__name__]
+                + tenancy_launches[sparse.fused_sddmm_spmm.__name__]
+                + mesh_launches[sparse.fused_sddmm_spmm.__name__],
                 f_cases,
                 f_cases[1],
             ),
@@ -7330,7 +7783,8 @@ def main(argv=None) -> int:
             ),
             entry(
                 *kernels[3],
-                train_launches[sparse.fused_sddmm_spmm_grad_rows.__name__],
+                train_launches[sparse.fused_sddmm_spmm_grad_rows.__name__]
+                + mesh_launches[sparse.fused_sddmm_spmm_grad_rows.__name__],
                 rows_cases,
                 rows_cases[1],
             ),

@@ -21,9 +21,15 @@ in one batched program, and each store adopts its lane
 (`adopt_batched_merged`); a store that moved since the stack was read
 raises StoreVersionDrift, and the router merges that window serially.
 
+On a device mesh (parallel/mesh.py: `active_mesh` finds more than one
+card) a staged window's packed rows upload per shard, each shard walks
+and self-compacts its rows on its device, and the drain unions the
+per-shard prefixes on the store's device; the service scorers shard
+their tuple expansion and local dedup over the mesh the same way. A
+single card keeps the single-device path.
+
 Not ported: the JAX store's 'segment' growth mode (a capacity crossing
-that recompiles no XLA program; PyTorch compiles nothing per shape) and
-its mesh-sharded staging.
+that recompiles no XLA program; PyTorch compiles nothing per shape).
 
 The store also serves the graph scorers (ops/scorers.py): the per-endpoint
 service/ml/record tables, the deprecated-endpoint horizon, an output memo
@@ -67,6 +73,7 @@ from kmamiz_tpu_torch.device import DeviceLike, resolve_device
 from kmamiz_tpu_torch.ops import scorers as scorer_ops
 from kmamiz_tpu_torch.ops import window as window_ops
 from kmamiz_tpu_torch.ops.double_buffer import AsyncCount, UploadPipeline
+from kmamiz_tpu_torch.parallel import mesh as pmesh
 from kmamiz_tpu_torch.telemetry import device as tel_device
 from kmamiz_tpu_torch.telemetry.tracing import phase_span
 from kmamiz_tpu_torch.ops.sortutil import (
@@ -164,6 +171,15 @@ def _packed_inputs(packed, batch: SpanBatch):
     )
 
 
+def _held_slots(dev_in) -> int:
+    """Packed slots a staged window's held walk inputs pin: its parent-slot
+    tensor's, or the sum of its shards' on a mesh."""
+    first = dev_in[0]
+    if isinstance(first, torch.Tensor):
+        return int(first.numel())
+    return sum(int(x.numel()) for x in first)
+
+
 def _window_edges_packed(parent_slot, kind, valid, endpoint_id, max_depth):
     """Walk only: a packed window's flat (ancestor, descendant,
     distance, mask) candidate columns, the store untouched; the re-walk of
@@ -237,15 +253,15 @@ class EndpointGraph:
         # touched only under self._lock, drained at the read fence
         self._uploads = UploadPipeline(self.device)
         # staged windows (compacted prefix columns, their AsyncCount, the
-        # walk inputs and depth) awaiting the union; bounded by
+        # walk inputs, depth and mesh) awaiting the union; bounded by
         # STAGE_MAX_ROWS through _staged_rows
         self._staged = []
         self._staged_rows = 0
         # the mid-stream pre-union: the staged windows so far collapsed into
         # one pending union that already holds the store's edges, its
         # AsyncCount, the truncation checks it deferred (count, cap, walk
-        # inputs, depth) and the packed slots those checks hold, which count
-        # toward the backstop too
+        # inputs, depth, mesh) and the packed slots those checks hold, which
+        # count toward the backstop too
         self._preunion = None
         self._preunion_count = None
         self._preunion_checks = []
@@ -342,6 +358,43 @@ class EndpointGraph:
         step_timer.record("transfer", ms)
         return out, ms
 
+    def _to_device_sharded(self, mesh, *host_arrays):
+        """_to_device onto the mesh: each [rows, ROW_SLOTS] array uploads
+        as mesh-many row blocks, block i to the mesh's i-th device, so each
+        shard's walk runs on its own rows. Returns (per array, its sharded
+        value; wait_ms)."""
+        devices = mesh.axis_devices("spans")
+        n = len(devices)
+        blocks = [b for a in host_arrays for b in np.split(a, n)]
+        out, ms = self._uploads.put(blocks, devices=devices * len(host_arrays))
+        step_timer.record("transfer", ms)
+        return tuple(tuple(out[k * n : (k + 1) * n]) for k in range(len(host_arrays))), ms
+
+    def _deploy_mesh(self, n_rows: int):
+        """The active mesh for this store's device when a window (or an
+        edge capacity) of n_rows is worth sharding (at least one row per
+        device), else None. Consulted per call, so a multi-card process
+        shards every big window while one card keeps the single-device
+        path."""
+        mesh = pmesh.active_mesh(self.device)
+        if mesh is None or n_rows < mesh.shape["spans"]:
+            return None
+        return mesh
+
+    @staticmethod
+    def _pad_rows_for(mesh, arr, fill):
+        """Pad a [rows, ROW_SLOTS] host array's leading dim to a multiple
+        of the mesh's device count (a no-op for pow2 device counts:
+        pack_trace_rows already pow2-pads rows)."""
+        n_dev = mesh.shape["spans"]
+        rows = arr.shape[0]
+        target = -(-rows // n_dev) * n_dev
+        if target == rows:
+            return arr
+        out = np.full((target, arr.shape[1]), fill, dtype=arr.dtype)
+        out[:rows] = arr
+        return out
+
     def _upload(self, *host_arrays):
         """Plain synchronous copies, for the scorer path's tables (the JAX
         store puts them with a plain device_put too)."""
@@ -436,15 +489,31 @@ class EndpointGraph:
         packed_key = (
             len(self.interner.endpoints) <= EDGE_KEY_MAX_EP and depth <= EDGE_KEY_MAX_DIST
         )
-        dev_in, transfer_ms = self._to_device(*_packed_inputs(packed, batch))
-        s, d, ds, count = _window_edges_compact(
-            *dev_in, max_depth=depth, stage_cap=STAGE_CAP, packed_key=packed_key
-        )
-        self._staged.append((s, d, ds, AsyncCount(count), dev_in, depth))
+        host_in = _packed_inputs(packed, batch)
+        mesh = self._deploy_mesh(host_in[0].shape[0])
+        if mesh is not None:
+            fills = (-1, 0, False, 0)
+            dev_in, transfer_ms = self._to_device_sharded(
+                mesh, *(self._pad_rows_for(mesh, a, f) for a, f in zip(host_in, fills))
+            )
+            parts = pmesh.sharded_window_edges_compact(
+                mesh, *dev_in, max_depth=depth, stage_cap=STAGE_CAP, packed_key=packed_key
+            )
+            # the shards' prefixes and counts gather on the store's device
+            # (peer copies), where the drain's union runs; a shard
+            # truncated when the largest count exceeds its prefix
+            s, d, ds, counts = (pmesh.unshard(p, self.device) for p in parts)
+            count = counts.max()
+        else:
+            dev_in, transfer_ms = self._to_device(*host_in)
+            s, d, ds, count = _window_edges_compact(
+                *dev_in, max_depth=depth, stage_cap=STAGE_CAP, packed_key=packed_key
+            )
+        self._staged.append((s, d, ds, AsyncCount(count), dev_in, depth, mesh))
         # the held walk inputs dominate a large window's staged memory, so
         # they count toward the backstop too: one packed slot (~10 B over
         # the four arrays) ~ one compacted edge row (3 int32)
-        self._staged_rows += int(s.shape[0]) + int(dev_in[0].numel())
+        self._staged_rows += int(s.shape[0]) + _held_slots(dev_in)
         self._update_ep_metadata(batch)
         if self._staged_rows + self._preunion_rows > STAGE_MAX_ROWS:
             # backstop: an unread stream must not grow device memory
@@ -659,13 +728,13 @@ class EndpointGraph:
         # re-walk into this union
         still_deferred = []
         for chk in self._preunion_checks:
-            count_c, cap_c, dev_in_c, depth_c = chk
+            count_c, cap_c, dev_in_c, depth_c, mesh_c = chk
             if not count_ready(count_c):
                 still_deferred.append(chk)
                 continue
-            self._preunion_rows -= int(dev_in_c[0].numel())
+            self._preunion_rows -= _held_slots(dev_in_c)
             if int(count_c) > cap_c:
-                walked = _window_edges_packed(*dev_in_c, depth_c)
+                walked = self._rewalk_staged(dev_in_c, depth_c, mesh_c)
                 for cols, col in zip((srcs, dsts, dists, masks), walked):
                     cols.append(col)
         self._preunion_checks = still_deferred
@@ -675,7 +744,7 @@ class EndpointGraph:
         self._preunion = (s, d, ds)
         self._preunion_count = AsyncCount(v.sum())
         self._preunion_checks.extend(deferred)
-        self._preunion_rows += sum(int(c[2][0].numel()) for c in deferred)
+        self._preunion_rows += sum(_held_slots(c[2]) for c in deferred)
 
     def _drain_staged_locked(self) -> None:
         """ONE set-union over the store (or the pre-union) and every staged
@@ -719,8 +788,8 @@ class EndpointGraph:
         every checked window whose prefix truncated (count > cap) unioned
         in."""
         extra = [
-            _window_edges_packed(*dev_in, depth)
-            for c, cap, dev_in, depth in checks
+            self._rewalk_staged(dev_in, depth, mesh)
+            for c, cap, dev_in, depth, mesh in checks
             if int(c) > cap
         ]
         if not extra:
@@ -738,13 +807,15 @@ class EndpointGraph:
         columns: a landed count slices the prefix to its pow2 width (or
         re-walks the window now when it truncated); a count still in
         flight joins at full width and pushes its truncation check into
-        `deferred`."""
-        for s, d, ds, count, dev_in, depth in staged:
-            cap = int(s.shape[0])
+        `deferred`. A mesh entry holds one prefix per shard and the largest
+        shard count: the check and the slice apply per shard."""
+        for s, d, ds, count, dev_in, depth, mesh in staged:
+            n_dev = 1 if mesh is None else mesh.shape["spans"]
+            cap = int(s.shape[0]) // n_dev
             if count_ready(count):
                 n = int(count)
                 if n > cap:  # truncated: re-walk now
-                    cols = _window_edges_packed(*dev_in, depth)
+                    cols = self._rewalk_staged(dev_in, depth, mesh)
                     for out, col in zip((srcs, dsts, dists, masks), cols):
                         out.append(col)
                     continue
@@ -752,15 +823,27 @@ class EndpointGraph:
                 # instead of sorting STAGE_CAP rows of padding
                 k = min(cap, _pow2(max(n, 1), minimum=256))
                 if k < cap:
-                    s, d, ds = s[:k], d[:k], ds[:k]
+                    s, d, ds = (a.reshape(n_dev, -1)[:, :k].reshape(-1) for a in (s, d, ds))
             else:
                 # the final chunk's walk may still be queued: the whole
                 # prefix joins the union now and the check resolves after it
-                deferred.append((count, cap, dev_in, depth))
+                deferred.append((count, cap, dev_in, depth, mesh))
             srcs.append(s)
             dsts.append(d)
             dists.append(ds)
             masks.append(s != SENTINEL)
+
+    def _rewalk_staged(self, dev_in, depth, mesh):
+        """Full (uncompacted) candidate walk of a staged window whose
+        compacted prefix truncated, on the store's device: correctness
+        never depends on the stage cap. A mesh entry re-walks its shards
+        with the sharded packed walk and gathers the candidates."""
+        if mesh is None:
+            return _window_edges_packed(*dev_in, depth)
+        walked = pmesh.sharded_dependency_edges_packed(mesh, *dev_in, max_depth=depth)
+        return tuple(
+            torch.cat([x.reshape(-1).to(self.device, non_blocking=True) for x in col]) for col in walked
+        )
 
     def _union_edge_cols(self, cols_src, cols_dst, cols_dist, cols_mask):
         src = torch.cat(cols_src)
@@ -1039,11 +1122,18 @@ class EndpointGraph:
     def service_scores_uncached(self, label_of=None, now_ms=None) -> scorer_ops.ServiceScores:
         """The per-call pipeline (host-table snapshot, fresh upload, full
         recompute), bypassing every cache: the parity oracle of the cached
-        path."""
+        path. On a mesh whose device count divides the edge capacity, the
+        sharded scorer (parallel/mesh.sharded_service_scores)."""
         src, dst, dist, mask, ep_service, ep_ml, ep_record, svc_cap = self._scorer_inputs(
             label_of, now_ms
         )
         ep_service_d, ep_ml_d, ep_record_d = self._upload(ep_service, ep_ml, ep_record)
+        cap = int(src.shape[0])
+        mesh = self._deploy_mesh(cap)
+        if mesh is not None and cap % mesh.shape["spans"] == 0:
+            return pmesh.sharded_service_scores(
+                mesh, src, dst, dist, mask, ep_service_d, ep_ml_d, ep_record_d, num_services=svc_cap
+            )
         return scorer_ops.service_scores(
             src, dst, dist, mask, ep_service_d, ep_ml_d, ep_record_d,
             num_services=svc_cap, dist_bits=self._scorer_dist_bits(),
@@ -1151,16 +1241,21 @@ class EndpointGraph:
 
     def _scored(self, kind: str, label_of, now_ms):
         """Memo -> incremental -> full, for both scorer kinds. The key is
-        (kind, label epoch, labeled?, svc_cap, ep_cap, fresh fingerprint)
-        plus the graph version: merges move the version,
-        invalidate_labels the epoch, horizon expiry the fingerprint and
-        growth the caps. (The JAX package's key also holds its mesh; the
-        multi-GPU path is not ported.)"""
+        (kind, label epoch, labeled?, svc_cap, ep_cap, fresh fingerprint,
+        mesh size) plus the graph version: merges move the version,
+        invalidate_labels the epoch, horizon expiry the fingerprint,
+        growth the caps, and a mesh that appears or goes (or a capacity the
+        device count no longer divides) the mesh size, so a sharded entry
+        is never served to the single-device path or the reverse."""
         with phase_span("scorers"):
             return self._scored_inner(kind, label_of, now_ms)
 
     def _scored_inner(self, kind: str, label_of, now_ms):
         snap = self._scorer_snapshot(label_of, now_ms)
+        cap = int(snap["src"].shape[0])
+        mesh = self._deploy_mesh(cap) if kind == "svc" else None
+        if mesh is not None and cap % mesh.shape["spans"]:
+            mesh = None
         base_key = (
             kind,
             snap["label_epoch"],
@@ -1168,6 +1263,7 @@ class EndpointGraph:
             snap["svc_cap"],
             snap["ep_cap"],
             snap["fresh_fp"],
+            None if mesh is None else mesh.shape["spans"],
         )
         memo_key = base_key + (snap["version"],)
         with self._lock:
@@ -1177,7 +1273,7 @@ class EndpointGraph:
         if hit is not None:
             return hit
         with step_timer.phase("scorers"):
-            result = self._compute_scores(kind, snap, base_key)
+            result = self._compute_scores(kind, snap, base_key, mesh)
         with self._lock:
             self.scorer_stats["misses"] += 1
             if len(self._scorer_memo) >= 64:
@@ -1193,10 +1289,18 @@ class EndpointGraph:
             self._scorer_prev[base_key] = (snap["version"], result)
         return result
 
-    def _compute_scores(self, kind, snap, base_key):
+    def _compute_scores(self, kind, snap, base_key, mesh):
         src, dst, dist = snap["src"], snap["dst"], snap["dist"]
         svc_cap = snap["svc_cap"]
         ep_service_d, ep_ml_d, ep_record_d, mask = self._device_tables(snap)
+        if mesh is not None:
+            # the sharded full recompute (the incremental splice is the
+            # single-device path's, as in the JAX store)
+            with self._lock:
+                self.scorer_stats["full"] += 1
+            return pmesh.sharded_service_scores(
+                mesh, src, dst, dist, mask, ep_service_d, ep_ml_d, ep_record_d, num_services=svc_cap
+            )
         with self._lock:
             prev = self._scorer_prev.get(base_key)
         if prev is not None:

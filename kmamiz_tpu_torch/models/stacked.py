@@ -10,7 +10,8 @@ epochs becomes a loop over the device-resident slots with one optimizer
 update per slot (the legacy loop's schedule), the block's losses kept on
 the device and fetched by the caller once per block: no host sync per
 slot. `dp_epoch_runner` averages the weighted grads of a slot microbatch
-before one update (its mesh-sharded form waits for the multi-GPU slice).
+before one update; with a mesh the batch axis shards over its devices
+(parallel/mesh.make_sharded_slot_grad).
 `predict_all` runs a head over every stacked slot.
 """
 from __future__ import annotations
@@ -182,7 +183,7 @@ def epoch_runner(model, lr: float, pos_weight: float):
 
 
 # ---------------------------------------------------------------------------
-# data-parallel epochs (slot microbatches)
+# data-parallel epochs (slot microbatches, optionally mesh-sharded)
 # ---------------------------------------------------------------------------
 
 
@@ -212,20 +213,11 @@ def batch_slots_arrays(stacked: StackedDataset, batch: int) -> Tuple[torch.Tenso
     )
 
 
-@functools.lru_cache(maxsize=32)
-def dp_epoch_runner(model, lr: float, pos_weight: float, mesh=None, axis: str = "slots"):
-    """Epochs over slot microbatches: the grads of a batch's slots are
-    weighted by slot weight and averaged before ONE optimizer update
-    (minibatch SGD over slots). The mesh-sharded form, the batch axis
-    across devices with summed grads, waits for the multi-GPU slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "dp_epoch_runner: the mesh-sharded form waits for the port's multi-GPU slice"
-        )
-    optimizer = model.make_optimizer(lr)
-    loss_fn = common.make_loss_fn(model.forward, pos_weight)
+def _local_batch_grads(loss_fn):
+    """One device's batch grads: each slot's grads weighted by its slot
+    weight, summed in slot order, over the batch's weight total."""
 
-    def batch_grads(params, feats, tl, ta, nm, src, dst, em, w, index):
+    def batch_grads(params, feats, tl, ta, nm, src, dst, em, w, index=None):
         grads = None
         totals = torch.zeros(3, dtype=torch.float32, device=w.device)
         for f, lt, at, m, wi in zip(feats, tl, ta, nm, w):
@@ -237,6 +229,29 @@ def dp_epoch_runner(model, lr: float, pos_weight: float, mesh=None, axis: str = 
             totals = totals + torch.stack([loss, lat_l, ano_l]) * wi
         wsum = torch.clamp(w.sum(), min=1.0)
         return type(params)(*(None if x is None else x / wsum for x in grads)), totals / wsum
+
+    return batch_grads
+
+
+@functools.lru_cache(maxsize=32)
+def dp_epoch_runner(model, lr: float, pos_weight: float, mesh=None, axis: str = "slots"):
+    """Epochs over slot microbatches: the grads of a batch's slots are
+    weighted by slot weight and averaged before ONE optimizer update
+    (minibatch SGD over slots).
+
+    With `mesh`, the batch axis shards over the devices of its `axis` and
+    the grads merge onto the params' device
+    (parallel/mesh.make_sharded_slot_grad); params stay replicated, so the
+    update is the unsharded microbatch's up to the float order of the sums
+    (tests/test_torch_parallel.py holds it to the per-slot loop)."""
+    optimizer = model.make_optimizer(lr)
+    loss_fn = common.make_loss_fn(model.forward, pos_weight)
+    if mesh is not None:
+        from kmamiz_tpu_torch.parallel.mesh import make_sharded_slot_grad
+
+        batch_grads = make_sharded_slot_grad(mesh, loss_fn, axis=axis)
+    else:
+        batch_grads = _local_batch_grads(loss_fn)
 
     def run(
         params,

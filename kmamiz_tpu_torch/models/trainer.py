@@ -196,8 +196,9 @@ def train(
     host loop) stacks the dataset on the device once and runs epoch blocks
     with the block's losses fetched once per block; the per-slot update
     schedule is the legacy loop's. batch_slots > 1 switches to slot
-    minibatches (one averaged update per batch); `mesh` waits for the
-    multi-GPU slice and raises.
+    minibatches (one averaged update per batch); with `mesh`
+    (parallel/mesh.py) the minibatch also shards over the mesh's devices,
+    at least one slot each (batch = max(batch_slots, the mesh axis)).
 
     With checkpoint_dir set, training resumes from the latest complete
     step and snapshots every checkpoint_every epochs (0 = only at the
@@ -205,8 +206,6 @@ def train(
     and the saved stacked layout against the requested ones."""
     from kmamiz_tpu_torch.models import checkpoint as ckpt
 
-    if mesh is not None:
-        raise NotImplementedError("train: a device mesh waits for the port's multi-GPU slice")
     dev = resolve_device(device)
     if fused is None:
         fused = os.environ.get("KMAMIZ_SAGE_FUSED", "1") not in ("0", "off", "false")
@@ -312,9 +311,11 @@ def train(
     if fused and dataset.features:
         st = stacked_mod.stack_dataset(dataset, dev)
         edges = (st.src, st.dst, st.edge_mask)
-        if batch_slots > 1:
-            runner = stacked_mod.dp_epoch_runner(model, lr, pos_weight)
-            batched = stacked_mod.batch_slots_arrays(st, batch_slots)
+        if batch_slots > 1 or mesh is not None:
+            axis = mesh.axis_names[0] if mesh is not None else "slots"
+            batch = max(batch_slots, mesh.shape[axis] if mesh is not None else 1)
+            runner = stacked_mod.dp_epoch_runner(model, lr, pos_weight, mesh=mesh, axis=axis)
+            batched = stacked_mod.batch_slots_arrays(st, batch)
 
             def run_block(p, s, n_ep):
                 return runner(p, s, *batched, *edges, n_ep, index=st.index)

@@ -18,7 +18,10 @@ the consumer's stream (`record_stream`), so the caching allocator cannot
 hand their memory out again while the consumer still reads it; the
 in-flight group holds the pinned sources until its event completes.
 `depth=0` waits for every copy before `put` returns (the synchronous
-upload). On the CPU `put` is a plain copy with the same accounting.
+upload). On the CPU `put` is a plain copy with the same accounting. A
+group may name a device per array (the mesh's sharded uploads,
+parallel/mesh.py): each device's arrays copy on a side stream of that
+device, and the group retires when every device's event has completed.
 
 `AsyncCount` is the matching device-to-host half for one scalar: a
 `non_blocking` copy into pinned host memory and an event whose `query()`
@@ -49,9 +52,9 @@ class UploadPipeline:
     def __init__(self, device: torch.device, depth: int = DEFAULT_DEPTH) -> None:
         self.device = torch.device(device)
         self.depth = max(0, int(depth))
-        # (event, pinned sources) per group; event is None on the CPU
+        # (events, pinned sources) per group; events is None on the CPU
         self._in_flight: deque = deque()
-        self._stream = None  # the side stream, made at the first card upload
+        self._streams = {}  # a side stream per device, made at its first upload
         self.uploads = 0
         self.blocked_ms = 0.0
         self.peak_in_flight = 0
@@ -64,40 +67,48 @@ class UploadPipeline:
         the caller's."""
         self.fences += 1
 
-    def _copy_group(self, host_arrays: Sequence[np.ndarray]):
-        """Issue one group's copies; returns (device tensors, event, pinned
+    def _copy_group(self, host_arrays: Sequence[np.ndarray], devices=None):
+        """Issue one group's copies, array i to devices[i] (the pipeline's
+        device when None); returns (device tensors, events, pinned
         sources)."""
         sources = [torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays]
+        targets = [self.device] * len(sources) if devices is None else [torch.device(d) for d in devices]
         if self.device.type != "cuda":
-            return [t.to(self.device) for t in sources], None, None
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=self.device)
-        consumer = torch.cuda.current_stream(self.device)
+            return [t.to(d) for t, d in zip(sources, targets)], None, None
         pinned = [t.pin_memory() for t in sources]
-        # the copies overlap what the consumer has queued: their targets are
-        # new side-stream blocks, which no queued kernel reads
-        with torch.cuda.stream(self._stream):
-            out = [t.to(self.device, non_blocking=True) for t in pinned]
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        for t in out:
-            t.record_stream(consumer)
-        consumer.wait_event(event)
-        return out, event, pinned
+        out = [None] * len(pinned)
+        events = []
+        for dev in dict.fromkeys(targets):
+            stream = self._streams.get(dev)
+            if stream is None:
+                stream = self._streams[dev] = torch.cuda.Stream(device=dev)
+            consumer = torch.cuda.current_stream(dev)
+            mine = [i for i, d in enumerate(targets) if d == dev]
+            # the copies overlap what the consumer has queued: their targets
+            # are new side-stream blocks, which no queued kernel reads
+            with torch.cuda.stream(stream):
+                for i in mine:
+                    out[i] = pinned[i].to(dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            for i in mine:
+                out[i].record_stream(consumer)
+            consumer.wait_event(event)
+            events.append(event)
+        return out, events, pinned
 
-    def put(self, host_arrays: Sequence[np.ndarray]) -> Tuple[List[torch.Tensor], float]:
-        """Upload one group; returns (device tensors, blocked_ms).
-        blocked_ms is the host wait this call paid: the whole copy at depth
-        0, otherwise only the retire of the groups past `depth`."""
+    def put(self, host_arrays: Sequence[np.ndarray], devices=None) -> Tuple[List[torch.Tensor], float]:
+        """Upload one group, array i to devices[i] when given; returns
+        (device tensors, blocked_ms). blocked_ms is the host wait this call
+        paid: the whole copy at depth 0, otherwise only the retire of the
+        groups past `depth`."""
         t0 = prof_events.now_ms()
-        out, event, pinned = self._copy_group(host_arrays)
+        out, events, pinned = self._copy_group(host_arrays, devices)
         self.uploads += 1
         if self.depth <= 0:
-            if event is not None:
-                # graftlint: disable=host-sync-in-hot-path -- depth 0 is the synchronous mode: blocking IS the requested behavior and the measurement
-                event.synchronize()
+            self._retire((events, pinned))
             return out, prof_events.now_ms() - t0
-        self._in_flight.append((event, pinned))
+        self._in_flight.append((events, pinned))
         while len(self._in_flight) > self.depth:
             self._retire(self._in_flight.popleft())
         self.peak_in_flight = max(self.peak_in_flight, len(self._in_flight))
@@ -110,9 +121,9 @@ class UploadPipeline:
         """Wait for one group's copy: the pipeline's bounded backpressure
         on the OLDEST in-flight copy (the one wait double buffering cannot
         hide), or the drain at the store's read fence."""
-        event, _pinned = group
-        if event is not None:
-            # graftlint: disable=host-sync-in-hot-path -- retire of the oldest in-flight copy, or the drain at the pre-existing read fence; not inside the per-window loop
+        events, _pinned = group
+        for event in events or ():
+            # graftlint: disable=host-sync-in-hot-path -- retire of the oldest in-flight copy, the drain at the pre-existing read fence, or depth 0's synchronous mode; not inside the per-window loop
             event.synchronize()
 
     def drain(self) -> float:

@@ -339,12 +339,19 @@ def edge_direction_tuples(src_ep, dst_ep, dist, mask, ep_service, ep_ml, ep_has_
     return owner, linked, ddir, ddist, linked_ml, both_mask
 
 
-def gateway_mask(dst_ep, mask, ep_service, ep_has_record, num_services):
+def depended_by_degrees(dst_ep, mask, num_endpoints: int) -> torch.Tensor:
+    """float32[num_endpoints]: the live edges depending on each endpoint."""
+    return _segment_sum(mask.to(torch.float32), dst_ep, mask, num_endpoints)
+
+
+def gateway_mask(dst_ep, mask, ep_service, ep_has_record, num_services, by_deg=None):
     """bool[num_services]: a service owning an endpoint record with zero
     depended-by edges (reference: dependency.find(d =>
-    d.dependingBy.length === 0)). (The JAX package's mesh path passes
-    merged partial degrees as `by_deg`; the port has no mesh path yet.)"""
-    by_deg = _segment_sum(mask.to(torch.float32), dst_ep, mask, ep_service.shape[0])
+    d.dependingBy.length === 0)). The mesh's sharded scorer
+    (parallel/mesh.py) passes its merged partial degrees as `by_deg`; a
+    single device computes them here."""
+    if by_deg is None:
+        by_deg = depended_by_degrees(dst_ep, mask, ep_service.shape[0])
     gateway_ep = ep_has_record & (by_deg == 0)
     svc = ep_service.to(torch.int64)
     seg = torch.where((svc >= 0) & (svc < num_services), svc, num_services)

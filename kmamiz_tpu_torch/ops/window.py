@@ -285,12 +285,19 @@ def window_stats(
     resid_sq, _ = segment_stats(
         residual_rows(values, seg, sums, num_segments), seg, None, num_segments
     )
-    # sums is the strided [5, S] view of segment-major storage: every row
-    # below is a strided [S] view, which the elementwise ops take as is
+    return finish_stats(sums, resid_sq[0], ts)
+
+
+def finish_stats(sums: torch.Tensor, resid_sq: torch.Tensor, ts: torch.Tensor) -> WindowStats:
+    """WindowStats from the first pass's [5, S] sums, the second pass's [S]
+    squared-residual sums and the [S] timestamp maxima: what window_stats
+    and the mesh's sharded_window_stats (parallel/mesh.py) both finish with."""
+    # sums may be the strided [5, S] view of segment-major storage: every
+    # row below is a strided [S] view, which the elementwise ops take as is
     count, e4, e5, lat_sum, lat_sq = sums.unbind(0)
     safe_count = count.clamp(min=1)
     mean = lat_sum / safe_count
-    variance = resid_sq[0] / safe_count
+    variance = resid_sq / safe_count
     std = torch.sqrt(variance.clamp(min=0.0))
     cv = torch.where(mean != 0, std / mean.clamp(min=1e-300), 0.0)
     return WindowStats(

@@ -113,6 +113,7 @@ from kmamiz_tpu_torch.graph.store import EndpointGraph
 from kmamiz_tpu_torch.models import graphsage
 from kmamiz_tpu_torch.models.history import SLOT_SECONDS, HistoryState
 from kmamiz_tpu_torch.ops import window as window_ops
+from kmamiz_tpu_torch.parallel import mesh as pmesh
 from kmamiz_tpu_torch.resilience import metrics as res_metrics
 from kmamiz_tpu_torch.resilience import quarantine as res_quarantine
 from kmamiz_tpu_torch.resilience.wal import IngestWAL
@@ -1590,25 +1591,34 @@ class DeviceStatsJob:
     """Asynchronous device segment-stats over realtime records: the
     constructor uploads the columns, runs window_stats and starts the
     packed result's copy into pinned host memory; result() waits only for
-    whatever has not already overlapped with host work."""
+    whatever has not already overlapped with host work.
+
+    On a device mesh (parallel/mesh.active_mesh) whose device count
+    divides the padded span count, the columns upload per shard and go
+    through sharded_window_stats: each device's local segment sums, merged
+    across the mesh (the collective counterpart of the reference's
+    single-threaded combine-merge, CombinedRealtimeDataList.ts:278-315)."""
 
     def __init__(self, records: List[dict], device: torch.device) -> None:
         cols = stats_columns(records)
         self._cols = cols
-
-        def put(a):
-            return torch.from_numpy(a).to(device)
-
-        stats = window_ops.window_stats(
-            put(cols.endpoint_id),
-            put(cols.status_id),
-            put(cols.status_class),
-            put(cols.latency_ms),
-            put(cols.timestamp_rel),
-            put(cols.valid),
-            num_endpoints=cols.num_endpoints,
-            num_statuses=cols.num_statuses,
-        )
+        host = (cols.endpoint_id, cols.status_id, cols.status_class, cols.latency_ms, cols.timestamp_rel, cols.valid)
+        mesh = pmesh.active_mesh(device)
+        if mesh is not None and len(cols.valid) % mesh.shape["spans"] == 0:
+            devices = mesh.axis_devices("spans")
+            stats = pmesh.sharded_window_stats(
+                mesh,
+                *(pmesh.shard(a, devices) for a in host),
+                num_endpoints=cols.num_endpoints,
+                num_statuses=cols.num_statuses,
+            )
+            stats = window_ops.WindowStats(*(f.to(device) for f in stats))
+        else:
+            stats = window_ops.window_stats(
+                *(torch.from_numpy(a).to(device) for a in host),
+                num_endpoints=cols.num_endpoints,
+                num_statuses=cols.num_statuses,
+            )
         packed = _pack_stats(
             stats.count,
             stats.latency_mean,

@@ -8,23 +8,27 @@ resolves to an edge-column snapshot, and graphs group into capacity
 buckets, the power-of-two edge capacity of their padded columns.
 Same-bucket tenants stack into one ``[T, cap]`` view (`stacked_edges`,
 `torch.stack` on the stores' device) that the tenancy router's batched
-merge reads.
+merge reads. On a device mesh (parallel/mesh.active_mesh) whose device
+count divides T, with KMAMIZ_TENANT_SHARD on (the default), the view is n
+per-device groups of T/n lanes instead, and the router merges each group
+on its device. (The JAX arena reshards one global [T, cap] array over the
+mesh with a NamedSharding; here the groups are the shards.)
 
 Admission is bounded by MAX_TENANTS distinct tenant names (the JAX
 package's KMAMIZ_MAX_TENANTS default, 64); graphs are held by weakref, so
 a short-lived store never pins device memory through the arena.
-
-Left out: the JAX arena's mesh sharding of the stacked view
-(KMAMIZ_TENANT_SHARD), which waits for the port's multi-GPU layer.
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from kmamiz_tpu_torch.parallel import mesh as pmesh
 
 DEFAULT_TENANT = "default"
 
@@ -51,6 +55,23 @@ class TenantNameError(ValueError):
 
 def max_tenants() -> int:
     return max(1, int(MAX_TENANTS))
+
+
+def tenant_shard_enabled() -> bool:
+    """KMAMIZ_TENANT_SHARD (default on), read per call."""
+    return os.environ.get("KMAMIZ_TENANT_SHARD", "1") != "0"
+
+
+def tenant_devices(n_tenants: int, device) -> Optional[List[torch.device]]:
+    """The mesh devices a stack of n_tenants lanes on `device` spreads
+    over, one group of n_tenants / n lanes each, or None when no mesh is
+    active, n does not divide the tenants, or sharding is off."""
+    if not tenant_shard_enabled():
+        return None
+    mesh = pmesh.active_mesh(device)
+    if mesh is None or n_tenants % mesh.shape["spans"]:
+        return None
+    return mesh.axis_devices("spans")
 
 
 class ArenaView(NamedTuple):
@@ -144,7 +165,9 @@ class TenantArena:
         tenants, and the per-tenant views it was built from. Memoized on
         the ``(tenant, version)`` tuple: reads between merges reuse the
         stack; a merge moves a version, so each round restacks
-        (T x cap x 13 bytes on the stores' device)."""
+        (T x cap x 13 bytes on the stores' device). On a mesh
+        (tenant_devices) each column is a sharded value instead: group g,
+        lanes g*T/n to (g+1)*T/n, stacked on the mesh's g-th device."""
         views = [self.snapshot(t) for t in tenants]
         caps = {v.capacity for v in views}
         if len(caps) != 1:
@@ -153,7 +176,19 @@ class TenantArena:
         with self._lock:
             if key == self._stacked_key and self._stacked_val is not None:
                 return self._stacked_val, views
-        stacked = tuple(torch.stack([getattr(v, f) for v in views]) for f in ("src", "dst", "dist", "mask"))
+        fields = ("src", "dst", "dist", "mask")
+        devices = tenant_devices(len(views), views[0].src.device)
+        if devices is None:
+            stacked = tuple(torch.stack([getattr(v, f) for v in views]) for f in fields)
+        else:
+            per = len(views) // len(devices)
+            stacked = tuple(
+                tuple(
+                    torch.stack([getattr(v, f).to(dev, non_blocking=True) for v in views[g * per : (g + 1) * per]])
+                    for g, dev in enumerate(devices)
+                )
+                for f in fields
+            )
         with self._lock:
             self._stacked_key = key
             self._stacked_val = stacked
@@ -163,7 +198,9 @@ class TenantArena:
         """Device bytes of the memoized stacked view (0 without one)."""
         with self._lock:
             val = self._stacked_val
-        return sum(t.nbytes for t in val) if val is not None else 0
+        if val is None:
+            return 0
+        return sum(t.nbytes for col in val for t in (col if isinstance(col, tuple) else (col,)))
 
     # -- introspection -------------------------------------------------------
 

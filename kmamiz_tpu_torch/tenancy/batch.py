@@ -44,6 +44,21 @@ def batched_merge_edges(src_a, dst_a, dist_a, mask_a, src_b, dst_b, dist_b, mask
     return s.contiguous(), d.contiguous(), ds.contiguous(), valid, valid.sum(dim=-1)
 
 
+def sharded_merge_edges(stack, win):
+    """batched_merge_edges over a tenant axis sharded into per-device
+    groups (tenancy/arena.stacked_edges on a mesh): `stack` and `win` are
+    (src, dst, dist, mask) tuples whose columns are sharded values of
+    [T/n, ...] lane groups, group g on one device. Each group's lanes
+    merge in one batched program on that group's device, bit-equal lane by
+    lane to the unsharded program. Returns (src, dst, dist, counts), each a
+    sharded value of the groups' results."""
+    out = [
+        batched_merge_edges(*(c[g] for c in stack), *(c[g] for c in win))
+        for g in range(len(stack[0]))
+    ]
+    return tuple(tuple(o[k] for o in out) for k in (0, 1, 2, 4))
+
+
 def batched_service_scores(src_ep, dst_ep, dist, mask, ep_service, ep_ml, ep_has_record, num_services: int):
     """scorers.service_scores's legacy pipeline over the tenant axis:
     ``[T, cap]`` edge stacks and ``[T, ep_cap]`` endpoint tables ->

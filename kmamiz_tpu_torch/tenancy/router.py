@@ -18,7 +18,9 @@ things of it:
    the host stages per tenant and the graph merge stacked: same-bucket
    tenants' windows union in one tenancy.batch.batched_merge_edges call
    over the arena's ``[T, cap]`` stack, with the ``[T]`` counts read back
-   once for the batch. A tenant that cannot join a stack (a bucket of its
+   once for the batch (on a device mesh, batch.sharded_merge_edges over
+   the arena's per-device lane groups, each adopted lane copied back to
+   its tenant's device). A tenant that cannot join a stack (a bucket of its
    own, no host edge set, a graph the arena does not hold under its
    name) merges serially, as the JAX router does. `submit` adds the
    leader-elected gather window (`batch_window_ms`, 0 by default: every
@@ -45,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kmamiz_tpu_torch.parallel import mesh as pmesh
 from kmamiz_tpu_torch.tenancy.arena import DEFAULT_TENANT, TenantNameError, default_arena, valid_tenant
 from kmamiz_tpu_torch.telemetry.profiling import events as prof_events
 
@@ -139,7 +142,8 @@ class TickRouter:
         self._stats_lock = threading.Lock()
         self._stats = {"batches": 0, "stackedMerges": 0, "stackedLanes": 0, "driftRemerges": 0, "serialMerges": 0}
         #: with keep_inputs set, the last stacked merge's inputs (the
-        #: store stack and the window stack), for measuring it again
+        #: store stack, the window stack, the counts; the stacks' columns
+        #: are sharded values on a mesh), for measuring it again
         self.keep_inputs = False
         self.last_stack_inputs: Optional[tuple] = None
         #: host wall of the last stacked merge, its read-back included, ms
@@ -261,29 +265,46 @@ class TickRouter:
         from kmamiz_tpu_torch.ops.sortutil import SENTINEL
         from kmamiz_tpu_torch.tenancy import batch as batch_ops
 
-        (s_src, s_dst, s_dist, s_mask), views = default_arena().stacked_edges([rt.tenant for rt, _ in group])
+        stack, views = default_arena().stacked_edges([rt.tenant for rt, _ in group])
         n = len(group)
         wcap = _pow2(max(len(c[0]) for c in cols_list), minimum=MIN_WINDOW_ROWS)
         win = np.full((3, n, wcap), SENTINEL, dtype=np.int32)
         for i, cols in enumerate(cols_list):
             for k in range(3):
                 win[k, i, : len(cols[k])] = cols[k]
-        w = torch.from_numpy(win).to(s_src.device)
-        w_mask = w[0] != SENTINEL
+        sharded = not isinstance(stack[0], torch.Tensor)
+        if sharded:
+            # the tenant axis sharded over a mesh: each device merges its
+            # group of lanes, and each adopted lane lands back on its
+            # tenant's device
+            devices = [g.device for g in stack[0]]
+            w = [pmesh.shard(win[k], devices) for k in range(3)]
+            w_cols = (*w, tuple(x != SENTINEL for x in w[0]))
+        else:
+            w = torch.from_numpy(win).to(stack[0].device)
+            w_cols = (w[0], w[1], w[2], w[0] != SENTINEL)
         t0 = prof_events.now_ms()
-        s, d, ds, _valid, counts = batch_ops.batched_merge_edges(
-            s_src, s_dst, s_dist, s_mask, w[0], w[1], w[2], w_mask
-        )
+        if sharded:
+            s, d, ds, counts = batch_ops.sharded_merge_edges(stack, w_cols)
+            counts = pmesh.unshard(counts, views[0].src.device)
+            per = n // len(devices)
+            lanes = [
+                tuple(c[i // per][i % per].to(rt.processor.graph.device, non_blocking=True) for c in (s, d, ds))
+                for i, (rt, _prep) in enumerate(group)
+            ]
+        else:
+            s, d, ds, _valid, counts = batch_ops.batched_merge_edges(*stack, *w_cols)
+            lanes = [(s[i], d[i], ds[i]) for i in range(n)]
         # the batch's one read-back: every lane's valid count
         counts = counts.tolist()
         self.last_batch_merge_ms = prof_events.now_ms() - t0
         if self.keep_inputs:
-            self.last_stack_inputs = ((s_src, s_dst, s_dist, s_mask), (w[0], w[1], w[2], w_mask), list(counts))
+            self.last_stack_inputs = (stack, w_cols, list(counts))
         leftover: List[int] = []
         for i, (rt, prep) in enumerate(group):
             try:
                 rt.processor.adopt_batched_merge(
-                    prep, s[i], d[i], ds[i], counts[i], cols_list[i], expected_version=views[i].version
+                    prep, *lanes[i], counts[i], cols_list[i], expected_version=views[i].version
                 )
             except StoreVersionDrift:
                 # a merge landed between the snapshot and the adopt: this

@@ -103,6 +103,8 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.analysis.concurrency.witness",
         "kmamiz_tpu_torch.tools.graftlint",
         "kmamiz_tpu_torch.tools.graftrace",
+        "kmamiz_tpu_torch.parallel",
+        "kmamiz_tpu_torch.parallel.mesh",
     } <= set(names)
 
 

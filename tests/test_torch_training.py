@@ -270,11 +270,20 @@ def test_checkpoint_keeps_the_optimizer_state(tmp_path):
 
 
 def test_mesh_waits_for_the_multi_gpu_slice():
+    """The multi-GPU slice is in: train(mesh=) and dp_epoch_runner(mesh=)
+    run the slot minibatch sharded over the mesh (two virtual CPU shards
+    here; tests/test_torch_parallel.py holds it to JAX), each shard taking
+    at least one slot."""
+    from kmamiz_tpu_torch.parallel.mesh import make_mesh
+
     _, pds = _datasets(n_slots=2)
-    with pytest.raises(NotImplementedError):
-        trainer.train(pds, epochs=1, hidden=8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        stacked.dp_epoch_runner(graphsage, 0.01, 1.0, mesh=object())
+    mesh = make_mesh(devices=["cpu", "cpu"], axis="slots")
+    sharded = trainer.train(pds, epochs=1, hidden=8, mesh=mesh, device="cpu")
+    local = trainer.train(pds, epochs=1, hidden=8, batch_slots=2, device="cpu")
+    np.testing.assert_allclose(sharded.losses, local.losses, **LOSS_TOL)
+    for a, b in zip(_leaves(sharded.params), _leaves(local.params)):
+        np.testing.assert_allclose(a, b, **PARAM_TOL)
+    assert stacked.dp_epoch_runner(graphsage, 0.01, 1.0, mesh=mesh) is stacked.dp_epoch_runner(graphsage, 0.01, 1.0, mesh=mesh)
 
 
 def test_stacked_layout_and_predictions_match_jax():
