@@ -264,28 +264,52 @@ Phases, each timed:
    KMAMIZ_TICK_DEADLINE_MS=1: the trip's kmamiz-flight artifact,
    condensed by report.from_any.
 21. the simulator (after phase 20, before phase 14's profiler sessions),
-   at BASELINE.json's synthetic mesh (make_mesh_config: 1,000 services x
-   10 endpoints, fault fraction 0.08, seed 0) over 1 simulated day: (a)
+   at BASELINE.json's synthetic mesh (make_mesh_config of the port's
+   eval_models_large tool: 1,000 services x 10 endpoints, fault fraction
+   0.08, seed 0) over 1 simulated day: (a)
    Simulator.generate_simulation_data on the host (its wall, endpoints,
-   distance-1 edges, slots, rows per slot); (b) GraphSAGE through
-   trainer.train_on_simulation on the card (hidden 64, 8 epochs): slots/s,
-   losses, kernel 2's forward and backward launches against the steps,
-   the evaluation metrics and threshold, the first-epoch loss against a
-   2-epoch CPU copy's (rtol 1e-3); (c) GAT on the same dataset, 2 epochs,
-   no launch; (d) (b)'s params saved and restored through
+   distance-1 edges, slots, rows per slot) and the training dataset of
+   its slots (trainer.dataset_from_simulation); (e) the application in
+   simulator mode through its main() over a fresh FileStore, started (its
+   own phase, "simulator app start", which starts a thread that waits for
+   its boot) before phase 17, so that its boot and startSimulation run
+   beside phases 17-21 (with --simulator-only: beside (a)): POST
+   /api/v1/simulation/startSimulation with the same YAML (201), the
+   endpoint graph, generateStaticSimConfig and the export (its 10,000
+   dependency records, its SimulatedHistoricalData), then SIGTERM (exit 0,
+   the store left empty); (f) kernel 2 at the training split's buckets:
+   the edge index against its plain build, the forward at H = 10, 18 and
+   64 and the ungated row pass at 64 against their plain versions, with
+   bound and library times. The heads train on (a)'s simulation in phase
+   26.
+26. model evaluation (right after phase 21, over its simulation; no plain
+   version of kernel 2 may run on card tensors): (a) the port's
+   eval_models_large tool's transductive and inductive protocols
+   (transductive_eval, inductive_eval) on the card at hidden 64 and 8
+   epochs (MODELS.md round 5's 60 and 4 days cut to phase 21's 1 day):
+   GraphSAGE and GAT on the held-out slots, then GraphSAGE with and
+   without history features on 20% held-out endpoints, each table logged
+   and every row finite; per head, through the tool's on_head hook, kernel
+   2's forward and backward launches against the counts worked out from
+   its steps, calibration, evaluation and collect_scores (GAT launches
+   none), collect_scores on the card against the same params on the CPU
+   (probabilities rtol 1e-4 / atol 1e-5, truths, onsets and currents
+   equal); the transductive GraphSAGE head's first-epoch loss against a
+   CPU epoch's (rtol 1e-3) and its params saved and restored through
    models/checkpoint.py, the restored forward on the card against the
-   trained one (rtol 1e-4 / atol 1e-5); (e) the application in simulator
-   mode through its main() over a fresh FileStore, started (its own
-   phase, "simulator app start", which starts a thread that waits for its
-   boot) before phase 17, so that its boot and startSimulation run beside
-   phases 17-21 (with --simulator-only: beside (a)-(d)): POST /api/v1/simulation/startSimulation with the same YAML
-   (201), the endpoint graph, generateStaticSimConfig and the export (its
-   10,000 dependency records, its SimulatedHistoricalData), then SIGTERM
-   (exit 0, the store left empty); (f) kernel 2 at (b)'s buckets: the edge
-   index against its plain build, the forward at H = 10, 18 and 64 and the
-   ungated row pass at 64 against their plain versions, with bound and
-   library times.
-22. multi-tenant serving (after phase 21, before phase 14's profiler
+   trained one (rtol 1e-4 / atol 1e-5); the inductive run's
+   --checkpoint-dir restored as the forecast handler restores it, its
+   forward through serving.forecast_forward against the trained params'
+   (rtol 1e-4 / atol 1e-5); (b) the port's eval_stlgt.evaluate at its
+   published defaults (cascade-fanout, seed 0, 48 ticks, 4 epochs, hidden
+   16, lr 0.02, depth 8, warmup 4): STLGT's p99 coverage must beat
+   GraphSAGE's, and kernel 2's gated forward, SDDMM and row-pass launches
+   equal the refreshes' steps' and the baseline's; (c) the port's
+   eval_models main on its EVAL_YAML at hidden 32 and 12 epochs (its 60
+   cut to keep the phase within 60 s on a slow host), its table logged,
+   every row finite, the launches its GraphSAGE steps'. The phase records
+   the harness's live threads at its start. Its launches join the kernels line.
+22. multi-tenant serving (after phase 26, before phase 14's profiler
    sessions): (a) eight tenants t0-t7, each the BASELINE generator over
    125 services x 10 urls in a namespace of its own (1,250 endpoints,
    the eight together the BASELINE's 10,000), each loaded with 18,750 raw
@@ -417,7 +441,8 @@ kernels as shipped against builds with other tuning values (KMZ_* in
 csrc/fused_sddmm_spmm.cu) on the BASELINE graph. With --cluster-only it
 runs phases 1-2 and then phase 19 alone; with --telemetry-only, phases
 1-2 and then phase 20 alone ((g) on a fresh card processor after one
-warm tick); with --simulator-only, phases 1-2 and then phase 21 alone;
+warm tick); with --simulator-only, phases 1-2 and then phase 21 alone; with
+--eval-only, phases 1-2, phase 21 (a) and then phase 26;
 with --tenancy-only, phases 1-2 and then phase 22 alone; with
 --mesh-only, phases 1-2 and 4 and then phase 25 without (f); with
 --fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
@@ -5229,180 +5254,10 @@ SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE = 1000, 10  # BASELINE.json's synthetic 
 SIM_DAYS = 1  # of MODELS.md's 4 simulated days: the depth cut
 SIM_FAULT_FRACTION = 0.08
 SIM_DATE_MS = 1_700_000_000_000.0
-SIM_EPOCHS = 8
-SIM_CPU_EPOCHS = 2
-SIM_GAT_EPOCHS = 2
+SIM_EPOCHS = 8  # of MODELS.md round 5's 60: the depth cut
 SIM_HIDDEN = 64
 SIM_TRAIN_FRACTION = 0.75  # trainer.train_on_simulation's default split
 SIM_NAMESPACE = "mesh"
-
-
-def make_mesh_config(
-    n_services: int,
-    eps_per_service: int,
-    days: int,
-    rng: np.random.Generator,
-    fault_fraction: float = 0.08,
-) -> str:
-    """Layered mesh: gateway tier (external traffic) -> mid tiers -> leaf
-    tier; each endpoint depends on 1-3 endpoints one tier deeper. A copy
-    of tools/eval_models_large.py's make_mesh_config (that tool imports
-    jax): the same arguments give the same YAML."""
-    import yaml
-
-    n_gw = max(1, n_services // 20)
-    n_leaf = max(1, int(n_services * 0.3))
-    n_mid = max(1, n_services - n_gw - n_leaf)
-    tiers = (
-        [0] * n_gw + [1] * (n_mid // 2) + [2] * (n_mid - n_mid // 2) + [3] * n_leaf
-    )
-
-    services = []
-    ep_ids: list = [[] for _ in range(4)]
-    for s in range(n_services):
-        tier = tiers[s]
-        endpoints = []
-        for e in range(eps_per_service):
-            eid = f"s{s}-e{e}"
-            ep_ids[tier].append(eid)
-            endpoints.append(
-                {
-                    "endpointId": eid,
-                    "endpointInfo": {
-                        "path": f"/api/s{s}/op{e}",
-                        "method": "post" if e % 3 == 0 else "get",
-                    },
-                }
-            )
-        services.append(
-            {
-                "serviceName": f"svc{s}",
-                "versions": [
-                    {
-                        "version": "v1",
-                        "replica": int(rng.integers(1, 4)),
-                        "endpoints": endpoints,
-                    }
-                ],
-            }
-        )
-
-    dependencies = []
-    for tier in range(4):
-        deeper = ep_ids[tier + 1] if tier < 3 else []
-        for eid in ep_ids[tier]:
-            entry: dict = {"endpointId": eid}
-            if tier == 0:
-                entry["isExternal"] = True
-            if deeper:
-                k = int(rng.integers(1, min(3, len(deeper)) + 1))
-                picks = rng.choice(len(deeper), size=k, replace=False)
-                entry["dependOn"] = [
-                    {"endpointId": deeper[int(p)]} for p in picks
-                ]
-            if "dependOn" in entry or entry.get("isExternal"):
-                dependencies.append(entry)
-
-    tier_latency = [25, 15, 10, 5]
-    endpoint_metrics = []
-    for tier in range(4):
-        for eid in ep_ids[tier]:
-            m = {
-                "endpointId": eid,
-                "delay": {
-                    "latencyMs": tier_latency[tier] + int(rng.integers(0, 6)),
-                    "jitterMs": 2 + int(rng.integers(0, 4)),
-                },
-                "errorRatePercent": 1,
-            }
-            if tier == 0:
-                m["expectedExternalDailyRequestCount"] = 4800
-            endpoint_metrics.append(m)
-
-    # -- fault schedule -------------------------------------------------------
-    all_eps = [e for t in ep_ids for e in t]
-    n_faulty = max(3, int(len(all_eps) * fault_fraction))
-    faulty = [all_eps[int(i)] for i in rng.choice(len(all_eps), n_faulty, False)]
-    third = max(1, n_faulty // 3)
-    faults = []
-
-    def window(day, hour, dur, prob=100):
-        return {
-            "startTime": {"day": day, "hour": hour},
-            "durationHours": dur,
-            "probabilityPercent": prob,
-        }
-
-    # (a) recurring nightly error windows — periodic, learnable, invisible
-    # to persistence at onset
-    for eid in faulty[:third]:
-        hour = int(rng.integers(1, 20))
-        faults.append(
-            {
-                "type": "increase-error-rate",
-                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
-                "timePeriods": [window(d, hour, 3) for d in range(1, days + 1)],
-                "increaseErrorRatePercent": int(rng.integers(50, 85)),
-            }
-        )
-    # (b) overlapping multi-endpoint incidents: one window, several
-    # endpoints at once (correlated failures along the graph)
-    incident_eps = faulty[third : 2 * third]
-    for i in range(0, len(incident_eps), 3):
-        group = incident_eps[i : i + 3]
-        day = int(rng.integers(1, days + 1))
-        hour = int(rng.integers(0, 20))
-        faults.append(
-            {
-                "type": "increase-error-rate",
-                "targets": {
-                    "services": [],
-                    "endpoints": [{"endpointId": e} for e in group],
-                },
-                "timePeriods": [window(day, hour, int(rng.integers(2, 5)))],
-                "increaseErrorRatePercent": int(rng.integers(50, 80)),
-            }
-        )
-    # (c) probabilistic recurring latency faults (drifting severity)
-    for eid in faulty[2 * third :]:
-        hour = int(rng.integers(0, 20))
-        faults.append(
-            {
-                "type": "increase-latency",
-                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
-                "timePeriods": [
-                    window(d, hour, 2, prob=70) for d in range(1, days + 1)
-                ],
-                "increaseLatencyMs": int(rng.integers(150, 400)),
-            }
-        )
-    # (d) gateway traffic bursts -> overload errors downstream
-    for eid in ep_ids[0][: max(1, len(ep_ids[0]) // 4)]:
-        day = int(rng.integers(1, days + 1))
-        faults.append(
-            {
-                "type": "inject-traffic",
-                "targets": {"services": [], "endpoints": [{"endpointId": eid}]},
-                "timePeriods": [window(day, int(rng.integers(8, 16)), 2)],
-                "increaseRequestCount": 4000,
-            }
-        )
-
-    config = {
-        "servicesInfo": [{"namespace": "mesh", "services": services}],
-        "endpointDependencies": dependencies,
-        "loadSimulation": {
-            "config": {
-                "simulationDurationInDays": days,
-                "overloadErrorRateIncreaseFactor": 3,
-            },
-            "serviceMetrics": [],
-            "endpointMetrics": endpoint_metrics,
-            "faultInjection": faults,
-        },
-    }
-    return yaml.safe_dump(config, sort_keys=False)
-
 
 
 class SimulatorApp:
@@ -5515,31 +5370,55 @@ def simulation_dataset(result) -> dict:
 
 
 def mesh_yaml() -> str:
-    """Phase 21's YAML: BASELINE.json's synthetic mesh, seeded."""
+    """Phase 21's YAML: BASELINE.json's synthetic mesh, seeded, from the
+    port's eval_models_large tool."""
     import numpy as np
+
+    from kmamiz_tpu_torch.tools.eval_models_large import make_mesh_config
 
     return make_mesh_config(
         SIM_SERVICES, SIM_ENDPOINTS_PER_SERVICE, SIM_DAYS, np.random.default_rng(SEED), SIM_FAULT_FRACTION
     )
 
 
-def simulate(torch, device, counters, jobs, app: "SimulatorApp" = None) -> dict:
-    """Phase 21, the simulator at BASELINE.json's synthetic mesh (1,000
-    services x 10 endpoints, fault fraction 0.08, seed 0, 1 simulated day):
-    (a) Simulator.generate_simulation_data on the host; (b) GraphSAGE
-    through trainer.train_on_simulation on the card (hidden 64, 8 epochs),
-    its launches against the steps, its first-epoch loss against a CPU
-    copy's (rtol 1e-3); (c) GAT on the same dataset (no kernel launch);
-    (d) (b)'s params saved and restored through models/checkpoint.py, and
-    the restored forward on the card against the trained one; (e) the
-    application in simulator mode (SimulatorApp: `app` when the run
-    started it earlier, else one started here), beside (a)-(d); (f)
-    kernel 2 at (b)'s buckets against its plain version."""
+def simulate_mesh(out: dict, yaml_text: str) -> tuple:
+    """Phase 21 (a): the simulation of `yaml_text` (mesh_yaml()) on the
+    host and its training dataset, their walls and counts into `out`;
+    returns (the simulation, the dataset)."""
     import numpy as np
 
-    from kmamiz_tpu_torch.models import stacked
-    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.models import trainer
     from kmamiz_tpu_torch.simulator import Simulator
+
+    out["yaml_bytes"] = len(yaml_text)
+    t0 = time.perf_counter()
+    result = Simulator().generate_simulation_data(yaml_text, SIM_DATE_MS, rng=np.random.default_rng(SEED))
+    out["simulation_s"] = time.perf_counter() - t0
+    check(not result.validation_error_message, result.validation_error_message)
+    check(not result.converting_error_message, result.converting_error_message)
+    out.update(simulation_dataset(result))
+    check(out["endpoints"] == SIM_SERVICES * SIM_ENDPOINTS_PER_SERVICE, f"{out['endpoints']} endpoints")
+    check(out["slots"] == 24 * SIM_DAYS, f"{out['slots']} slots")
+    t0 = time.perf_counter()
+    dataset = trainer.dataset_from_simulation(
+        result.endpoint_dependencies, result.realtime_data_per_slot, result.replica_counts
+    )
+    out["dataset_s"] = time.perf_counter() - t0
+    log("   (a) " + json.dumps(out))
+    return result, dataset
+
+
+def simulate(torch, device, jobs, app: "SimulatorApp" = None) -> tuple:
+    """Phase 21, the simulator at BASELINE.json's synthetic mesh (1,000
+    services x 10 endpoints, fault fraction 0.08, seed 0, 1 simulated day):
+    (a) Simulator.generate_simulation_data on the host, and the training
+    dataset of its slots; (e) the application in simulator mode
+    (SimulatorApp: `app` when the run started it earlier, else one started
+    here), beside (a); (f) kernel 2 at the training split's buckets against
+    its plain version. The heads train on (a)'s simulation in phase 26.
+    Returns (the report, the simulation, its dataset)."""
+    from kmamiz_tpu_torch.models import stacked, trainer
+    from kmamiz_tpu_torch.ops import sparse
 
     root = tempfile.TemporaryDirectory(prefix="chip_smoke_sim_")
     out: dict = {
@@ -5550,148 +5429,27 @@ def simulate(torch, device, counters, jobs, app: "SimulatorApp" = None) -> dict:
     }
     try:
         yaml_text = mesh_yaml()
-        out["yaml_bytes"] = len(yaml_text)
         if app is None:
             app = SimulatorApp(yaml_text, root.name)
+        result, dataset = simulate_mesh(out, yaml_text)
 
-        # (a) the simulation, on the host
-        t0 = time.perf_counter()
-        result = Simulator().generate_simulation_data(yaml_text, SIM_DATE_MS, rng=np.random.default_rng(SEED))
-        out["simulation_s"] = time.perf_counter() - t0
-        check(not result.validation_error_message, result.validation_error_message)
-        check(not result.converting_error_message, result.converting_error_message)
-        out.update(simulation_dataset(result))
-        n_endpoints = SIM_SERVICES * SIM_ENDPOINTS_PER_SERVICE
-        check(out["endpoints"] == n_endpoints, f"{out['endpoints']} endpoints")
-        check(out["slots"] == 24 * SIM_DAYS, f"{out['slots']} slots")
-        log("   (a) " + json.dumps(out))
-
-        # (b)-(d), making no plain-version call on card tensors
-        args = (result.endpoint_dependencies, result.realtime_data_per_slot, result.replica_counts)
-        with PlainOnCard(torch, sparse) as plain:
-            train_set = train_simulated(torch, device, counters, args, os.path.join(root.name, "ckpt"), out)
-        check(plain.calls == 0, f"{plain.calls} plain calls on card tensors in (b)-(d)")
-        out["plain_calls_on_card"] = plain.calls
-
-        # (f) kernel 2 at (b)'s buckets
+        # (f) kernel 2 at the buckets the training split stacks to
+        train_set = trainer.temporal_split(dataset, SIM_TRAIN_FRACTION)[0]
         out["kernels"] = simulated_kernel_cases(torch, sparse, stacked.stack_dataset(train_set, device), jobs)
 
         # (e) the application's answers
-        out["app"] = app.result(n_endpoints)
+        out["app"] = app.result(SIM_SERVICES * SIM_ENDPOINTS_PER_SERVICE)
         log("   (e) " + json.dumps(out["app"]))
     finally:
         if app is not None and "app" not in out:
             app.served.kill()
         root.cleanup()
-    return out
-
-
-def train_simulated(torch, device, counters, args, ckpt_dir: str, out: dict):
-    """Phase 21 (b)-(d) on the simulator's output `args` (dependencies,
-    realtime data per slot, replica counts), into `out`; returns the
-    training slots' dataset."""
-    import numpy as np
-
-    from kmamiz_tpu_torch.models import checkpoint as ckpt
-    from kmamiz_tpu_torch.models import gat, graphsage, stacked, trainer
-    from kmamiz_tpu_torch.ops import sparse
-
-    # (b) GraphSAGE on the card
-    t0 = time.perf_counter()
-    dataset = trainer.dataset_from_simulation(*args)
-    out["dataset_s"] = time.perf_counter() - t0
-    train_set, eval_set = trainer.temporal_split(dataset, SIM_TRAIN_FRACTION)
-    train_slots, eval_slots = len(train_set.features), len(eval_set.features)
-    steps = train_slots * SIM_EPOCHS
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sage, metrics, _ = trainer.train_on_simulation(
-        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_EPOCHS, hidden=SIM_HIDDEN, seed=SEED, device=device
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(torch, counters)
-    losses = sage.losses
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    # the forwards: two a step, two a slot in calibrate_threshold and in
-    # evaluate; the backward: one C call a step, the ungated row pass
-    forwards = 2 * (steps + train_slots + eval_slots)
-    check(launches[sparse.fused_sddmm_spmm.__name__] == forwards, f"forward launches {launches}, want {forwards}")
-    check(launches[sparse.fused_backward.__name__] == steps, f"backward calls {launches}, want {steps}")
-    check(launches[sparse.fused_sddmm_spmm_grad_rows.__name__] == steps, f"row-pass launches {launches}")
-    check(launches[sparse.fused_sddmm_spmm_grad_edges.__name__] == 0, f"gated backward in GraphSAGE {launches}")
-    t0 = time.perf_counter()
-    cpu = trainer.train_on_simulation(
-        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_CPU_EPOCHS, hidden=SIM_HIDDEN, seed=SEED, device="cpu"
-    )[0]
-    cpu_s = time.perf_counter() - t0
-    np.testing.assert_allclose(losses[0], cpu.losses[0], rtol=1e-3, err_msg="first-epoch loss, card against CPU")
-    out["train"] = {
-        "train_slots": train_slots,
-        "eval_slots": eval_slots,
-        "epochs": SIM_EPOCHS,
-        "hidden": SIM_HIDDEN,
-        "steps": steps,
-        "wall_s": wall,
-        "slots_per_s": steps / wall,
-        "losses": losses,
-        "launches": launches,
-        "threshold": metrics.threshold,
-        "metrics": {k: v for k, v in dataclasses.asdict(metrics).items() if k != "per_slot_flagged"},
-        "cpu_epochs": SIM_CPU_EPOCHS,
-        "cpu_s": cpu_s,
-        "cpu_losses": cpu.losses,
-        "first_loss_rel_diff": abs(losses[0] - cpu.losses[0]) / abs(cpu.losses[0]),
-    }
-    log("   (b) " + json.dumps(out["train"]))
-
-    # (c) GAT on the same dataset: no hand-written kernel
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gat_r, gat_metrics, _ = trainer.train_on_simulation(
-        *args, train_fraction=SIM_TRAIN_FRACTION, epochs=SIM_GAT_EPOCHS, hidden=SIM_HIDDEN, seed=SEED,
-        model=gat, device=device,
-    )
-    torch.cuda.synchronize()
-    gat_wall = time.perf_counter() - t0
-    gat_launches = read_counts(torch, counters)
-    check(all(math.isfinite(x) for x in gat_r.losses), f"GAT losses {gat_r.losses}")
-    check(not any(gat_launches.values()), f"GAT launched {gat_launches}")
-    out["gat"] = {
-        "epochs": SIM_GAT_EPOCHS,
-        "wall_s": gat_wall,
-        "slots_per_s": train_slots * SIM_GAT_EPOCHS / gat_wall,
-        "losses": gat_r.losses,
-        "launches": gat_launches,
-        "threshold": gat_metrics.threshold,
-        "anomaly_f1": gat_metrics.anomaly_f1,
-    }
-    log("   (c) " + json.dumps(out["gat"]))
-
-    # (d) (b)'s params through the checkpoint module, forward on the card
-    ckpt.save_params(
-        ckpt_dir, sage.params, SIM_EPOCHS,
-        {"model": "graphsage", "hidden": SIM_HIDDEN, "num_features": graphsage.NUM_FEATURES, "num_nodes": 0},
-    )
-    restored, meta = ckpt.restore_params(ckpt_dir, graphsage, device=device)
-    want = stacked.predict_all(sage.params, eval_set, graphsage)
-    got = stacked.predict_all(restored, eval_set, graphsage)
-    for a, w in zip(got, want):
-        np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-5, err_msg="restored checkpoint's forward")
-    out["checkpoint"] = {
-        "step": meta["step"],
-        "max_abs_diff": max(float(np.abs(a - w).max()) for a, w in zip(got, want)),
-    }
-    log("   (d) " + json.dumps(out["checkpoint"]))
-
-    return train_set
+    return out, result, dataset
 
 
 def simulated_kernel_cases(torch, sparse, st, jobs) -> dict:
     """Phase 21 (f): kernel 2 on the simulated mesh's edge list at the
-    buckets the training stacked it to (st: models/stacked.StackedDataset):
+    buckets its training split stacks to (st: models/stacked.StackedDataset):
     the edge index against its plain build; the forward, ungated, at the
     simulator's feature width (10), the served width (18) and the hidden
     width (64); the ungated row pass at 64, GraphSAGE's one backward."""
@@ -5730,6 +5488,311 @@ def simulated_kernel_cases(torch, sparse, st, jobs) -> dict:
         )
     ]
     return {**layout, "forward": forward, "backward": backward}
+
+
+# -- phase 26: model evaluation ----------------------------------------------
+
+EVAL_SMALL_EPOCHS = 12  # (c): eval_models' 60 epochs, cut to keep phase 26 within 60 s on a slow host
+EVAL_SMALL_HIDDEN = 32  # (c): eval_models' default width
+#: (b): eval_stlgt's published defaults (its flags' and evaluate()'s)
+STLGT_EVAL = dict(archetype="cascade-fanout", seed=0, ticks=48, epochs=4, hidden=16, lr=0.02, depth=8, warmup=4)
+EVAL_COMPARE = dict(rtol=1e-4, atol=1e-5)  # card against CPU, as phase 10
+
+
+def want_counts(counters, **counts) -> dict:
+    """Every counter at 0 but the ones named."""
+    want = {c.__name__: 0 for c in counters}
+    want.update(counts)
+    return want
+
+
+def sage_counts(counters, sparse, steps: int, forwards: int) -> dict:
+    """Kernel 2's counts for a GraphSAGE head: two forward launches a
+    forward (its two layers), one backward C call a step launching the
+    ungated row pass alone."""
+    return want_counts(
+        counters,
+        **{
+            sparse.fused_sddmm_spmm.__name__: 2 * forwards,
+            sparse.fused_backward.__name__: steps,
+            sparse.fused_sddmm_spmm_grad_rows.__name__: steps,
+        },
+    )
+
+
+def row_doc(row) -> dict:
+    """One row of eval_models_large's table as the report keeps it."""
+    name, m, auc, ap, onset, wall = row
+    return {
+        "model": name,
+        "precision": m.anomaly_precision,
+        "recall": m.anomaly_recall,
+        "f1": m.anomaly_f1,
+        "roc_auc": auc,
+        "pr_auc": ap,
+        "onset_recall": onset,
+        "latency_mae_ms": m.latency_mae_ms,
+        "train_s": wall,
+    }
+
+
+def row_finite(row) -> bool:
+    """Every number of a row finite; the hybrid rows carry no AUCs (nan by
+    the tool's construction)."""
+    doc = row_doc(row)
+    if doc["model"].endswith("(hybrid)"):
+        del doc["roc_auc"], doc["pr_auc"]
+    return all(math.isfinite(v) for k, v in doc.items() if k != "model")
+
+
+def on_cpu(params):
+    """A params NamedTuple's tensors (None fields kept) copied to the CPU."""
+    return type(params)(*(None if t is None else t.detach().cpu() for t in params))
+
+
+def eval_protocols(torch, device, counters, result, dataset, root: str) -> dict:
+    """Phase 26 (a): eval_models_large's transductive and inductive
+    protocols (its transductive_eval and inductive_eval) over phase 21's
+    simulation at SIM_EPOCHS and SIM_HIDDEN, on the card, each head's
+    launches read and zeroed by the tools' on_head hook."""
+    import numpy as np
+
+    from kmamiz_tpu_torch.models import checkpoint as ckpt
+    from kmamiz_tpu_torch.models import gat, graphsage, serving, stacked, trainer
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.tools import eval_models_large as eml
+
+    train_set, eval_set = trainer.temporal_split(dataset, eml.TRAIN_FRACTION)
+    train_slots, eval_slots = len(train_set.features), len(eval_set.features)
+    steps = train_slots * SIM_EPOCHS
+    # a head's forwards: its steps, calibrate_threshold over the training
+    # slots, evaluate and collect_scores over the held-out ones
+    sage = sage_counts(counters, sparse, steps, steps + train_slots + 2 * eval_slots)
+    heads: dict = {}
+
+    def on_head(name, model, res, metrics, scored):
+        heads[name] = {
+            "model": model,
+            "params": res.params,
+            "losses": res.losses,
+            "threshold": metrics.threshold,
+            "scored": scored,
+            "launches": read_counts(torch, counters),
+        }
+        zero_counts(counters)
+
+    ckpt_dir = os.path.join(root, "inductive")
+    args = eml.build_parser().parse_args(
+        [
+            "--services", str(SIM_SERVICES), "--eps-per-service", str(SIM_ENDPOINTS_PER_SERVICE),
+            "--days", str(SIM_DAYS), "--epochs", str(SIM_EPOCHS), "--hidden", str(SIM_HIDDEN),
+            "--seed", str(SEED), "--checkpoint-dir", ckpt_dir, "--device", str(device),
+        ]
+    )
+    log(
+        f"   (a) {SIM_DAYS} simulated day, {SIM_EPOCHS} epochs: the history columns see no earlier "
+        "same-hour slot, so these tables prove the path at full width, not MODELS.md's quality"
+    )
+    out: dict = {"train_slots": train_slots, "eval_slots": eval_slots, "epochs": SIM_EPOCHS, "hidden": SIM_HIDDEN}
+    for protocol, run in (("transductive", eml.transductive_eval), ("inductive", eml.inductive_eval)):
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run(args, result, on_head=on_head)
+        out[protocol] = {"wall_s": time.perf_counter() - t0, "rows": [row_doc(r) for r in rows]}
+        bad = [r[0] for r in rows if not row_finite(r)]
+        check(not bad, f"{protocol}: rows not finite: {bad}")
+
+    for name, head in heads.items():
+        want = want_counts(counters) if head["model"] is gat else sage
+        check(head["launches"] == want, f"{name}: launches {head['launches']}, want {want}")
+        check(all(math.isfinite(x) for x in head["losses"]), f"{name}: losses {head['losses']}")
+        # collect_scores on the card against the same params on the CPU
+        card = eml.collect_scores(head["params"], head["scored"], head["model"])
+        host = eml.collect_scores(on_cpu(head["params"]), head["scored"], head["model"])
+        np.testing.assert_allclose(card[0], host[0], err_msg=f"{name}: collect_scores", **EVAL_COMPARE)
+        for part, a, b in zip(("truths", "onsets", "currents"), card[1:], host[1:]):
+            check(np.array_equal(a, b), f"{name}: collect_scores' {part} differ from the CPU's")
+        head["collect_max_abs_diff"] = float(np.abs(card[0] - host[0]).max())
+    out["heads"] = {
+        name: {k: v for k, v in head.items() if k not in ("model", "params", "scored")}
+        for name, head in heads.items()
+    }
+
+    # the transductive GraphSAGE head: its first epoch's loss against a
+    # CPU copy's from the same seed, and its params through the checkpoint
+    # module, restored on the card
+    sage_head = heads["GraphSAGE"]
+    t0 = time.perf_counter()
+    cpu = trainer.train(train_set, epochs=1, hidden=SIM_HIDDEN, seed=SEED, model=graphsage, device="cpu")
+    out["cpu_epoch_s"] = time.perf_counter() - t0
+    np.testing.assert_allclose(
+        sage_head["losses"][0], cpu.losses[0], rtol=1e-3, err_msg="first-epoch loss, card against CPU"
+    )
+    out["first_loss_rel_diff"] = abs(sage_head["losses"][0] - cpu.losses[0]) / abs(cpu.losses[0])
+    sage_dir = os.path.join(root, "transductive")
+    ckpt.save_params(
+        sage_dir, sage_head["params"], SIM_EPOCHS,
+        {"model": "graphsage", "hidden": SIM_HIDDEN, "num_features": graphsage.NUM_FEATURES, "num_nodes": 0},
+    )
+    restored, meta = ckpt.restore_params(sage_dir, graphsage, device=device)
+    want = stacked.predict_all(sage_head["params"], eval_set, graphsage)
+    got = stacked.predict_all(restored, eval_set, graphsage)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, err_msg="restored checkpoint's forward", **EVAL_COMPARE)
+    out["checkpoint"] = {"step": meta["step"], "max_abs_diff": max(float(np.abs(a - w).max()) for a, w in zip(got, want))}
+
+    # the inductive run's --checkpoint-dir (the with-history head) as the
+    # forecast handler restores it, its forward against the trained params'
+    history_head = heads["GraphSAGE (with history features)"]
+    restored, meta = ckpt.restore_params(ckpt_dir, graphsage, device=device)
+    template = ckpt.restore_checkpoint(ckpt_dir, restored, graphsage.make_optimizer(0.01).init(restored))
+    check(template is not None and meta["step"] == SIM_EPOCHS, f"the inductive checkpoint: {meta}")
+    scored = history_head["scored"]
+    feats = scored.features[-1]
+    got = serving.forecast_forward(restored, feats, scored.src, scored.dst, scored.edge_mask, graphsage)
+    want = serving.forecast_forward(history_head["params"], feats, scored.src, scored.dst, scored.edge_mask, graphsage)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, err_msg="the inductive checkpoint's forecast", **EVAL_COMPARE)
+    out["inductive_checkpoint"] = {
+        "step": meta["step"],
+        "num_features": meta["num_features"],
+        "max_abs_diff": max(float(np.abs(a - w).max()) for a, w in zip(got, want)),
+    }
+    out["launches"] = {
+        c.__name__: sum(head["launches"][c.__name__] for head in heads.values()) for c in counters
+    }
+    return out
+
+
+def eval_stlgt_on_card(torch, device, counters) -> dict:
+    """Phase 26 (b): eval_stlgt.evaluate at its published defaults on the
+    card; its gate, and kernel 2's launches against the refreshes' steps
+    and the baseline's."""
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.tools import eval_stlgt
+
+    refreshes: list = []
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eval_stlgt.evaluate(device=device, refreshes=refreshes, **STLGT_EVAL)
+    wall = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    doc = {k: v for k, v in res.items() if k != "trainer"}
+    log("   (b) " + json.dumps(doc))
+    check(res["stlgt_beats_baseline"], f"STLGT's p99 coverage does not beat GraphSAGE's: {doc}")
+    check(all(r["ok"] for r in refreshes), f"a refresh failed: {refreshes}")
+    epochs = STLGT_EVAL["epochs"]
+    # STLGT: per step one gated forward and one backward C call (the SDDMM
+    # and the row pass), one gated forward a scored tick; the baseline: per
+    # step two forwards and one backward (the row pass alone), two
+    # forwards a scored tick
+    stlgt_steps = sum(r["stale_slots"] for r in refreshes) * epochs
+    sage_steps = (res["trainer"]["foldsSeen"] - 1) * epochs
+    scored = res["scored_ticks"]
+    want = want_counts(
+        counters,
+        **{
+            sparse.fused_sddmm_spmm.__name__: stlgt_steps + scored + 2 * (sage_steps + scored),
+            sparse.fused_backward.__name__: stlgt_steps + sage_steps,
+            sparse.fused_sddmm_spmm_grad_edges.__name__: stlgt_steps,
+            sparse.fused_sddmm_spmm_grad_rows.__name__: stlgt_steps + sage_steps,
+        },
+    )
+    check(launches == want, f"eval_stlgt launches {launches}, want {want}")
+    return {
+        "result": doc,
+        "wall_s": wall,
+        "refreshes": len(refreshes),
+        "stlgt_steps": stlgt_steps,
+        "sage_steps": sage_steps,
+        "launches": launches,
+    }
+
+
+def eval_small_mesh(torch, device, counters) -> dict:
+    """Phase 26 (c): eval_models' main on its EVAL_YAML at hidden 32 and
+    EVAL_SMALL_EPOCHS on the card (its table logged), its rows finite and
+    kernel 2's launches against its GraphSAGE steps (GAT launches none)."""
+    import contextlib
+    import io
+    import re
+
+    from kmamiz_tpu_torch.ops import sparse
+    from kmamiz_tpu_torch.tools import eval_models
+
+    printed = io.StringIO()
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        code = eval_models.main(
+            ["--epochs", str(EVAL_SMALL_EPOCHS), "--hidden", str(EVAL_SMALL_HIDDEN), "--seed", str(SEED), "--device", str(device)]
+        )
+    wall = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    table = printed.getvalue()
+    for line in table.strip().splitlines():
+        if line:
+            log(f"   (c) {line}")
+    check(code == 0, f"eval_models exited {code}")
+    # the slot counts the steps come from: "held-out slots: E (of S)"
+    eval_slots, slots = map(int, re.search(r"held-out slots: (\d+) \(of (\d+)\)", table).groups())
+    train_slots = slots - eval_slots
+    steps = train_slots * EVAL_SMALL_EPOCHS
+    rows = {}
+    for line in table.splitlines():
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if line.startswith("| ") and cells[0] != "model":
+            rows[cells[0]] = [float(c) for c in cells[1:]]
+    check(len(rows) == 5, f"eval_models' table has rows {sorted(rows)}")
+    check(all(math.isfinite(v) for r in rows.values() for v in r), f"eval_models' rows {rows}")
+    want = sage_counts(counters, sparse, steps, steps + train_slots + eval_slots)
+    check(launches == want, f"eval_models launches {launches}, want {want}")
+    return {
+        "epochs": EVAL_SMALL_EPOCHS,
+        "hidden": EVAL_SMALL_HIDDEN,
+        "train_slots": train_slots,
+        "eval_slots": eval_slots,
+        "wall_s": wall,
+        "rows": rows,
+        "launches": launches,
+    }
+
+
+def evaluate_models(torch, device, counters, result, dataset) -> dict:
+    """Phase 26, model evaluation: (a) eval_protocols over phase 21's
+    simulation, (b) eval_stlgt_on_card, (c) eval_small_mesh, with no plain
+    version of kernel 2 called on card tensors; the phase's launches summed
+    for the kernels line."""
+    from kmamiz_tpu_torch.ops import sparse
+
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    # the eager steps are host-bound: a thread of an earlier phase that
+    # still runs in this process takes the interpreter lock from them
+    out: dict = {"threads": sorted(t.name for t in threading.enumerate())}
+    log(f"   {len(out['threads'])} threads: {out['threads']}")
+    try:
+        with PlainOnCard(torch, sparse) as plain:
+            for key, part in (
+                ("protocols", lambda: eval_protocols(torch, device, counters, result, dataset, root.name)),
+                ("stlgt", lambda: eval_stlgt_on_card(torch, device, counters)),
+                ("eval_models", lambda: eval_small_mesh(torch, device, counters)),
+            ):
+                t0 = time.perf_counter()
+                out[key] = part()
+                out[key]["part_s"] = time.perf_counter() - t0
+                log(f"   {key}: {out[key]['part_s']:.2f} s, launches {out[key]['launches']}")
+        check(plain.calls == 0, f"{plain.calls} plain calls on card tensors in model evaluation")
+        out["plain_calls_on_card"] = plain.calls
+    finally:
+        root.cleanup()
+    out["launches"] = {
+        c.__name__: sum(out[k]["launches"][c.__name__] for k in ("protocols", "stlgt", "eval_models"))
+        for c in counters
+    }
+    return out
 
 
 TENANTS = tuple(f"t{i}" for i in range(8))  # BASELINE split into eight clusters
@@ -7239,6 +7302,12 @@ def main(argv=None) -> int:
         help="phases 1-2, then phase 21 (the simulator), then the device times and the report",
     )
     parser.add_argument(
+        "--eval-only",
+        action="store_true",
+        help="phases 1-2, then phase 21 (a) (the simulation) and phase 26 (model "
+        "evaluation), then the report",
+    )
+    parser.add_argument(
         "--tenancy-only",
         action="store_true",
         help="phases 1-2, then phase 22 (multi-tenant serving), then the device times and the report",
@@ -7370,13 +7439,25 @@ def main(argv=None) -> int:
 
     if args.simulator_only:
         with Phase("simulator", walls):
-            report["simulator"] = simulate(torch, device, counters, jobs)
+            report["simulator"] = simulate(torch, device, jobs)[0]
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
         quarantine_root.cleanup()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"simulator": report["simulator"]}))
+        return 0
+
+    if args.eval_only:
+        with Phase("simulation", walls):
+            report["simulator"] = {}
+            sim_result, sim_dataset = simulate_mesh(report["simulator"], mesh_yaml())
+        with Phase("model evaluation", walls):
+            report["model_eval"] = evaluate_models(torch, device, counters, sim_result, sim_dataset)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"model_eval": report["model_eval"]}))
         return 0
 
     if args.tenancy_only:
@@ -7652,8 +7733,14 @@ def main(argv=None) -> int:
     # and phase 21, the simulator, whose application has been simulating
     # since before phase 17
     with Phase("simulator", walls):
-        report["simulator"] = simulate(torch, device, counters, jobs, app=sim_app)
+        report["simulator"], sim_result, sim_dataset = simulate(torch, device, jobs, app=sim_app)
     sim_root.cleanup()
+
+    # and phase 26, model evaluation, over phase 21's simulation
+    with Phase("model evaluation", walls):
+        report["model_eval"] = evaluate_models(torch, device, counters, sim_result, sim_dataset)
+        eval_launches = report["model_eval"]["launches"]
+        del sim_result, sim_dataset
 
     # and phase 22, multi-tenant serving (its control folds use phase 12's
     # STLGT head)
@@ -7750,10 +7837,11 @@ def main(argv=None) -> int:
     # launches: the segment-stats kernel on the tick path (phase 7's served
     # ticks, phase 22's gathered rounds and fold ticks, phase 24's
     # graftprof capture and phase 25's sharded stats and mesh tick), the
-    # fused kernel on the forecast path (phase 9, phase 22's control folds)
-    # and phase 25's sharded slot grads, the backward's row pass on the
-    # GraphSAGE training path (phases 11 and 25) and its SDDMM on
-    # the STLGT path; the shown times are the
+    # fused kernel on the forecast path (phase 9, phase 22's control folds),
+    # phase 25's sharded slot grads and phase 26's model evaluation, the
+    # backward's row pass on the GraphSAGE training path (phases 11, 25 and
+    # 26) and its SDDMM on the STLGT path (phases 12 and 26); the shown
+    # times are the
     # tick's first pass, GraphSAGE's second layer (H = 64) forward and
     # backward, and STLGT's gated backward (H = 32)
     line = {
@@ -7771,20 +7859,23 @@ def main(argv=None) -> int:
                 *kernels[1],
                 forecast_launches[sparse.fused_sddmm_spmm.__name__]
                 + tenancy_launches[sparse.fused_sddmm_spmm.__name__]
-                + mesh_launches[sparse.fused_sddmm_spmm.__name__],
+                + mesh_launches[sparse.fused_sddmm_spmm.__name__]
+                + eval_launches[sparse.fused_sddmm_spmm.__name__],
                 f_cases,
                 f_cases[1],
             ),
             entry(
                 *kernels[2],
-                stlgt_launches[sparse.fused_sddmm_spmm_grad_edges.__name__],
+                stlgt_launches[sparse.fused_sddmm_spmm_grad_edges.__name__]
+                + eval_launches[sparse.fused_sddmm_spmm_grad_edges.__name__],
                 edges_cases,
                 edges_cases[0],
             ),
             entry(
                 *kernels[3],
                 train_launches[sparse.fused_sddmm_spmm_grad_rows.__name__]
-                + mesh_launches[sparse.fused_sddmm_spmm_grad_rows.__name__],
+                + mesh_launches[sparse.fused_sddmm_spmm_grad_rows.__name__]
+                + eval_launches[sparse.fused_sddmm_spmm_grad_rows.__name__],
                 rows_cases,
                 rows_cases[1],
             ),

@@ -1,15 +1,24 @@
 """Command-line tools over the port, each run as
 ``python -m kmamiz_tpu_torch.tools.<name>``: the counterparts of the
-repo's ``tools/graftsoak.py``, ``tools/scenario_soak.py`` and
-``tools/graftprof.py``, with the same last JSON line and exit codes, and a
-``--device`` option (default: the card); and of ``tools/graftlint.py`` and
-``tools/graftrace.py``, which lint the port's tree and need no device.
+repo's ``tools/graftsoak.py``, ``tools/scenario_soak.py``,
+``tools/graftprof.py``, ``tools/eval_models.py``,
+``tools/eval_models_large.py`` and ``tools/eval_stlgt.py``, with the same
+output, last lines and exit codes, and a ``--device`` option (default:
+the card); and of ``tools/graftlint.py`` and ``tools/graftrace.py``,
+which lint the port's tree and need no device.
 
 - `graftsoak` — the (archetype, seed) soak sweep and its report.
 - `scenario_soak` — the seeded scenario matrix, or the control plane's
   counterfactual, against a real in-process server.
 - `graftprof` — render, diff (with a failed cell's flight-box blame) and
   capture hot-path attribution profiles.
+- `eval_models` — the GraphSAGE and GAT heads on a small faulted mesh
+  against the persistence and naive baselines.
+- `eval_models_large` — both heads at BASELINE.json's scale, with
+  ROC-AUC, PR-AUC and onset recall; the held-out-endpoint protocol
+  (``--inductive``) and its checkpoint.
+- `eval_stlgt` — STLGT's prequential replay against the GraphSAGE
+  baseline; its exit code is STLGT's acceptance gate.
 - `graftlint` — the port's static rules over ``kmamiz_tpu_torch/``.
 - `graftrace` — its lock model: the concurrency rules, the lock table and
   the acquisition-order graph.

@@ -1150,3 +1150,28 @@ def test_a_steady_chain_soak_on_card_launches_no_kernel_and_equals_cpu(card, tmp
     on_cpu = run_scenario(spec, tmpdir=str(tmp_path / "cpu"), device="cpu")
     assert on_card["pass"] and on_cpu["pass"], (on_card["gates"], on_cpu["gates"])
     assert on_card["signatures"] == on_cpu["signatures"] == on_card["ref_signatures"]
+
+
+@pytest.mark.cuda
+def test_collect_scores_on_card_matches_cpu(card):
+    """eval_models_large's collect_scores over a seeded 20-service mesh's
+    held-out slots: the GraphSAGE forward on the card (two kernel launches
+    a slot) against the same params on the CPU."""
+    from kmamiz_tpu_torch.models import trainer
+    from kmamiz_tpu_torch.tools import eval_models_large as eml
+
+    result = eml.simulate(eml.make_mesh_config(20, 10, 1, np.random.default_rng(3)), 3)
+    dataset = trainer.dataset_from_simulation(
+        result.endpoint_dependencies, result.realtime_data_per_slot, result.replica_counts
+    )
+    eval_set = trainer.temporal_split(dataset, eml.TRAIN_FRACTION)[1]
+    params = graphsage.init_params(torch.Generator().manual_seed(0), hidden=16, device=card)
+    before = sparse.fused_sddmm_spmm.launches
+    got = eml.collect_scores(params, eval_set, graphsage)
+    torch.cuda.synchronize()
+    assert sparse.fused_sddmm_spmm.launches == before + 2 * len(eval_set.features)
+    cpu_params = type(params)(*(None if t is None else t.cpu() for t in params))
+    want = eml.collect_scores(cpu_params, eval_set, graphsage)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)

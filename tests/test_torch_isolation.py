@@ -92,6 +92,9 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.tools.graftsoak",
         "kmamiz_tpu_torch.tools.scenario_soak",
         "kmamiz_tpu_torch.tools.graftprof",
+        "kmamiz_tpu_torch.tools.eval_models",
+        "kmamiz_tpu_torch.tools.eval_models_large",
+        "kmamiz_tpu_torch.tools.eval_stlgt",
         "kmamiz_tpu_torch.analysis",
         "kmamiz_tpu_torch.analysis.framework",
         "kmamiz_tpu_torch.analysis.callgraph",

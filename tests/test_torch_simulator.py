@@ -68,8 +68,9 @@ SIM_DATE_MS = 1_700_000_000_000.0
 
 
 def _mesh_tool(monkeypatch):
-    """tools/eval_models_large.py, whose make_mesh_config chip_smoke.py copies
-    (it imports its sibling tools/eval_models.py)."""
+    """tools/eval_models_large.py, whose make_mesh_config the port's tool
+    carries over and chip_smoke.py's phase 21 imports from it (the JAX
+    tool imports its sibling tools/eval_models.py)."""
     monkeypatch.syspath_prepend(str(REPO / "tools"))
     spec = importlib.util.spec_from_file_location("eval_models_large", REPO / "tools" / "eval_models_large.py")
     module = importlib.util.module_from_spec(spec)
@@ -78,9 +79,9 @@ def _mesh_tool(monkeypatch):
 
 
 def _mesh_yaml(n_services=20, days=1, seed=3):
-    import chip_smoke
+    from kmamiz_tpu_torch.tools.eval_models_large import make_mesh_config
 
-    return chip_smoke.make_mesh_config(n_services, 10, days, np.random.default_rng(seed), 0.08)
+    return make_mesh_config(n_services, 10, days, np.random.default_rng(seed), 0.08)
 
 
 MESHES = {
