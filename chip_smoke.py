@@ -269,7 +269,9 @@ Phases, each timed:
    0.08, seed 0) over 1 simulated day: (a)
    Simulator.generate_simulation_data on the host (its wall, endpoints,
    distance-1 edges, slots, rows per slot) and the training dataset of
-   its slots (trainer.dataset_from_simulation); (e) the application in
+   its slots (trainer.dataset_from_simulation) (the YAML made once for
+   (a) and (e), in the whole run in the process that seeds phase 17's
+   store beside phases 15-16); (e) the application in
    simulator mode through its main() over a fresh FileStore, started (its
    own phase, "simulator app start", which starts a thread that waits for
    its boot) before phase 17, so that its boot and startSimulation run
@@ -357,8 +359,13 @@ Phases, each timed:
    use with all four up, by process where nvidia-smi shows them) behind an
    HTTPTransport, two tenants each (the first ring seed that spreads them
    so), 2 frames a tenant, one migration over the /fleet/* routes with a
-   frame mid-handoff, bit-exact as in (b), and fleetscrape's merge of the
-   four /metrics pages (fleet totals and per-worker series); (d)
+   frame mid-handoff, bit-exact as in (b), fleetscrape's merge of the
+   four /metrics pages (fleet totals and per-worker series), then the
+   port's fleet_bench tool over the same four processes and ring
+   (fleet_bench.scorecard, 24 frames a tenant): spans/s through one worker
+   and through four, the efficiency (recorded, not gated: four workers
+   share one card), and its migration with a frame racing the handoff,
+   which must pass with 0 lost spans and no fleet_bench_error; (d)
    run_scenario on the card at seed 0 of steady-chain, cascade-fanout,
    multi-tenant-mix, kill9-wal-replay (its child on the card),
    capacity-growth-chain, fleet-migration and wal-replay at the factory's
@@ -425,6 +432,23 @@ Phases, each timed:
    last stacked merge with its 8 tenant lanes sharded one a shard
    (tenancy/batch.sharded_merge_edges) against 8 serial merges,
    bit-equal. Its launches join the kernels line.
+27. the chaos probe (after phase 25, before phase 14's profiler
+   sessions): the four resilience pillars of the port's chaos_probe tool
+   (chaos_probe.probe, seed 0) in this process on the card, counters
+   zeroed just before and read just after: (1) a seeded poisoned chunk
+   stream ingests bit-exact to its clean chunks, every poisoned delivery
+   quarantined with its reason (a fresh quarantine bound for the pillar);
+   (2) the breaker's state machine; (3) a DP server on the card serves a
+   tick past KMAMIZ_TICK_DEADLINE_MS stale (200, the last good payload)
+   and fresh again once the straggler lands, its processor's device
+   statistics on: the segment-stats kernel launches exactly twice for
+   each of the pillar's three ticks (the warm one, the straggler, the
+   recovered one); (4) the tool's --child-kill child on the card SIGKILLs
+   itself between a WAL append and its merge, and a fresh processor's
+   replay gives the graph of every window. Pillars 1 and 4 run with
+   device statistics off and launch nothing. chaos_recovery_ms and
+   degraded_serve_ms are recorded; every pillar must hold. Its launches
+   join the kernels line.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -446,7 +470,8 @@ warm tick); with --simulator-only, phases 1-2 and then phase 21 alone; with
 with --tenancy-only, phases 1-2 and then phase 22 alone; with
 --mesh-only, phases 1-2 and 4 and then phase 25 without (f); with
 --fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
-makes itself); with --soak-only, phases 1-2 and then phase 24 alone.
+makes itself); with --soak-only, phases 1-2 and then phase 24 alone; with
+--chaos-only, phases 1-2 and then phase 27 alone.
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -5408,19 +5433,18 @@ def simulate_mesh(out: dict, yaml_text: str) -> tuple:
     return result, dataset
 
 
-def simulate(torch, device, jobs, app: "SimulatorApp" = None) -> tuple:
+def simulate(torch, device, jobs, app: "SimulatorApp", yaml_text: str) -> tuple:
     """Phase 21, the simulator at BASELINE.json's synthetic mesh (1,000
     services x 10 endpoints, fault fraction 0.08, seed 0, 1 simulated day):
     (a) Simulator.generate_simulation_data on the host, and the training
     dataset of its slots; (e) the application in simulator mode
-    (SimulatorApp: `app` when the run started it earlier, else one started
-    here), beside (a); (f) kernel 2 at the training split's buckets against
-    its plain version. The heads train on (a)'s simulation in phase 26.
-    Returns (the report, the simulation, its dataset)."""
+    (SimulatorApp `app`, started earlier over the same `yaml_text`
+    (mesh_yaml()'s)), beside (a); (f) kernel 2 at the training split's
+    buckets against its plain version. The heads train on (a)'s simulation
+    in phase 26. Returns (the report, the simulation, its dataset)."""
     from kmamiz_tpu_torch.models import stacked, trainer
     from kmamiz_tpu_torch.ops import sparse
 
-    root = tempfile.TemporaryDirectory(prefix="chip_smoke_sim_")
     out: dict = {
         "services": SIM_SERVICES,
         "endpoints_per_service": SIM_ENDPOINTS_PER_SERVICE,
@@ -5428,9 +5452,6 @@ def simulate(torch, device, jobs, app: "SimulatorApp" = None) -> tuple:
         "fault_fraction": SIM_FAULT_FRACTION,
     }
     try:
-        yaml_text = mesh_yaml()
-        if app is None:
-            app = SimulatorApp(yaml_text, root.name)
         result, dataset = simulate_mesh(out, yaml_text)
 
         # (f) kernel 2 at the buckets the training split stacks to
@@ -5441,9 +5462,8 @@ def simulate(torch, device, jobs, app: "SimulatorApp" = None) -> tuple:
         out["app"] = app.result(SIM_SERVICES * SIM_ENDPOINTS_PER_SERVICE)
         log("   (e) " + json.dumps(out["app"]))
     finally:
-        if app is not None and "app" not in out:
+        if "app" not in out:
             app.served.kill()
-        root.cleanup()
     return out, result, dataset
 
 
@@ -6308,6 +6328,7 @@ FLEET_VNODES = 64
 FLEET_SEED = 0
 FLEET_FRAMES = 10  # (a): each tenant's state window as this many frames
 FLEET_PROC_FRAMES = 2  # (c): the frames each tenant sends the worker processes
+FLEET_BENCH_FRAMES = 24  # (c): the fleet bench's frames a tenant (the tool's default)
 #: (d): the archetypes the runner drives on the card, each at the factory's
 #: own sizes and DEFAULT_TICKS (the always-on first three, kill -9, growth,
 #: the fleet and the WAL replay)
@@ -6420,9 +6441,10 @@ def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
     (c) four `python -m kmamiz_tpu_torch.fleet.worker` processes on the
     card (booted while (a) and (b) run) behind an HTTPTransport, two
     tenants each, one migration over the
-    /fleet/* routes with a frame mid-handoff, and fleetscrape's merge of
-    their /metrics; (d) run_scenario of RUNNER_ARCHETYPES and
-    run_counterfactual on the card, every card passing. No kernel runs on
+    /fleet/* routes with a frame mid-handoff, fleetscrape's merge of
+    their /metrics, and the fleet_bench tool's scorecard over them; (d)
+    run_scenario of RUNNER_ARCHETYPES and run_counterfactual on the card,
+    every card passing. No kernel runs on
     this path (device statistics off, the counterfactual's forecast
     given): the counters must read 0."""
     from kmamiz_tpu_torch import native
@@ -6436,6 +6458,7 @@ def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
     from kmamiz_tpu_torch.scenarios.factory import DEFAULT_TICKS
     from kmamiz_tpu_torch.server.processor import DataProcessor
     from kmamiz_tpu_torch.telemetry import fleetscrape
+    from kmamiz_tpu_torch.tools import fleet_bench
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6585,6 +6608,18 @@ def serve_fleet(torch, device, counters, state_raw: dict) -> dict:
             check(all(per.values()) and payloads[""] == sum(per.values()), f"scraped payloads {payloads}")
             check(all(f'kmamiz_ingest_payloads_total{{worker="{w}"}}' in page for w in FLEET_WORKERS), "per-worker series missing")
             procs_out["scrape"] = {"payloads_total": payloads[""], "payloads_by_worker": per, "page_lines": page.count("\n")}
+            # the fleet bench over the same four processes (tenants of its
+            # own on ring2): one worker against four, then a migration with
+            # a frame racing the handoff; the efficiency recorded, not gated
+            t0 = time.perf_counter()
+            bench = fleet_bench.scorecard(transport, ring2, FLEET_BENCH_FRAMES)
+            bench["wall_s"] = time.perf_counter() - t0
+            procs_out["fleet_bench"] = bench
+            check("fleet_bench_error" not in bench, f"fleet bench: {bench.get('fleet_bench_error')}")
+            check(
+                bench["fleet_migration_pass"] is True and bench["fleet_migration_lost_spans"] == 0,
+                f"fleet bench migration {bench}",
+            )
         finally:
             for p in served.values():
                 p.stop(15)
@@ -7239,6 +7274,49 @@ def serve_mesh(torch, device, counters, proc, tenant_stack=None) -> dict:
     return out
 
 
+# -- phase 27: the chaos probe ------------------------------------------------
+
+CHAOS_SEED = 0
+#: pillar 3's ticks that complete on its DP server: the warm tick, the
+#: straggler past the deadline (once it lands) and the recovered tick
+CHAOS_TICKS = 3
+
+
+def serve_chaos(torch, device, counters) -> dict:
+    """Phase 27: the port's chaos_probe pillars in this process on the card
+    (the crash child of pillar 4 a process of its own on the card), every
+    launch counter zeroed just before and read just after: every pillar
+    holds, the segment-stats kernel launched twice for each of pillar 3's
+    ticks (its processor's device statistics on) and nothing else launched
+    (pillars 1 and 4 run with device statistics off)."""
+    from kmamiz_tpu_torch.ops import segment_stats as ss
+    from kmamiz_tpu_torch.tools import chaos_probe
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    results = chaos_probe.probe(CHAOS_SEED, None, device)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(torch, counters)
+    for p in chaos_probe.PILLARS:
+        detail = {k: v for k, v in results[p].items() if k not in ("signature", "snapshot")}
+        log(f"   {p}: " + json.dumps(detail))
+    failed = [p for p in chaos_probe.PILLARS if not results[p]["ok"]]
+    check(not failed and results["ok"] is True, f"chaos pillars failed: {failed}")
+    want = {c.__name__: 0 for c in counters}
+    want[ss.segment_stats.__name__] = 2 * CHAOS_TICKS
+    check(launches == want, f"the chaos probe launched {launches}, {want} expected")
+    out = {
+        "seed": CHAOS_SEED,
+        "wall_s": wall_s,
+        "chaos_recovery_ms": results["chaos_recovery_ms"],
+        "degraded_serve_ms": results["degraded_serve_ms"],
+        "pillars": {p: results[p] for p in chaos_probe.PILLARS},
+        "launches": launches,
+    }
+    log("   " + json.dumps({k: out[k] for k in ("wall_s", "chaos_recovery_ms", "degraded_serve_ms", "launches")}))
+    return out
+
+
 class AttrSet:
     """An attribute of a module set for a with-block, then restored."""
 
@@ -7329,6 +7407,11 @@ def main(argv=None) -> int:
         action="store_true",
         help="phases 1-2 and 4, then phase 25 (the device mesh on virtual shards of "
         "the card) without its part (f), which needs phase 22's stacked merge",
+    )
+    parser.add_argument(
+        "--chaos-only",
+        action="store_true",
+        help="phases 1-2, then phase 27 (the chaos probe's pillars on the card), then the report",
     )
     parser.add_argument(
         "--cluster-only",
@@ -7439,7 +7522,12 @@ def main(argv=None) -> int:
 
     if args.simulator_only:
         with Phase("simulator", walls):
-            report["simulator"] = simulate(torch, device, jobs)[0]
+            sim_yaml = mesh_yaml()
+            sim_root = tempfile.TemporaryDirectory(prefix="chip_smoke_simapp_")
+            sim_app = SimulatorApp(sim_yaml, sim_root.name)
+            atexit.register(sim_app.kill)
+            report["simulator"] = simulate(torch, device, jobs, sim_app, sim_yaml)[0]
+            sim_root.cleanup()
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
         quarantine_root.cleanup()
@@ -7487,6 +7575,15 @@ def main(argv=None) -> int:
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"soak": report["soak"]}))
+        return 0
+
+    if args.chaos_only:
+        with Phase("chaos probe", walls):
+            report["chaos"] = serve_chaos(torch, device, counters)
+        quarantine_root.cleanup()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"chaos": {k: v for k, v in report["chaos"].items() if k != "pillars"}}))
         return 0
 
     if args.cluster_only:
@@ -7662,6 +7759,9 @@ def main(argv=None) -> int:
     seed_store = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
     seeding = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
     seeded = seeding.submit(write_seed_store, seed_store.name, state_windows())
+    # and phase 21's YAML after it, made once for its simulator
+    # application (started before phase 17) and its (a)
+    sim_yaml_job = seeding.submit(mesh_yaml)
 
     # phase 15 runs here, before phase 14's profiler sessions (which slow
     # every later launch on the host) and the device times
@@ -7693,8 +7793,9 @@ def main(argv=None) -> int:
     # simulation and its hourly slots' aggregations, host work on one
     # core) runs beside phases 17-20, and phase 21 reads its answers
     with Phase("simulator app start", walls):
+        sim_yaml = sim_yaml_job.result()
         sim_root = tempfile.TemporaryDirectory(prefix="chip_smoke_simapp_")
-        sim_app = SimulatorApp(mesh_yaml(), sim_root.name)
+        sim_app = SimulatorApp(sim_yaml, sim_root.name)
         atexit.register(sim_app.kill)
 
     # phases 17 and 18 too: the application, then the GAT head (whose own
@@ -7733,8 +7834,9 @@ def main(argv=None) -> int:
     # and phase 21, the simulator, whose application has been simulating
     # since before phase 17
     with Phase("simulator", walls):
-        report["simulator"], sim_result, sim_dataset = simulate(torch, device, jobs, app=sim_app)
+        report["simulator"], sim_result, sim_dataset = simulate(torch, device, jobs, sim_app, sim_yaml)
     sim_root.cleanup()
+    del sim_yaml
 
     # and phase 26, model evaluation, over phase 21's simulation
     with Phase("model evaluation", walls):
@@ -7787,6 +7889,13 @@ def main(argv=None) -> int:
         mesh_launches = report["mesh"]["launches"]
         del tenant_stack
 
+    # and phase 27, the chaos probe's pillars (its DP's tick folds no hour
+    # with STLGT either)
+    with Phase("chaos probe", walls):
+        with env_set(KMAMIZ_STLGT=None):
+            report["chaos"] = serve_chaos(torch, device, counters)
+        chaos_launches = report["chaos"]["launches"]
+
     with Phase("profile", walls):
         report["profile"] = profile_tick(
             torch, proc, feed, STATE_TRACES + (TICKS + 4) * TICK_TRACES, kernel_names
@@ -7836,7 +7945,8 @@ def main(argv=None) -> int:
 
     # launches: the segment-stats kernel on the tick path (phase 7's served
     # ticks, phase 22's gathered rounds and fold ticks, phase 24's
-    # graftprof capture and phase 25's sharded stats and mesh tick), the
+    # graftprof capture, phase 25's sharded stats and mesh tick and phase
+    # 27's degraded-serve ticks), the
     # fused kernel on the forecast path (phase 9, phase 22's control folds),
     # phase 25's sharded slot grads and phase 26's model evaluation, the
     # backward's row pass on the GraphSAGE training path (phases 11, 25 and
@@ -7851,7 +7961,8 @@ def main(argv=None) -> int:
                 launches[ss.segment_stats.__name__]
                 + tenancy_launches[ss.segment_stats.__name__]
                 + soak_launches[ss.segment_stats.__name__]
-                + mesh_launches[ss.segment_stats.__name__],
+                + mesh_launches[ss.segment_stats.__name__]
+                + chaos_launches[ss.segment_stats.__name__],
                 cases + raw_cases,
                 cases[2],
             ),

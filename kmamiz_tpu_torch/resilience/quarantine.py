@@ -25,12 +25,13 @@ payloads go to a bounded directory of its own, ``<dir>/tenants/<tenant>``
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, Optional
 
 from kmamiz_tpu_torch import config
 from kmamiz_tpu_torch.core import wire
@@ -259,3 +260,20 @@ def reset_for_tests() -> None:
     with _DEFAULT_LOCK:
         _DEFAULT["instance"] = None
         _TENANT_INSTANCES.clear()
+
+
+@contextlib.contextmanager
+def scoped_default(directory: str) -> Iterator[Quarantine]:
+    """A fresh default quarantine bound to `directory` for the span (its
+    counts start at zero), the previous binding restored afterwards: a
+    probe that counts its own diversions in a process that has diverted
+    payloads before. The tenants' bindings are left as they are."""
+    fresh = Quarantine(directory=directory)
+    with _DEFAULT_LOCK:
+        saved = _DEFAULT["instance"]
+        _DEFAULT["instance"] = fresh
+    try:
+        yield fresh
+    finally:
+        with _DEFAULT_LOCK:
+            _DEFAULT["instance"] = saved

@@ -1175,3 +1175,20 @@ def test_collect_scores_on_card_matches_cpu(card):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-5)
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chaos_probes_degraded_serve_on_card_runs_the_stats_kernel_each_tick(card, tmp_path, monkeypatch):
+    """The chaos probe's pillar 3 on the card: a DP server whose processor
+    keeps device statistics on serves a tick past its deadline stale and
+    recovers; each of its three ticks (the warm one, the straggler once it
+    lands, the recovered one) launches the segment-stats kernel twice."""
+    from kmamiz_tpu_torch.tools import chaos_probe
+
+    monkeypatch.setenv("KMAMIZ_PROF_FLIGHT_DIR", str(tmp_path / "flight"))
+    monkeypatch.delenv("KMAMIZ_WAL", raising=False)
+    before = ss.segment_stats.launches
+    out = chaos_probe.pillar_degraded_serve(card)
+    torch.cuda.synchronize()
+    assert out["ok"], out
+    assert ss.segment_stats.launches == before + 2 * 3

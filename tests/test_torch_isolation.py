@@ -17,6 +17,8 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["kmamiz_tpu"] = None   # and so does any `import kmamiz_tpu...`
+sys.modules["bench"] = None        # nor the repo's bench.py
+sys.modules["tools"] = None        # nor the JAX package's tools/
 import kmamiz_tpu_torch
 names = ["kmamiz_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(kmamiz_tpu_torch.__path__, "kmamiz_tpu_torch.")
@@ -25,7 +27,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(
     m for m, mod in sys.modules.items()
-    if mod is not None and (m == "jax" or m.startswith(("jax.", "kmamiz_tpu.")))
+    if mod is not None and (m in ("jax", "bench", "tools") or m.startswith(("jax.", "kmamiz_tpu.", "tools.")))
 )
 assert not leaked, leaked
 # the native host library the port loads is its own build, never the JAX
@@ -95,6 +97,9 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.tools.eval_models",
         "kmamiz_tpu_torch.tools.eval_models_large",
         "kmamiz_tpu_torch.tools.eval_stlgt",
+        "kmamiz_tpu_torch.tools.chaos_probe",
+        "kmamiz_tpu_torch.tools.fleet_bench",
+        "kmamiz_tpu_torch.tools.profile_parse",
         "kmamiz_tpu_torch.analysis",
         "kmamiz_tpu_torch.analysis.framework",
         "kmamiz_tpu_torch.analysis.callgraph",
