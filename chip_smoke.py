@@ -8,10 +8,13 @@ Phases, each timed:
 1. card identity (nvidia-smi name and power limit);
 2. build every hand-written kernel from kmamiz_tpu_torch/csrc with nvcc
    (one process per source, all at once) and, beside them, the port's
-   native host library (csrc/*.cpp) with g++ and the port's own lint of
-   this checkout: `python -m kmamiz_tpu_torch.tools.graftlint --strict`
-   and `... graftrace --strict`, each of which must exit 0 with 0
-   findings;
+   native host library (csrc/*.cpp) with g++, as an image's build step
+   does: `python -m kmamiz_tpu_torch.core.compile_cache --prebuild` in a
+   process that sees no card (CUDA_VISIBLE_DEVICES=""), into csrc/build/,
+   whose libraries this process then loads; beside them the port's own
+   lint of this checkout: `python -m kmamiz_tpu_torch.tools.graftlint
+   --strict` and `... graftrace --strict`, each of which must exit 0 with
+   0 findings (and, in the whole run, phase 28 (b)'s cold probe);
 3. the segment-stats kernel against its plain PyTorch version on card
    tensors, at the production window (2^20 spans, 10,000 endpoints x 8
    statuses) and at the Data Processor tick's own shape, both passes
@@ -192,7 +195,8 @@ Phases, each timed:
    payloads equal to the CPU app's (scorers: integers equal, floats rel
    1e-5, cohesion 1e-6; the forecast within the route's rounding), the
    forecast GET's launches (2, and 1 more while phase 12's STLGT trainer
-   serves);
+   serves), and no library built or loaded by the first forecast GET
+   (phase 28 (d));
 18. GAT (after phase 17): a GAT head (hidden 64, no hand-written kernel:
    no counter may move) trained through trainer.train(model=gat) on phase
    11's dataset for 2 epochs with a checkpoint, its losses falling; a
@@ -209,7 +213,9 @@ Phases, each timed:
    pod's istio-proxy log, written with the port's envoy_filter from the
    SERVER spans of every tick so far, with BODY_POOL bodies, cut to
    tailLines): (a) `python -m kmamiz_tpu_torch.server.dp_server` (its
-   main(), the WAL on, KMAMIZ_LOCK_WITNESS=1) serves 1 tick of 2,500
+   main(), the WAL on, KMAMIZ_LOCK_WITNESS=1; its boot prewarm in the
+   background, so GET / answers 503 WARMING before 200 with the prewarm
+   ready and every library loaded: phase 28 (d)) serves 1 tick of 2,500
    traces, under 5,000
    ms and equal to a CPU DataProcessor fed the same stubs (dependencies,
    datatypes with the body schemas, replicas equal; latency mean rel
@@ -449,6 +455,25 @@ Phases, each timed:
    device statistics off and launch nothing. chaos_recovery_ms and
    degraded_serve_ms are recorded; every pillar must hold. Its launches
    join the kernels line.
+28. restart warmth (right after phase 2): (b) a cold restart, `python -m
+   kmamiz_tpu_torch.tools.warm_boot_probe` on the card in a process of its
+   own over a copy of the package without csrc/build/ and an empty
+   KMAMIZ_COMPILE_CACHE_DIR, started before phase 1 so that it runs
+   beside this process's start and phase 2 (which has no gated wall), and
+   joined here: its boot prewarm (core/prewarm.py) builds every
+   library (the host library and both kernels') into that directory, and
+   neither of its two timed 2,500-trace ticks builds or first loads a
+   library; (c) a warm restart, the probe again, alone, against (b)'s
+   directory: no library built anywhere, both counts 0 again; prewarm_s
+   and first_tick_ms of both. (d) In phases 19 and 17: the DP booted
+   through main() answers 503 WARMING, then 200 with the prewarm ready,
+   and the first forecast GET after phase 17's boot builds and loads no
+   library.
+
+Before its last lines every run ends the processes it started that are
+still alive (multiprocessing's resource tracker first), logs each, and
+checks from /proc that none of its descendants, nor any process carrying
+its run mark (CHIP_SMOKE_RUN), is left.
 
 It prints the kernels line (JSON) and, last, {"ok": true, "device": ...}.
 With --kernels-only it stops after phase 6 and prints the kernel cases,
@@ -471,7 +496,8 @@ with --tenancy-only, phases 1-2 and then phase 22 alone; with
 --mesh-only, phases 1-2 and 4 and then phase 25 without (f); with
 --fleet-only, phases 1-2 and then phase 23 alone (over tenant windows it
 makes itself); with --soak-only, phases 1-2 and then phase 24 alone; with
---chaos-only, phases 1-2 and then phase 27 alone.
+--chaos-only, phases 1-2 and then phase 27 alone; with --restart-only,
+phases 1-2 and then phase 28 ((b) beside phases 1-2, then (c)).
 Any failed check raises, and the script then exits non-zero without the
 result line; so does a machine without a CUDA device, or a directory that
 holds this script without the kmamiz_tpu_torch package.
@@ -1198,18 +1224,21 @@ def fused_cases(torch, graph, jobs):
 def get_route(port: int, path: str, quiet: bool = False):
     """GET any API route over HTTP (gzip accepted): (status, body, wall
     ms), the body parsed when it is JSON, else its bytes (the export's
-    tgz, the swagger YAML). With `quiet`, the body's read, gunzip and
-    parse hold HOST_QUIET (a thread beside timed ticks)."""
+    tgz, the swagger YAML). With `quiet`, the whole request holds
+    HOST_QUIET (a thread beside timed ticks): the server's work on the
+    answer as well as its read, gunzip and parse, and the wall starts once
+    the lock is held."""
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers={"Accept-Encoding": "gzip"})
-    t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as resp, (HOST_QUIET if quiet else contextlib.nullcontext()):
-        body = resp.read()
-        if resp.headers.get("Content-Encoding") == "gzip":
-            body = gzip.decompress(body)
-        status, kind = resp.status, resp.headers.get("Content-Type", "")
-        ms = (time.perf_counter() - t0) * 1e3
-        if kind.startswith("application/json"):
-            body = json.loads(body)
+    with HOST_QUIET if quiet else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            body = resp.read()
+            if resp.headers.get("Content-Encoding") == "gzip":
+                body = gzip.decompress(body)
+            status, kind = resp.status, resp.headers.get("Content-Type", "")
+            ms = (time.perf_counter() - t0) * 1e3
+            if kind.startswith("application/json"):
+                body = json.loads(body)
     return status, body, ms
 
 
@@ -3934,11 +3963,23 @@ def serve_application(torch, device, counters, t_start: int, state: dict, store,
         api.start()
         routes: dict = {}
         served: dict = {}  # the memoized routes' payloads, compared below
+        from kmamiz_tpu_torch.core import compile_cache
+
+        first_forecast = True
         try:
             for url in app_urls(app2):
+                mark = compile_cache.snapshot()
                 status, payload, first_ms = get_route(api.port, url)
                 check(status == 200, f"GET {url} answered {status}")
                 routes[url] = {"first_ms": round(first_ms, 3)}
+                if first_forecast and url.startswith("/api/v1/model/forecast"):
+                    # phase 28 (d): the first forecast GET after the boot
+                    # builds and loads no library
+                    first_forecast = False
+                    loads = compile_cache.loads(mark)
+                    routes[url]["libraries_loaded"] = len(loads)
+                    out["first_forecast_libraries_loaded"] = len(loads)
+                    check(not loads, f"the first forecast GET loaded {loads}")
                 if not url.startswith(("/api/v1/graph/cohesion", "/api/v1/graph/instability",
                                        "/api/v1/graph/coupling", "/api/v1/model/forecast")):
                     continue  # host views: no memo, a second GET costs the first's
@@ -3964,6 +4005,7 @@ def serve_application(torch, device, counters, t_start: int, state: dict, store,
             app2.tear_down()
             cpu_app.tear_down()
         out["routes"] = routes
+        check("first_forecast_libraries_loaded" in out, "boot 2 served no forecast GET")
         log("   routes " + json.dumps(routes))
         log("   boot 2 launches " + json.dumps(out["boot2_launches"]))
         # the forecast GET: GraphSAGE's two layers, and the STLGT head's
@@ -4465,7 +4507,9 @@ def http_json(port: int, path: str, body: bytes = None, timeout: float = 600):
 class Served:
     """A server started through its `python -m` entry (its main()), with
     the environment and command-line `args` given; waits until `health`
-    answers 200 and records the boot wall. Output goes to `log_path`.
+    answers 200 and records the boot wall. Its answers before the 200 are
+    counted by status (`not_ready`): 503 {"status": "WARMING"} while the
+    boot prewarm runs (core/prewarm.py). Output goes to `log_path`.
     stop() sends `sig` and waits; kill() is kill -9."""
 
     def __init__(
@@ -4486,6 +4530,7 @@ class Served:
             stderr=subprocess.STDOUT,
             start_new_session=True,
         )
+        self.not_ready: dict = {}
         deadline = time.monotonic() + timeout
         while True:
             if self.proc.poll() is not None:
@@ -4495,6 +4540,8 @@ class Served:
                 status, self.health = http_json(port, health, timeout=5)
                 if status == 200:
                     break
+                key = f"{status} {self.health.get('status')}"
+                self.not_ready[key] = self.not_ready.get(key, 0) + 1
             except (OSError, ValueError):
                 pass
             check(time.monotonic() < deadline, f"{module} did not answer in {timeout} s: {self.tail()}")
@@ -4673,6 +4720,15 @@ def serve_in_cluster(torch, device, counters) -> dict:
         served.append(dp)
         out["dp_boot_ms"] = dp.boot_ms
         check(dp.health["device"].startswith("cuda"), f"the DP runs on {dp.health['device']}")
+        # phase 28 (d): main()'s background prewarm, seen from outside:
+        # 503 WARMING first, then 200 with the plan's report
+        warm = dp.health["prewarm"]
+        out["prewarm"] = {"not_ready": dp.not_ready, "status": warm["status"], "report": warm.get("report")}
+        log("   (a) prewarm " + json.dumps(out["prewarm"]))
+        check(dp.not_ready.get("503 WARMING", 0) >= 1, f"the DP never answered 503 WARMING: {dp.not_ready}")
+        check(set(dp.not_ready) == {"503 WARMING"}, f"the DP's answers before ready: {dp.not_ready}")
+        check(warm["status"] == "ready", f"the DP's prewarm: {warm}")
+        check(set(warm["report"]["libraries"]) == LIBRARIES, f"the DP's prewarm loaded {sorted(warm['report']['libraries'])}")
         cpu, twin, streamed = processor_on("cpu"), processor_on(device), processor_on(device)
         stream_server = DataProcessorServer(streamed, host="127.0.0.1", port=0)
         stream_server.start()
@@ -7317,6 +7373,235 @@ def serve_chaos(torch, device, counters) -> dict:
     return out
 
 
+# -- phase 28: restart warmth ------------------------------------------------
+
+#: the libraries of the port's main paths: the host library and both kernels'
+LIBRARIES = {"kmamiz_native", "segment_stats", "fused_sddmm_spmm"}
+PREBUILD_TIMEOUT_S = 600
+PROBE_TIMEOUT_S = 600
+
+
+def run_prebuild() -> dict:
+    """Phase 2's builds as an image's build step makes them: `python -m
+    kmamiz_tpu_torch.core.compile_cache --prebuild` in a process that sees
+    no card (CUDA_VISIBLE_DEVICES=""), into the checkout's csrc/build/.
+    Its JSON line."""
+    env = {k: v for k, v in os.environ.items() if k != "KMAMIZ_COMPILE_CACHE_DIR"}
+    env.update(CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "kmamiz_tpu_torch.core.compile_cache", "--prebuild"],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=PREBUILD_TIMEOUT_S,
+    )
+    check(proc.returncode == 0, f"the prebuild exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def package_copy(root: str) -> None:
+    """The checkout's kmamiz_tpu_torch/ copied under `root`, without
+    csrc/build/: a fresh image's package before its build step."""
+    import shutil
+
+    src = os.path.join(REPO, "kmamiz_tpu_torch")
+    build = os.path.join(src, "csrc", "build")
+    shutil.copytree(
+        src,
+        os.path.join(root, "kmamiz_tpu_torch"),
+        ignore=lambda d, names: [n for n in names if n == "__pycache__" or os.path.join(d, n) == build],
+    )
+
+
+class RestartProbe:
+    """`python -m kmamiz_tpu_torch.tools.warm_boot_probe` on the card, in a
+    process of its own, over the package copied under `root` with
+    KMAMIZ_COMPILE_CACHE_DIR at `cache` (no other KMAMIZ_ variable of this
+    process); its per-library table goes to a file."""
+
+    def __init__(self, root: str, cache: str, label: str) -> None:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("KMAMIZ_")}
+        env.update(PYTHONPATH=root, KMAMIZ_COMPILE_CACHE_DIR=cache)
+        self.label, self.cache = label, cache
+        self.err_path = os.path.join(root, f"{label}.stderr")
+        self.err = open(self.err_path, "wb")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kmamiz_tpu_torch.tools.warm_boot_probe"],
+            cwd=root,
+            env=env,
+            stdout=subprocess.PIPE,
+            stderr=self.err,
+        )
+
+    def stop(self) -> None:
+        """End it unread (a run that stops before phase 28)."""
+        self.proc.kill()
+        self.proc.communicate()
+        self.err.close()
+
+    def result(self) -> dict:
+        """Its JSON line (with the process's wall and the table's last
+        lines), once it has exited 0."""
+        try:
+            stdout, _ = self.proc.communicate(timeout=PROBE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"the {self.label} probe did not end in {PROBE_TIMEOUT_S} s")
+        finally:
+            self.err.close()
+        wall = time.perf_counter() - self.t0
+        with open(self.err_path, "rb") as f:
+            table = f.read().decode("utf-8", "replace")
+        check(self.proc.returncode == 0, f"the {self.label} probe exited {self.proc.returncode}: {table[-3000:]}")
+        line = json.loads(stdout.decode().strip().splitlines()[-1])
+        line["process_wall_s"] = wall
+        line["table"] = table.strip().splitlines()[-5:]
+        return line
+
+    def check(self, line: dict, cold: bool) -> None:
+        """Phase 28's gates: every library in the plan, each built inside
+        it (cold) or none built anywhere (warm), in the cache directory,
+        and no library built or first loaded inside either timed tick."""
+        what = f"the {self.label} probe"
+        programs = line["programs"]
+        check(line["device"].startswith("cuda"), f"{what} ran on {line['device']}")
+        check(set(programs) == LIBRARIES, f"{what} loaded {sorted(programs)}")
+        check(all(p["prewarmed"] for p in programs.values()), f"{what}: a library outside the prewarm: {programs}")
+        check(all(p["built"] is cold for p in programs.values()), f"{what}: built {programs}")
+        report = line["prewarm_report"]
+        check(report["builtInPlan"] == (len(LIBRARIES) if cold else 0), f"{what}: {report['builtInPlan']} built")
+        check(report["kernel2Launches"] == 6, f"{what}: kernel 2 launched {report['kernel2Launches']} times")
+        for name, lib in report["libraries"].items():
+            check(os.path.dirname(lib["path"]) == self.cache, f"{what}: {name} at {lib['path']}")
+        check(
+            line["first_tick_new_compiles"] == 0 and line["second_tick_new_compiles"] == 0,
+            f"{what}: {line['first_tick_new_compiles']} and {line['second_tick_new_compiles']} "
+            "libraries built or loaded inside the timed ticks",
+        )
+
+
+def restart_warmth(cold: RestartProbe, root: str) -> dict:
+    """Phase 28 (b), started before phase 1 and joined here, then (c)
+    alone against (b)'s directory."""
+    out = {}
+    for label, probe in (("cold", cold), ("warm", None)):
+        if probe is None:
+            probe = RestartProbe(root, cold.cache, label)
+        line = probe.result()
+        probe.check(line, cold=label == "cold")
+        out[label] = {
+            k: line[k]
+            for k in (
+                "prewarm_s",
+                "prewarm_programs",
+                "first_tick_ms",
+                "second_tick_ms",
+                "first_tick_new_compiles",
+                "second_tick_new_compiles",
+                "process_wall_s",
+                "programs",
+            )
+        }
+        out[label]["kernel2_ms"] = line["prewarm_report"]["kernel2Ms"]
+        out[label]["warm_up_ms"] = line["prewarm_report"]["warmUpMs"]
+        log(f"   ({'b' if label == 'cold' else 'c'}) {label}: " + json.dumps(out[label]))
+        for row in line["table"]:
+            log(f"       {row}")
+    return out
+
+
+# -- this run's processes -----------------------------------------------------
+
+#: the environment variable that marks this run's processes, orphans too
+RUN_MARK = "CHIP_SMOKE_RUN"
+
+
+def live_processes() -> dict:
+    """This run's processes still alive, this one aside: its descendants by
+    parent pid, and any process whose environment carries RUN_MARK's
+    value (an orphan, whose parent is gone); zombies are dead and left
+    out. Read from /proc. pid -> (seconds after this process started,
+    command line)."""
+    me = os.getpid()
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    parent, state, started = {}, {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat", "rb") as f:
+                fields = f.read().rsplit(b")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        pid = int(entry)
+        state[pid], parent[pid], started[pid] = fields[0], int(fields[1]), int(fields[19])
+    ours, grew = {me}, True
+    while grew:
+        grew = False
+        for pid, ppid in parent.items():
+            if ppid in ours and pid not in ours:
+                ours.add(pid)
+                grew = True
+    for pid in parent:
+        if pid not in ours:
+            try:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    if mark in f.read().split(b"\0"):
+                        ours.add(pid)
+            except OSError:
+                pass
+    ours.discard(me)
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for pid in sorted(ours):
+        if state.get(pid) in (b"Z", b"X"):
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode("utf-8", "replace").strip()
+        except OSError:
+            continue
+        out[pid] = (round((started[pid] - started.get(me, started[pid])) / tick, 2), cmd[:300])
+    return out
+
+
+def end_processes() -> dict:
+    """Before the result line: stop multiprocessing's resource tracker
+    (started with the first spawned pool; it lives until its pipe closes),
+    then end whatever else of this run is still alive (SIGTERM, 5 s,
+    SIGKILL), each logged, and check that nothing is left. Returns what
+    was found and ended."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    tracker_pid = getattr(tracker, "_pid", None)
+    stopper = threading.Thread(target=tracker._stop, daemon=True)
+    stopper.start()
+    stopper.join(10)
+    left = live_processes()
+    for pid, (after_s, cmd) in left.items():
+        log(f"   left running: pid {pid}, started {after_s} s into the run: {cmd}")
+    for sig, wait_s in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in live_processes():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + wait_s
+        while live_processes() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    alive = live_processes()
+    check(not alive, f"processes of this run still alive: {alive}")
+    return {
+        "resource_tracker_stopped": tracker_pid is not None and not stopper.is_alive(),
+        "ended": {str(pid): list(v) for pid, v in left.items()},
+    }
+
+
 class AttrSet:
     """An attribute of a module set for a with-block, then restored."""
 
@@ -7419,11 +7704,38 @@ def main(argv=None) -> int:
         help="phases 1-2, then phase 19 (the in-cluster deployment), then the "
         "report: for working on the deployment's path alone",
     )
+    parser.add_argument(
+        "--restart-only",
+        action="store_true",
+        help="phases 1-2 with phase 28 (b) beside them, then phase 28 (the "
+        "restart probes: cold, then warm), then the report",
+    )
     args = parser.parse_args(argv)
+    # every process this run starts inherits the mark, so that
+    # end_processes finds them, orphans too
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    partial = any(
+        getattr(args, mode)
+        for mode in (
+            "kernels_only", "zeroing", "backward_of", "backward_variants", "telemetry_only", "simulator_only",
+            "eval_only", "tenancy_only", "fleet_only", "soak_only", "mesh_only", "chaos_only", "cluster_only",
+        )
+    )
+    restart_root = None
+    if args.restart_only or not partial:
+        # phase 28 (b): the cold restart's probe over a copy of the package
+        # without csrc/build/, started first so that it runs beside this
+        # process's own start and phase 2
+        restart_root = tempfile.TemporaryDirectory(prefix="chip_smoke_restart_")
+        package_copy(restart_root.name)
+        cold_probe = RestartProbe(restart_root.name, os.path.join(restart_root.name, "cache"), "cold")
 
     import torch
 
     if not torch.cuda.is_available():
+        if restart_root is not None:
+            cold_probe.stop()
+            restart_root.cleanup()
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7479,6 +7791,7 @@ def main(argv=None) -> int:
             }
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"backward_of": report["backward_of"]}))
@@ -7486,9 +7799,8 @@ def main(argv=None) -> int:
 
     with Phase("build", walls):
         # the host library (g++) builds beside the kernels (nvcc), so that
-        # the first served tick's body fold does not pay for it
-        from concurrent.futures import ThreadPoolExecutor
-
+        # the first served tick's body fold does not pay for it: as the
+        # image's build step makes them, in a process with no card
         from kmamiz_tpu_torch import native
         from kmamiz_tpu_torch.ops import host_build
 
@@ -7497,13 +7809,31 @@ def main(argv=None) -> int:
         }
         # and the port's own lint over the tree this run builds
         lint = start_lint()
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            host_lib = pool.submit(native.library_path)
-            for path in cuda_build.build_all(kernel_names):
-                log(f"   built {os.path.relpath(path)}")
-            log(f"   built {os.path.relpath(host_lib.result())}")
+        report["prebuild"] = run_prebuild()
+        check(
+            {lib["library"] for lib in report["prebuild"]["libraries"]} == LIBRARIES,
+            f"the prebuild built {report['prebuild']['libraries']}",
+        )
+        prebuilt = {os.path.realpath(lib["path"]) for lib in report["prebuild"]["libraries"]}
+        for path in cuda_build.build_all(kernel_names) + [native.library_path()]:
+            check(os.path.realpath(path) in prebuilt, f"{path} is not the prebuild's")
+            log(f"   built {os.path.relpath(path)}")
+        log(f"   prebuild (no card visible): {report['prebuild']['seconds']:.2f} s")
         report["lint"] = finish_lint(lint)
         log("   lint " + json.dumps(report["lint"]))
+
+    if restart_root is not None:
+        with Phase("restart warmth", walls):
+            report["restart"] = restart_warmth(cold_probe, restart_root.name)
+        restart_root.cleanup()
+
+    if args.restart_only:
+        quarantine_root.cleanup()
+        report["processes"] = end_processes()
+        report["walls_s"] = walls
+        write_report(args.report, report)
+        log(json.dumps({"restart": report["restart"]}))
+        return 0
 
     if args.telemetry_only:
         from kmamiz_tpu_torch.server.processor import DataProcessor
@@ -7515,6 +7845,7 @@ def main(argv=None) -> int:
         with Phase("telemetry", walls):
             report["telemetry"] = serve_telemetry(torch, device, proc, feed)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"telemetry": report["telemetry"]}))
@@ -7531,6 +7862,7 @@ def main(argv=None) -> int:
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"simulator": report["simulator"]}))
@@ -7543,6 +7875,7 @@ def main(argv=None) -> int:
         with Phase("model evaluation", walls):
             report["model_eval"] = evaluate_models(torch, device, counters, sim_result, sim_dataset)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"model_eval": report["model_eval"]}))
@@ -7554,6 +7887,7 @@ def main(argv=None) -> int:
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"tenancy": {k: v for k, v in report["tenancy"].items() if k != "rounds"}}))
@@ -7563,6 +7897,7 @@ def main(argv=None) -> int:
         with Phase("fleet and scenario runner", walls):
             report["fleet"] = serve_fleet(torch, device, counters, tenant_state_windows())
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"fleet": report["fleet"]}))
@@ -7572,6 +7907,7 @@ def main(argv=None) -> int:
         with Phase("soak sweep", walls):
             report["soak"] = serve_soak(torch, device, counters)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"soak": report["soak"]}))
@@ -7581,6 +7917,7 @@ def main(argv=None) -> int:
         with Phase("chaos probe", walls):
             report["chaos"] = serve_chaos(torch, device, counters)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"chaos": {k: v for k, v in report["chaos"].items() if k != "pillars"}}))
@@ -7590,6 +7927,7 @@ def main(argv=None) -> int:
         with Phase("in-cluster deployment", walls):
             report["in_cluster"] = serve_in_cluster(torch, device, counters)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"in_cluster": {k: v for k, v in report["in_cluster"].items() if k != "ticks"}}))
@@ -7601,6 +7939,7 @@ def main(argv=None) -> int:
         with Phase("mesh", walls):
             report["mesh"] = serve_mesh(torch, device, counters, proc)
         quarantine_root.cleanup()
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"mesh": {k: v for k, v in report["mesh"].items() if k != "stats"}}))
@@ -7616,6 +7955,7 @@ def main(argv=None) -> int:
             report["zeroing"] = zeroing_cases(torch, device, tick_shape_groups, jobs)
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"zeroing": report["zeroing"]}))
@@ -7647,6 +7987,7 @@ def main(argv=None) -> int:
     if args.backward_variants:
         with Phase("backward variants", walls):
             report["backward_variants"] = backward_variants(torch, proc.graph)
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(json.dumps({"backward_variants": report["backward_variants"]}))
@@ -7664,6 +8005,7 @@ def main(argv=None) -> int:
     if args.kernels_only:
         with Phase("device times", walls):
             report["profiler_lost_sessions"] = device_times(torch, jobs)
+        report["processes"] = end_processes()
         report["walls_s"] = walls
         write_report(args.report, report)
         log(
@@ -7992,6 +8334,11 @@ def main(argv=None) -> int:
             ),
         ]
     }
+    # phase 28 (d): the restart path in phases 17 and 19
+    report["restart"]["dp_prewarm"] = report["in_cluster"]["prewarm"]
+    report["restart"]["first_forecast_libraries_loaded"] = report["application"]["first_forecast_libraries_loaded"]
+    log("   restart warmth: " + json.dumps({k: report["restart"][k] for k in ("cold", "warm")}, default=str)[:2000])
+    report["processes"] = end_processes()
     report["walls_s"] = walls
     write_report(args.report, report)
     log("   phase walls (s): " + json.dumps({k: round(v, 2) for k, v in walls.items()}))

@@ -51,7 +51,7 @@ logger = logging.getLogger("kmamiz_tpu_torch.app")
 
 
 def build_production_context(
-    app_settings: Optional[Settings] = None, device: DeviceLike = None
+    app_settings: Optional[Settings] = None, device: DeviceLike = None, warm: bool = True
 ) -> AppContext:
     """A context with the live ingestion clients and the in-process Data
     Processor on `device` (None: the card, raising without one), as
@@ -59,7 +59,9 @@ def build_production_context(
     worker. Serve-only and simulator modes touch no mesh and get none;
     read-only mode keeps the clients for the startup sync handshake
     (index.ts:57-60) and skips the native library's build, since it
-    ingests nothing."""
+    ingests nothing. With `warm` the native library builds and the tick's
+    device code loads here; main() passes warm=False and leaves both to
+    the boot prewarm (core/prewarm.py)."""
     s = app_settings or Settings()
     zipkin = k8s = processor = None
     if not (s.simulator_mode or s.serve_only):
@@ -67,7 +69,7 @@ def build_production_context(
         from kmamiz_tpu_torch.ingestion import KubernetesClient, ZipkinClient
         from kmamiz_tpu_torch.server.processor import DataProcessor
 
-        if not s.read_only_mode:
+        if warm and not s.read_only_mode:
             native.available()  # the one-time build, off the request path
         zipkin = ZipkinClient(s.zipkin_url)
         if s.is_running_in_kubernetes:
@@ -79,7 +81,8 @@ def build_production_context(
         )
         if not s.read_only_mode:
             k8s.warm_up()  # the tick's fan-out processes, off the request path
-            processor.warm_up()  # and its device code
+            if warm:
+                processor.warm_up()  # and its device code
     return AppContext.build(
         app_settings=s, processor=processor, zipkin_client=zipkin, k8s_client=k8s
     )
@@ -182,13 +185,23 @@ class Application:
 def main() -> None:
     """The application on the card, configured from the environment
     (config.Settings); SIGTERM or SIGINT tears it down (the schedules
-    stopped, every cache flushed) and exits 0."""
+    stopped, every cache flushed) and exits 0. KMAMIZ_COMPILE_CACHE_DIR
+    (core/compile_cache.py) is where the libraries are looked up and
+    built; after start_up the boot prewarm (core/prewarm.py,
+    KMAMIZ_PREWARM) builds or loads them and warms the device code, by
+    default on a thread of its own while /api/v1/health answers 503
+    WARMING (the readinessProbe of deploy/kmamiz-tpu-torch.yaml)."""
+    from kmamiz_tpu_torch.core import compile_cache, prewarm
     from kmamiz_tpu_torch.core import logger as klog
 
     logging.basicConfig(level=logging.INFO)
     klog.configure()  # LOG_LEVEL (Logger.ts:22-30)
-    app = Application(ctx=build_production_context())
+    compile_cache.enable_from_env()
+    app = Application(ctx=build_production_context(warm=False))
     app.start_up()
+    # read-only mode ingests nothing and warms nothing, as before
+    processor = None if app.settings.read_only_mode else app.ctx.processor
+    prewarm.boot_prewarm_from_env(processor)
     app.listen()
 
     def _exit(signum, frame):

@@ -3,7 +3,8 @@
 Counterpart of kmamiz_tpu/native/__init__.py. The library is the port's
 own copy of the JAX package's C++ (kmamiz_tpu_torch/csrc/kmamiz_native.cpp,
 kmamiz_json.cpp, kmamiz_spans.cpp), built as ONE shared library with g++
-by ops/host_build.py at first use, never at import. It carries the raw
+by ops/host_build.py at first use, never at import (where
+core/compile_cache.py looks it up and builds it). It carries the raw
 Zipkin span scanner (raw bytes or KMZC columnar frames -> SoA arrays,
 core.spans.raw_spans_to_batch) and the batched JSON body fold
 (core.schema.merge_and_infer_bodies).
@@ -28,6 +29,7 @@ import threading
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
+from kmamiz_tpu_torch.core import compile_cache
 from kmamiz_tpu_torch.ops import host_build
 
 logger = logging.getLogger("kmamiz_tpu_torch.native")
@@ -108,8 +110,7 @@ def _load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            path = host_build.build(NAME, SOURCES)
-            lib = ctypes.CDLL(str(path))
+            path, lib = compile_cache.load_library(NAME, "host", lambda: host_build.ensure(NAME, SOURCES))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

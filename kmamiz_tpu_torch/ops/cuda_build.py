@@ -2,11 +2,15 @@
 
 Each kernel is one `kmamiz_tpu_torch/csrc/<name>.cu` file with a plain C
 interface. It is compiled with nvcc for Hopper (`sm_90a`) into a shared
-library under `kmamiz_tpu_torch/csrc/build/` and loaded with ctypes; the
-library's file name carries a hash of its source, so an edited source is
-never served by a stale build. Nothing here runs at import time: the first
-launch of a kernel builds it, and `build_all` lets a caller build every
-kernel up front (in parallel, one nvcc per source).
+library and loaded with ctypes; the library's file name carries a hash of
+its source, so an edited source is never served by a stale build. Where
+the library is looked up and built is core/compile_cache.py's: in
+KMAMIZ_COMPILE_CACHE_DIR when it is set, then in the ignored
+`kmamiz_tpu_torch/csrc/build/`, built into the first (the second when the
+variable is unset). Nothing here runs at import time: the first launch of
+a kernel builds it, and `build_all` lets a caller build every kernel up
+front (in parallel, one nvcc per source). Each load is recorded with
+compile_cache.record_load.
 
 A failed build raises. There is no fallback to the plain PyTorch version.
 """
@@ -19,12 +23,15 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
+from kmamiz_tpu_torch.core import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "build"
+#: the package's own build directory (compile_cache.PACKAGE_BUILD)
+BUILD_DIR = compile_cache.PACKAGE_BUILD
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -39,17 +46,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(name: str, defines: Sequence[str] = ()) -> Path:
-    """Compile csrc/<name>.cu unless its current build exists; returns
-    the library path. `defines` are preprocessor macros (-D) that select a
-    variant of the source, built apart. Raises RuntimeError with nvcc's
-    output on failure."""
+def library_name(name: str, defines: Sequence[str] = ()) -> str:
+    """The file name of csrc/<name>.cu's build with `defines`."""
     source = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(source + "\0".join(defines).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return f"lib{name}-{digest[:16]}.so"
+
+
+def ensure(name: str, defines: Sequence[str] = ()) -> Tuple[Path, bool]:
+    """(library path, whether it was built now) of csrc/<name>.cu with
+    `defines`: found in the lookup order, else compiled where it puts new
+    builds. Raises RuntimeError with nvcc's output on failure."""
+    out = compile_cache.locate(library_name(name, defines))
     if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return out, False
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [
         _nvcc(),
@@ -73,9 +84,17 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
             f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
         )
     variant = "".join(f".{d}" for d in defines)
-    (BUILD_DIR / f"{name}{variant}.ptxas.txt").write_text(proc.stderr)
+    (out.parent / f"{name}{variant}.ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    return out, True
+
+
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile csrc/<name>.cu unless its current build exists; returns
+    the library path. `defines` are preprocessor macros (-D) that select a
+    variant of the source, built apart. Raises RuntimeError with nvcc's
+    output on failure."""
+    return ensure(name, defines)[0]
 
 
 def build_all(names: Iterable[str]) -> List[Path]:
@@ -90,7 +109,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            _path, lib = compile_cache.load_library(name, "cuda", lambda: ensure(name))
             _loaded[name] = lib
         return lib
 

@@ -3,7 +3,8 @@
 Counterpart of kmamiz_tpu/server/dp_server.py, the sibling of the
 reference's Rust service (KMamiz kmamiz_data_processor/src/main.rs:28-79):
 GET / answers health (with the process's segment-stats kernel
-launches), POST / takes a TExternalDataProcessorRequest
+launches and the boot prewarm's state; 503 {"status": "WARMING"} while
+the prewarm runs, see core/prewarm.py), POST / takes a TExternalDataProcessorRequest
 ({uniqueId, lookBack, time, existingDep}) and returns a
 TExternalDataProcessorResponse ({uniqueId, combined, dependencies,
 datatype, log}). POST /ingest takes a raw Zipkin response body (trace
@@ -86,7 +87,7 @@ from kmamiz_tpu_torch import control as ctl_plane
 from kmamiz_tpu_torch import fleet as fleet_mod
 from kmamiz_tpu_torch import native
 from kmamiz_tpu_torch.analysis import guards
-from kmamiz_tpu_torch.core import wire
+from kmamiz_tpu_torch.core import prewarm, wire
 from kmamiz_tpu_torch.core.profiling import step_timer
 from kmamiz_tpu_torch.device import DeviceLike
 from kmamiz_tpu_torch.graph.store import graph_signature
@@ -385,6 +386,13 @@ def make_handler(
             if path != "":
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
+            # the boot prewarm (core/prewarm.py): 503 while it runs or
+            # after it failed, unless KMAMIZ_PREWARM_READY_GATE=0
+            warm = prewarm.warm_state()
+            if prewarm.serving_blocked():
+                status = "WARMING" if warm["status"] == "warming" else "ERROR"
+                self._send_json(503, {"status": status, "prewarm": warm})
+                return
             rt = self._runtime(tenant)
             if rt is None:
                 return
@@ -393,6 +401,7 @@ def make_handler(
                 {
                     "status": "UP",
                     "service": "kmamiz-tpu-torch-data-processor",
+                    "prewarm": warm,
                     "tenant": tenant,
                     "device": str(rt.processor.device),
                     # the tick's CUDA kernel launches in this process
@@ -731,18 +740,19 @@ class DataProcessorServer:
         self._server.server_close()
 
 
-def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
+def build_server(device: DeviceLike = None, warm: bool = True) -> Tuple[DataProcessorServer, dict]:
     """The standalone DP as main() assembles it, from the environment of
     the Rust service (kmamiz_data_processor/src/env.rs): ZIPKIN_URL,
     KUBEAPI_HOST (unset: no cluster source), IS_RUNNING_IN_K8S ("true":
     the mounted service account's token and CA), BIND_IP and DP_PORT,
     with the processor on `device` (None: the card, raising without
-    one). The native library builds, the cluster client's fan-out
-    processes start and the tick's device code loads (warm_up) first,
-    off the request path, and
-    with KMAMIZ_WAL=1 the WAL replays before the server exists, so the
-    first tick answers from the recovered graph. Returns (server, the
-    replay's totals)."""
+    one). The cluster client's fan-out processes start first, off the
+    request path, and with `warm` so do the native library's build and
+    the tick's device code (warm_up); main() passes warm=False and leaves
+    both to the boot prewarm (core/prewarm.py), which runs after the
+    server exists. With KMAMIZ_WAL=1 the WAL replays before the server
+    exists, so the first tick answers from the recovered graph. Returns
+    (server, the replay's totals)."""
     from kmamiz_tpu_torch.ingestion.kubernetes import KubernetesClient
     from kmamiz_tpu_torch.ingestion.zipkin import ZipkinClient
 
@@ -755,10 +765,12 @@ def build_server(device: DeviceLike = None) -> Tuple[DataProcessorServer, dict]:
         else:
             k8s = KubernetesClient(kube_host)
     processor = DataProcessor(trace_source=zipkin.get_trace_list, k8s_source=k8s, device=device)
-    native.available()
+    if warm:
+        native.available()
     if k8s is not None:
         k8s.warm_up()
-    processor.warm_up()
+    if warm:
+        processor.warm_up()
     recovered = processor.replay_wal()
     if recovered["replayed"]:
         logger.info("wal replay: %s", recovered)
@@ -785,13 +797,20 @@ def arm_lock_witness() -> bool:
 def main() -> None:
     """The standalone external DP on the card: point a KMamiz install's
     EXTERNAL_DATA_PROCESSOR here. LOG_LEVEL (verbose|info|warn|error)
-    sets the log level."""
+    sets the log level. KMAMIZ_COMPILE_CACHE_DIR (core/compile_cache.py)
+    is where the libraries are looked up and built; the boot prewarm
+    (core/prewarm.py, KMAMIZ_PREWARM) builds or loads them and warms the
+    device code after the WAL replay, by default on a thread of its own
+    while GET / answers 503 WARMING."""
+    from kmamiz_tpu_torch.core import compile_cache
     from kmamiz_tpu_torch.core import logger as klog
 
     logging.basicConfig(level=logging.INFO)
     klog.configure(os.environ.get("LOG_LEVEL", "info"))
+    compile_cache.enable_from_env()
     arm_lock_witness()
-    server, _ = build_server()
+    server, _ = build_server(warm=False)
+    prewarm.boot_prewarm_from_env(server.processor)
     logger.info("external DP listening on %d", server.port)
     server.serve_forever()
 

@@ -1192,3 +1192,132 @@ def test_chaos_probes_degraded_serve_on_card_runs_the_stats_kernel_each_tick(car
     torch.cuda.synchronize()
     assert out["ok"], out
     assert ss.segment_stats.launches == before + 2 * 3
+
+
+# -- restart warmth: the prebuild, the build cache and the prewarm ---------------
+
+REPO = Path(__file__).resolve().parent.parent
+
+_LOAD_FROM_CACHE = """
+import json, sys
+import torch
+from kmamiz_tpu_torch.core import compile_cache
+from kmamiz_tpu_torch.ops import segment_stats as ss, sparse
+card = torch.device("cuda")
+g = torch.Generator().manual_seed(0)
+values = torch.rand(5, 4096, generator=g, dtype=torch.float32)
+seg = torch.randint(0, 300, (4096,), generator=g, dtype=torch.int32)
+ts = torch.randint(0, 1 << 20, (4096,), generator=g, dtype=torch.int32)
+got = ss.segment_stats(values.to(card), seg.to(card), ts.to(card), 300)
+want = ss.segment_stats_plain(values, seg, ts, 300)
+torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+assert torch.equal(got[1].cpu(), want[1])
+n, e = 512, 4096
+v = torch.randn(n, 64, generator=g, dtype=torch.float32)
+src = torch.randint(0, n, (e,), generator=g, dtype=torch.int32)
+dst = torch.randint(0, n, (e,), generator=g, dtype=torch.int32)
+mask = torch.rand(e, generator=g) < 0.9
+got = sparse.fused_sddmm_spmm(*(t.to(card) for t in (v, src, dst, mask)))
+want = sparse.fused_plain(v, src, dst, mask)
+for a, b in zip(got, want):
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+print(json.dumps(compile_cache.loads()))
+"""
+
+
+@pytest.mark.cuda
+def test_the_prebuild_needs_no_card_and_a_process_without_nvcc_loads_from_it(card, tmp_path):
+    """An image's build step: the package copied without csrc/build/, the
+    prebuild run over the copy with no card visible; then a fresh process
+    over the copy, with nvcc and g++ unreachable, loads both kernel
+    libraries from the copy's csrc/build/ and launches them, matching the
+    plain versions."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    image = tmp_path / "app"
+    build = REPO / "kmamiz_tpu_torch" / "csrc" / "build"
+    shutil.copytree(
+        REPO / "kmamiz_tpu_torch",
+        image / "kmamiz_tpu_torch",
+        ignore=lambda d, names: [n for n in names if n == "__pycache__" or Path(d, n) == build],
+    )
+    env = dict(os.environ, PYTHONPATH=str(image), CUDA_VISIBLE_DEVICES="")
+    env.pop("KMAMIZ_COMPILE_CACHE_DIR", None)
+    built = subprocess.run(
+        [sys.executable, "-m", "kmamiz_tpu_torch.core.compile_cache", "--prebuild"],
+        env=env, cwd=image, capture_output=True, text=True, timeout=900,
+    )
+    assert built.returncode == 0, built.stderr[-3000:]
+    line = json.loads(built.stdout.strip().splitlines()[-1])
+    prebuilt = image / "kmamiz_tpu_torch" / "csrc" / "build"
+    assert line["dir"] == str(prebuilt)
+    assert sorted(lib["library"] for lib in line["libraries"]) == ["fused_sddmm_spmm", "kmamiz_native", "segment_stats"]
+    assert all(lib["built"] and Path(lib["path"]).parent == prebuilt for lib in line["libraries"])
+    env = dict(
+        os.environ,
+        PYTHONPATH=str(image),
+        CUDA_HOME=str(tmp_path / "no-cuda"),
+        CXX=str(tmp_path / "no-cxx"),
+        PATH=os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep) if "cuda" not in p),
+    )
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    env.pop("KMAMIZ_COMPILE_CACHE_DIR", None)
+    run = subprocess.run(
+        [sys.executable, "-c", _LOAD_FROM_CACHE], env=env, cwd=image, capture_output=True, text=True, timeout=600
+    )
+    assert run.returncode == 0, run.stderr[-3000:]
+    loads = json.loads(run.stdout.strip().splitlines()[-1])
+    assert sorted(entry["library"] for entry in loads) == ["fused_sddmm_spmm", "segment_stats"]
+    for entry in loads:
+        assert not entry["built"] and Path(entry["path"]).parent == prebuilt, entry
+
+
+_PREWARMED_FORECAST = """
+import json
+import torch
+from kmamiz_tpu_torch.core import compile_cache, prewarm
+from kmamiz_tpu_torch.models import graphsage
+from kmamiz_tpu_torch.models.stlgt import model as stlgt
+from kmamiz_tpu_torch.ops import sparse
+from kmamiz_tpu_torch.server.processor import DataProcessor
+card = torch.device("cuda")
+dp = DataProcessor(trace_source=lambda lb, t, lim: [], device=card, wal=None)
+report = prewarm.run_prewarm(dp)
+mark, launches = compile_cache.snapshot(), sparse.fused_sddmm_spmm.launches
+g = torch.Generator().manual_seed(0)
+n, e = 1024, 8192
+feats = torch.randn(n, 18, generator=g, dtype=torch.float32).to(card)
+src = torch.randint(0, n, (e,), generator=g, dtype=torch.int32).to(card)
+dst = torch.randint(0, n, (e,), generator=g, dtype=torch.int32).to(card)
+mask = (torch.rand(e, generator=g) < 0.9).to(card)
+with torch.no_grad():
+    graphsage.forward(graphsage.init_params(torch.Generator().manual_seed(1), hidden=64, num_features=18, device=card), feats, src, dst, mask)
+    stlgt.forward(stlgt.init_params(torch.Generator().manual_seed(2), hidden=32, num_features=18, device=card), feats, src, dst, mask)
+torch.cuda.synchronize()
+print(json.dumps({"report": report, "after": compile_cache.loads(mark),
+                  "launches": sparse.fused_sddmm_spmm.launches - launches}))
+"""
+
+
+@pytest.mark.cuda
+def test_a_prewarmed_processors_first_forecast_forward_builds_and_loads_nothing(card):
+    """In a fresh process, after the boot prewarm on the card, the
+    forecast's forwards (GraphSAGE's two layers, STLGT's gated layer)
+    launch kernel 2 with no library built or loaded."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    run = subprocess.run(
+        [sys.executable, "-c", _PREWARMED_FORECAST], env=env, cwd=REPO, capture_output=True, text=True, timeout=900
+    )
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert set(out["report"]["libraries"]) == {"kmamiz_native", "segment_stats", "fused_sddmm_spmm"}
+    assert out["report"]["kernel2Launches"] == 6
+    assert out["after"] == []
+    assert out["launches"] == 3

@@ -100,6 +100,9 @@ def test_every_module_imports_without_jax_or_reference():
         "kmamiz_tpu_torch.tools.chaos_probe",
         "kmamiz_tpu_torch.tools.fleet_bench",
         "kmamiz_tpu_torch.tools.profile_parse",
+        "kmamiz_tpu_torch.tools.warm_boot_probe",
+        "kmamiz_tpu_torch.core.compile_cache",
+        "kmamiz_tpu_torch.core.prewarm",
         "kmamiz_tpu_torch.analysis",
         "kmamiz_tpu_torch.analysis.framework",
         "kmamiz_tpu_torch.analysis.callgraph",
